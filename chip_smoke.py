@@ -1,0 +1,408 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one NVIDIA H100.
+
+    python3 chip_smoke.py          # from the root of the repository
+
+Phases, in order; any failure ends the run with a non-zero exit and no
+result line:
+
+1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
+   and power limit; TF32 off, so the f32 checks are full f32;
+2. the build: compiles the three flash kernels from ``tony_tpu_torch/csrc``
+   (one ``nvcc`` each, in parallel) and prints the seconds it took;
+3. each kernel against its plain PyTorch version on the same inputs (made
+   with a seeded numpy generator): the flagship attention shape (B=4,
+   S=2048, H=8, Hkv=4, D=128, bf16, causal), a ragged case (S=1000,
+   non-causal, GQA, bf16, D=64) and a small f32 case, then
+   ``flash_attention_with_lse(out_dtype=f32)`` with its lse cotangent,
+   card against CPU; times each kernel,
+   its plain version and ``scaled_dot_product_attention`` (the library
+   yardstick, used nowhere in the port) at the flagship shape with CUDA
+   events; then a small f32 decoder's loss and gradients on the card
+   against the same weights on the CPU;
+4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
+   decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
+   the kernels; every loss must be finite, the first within 0.5 of
+   ln(32000) + 0.5 (the logits of the lecun-initialised head have unit
+   variance at init, which adds about 1/2 to ln(vocab)), and each kernel's
+   launch count must be 16 per step;
+5. where a flagship step's device time goes (torch.profiler, kernel time
+   by kind and the device's idle share), for the record only;
+6. prints the kernels' JSON line, then the result line.
+
+It imports nothing of JAX and nothing of ``tony_tpu``.
+"""
+
+import json
+import math
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+# Tolerances of phase 3 (kernel against plain version on the same inputs).
+# bf16: o is rounded to bf16 by both (one ulp near 1 is 2**-8); lse is f32
+# in both; a gradient's relative Frobenius error allows the bf16 rounding of
+# ds/p falling on the other side of a tie for a few elements.
+TOL_BF16_O = 2e-2
+TOL_BF16_LSE = 1e-3
+TOL_BF16_GRAD_REL = 2e-2
+TOL_F32 = 1e-4            # f32 case: o, lse, dq, dk, dv (absolute)
+TOL_MODEL_REL = 1e-4      # f32 decoder on the card vs the CPU
+# Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
+# FLOP/s and HBM3 bytes/s.
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+STEPS = 10
+PROFILE_STEPS = 3
+
+
+def check(ok, msg):
+    if not ok:
+        raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps=20, warm=3):
+    """Median milliseconds of ``fn`` over ``reps`` runs, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        events.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def phase_device():
+    check(torch.cuda.is_available(), "no CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    log(smi[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    return smi[0]
+
+
+def phase_build():
+    from tony_tpu_torch.ops import _flash_cuda
+
+    t0 = time.perf_counter()
+    info = _flash_cuda.build()
+    log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
+    for name, text in info["ptxas"].items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+
+def make_case(b, s, h, hk, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        x = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(x).to("cuda", dtype)
+    return t(b, s, h, d), t(b, s, hk, d), t(b, s, hk, d), t(b, s, h, d)
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def rel_err(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False):
+    """Kernel against plain version for fwd, dq and dk/dv on one case."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+    from tony_tpu_torch.ops import attention as A
+
+    q, k, v, do = make_case(b, s, h, hk, d, dtype, seed)
+    scale = d ** -0.5
+    o, lse = K.flash_fwd(q, k, v, scale, causal)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, causal, block_q=128,
+                                   block_k=128)
+    # The backward kernels and their plain versions get identical inputs.
+    delta = (o_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = K.flash_bwd_dq(q, k, v, do, lse_p, delta, scale, causal)
+    dk, dv = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, scale, causal)
+    dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, scale, causal,
+                                128, 128)
+    dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scale,
+                                       causal, 128, 128)
+    torch.cuda.synchronize()
+    errs = {"o": max_err(o, o_p), "lse": max_err(lse, lse_p),
+            "dq": max_err(dq, dq_p), "dk": max_err(dk, dk_p),
+            "dv": max_err(dv, dv_p)}
+    rels = {n: rel_err(x, y) for n, x, y in
+            (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p))}
+    for n, x in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                 ("dv", dv)):
+        check(bool(torch.isfinite(x).all()), f"{name}: {n} not finite")
+    log(f"{name}: max abs err {json.dumps(errs)} grad rel err "
+        f"{json.dumps(rels)}")
+    if dtype == torch.float32:
+        for n, e in errs.items():
+            check(e <= TOL_F32, f"{name}: {n} err {e} > {TOL_F32}")
+    else:
+        check(errs["o"] <= TOL_BF16_O, f"{name}: o err {errs['o']}")
+        check(errs["lse"] <= TOL_BF16_LSE, f"{name}: lse err {errs['lse']}")
+        for n, e in rels.items():
+            check(e <= TOL_BF16_GRAD_REL, f"{name}: {n} rel err {e}")
+    if not timed:
+        return None
+
+    res = {}
+    res["flash_fwd"] = dict(
+        ms=cuda_ms(lambda: K.flash_fwd(q, k, v, scale, causal)),
+        plain_ms=cuda_ms(lambda: A.flash_fwd_plain(
+            q, k, v, scale, causal, block_q=128, block_k=128)),
+        max_abs_err=max(errs["o"], errs["lse"]))
+    res["flash_bwd_dq"] = dict(
+        ms=cuda_ms(lambda: K.flash_bwd_dq(q, k, v, do, lse_p, delta, scale,
+                                          causal)),
+        plain_ms=cuda_ms(lambda: A.flash_bwd_dq_plain(
+            q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
+        max_abs_err=errs["dq"])
+    res["flash_bwd_dkv"] = dict(
+        ms=cuda_ms(lambda: K.flash_bwd_dkv(q, k, v, do, lse_p, delta, scale,
+                                           causal)),
+        plain_ms=cuda_ms(lambda: A.flash_bwd_dkv_plain(
+            q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
+        max_abs_err=max(errs["dk"], errs["dv"]))
+
+    # Library yardstick: SDPA on [B,H,S,D] views, GQA by index.
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              enable_gqa=True)
+    res["flash_fwd"]["library_ms"] = cuda_ms(sdpa)
+    out = sdpa()
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    check(max_err(out.transpose(1, 2), o) <= TOL_BF16_O,
+          "SDPA disagrees with the forward kernel")
+    res["flash_bwd_dq"]["library_ms"] = None
+    res["flash_bwd_dkv"]["library_ms"] = None
+
+    # Bounds: the larger of FLOPs over the bf16 peak and bytes over HBM.
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    el = q.element_size()
+    qb, kb, sb = q.numel() * el, k.numel() * el, b * h * s * 4
+    work = {"flash_fwd": (4 * d * pairs, qb + 2 * kb + qb + sb),
+            "flash_bwd_dq": (6 * d * pairs, 2 * qb + 2 * kb + 2 * sb + qb),
+            "flash_bwd_dkv": (8 * d * pairs,
+                              2 * qb + 2 * kb + 2 * sb + 2 * kb)}
+    for n, (flops, nbytes) in work.items():
+        tf, tb = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        res[n].update(bound_ms=max(tf, tb),
+                      bound_by="operations" if tf >= tb else "bytes",
+                      tflops=flops / res[n]["ms"] / 1e9)
+    log(f"timing ({name}): " + json.dumps(res))
+    log(f"sdpa backward (dq, dk and dv in one call): {sdpa_bwd_ms:.4f} ms "
+        f"vs dq + dk/dv kernels "
+        f"{res['flash_bwd_dq']['ms'] + res['flash_bwd_dkv']['ms']:.4f} ms")
+    return res
+
+
+def check_with_lse():
+    """``flash_attention_with_lse`` with ``out_dtype=f32`` through autograd
+    (o and the lse cotangent), card against CPU on the same bf16 inputs:
+    the one path that launches the bf16-in, f32-out forward."""
+    from tony_tpu_torch.ops.attention import flash_attention_with_lse
+
+    cpu = [t.cpu() for t in make_case(1, 256, 4, 2, 64, torch.bfloat16, 6)]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        q, k, v, do = (t.to(dev).requires_grad_(i < 3)
+                       for i, t in enumerate(cpu))
+        o, lse = flash_attention_with_lse(q, k, v, block_q=64, block_k=64,
+                                          out_dtype=torch.float32)
+        loss = (o * do.float()).sum() + torch.sin(lse).sum()
+        grads = torch.autograd.grad(loss, (q, k, v))
+        outs.append([t.detach().cpu() for t in (o, lse, *grads)])
+    check(outs[0][0].dtype == torch.float32, "out_dtype f32 not honoured")
+    errs = {n: rel_err(a, b) for n, a, b in
+            zip(("o", "lse", "dq", "dk", "dv"), *outs)}
+    log(f"with_lse bf16 -> f32 out, card vs cpu: rel err {json.dumps(errs)}")
+    for n, e in errs.items():
+        check(e <= TOL_BF16_GRAD_REL, f"with_lse {n} rel err {e}")
+
+
+def phase_kernels():
+    res = check_case("flagship bf16 B4 S2048 H8/4 D128 causal",
+                     4, 2048, 8, 4, 128, torch.bfloat16, True, 0,
+                     timed=True)
+    check_case("ragged bf16 B2 S1000 H8/2 D64 non-causal",
+               2, 1000, 8, 2, 64, torch.bfloat16, False, 1)
+    check_case("ragged bf16 B1 S1000 H4/4 D128 causal",
+               1, 1000, 4, 4, 128, torch.bfloat16, True, 2)
+    check_case("f32 B1 S256 H4/2 D64 causal",
+               1, 256, 4, 2, 64, torch.float32, True, 3)
+    check_case("f32 B1 S200 H2/1 D128 non-causal",
+               1, 200, 2, 1, 128, torch.float32, False, 4)
+    check_with_lse()
+    return res
+
+
+def phase_small_model():
+    """A small f32 decoder (head_dim 64) on the card, through the kernels,
+    against the same weights on the CPU, through the plain versions."""
+    from tony_tpu_torch.models.transformer import (Transformer,
+                                                   TransformerConfig,
+                                                   causal_lm_loss)
+
+    cfg = TransformerConfig.tiny(vocab_size=512, dim=256, n_heads=4,
+                                 n_kv_heads=2, mlp_dim=512, max_seq_len=256)
+    cpu = Transformer(cfg, device="cpu")
+    gpu = Transformer(cfg, device="cuda",
+                      generator=torch.Generator("cuda").manual_seed(1))
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (2, 256)))
+    losses = []
+    for model, tok in ((cpu, tokens), (gpu, tokens.cuda())):
+        loss = causal_lm_loss(model(tok), tok)
+        loss.backward()
+        losses.append(loss.item())
+    worst = max(rel_err(g.grad.cpu(), c.grad) for c, g in
+                zip(cpu.parameters(), gpu.parameters()))
+    log(f"small f32 decoder: loss card {losses[1]:.6f} cpu {losses[0]:.6f}; "
+        f"worst grad rel err {worst:.3e}")
+    check(abs(losses[0] - losses[1]) <= TOL_MODEL_REL * abs(losses[0]),
+          "small decoder loss differs between card and CPU")
+    check(worst <= TOL_MODEL_REL, f"small decoder grad rel err {worst}")
+
+
+def phase_main_path():
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda
+
+    cfg = trainer.flagship_config(seq=2048)
+    torch.cuda.reset_peak_memory_stats()
+    _flash_cuda.reset_launch_counts()
+    r = trainer.measure(cfg, batch=4, seq=2048, steps=STEPS, warmup=2,
+                        device="cuda", seed=0)
+    counts = dict(_flash_cuda.launch_counts)
+    log(f"main path: {r['params']} params, losses {r['losses']}")
+    log(f"main path: {r['tokens_per_sec']:.1f} tokens/s, "
+        f"{r['step_ms']:.3f} ms/step, MFU {r['mfu_vs_peak_bf16']}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {json.dumps(counts)}")
+    check(all(math.isfinite(x) for x in r["losses"]), "non-finite loss")
+    expected = math.log(cfg.vocab_size) + 0.5
+    check(abs(r["losses"][0] - expected) <= 0.5,
+          f"first loss {r['losses'][0]} not near ln(vocab) + 1/2")
+    for name, n in counts.items():
+        check(n == cfg.n_layers * STEPS,
+              f"{name} launched {n} times, expected {cfg.n_layers * STEPS}")
+    return counts
+
+
+def phase_profile():
+    """Where a flagship step's device time goes: torch.profiler over
+    PROFILE_STEPS steps after two warm steps; kernel time summed by kind,
+    and the device's idle share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.parallel import train_step
+
+    cfg = trainer.flagship_config(seq=2048)
+    state = trainer.build_state(cfg, "cuda", seed=0)
+    batch = synthetic_lm_batch(0, 4, 2048, cfg.vocab_size, device="cuda")
+    for _ in range(2):
+        train_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            train_step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = {}
+    top = []
+    for e in prof.key_averages():
+        # Kernels and copies only: a user annotation on the device timeline
+        # (the optimizer's step range) spans kernels counted already.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue
+        us = e.self_device_time_total
+        low = e.key.lower()
+        kind = ("flash_fwd" if "flash_fwd" in low else
+                "flash_bwd_dq" if "flash_bwd_dq" in low else
+                "flash_bwd_dkv" if "flash_bwd_dkv" in low else
+                "matmul" if any(w in low for w in ("gemm", "xmma", "nvjet",
+                                                   "cutlass")) else
+                "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        top.append((us, e.count, e.key[:100]))
+    busy = sum(kinds.values())
+    n = PROFILE_STEPS
+    log(f"profile: {n} steps, wall {wall_us / n / 1e3:.3f} ms/step, device "
+        f"busy {busy / n / 1e3:.3f} ms/step, idle share "
+        f"{1 - busy / wall_us:.4f}")
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  {kind}: {us / n / 1e3:.3f} ms/step "
+            f"({us / busy:.4f} of device time)")
+    for us, count, name in sorted(top, reverse=True)[:12]:
+        log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<4d} {name}")
+
+
+def main():
+    phase_device()
+    phase_build()
+    timing = phase_kernels()
+    phase_small_model()
+    counts = phase_main_path()
+    phase_profile()
+    from tony_tpu_torch.ops import _flash_cuda
+
+    kernels = []
+    for name, (src, _) in _flash_cuda.KERNELS.items():
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tony_tpu_torch/csrc/{src}",
+            "replaces": REPLACES[name], "launches": counts[name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+REPLACES = {
+    "flash_fwd": "tony_tpu/ops/attention.py:165",
+    "flash_bwd_dq": "tony_tpu/ops/attention.py:258",
+    "flash_bwd_dkv": "tony_tpu/ops/attention.py:303",
+}
+
+if __name__ == "__main__":
+    main()

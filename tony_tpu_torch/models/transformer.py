@@ -1,0 +1,333 @@
+"""Decoder-only transformer (llama-family architecture) in PyTorch.
+
+Counterpart of ``tony_tpu/models/transformer.py``, with the same numbers at
+the same places:
+
+- f32 parameters, activations in ``cfg.dtype``: every projection casts its
+  input and its weight to ``cfg.dtype`` inside ``forward`` and multiplies
+  there, as a flax ``Dense(dtype=bf16)`` over f32 params does (no autocast);
+- ``Dense.weight`` is ``[out, in]`` (``Linear`` layout; flax keeps
+  ``[in, out]``, see ``tony_tpu_torch/convert.py``);
+- RoPE rotates the two halves of each head, in f32;
+- the embedding table is f32, gathered and then cast to ``cfg.dtype``;
+- logits come back f32;
+- attention is the flash kernel (``"flash"``) or the plain oracle
+  (``"xla"``, K/V repeated to the full head count).
+
+Module names follow the flax tree (``embedding``, ``layers.{i}.attn.wq``,
+``layers.{i}.mlp.gate``, ``*_norm.scale``, ``lm_head``) so weights convert
+one to one. Init follows flax: truncated-normal lecun (fan in) for the
+projections, normal(0.02) for the embedding, ones for the norms, drawn from
+an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.ops.attention import flash_attention, reference_attention
+
+# lecun_normal's truncated normal: std of a unit normal cut at ±2.
+_TRUNC_STD = 0.87962566103423978
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    dim: int = 4096
+    n_layers: int = 32
+    n_heads: int = 32
+    n_kv_heads: int = 8
+    mlp_dim: int = 14336
+    max_seq_len: int = 8192
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: torch.dtype = torch.bfloat16          # activations
+    param_dtype: torch.dtype = torch.float32
+    attn_impl: str = "flash"        # flash | xla (ring, ulysses: later)
+    remat: bool = True
+    # With remat on and N >= 2, every Nth block runs without checkpointing.
+    remat_skip_every: int = 0
+    # Tile sizes of the plain attention version; the CUDA kernels pick
+    # their own (see ops/attention.py).
+    attn_block_q: int = 1024
+    attn_block_k: int = 1024
+    tie_embeddings: bool = False
+    lm_head_dtype: Optional[torch.dtype] = None  # None → activation dtype
+    # Quantized projections ("int8" | "fp8_e4m3") come with the quant
+    # slice; None is the bf16 path.
+    matmul_dtype: Optional[str] = None
+
+    @classmethod
+    def llama3_8b(cls, **kw) -> "TransformerConfig":
+        """Llama-3-8B geometry (32L, 4096d, 32h/8kv, 14336 mlp, 128k
+        vocab)."""
+        return cls(vocab_size=128256, dim=4096, n_layers=32, n_heads=32,
+                   n_kv_heads=8, mlp_dim=14336, rope_theta=500000.0, **kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "TransformerConfig":
+        """Test-sized config."""
+        defaults = dict(vocab_size=256, dim=64, n_layers=2, n_heads=4,
+                        n_kv_heads=2, mlp_dim=128, max_seq_len=128,
+                        dtype=torch.float32, remat=False)
+        defaults.update(kw)
+        return cls(**defaults)
+
+
+def _check_supported(cfg: TransformerConfig) -> None:
+    if cfg.attn_impl in ("ring", "ulysses"):
+        raise NotImplementedError(
+            f"attn_impl={cfg.attn_impl!r} is sequence-parallel and comes "
+            "with the ring/Ulysses slice of the port")
+    if cfg.attn_impl not in ("flash", "xla"):
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
+    if cfg.matmul_dtype:
+        raise NotImplementedError(
+            f"matmul_dtype={cfg.matmul_dtype!r}: quantized projections come "
+            "with the quant slice of the port")
+
+
+class Dense(nn.Module):
+    """Bias-free projection with a flax ``Dense``'s numerics: weight
+    ``[out, in]`` in ``param_dtype``; input and weight cast to ``dtype``
+    and multiplied there."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype, param_dtype: torch.dtype,
+                 device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(
+            (out_features, in_features), dtype=param_dtype, device=device))
+        std = 1.0 / math.sqrt(in_features) / _TRUNC_STD
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          theta: float) -> torch.Tensor:
+    """Rotary embedding on [B, S, H, D]: halves, f32 trig, cast back."""
+    d = x.shape[-1]
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[:, :, None, None].float() * freqs     # [B,S,1,D/2]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, eps: float, param_dtype: torch.dtype,
+                 device: torch.device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, dtype=param_dtype,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = xf.square().mean(-1, keepdim=True)
+        return (xf * torch.rsqrt(var + self.eps) * self.scale).to(x.dtype)
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.dim // cfg.n_heads
+        self.head_dim = hd
+
+        def dense(i, o):
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator)
+        self.wq = dense(cfg.dim, cfg.n_heads * hd)
+        self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
+        self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
+        self.wo = dense(cfg.n_heads * hd, cfg.dim)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        cfg, hd = self.cfg, self.head_dim
+        b, s, _ = x.shape
+        q = self.wq(x).view(b, s, cfg.n_heads, hd)
+        k = self.wk(x).view(b, s, cfg.n_kv_heads, hd)
+        v = self.wv(x).view(b, s, cfg.n_kv_heads, hd)
+        q = _rope(q, positions, cfg.rope_theta)
+        k = _rope(k, positions, cfg.rope_theta)
+        if cfg.attn_impl == "flash":
+            o = flash_attention(q, k, v, causal=True,
+                                block_q=cfg.attn_block_q,
+                                block_k=cfg.attn_block_k)
+        else:                                            # "xla"
+            g = cfg.n_heads // cfg.n_kv_heads
+            o = reference_attention(q, k.repeat_interleave(g, dim=2),
+                                    v.repeat_interleave(g, dim=2),
+                                    causal=True)
+        return self.wo(o.reshape(b, s, cfg.n_heads * hd))
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+
+        def dense(i, o):
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator)
+        self.gate = dense(cfg.dim, cfg.mlp_dim)
+        self.up = dense(cfg.dim, cfg.mlp_dim)
+        self.down = dense(cfg.mlp_dim, cfg.dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype,
+                                 device)
+        self.attn = Attention(cfg, device, generator)
+        self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype,
+                                device)
+        self.mlp = MLP(cfg, device, generator)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        h = x + self.attn(self.attn_norm(x), positions)
+        return h + self.mlp(self.mlp_norm(h))
+
+
+class Transformer(nn.Module):
+    """Causal LM: tokens [B, S] int → logits [B, S, vocab] f32.
+
+    Parameters are made on ``device`` (default ``"cuda"``; raises without a
+    CUDA device unless ``"cpu"`` is asked for) from ``generator``, a
+    generator on that device (default: one seeded with 0)."""
+
+    def __init__(self, cfg: TransformerConfig,
+                 device: Union[str, torch.device] = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_supported(cfg)
+        dev = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        self.cfg = cfg
+        self.embedding = nn.Parameter(torch.empty(
+            (cfg.vocab_size, cfg.dim), dtype=cfg.param_dtype, device=dev))
+        nn.init.normal_(self.embedding, std=0.02, generator=generator)
+        self.layers = nn.ModuleList(
+            Block(cfg, dev, generator) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, dev)
+        self.lm_head = None if cfg.tie_embeddings else Dense(
+            cfg.dim, cfg.vocab_size, cfg.lm_head_dtype or cfg.dtype,
+            cfg.param_dtype, dev, generator)
+
+    def forward(self, tokens: torch.Tensor,
+                positions: Optional[torch.Tensor] = None,
+                return_hidden: bool = False) -> torch.Tensor:
+        """``return_hidden=True`` skips the LM head and returns the
+        final-norm hidden states [B, S, D] — pair with
+        ``chunked_causal_lm_loss`` where the [B, S, vocab] logits are the
+        memory wall."""
+        cfg = self.cfg
+        seq = tokens.shape[1]
+        if seq > cfg.max_seq_len:
+            raise ValueError(
+                f"global sequence length {seq} exceeds max_seq_len "
+                f"{cfg.max_seq_len} (RoPE would extrapolate)")
+        if positions is None:
+            positions = torch.arange(seq, device=tokens.device).expand(
+                tokens.shape)
+        x = self.embedding[tokens].to(cfg.dtype)
+        for i, blk in enumerate(self.layers):
+            skip = cfg.remat_skip_every >= 2 and i % cfg.remat_skip_every == 0
+            if cfg.remat and not skip and torch.is_grad_enabled():
+                x = checkpoint(blk, x, positions, use_reentrant=False)
+            else:
+                x = blk(x, positions)
+        x = self.final_norm(x)
+        if return_hidden:
+            return x
+        head_dtype = cfg.lm_head_dtype or cfg.dtype
+        if cfg.tie_embeddings:
+            # The reference accumulates this product in f32.
+            logits = torch.matmul(x.to(head_dtype).float(),
+                                  self.embedding.to(head_dtype).float().T)
+        else:
+            logits = self.lm_head(x.to(head_dtype))
+        return logits.float()
+
+
+def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross entropy (logsumexp − picked logit); logits [B,S,V]
+    predict tokens shifted by one."""
+    targets = tokens[:, 1:]
+    logits = logits[:, :-1].float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        m = mask[:, 1:].float()
+        return (nll * m).sum() / m.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _chunk_stats(xc, tc, mc, head_kernel, hd):
+    logits = torch.matmul(xc.to(hd), head_kernel.to(hd)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return ((lse - picked) * mc).sum(), mc.sum()
+
+
+def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
+                           tokens: torch.Tensor, chunk_size: int = 4096,
+                           mask: Optional[torch.Tensor] = None,
+                           head_dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
+    """Next-token cross entropy without materializing [B, S, vocab].
+
+    ``hidden`` [B, S, D] (``Transformer(..., return_hidden=True)``) goes
+    through ``head_kernel`` [D, V] (``model.lm_head.weight.T``, or
+    ``model.embedding.T`` for a tied head) in [B, C, D] sequence chunks.
+    Each chunk is reduced to (Σ nll, count) under ``torch.utils.checkpoint``
+    so its logits are recomputed in backward, never kept: peak residency is
+    O(B·C·V). Equals ``causal_lm_loss(model(tokens), tokens)`` for the untied
+    head; the product runs in ``head_dtype`` (default the hidden dtype)."""
+    if hidden.shape[1] != tokens.shape[1]:
+        raise ValueError(
+            f"hidden seq {hidden.shape[1]} != tokens seq {tokens.shape[1]} "
+            "— per-shard hidden states with full-sequence tokens? Gather "
+            "hidden states before the loss")
+    x = hidden[:, :-1]
+    t = tokens[:, 1:]
+    b, s, _ = x.shape
+    if s == 0:
+        return torch.zeros((), dtype=torch.float32, device=hidden.device)
+    valid = torch.ones((b, s), dtype=torch.float32, device=hidden.device) \
+        if mask is None else mask[:, 1:].float()
+    hd = head_dtype or hidden.dtype
+    chunk_size = min(chunk_size, s)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk_size):
+        sl = slice(c0, c0 + chunk_size)
+        dn, dc = checkpoint(_chunk_stats, x[:, sl], t[:, sl], valid[:, sl],
+                            head_kernel, hd, use_reentrant=False)
+        tot = tot + dn
+        cnt = cnt + dc
+    return tot / cnt.clamp_min(1.0)

@@ -1,0 +1,5 @@
+"""Attention ops: CUDA flash kernels on the card, plain PyTorch on the CPU."""
+
+from tony_tpu_torch.ops.attention import (  # noqa: F401
+    flash_attention, flash_attention_with_lse, reference_attention,
+)
