@@ -8,8 +8,9 @@ result line:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
-2. the build: compiles the three flash kernels from ``tony_tpu_torch/csrc``
-   (one ``nvcc`` each, in parallel) and prints the seconds it took;
+2. the build: compiles the three flash kernels and the convfuse apply
+   kernel from ``tony_tpu_torch/csrc`` (one ``nvcc`` each, all at once) and
+   prints the seconds it took and each kernel's registers and spills;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal), a ragged case (S=1000,
@@ -18,8 +19,14 @@ result line:
    card against CPU; times each kernel,
    its plain version and ``scaled_dot_product_attention`` (the library
    yardstick, used nowhere in the port) at the flagship shape with CUDA
-   events; then a small f32 decoder's loss and gradients on the card
-   against the same weights on the CPU;
+   events; then the convfuse apply kernel against its plain version on
+   ResNet-50's stem shape ([256, 12544, 64] bf16, relu), its stage-3 shape
+   ([256, 49, 2048] bf16, no relu: ragged rows, widest C), channel counts
+   that take the scalar path and small f32 cases, timed at the stem shape
+   beside ``F.group_norm`` + ``relu`` and the port's whole
+   ``fused_groupnorm_relu``; then a small f32 decoder's and a small f32
+   ResNet's loss and gradients on the card against the same weights on the
+   CPU;
 4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
    decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
    the kernels; every loss must be finite, the first within 0.5 of
@@ -28,7 +35,14 @@ result line:
    launch count must be 16 per step;
 5. where a flagship step's device time goes (torch.profiler, kernel time
    by kind and the device's idle share), for the record only;
-6. prints the kernels' JSON line, then the result line.
+6. the second path: ``trainer.measure_vision`` trains ResNet-50 (224²
+   images, widths 64-2048, 16 bottlenecks, batch 256, SGD 0.1/0.9) for 10
+   steps through the convfuse kernel; every loss must be finite and the
+   kernel's launch count 53 per step (the stem, 3 norms in each of 16
+   bottlenecks and the 4 projections); then the MNIST MLP (batch 4096, 20
+   steps, no kernel) must give finite losses; then where a ResNet step's
+   device time goes;
+7. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
@@ -50,13 +64,24 @@ TOL_BF16_O = 2e-2
 TOL_BF16_LSE = 1e-3
 TOL_BF16_GRAD_REL = 2e-2
 TOL_F32 = 1e-4            # f32 case: o, lse, dq, dk, dv (absolute)
-TOL_MODEL_REL = 1e-4      # f32 decoder on the card vs the CPU
+TOL_MODEL_REL = 1e-4      # f32 decoder and ResNet on the card vs the CPU
+# Convfuse apply against its plain version: bf16 within one bf16 ulp of the
+# plain result (8 significant bits: |err| <= 2**-7 * |y|; the kernel rounds
+# x*a and +b separately, as torch does, so it should agree bit for bit);
+# f32 within 1e-6 * max|y|.
+TOL_CF_BF16_ULP = 2.0 ** -7
+TOL_CF_F32 = 1e-6
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
-# FLOP/s and HBM3 bytes/s.
+# FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
 STEPS = 10
 PROFILE_STEPS = 3
+RESNET_BATCH = 256
+# The stem, three norms in each of 16 bottlenecks, four projections.
+RESNET_LAUNCHES_PER_STEP = 53
+MNIST_BATCH, MNIST_STEPS = 4096, 20
 
 
 def check(ok, msg):
@@ -100,10 +125,10 @@ def phase_device():
 
 
 def phase_build():
-    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.ops import _build, _convfuse_cuda, _flash_cuda
 
     t0 = time.perf_counter()
-    info = _flash_cuda.build()
+    info = _build.build({**_flash_cuda.SPECS, **_convfuse_cuda.SPECS})
     log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
     for name, text in info["ptxas"].items():
         for line in text.splitlines():
@@ -202,8 +227,10 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False):
         out, (qt, kt, vt), dot, retain_graph=True))
     check(max_err(out.transpose(1, 2), o) <= TOL_BF16_O,
           "SDPA disagrees with the forward kernel")
-    res["flash_bwd_dq"]["library_ms"] = None
-    res["flash_bwd_dkv"]["library_ms"] = None
+    # SDPA's backward computes dq, dk and dv in one call: the yardstick of
+    # the pair, given to both backward kernels.
+    res["flash_bwd_dq"]["library_ms"] = sdpa_bwd_ms
+    res["flash_bwd_dkv"]["library_ms"] = sdpa_bwd_ms
 
     # Bounds: the larger of FLOPs over the bf16 peak and bytes over HBM.
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
@@ -294,6 +321,120 @@ def phase_small_model():
     check(worst <= TOL_MODEL_REL, f"small decoder grad rel err {worst}")
 
 
+def check_convfuse_case(name, shape, dtype, relu, seed, timed=False):
+    """The convfuse apply kernel against its plain version on one case."""
+    from tony_tpu_torch.ops import _convfuse_cuda as K
+    from tony_tpu_torch.ops import convfuse as C
+
+    bsz, rows, c = shape
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        "cuda", dtype)
+    # a, b as folded_affine makes them: a ~ scale/std, b ~ bias − mean·a.
+    a = torch.from_numpy(1.0 + 0.3 * rng.standard_normal(
+        (bsz, c), dtype=np.float32)).cuda()
+    b = torch.from_numpy(0.3 * rng.standard_normal(
+        (bsz, c), dtype=np.float32)).cuda()
+    y = K.apply(x, a, b, relu)
+    y_p = C.apply_plain(x, a, b, relu)
+    torch.cuda.synchronize()
+    check(y.dtype == dtype and y.shape == x.shape, f"{name}: dtype/shape")
+    check(bool(torch.isfinite(y).all()), f"{name}: y not finite")
+    diff = (y.float() - y_p.float()).abs()
+    err = diff.max().item()
+    if dtype == torch.bfloat16:
+        worst = (diff - TOL_CF_BF16_ULP * y_p.float().abs()).max().item()
+        check(worst <= 0, f"{name}: more than one bf16 ulp off (max abs "
+              f"err {err})")
+    else:
+        tol = TOL_CF_F32 * y_p.abs().max().item()
+        check(err <= tol, f"{name}: max abs err {err} > {tol}")
+    log(f"convfuse {name}: max abs err {err}, exact "
+        f"{bool(torch.equal(y, y_p))}")
+    if not timed:
+        return None
+
+    res = dict(ms=cuda_ms(lambda: K.apply(x, a, b, relu)),
+               plain_ms=cuda_ms(lambda: C.apply_plain(x, a, b, relu)),
+               max_abs_err=err, library_ms=None)
+    # Bound: x read once, y written once, a and b read once; 3 flops an
+    # element (mul, add, max) at the f32 non-tensor-core rate.
+    nbytes = 2 * x.numel() * x.element_size() + 2 * a.numel() * 4
+    tb = nbytes / PEAK_BYTES * 1e3
+    tf = 3 * x.numel() / PEAK_F32 * 1e3
+    res.update(bound_ms=max(tb, tf),
+               bound_by="bytes" if tb >= tf else "operations",
+               gbytes_per_s=nbytes / res["ms"] / 1e6)
+    # Yardsticks at the same shape: F.group_norm + relu on the NCHW view
+    # (channels_last memory) against the port's whole fused_groupnorm_relu
+    # (stats sweep + folded affine + the kernel). No single PyTorch call
+    # computes the apply alone, so library_ms stays null.
+    F = torch.nn.functional
+    side = math.isqrt(rows)
+    x4 = x.view(bsz, side, side, c)                 # NHWC, square images
+    scale = torch.ones(c, device="cuda")
+    bias = torch.zeros(c, device="cuda")
+    with torch.no_grad():
+        res["group_norm_relu_ms"] = cuda_ms(lambda: torch.relu(F.group_norm(
+            x4.permute(0, 3, 1, 2), 32, scale.to(dtype), bias.to(dtype),
+            eps=1e-6)))
+        res["fused_groupnorm_relu_ms"] = cuda_ms(
+            lambda: C.fused_groupnorm_relu(x4, scale, bias, groups=32))
+    log(f"timing (convfuse {name}): " + json.dumps(res))
+    return res
+
+
+def phase_convfuse():
+    res = check_convfuse_case("stem bf16 [256, 12544, 64] relu",
+                              (256, 112 * 112, 64), torch.bfloat16, True, 10,
+                              timed=True)
+    check_convfuse_case("stage-3 bf16 [256, 49, 2048] no relu",
+                        (256, 49, 2048), torch.bfloat16, False, 11)
+    check_convfuse_case("f32 [2, 81, 12] relu", (2, 81, 12), torch.float32,
+                        True, 12)
+    check_convfuse_case("f32 [3, 100, 64] no relu", (3, 100, 64),
+                        torch.float32, False, 13)
+    # Channel counts the 16-byte vector does not divide: the scalar path.
+    check_convfuse_case("scalar bf16 [2, 81, 12] relu", (2, 81, 12),
+                        torch.bfloat16, True, 14)
+    check_convfuse_case("scalar f32 [3, 49, 6] no relu", (3, 49, 6),
+                        torch.float32, False, 15)
+    return res
+
+
+def phase_small_resnet():
+    """A small f32 ResNet (widths 16-128, groups 4: the kernel's vector
+    path) on the card, through the convfuse kernel, against the same
+    weights on the CPU, through the plain version."""
+    from tony_tpu_torch.models import ResNet, ResNetConfig, classification_loss
+    from tony_tpu_torch.ops import _convfuse_cuda
+
+    cfg = ResNetConfig.tiny(width=16, norm_groups=4)
+    cpu = ResNet(cfg, device="cpu")
+    gpu = ResNet(cfg, device="cuda",
+                 generator=torch.Generator("cuda").manual_seed(1))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(7)
+    images = torch.from_numpy(rng.standard_normal((2, 32, 32, 3),
+                                                  dtype=np.float32))
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes, (2,)))
+    before = _convfuse_cuda.launch_counts["convfuse_apply"]
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        loss = classification_loss(model(images.to(dev)), labels.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+    launched = _convfuse_cuda.launch_counts["convfuse_apply"] - before
+    worst = max(rel_err(g.grad.cpu(), c.grad) for c, g in
+                zip(cpu.parameters(), gpu.parameters()))
+    log(f"small f32 resnet: loss card {losses[1]:.6f} cpu {losses[0]:.6f}; "
+        f"worst grad rel err {worst:.3e}; {launched} kernel launches")
+    check(launched == 1 + 3 * 2 + 2, "small resnet did not run the kernel")
+    check(abs(losses[0] - losses[1]) <= TOL_MODEL_REL * abs(losses[0]),
+          "small resnet loss differs between card and CPU")
+    check(worst <= TOL_MODEL_REL, f"small resnet grad rel err {worst}")
+
+
 def phase_main_path():
     from tony_tpu_torch import trainer
     from tony_tpu_torch.ops import _flash_cuda
@@ -319,12 +460,56 @@ def phase_main_path():
     return counts
 
 
-def phase_profile():
-    """Where a flagship step's device time goes: torch.profiler over
-    PROFILE_STEPS steps after two warm steps; kernel time summed by kind,
-    and the device's idle share of the host-clock window."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(label, run_step, kind_of):
+    """Where a step's device time goes: torch.profiler over PROFILE_STEPS
+    calls of ``run_step`` (after warm ones); kernel time summed by
+    ``kind_of(name)``, and the device's idle share of the host-clock
+    window."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            run_step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kinds = {}
+    top = []
+    ops = []          # host-side aten ops by the device time they launched
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith("aten::")
+                and e.self_device_time_total > 0):
+            ops.append((e.self_device_time_total, e.count, e.key))
+        # Kernels and copies only: a user annotation on the device timeline
+        # (the optimizer's step range) spans kernels counted already.
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue
+        us = e.self_device_time_total
+        kind = kind_of(e.key.lower())
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        top.append((us, e.count, e.key[:100]))
+    busy = sum(kinds.values())
+    n = PROFILE_STEPS
+    log(f"profile ({label}): {n} steps, wall {wall_us / n / 1e3:.3f} "
+        f"ms/step, device busy {busy / n / 1e3:.3f} ms/step, idle share "
+        f"{1 - busy / wall_us:.4f}")
+    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
+        log(f"  {kind}: {us / n / 1e3:.3f} ms/step "
+            f"({us / busy:.4f} of device time)")
+    for us, count, name in sorted(top, reverse=True)[:15]:
+        log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<4d} {name}")
+    log("  by the aten op that launched it:")
+    for us, count, name in sorted(ops, reverse=True)[:12]:
+        log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<4d} {name}")
+
+
+def phase_profile():
+    """Where a flagship step's device time goes, after two warm steps."""
     from tony_tpu_torch import trainer
     from tony_tpu_torch.data import synthetic_lm_batch
     from tony_tpu_torch.parallel import train_step
@@ -334,60 +519,93 @@ def phase_profile():
     batch = synthetic_lm_batch(0, 4, 2048, cfg.vocab_size, device="cuda")
     for _ in range(2):
         train_step(state, batch)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            train_step(state, batch)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kinds = {}
-    top = []
-    for e in prof.key_averages():
-        # Kernels and copies only: a user annotation on the device timeline
-        # (the optimizer's step range) spans kernels counted already.
-        if (e.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(e, "is_user_annotation", False)
-                or e.key.startswith("Optimizer.")):
-            continue
-        us = e.self_device_time_total
-        low = e.key.lower()
-        kind = ("flash_fwd" if "flash_fwd" in low else
+
+    def kind_of(low):
+        return ("flash_fwd" if "flash_fwd" in low else
                 "flash_bwd_dq" if "flash_bwd_dq" in low else
                 "flash_bwd_dkv" if "flash_bwd_dkv" in low else
                 "matmul" if any(w in low for w in ("gemm", "xmma", "nvjet",
                                                    "cutlass")) else
                 "other")
-        kinds[kind] = kinds.get(kind, 0.0) + us
-        top.append((us, e.count, e.key[:100]))
-    busy = sum(kinds.values())
-    n = PROFILE_STEPS
-    log(f"profile: {n} steps, wall {wall_us / n / 1e3:.3f} ms/step, device "
-        f"busy {busy / n / 1e3:.3f} ms/step, idle share "
-        f"{1 - busy / wall_us:.4f}")
-    for kind, us in sorted(kinds.items(), key=lambda kv: -kv[1]):
-        log(f"  {kind}: {us / n / 1e3:.3f} ms/step "
-            f"({us / busy:.4f} of device time)")
-    for us, count, name in sorted(top, reverse=True)[:12]:
-        log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<4d} {name}")
+    profile("flagship", lambda: train_step(state, batch), kind_of)
+
+
+def phase_resnet_path():
+    """ResNet-50 through the convfuse kernel, then the MNIST MLP."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    _convfuse_cuda.reset_launch_counts()
+    r = trainer.measure_vision("resnet50", batch=RESNET_BATCH, steps=STEPS,
+                               warmup=2, device="cuda", seed=0)
+    counts = dict(_convfuse_cuda.launch_counts)
+    log(f"resnet50: {r['params']} params, batch {r['batch']}, losses "
+        f"{r['losses']}")
+    log(f"resnet50: {r['samples_per_sec']:.1f} samples/s, "
+        f"{r['step_ms']:.3f} ms/step, MFU {r['mfu_vs_peak_bf16']}, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"launches {json.dumps(counts)}")
+    check(all(math.isfinite(x) for x in r["losses"]), "non-finite loss")
+    want = RESNET_LAUNCHES_PER_STEP * STEPS
+    check(counts["convfuse_apply"] == want,
+          f"convfuse_apply launched {counts['convfuse_apply']} times, "
+          f"expected {want}")
+
+    _flash_cuda.reset_launch_counts()
+    _convfuse_cuda.reset_launch_counts()
+    m = trainer.measure_vision("mnist", batch=MNIST_BATCH, steps=MNIST_STEPS,
+                               warmup=2, device="cuda", seed=0)
+    log(f"mnist mlp: {m['params']} params, batch {m['batch']}, "
+        f"{m['samples_per_sec']:.1f} samples/s, {m['step_ms']:.3f} ms/step, "
+        f"losses {m['losses'][0]:.4f} -> {m['losses'][-1]:.4f}")
+    check(all(math.isfinite(x) for x in m["losses"]), "non-finite MNIST loss")
+    check(not any({**_flash_cuda.launch_counts,
+                   **_convfuse_cuda.launch_counts}.values()),
+          "the MNIST MLP launched a kernel")
+    return counts
+
+
+def phase_resnet_profile():
+    """Where a ResNet-50 step's device time goes, after two warm steps."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.parallel import train_step
+
+    state = trainer.build_vision_state("resnet50", "cuda", seed=0)
+    batch = trainer.vision_batch("resnet50", 0, RESNET_BATCH, device="cuda")
+    for _ in range(2):
+        train_step(state, batch)
+
+    def kind_of(low):
+        return ("convfuse_apply" if "convfuse_apply" in low else
+                "convolutions (cuDNN)" if any(w in low for w in (
+                    "xmma", "implicit", "conv", "cudnn", "dgrad", "wgrad",
+                    "fprop", "cutlass", "gemm", "nvjet")) else
+                "optimizer (SGD)" if "multi_tensor" in low else
+                "reductions (stats, da/db, pool)" if "reduce" in low else
+                "other elementwise")
+    profile("resnet50", lambda: train_step(state, batch), kind_of)
 
 
 def main():
     phase_device()
     phase_build()
     timing = phase_kernels()
+    timing["convfuse_apply"] = phase_convfuse()
     phase_small_model()
+    phase_small_resnet()
     counts = phase_main_path()
     phase_profile()
-    from tony_tpu_torch.ops import _flash_cuda
+    counts.update(phase_resnet_path())
+    phase_resnet_profile()
+    from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []
-    for name, (src, _) in _flash_cuda.KERNELS.items():
+    for name, spec in {**_flash_cuda.SPECS, **_convfuse_cuda.SPECS}.items():
         t = timing[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"tony_tpu_torch/csrc/{src}",
+            "source": f"tony_tpu_torch/csrc/{spec.source}",
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -402,6 +620,7 @@ REPLACES = {
     "flash_fwd": "tony_tpu/ops/attention.py:165",
     "flash_bwd_dq": "tony_tpu/ops/attention.py:258",
     "flash_bwd_dkv": "tony_tpu/ops/attention.py:303",
+    "convfuse_apply": "tony_tpu/ops/convfuse.py:90",
 }
 
 if __name__ == "__main__":

@@ -1,5 +1,9 @@
-"""The flagship decoder."""
+"""The flagship decoder, ResNet and the MNIST MLP."""
 
 from tony_tpu_torch.models.transformer import (  # noqa: F401
     Transformer, TransformerConfig, causal_lm_loss, chunked_causal_lm_loss,
 )
+from tony_tpu_torch.models.mlp import (  # noqa: F401
+    MnistMLP, classification_loss,
+)
+from tony_tpu_torch.models.resnet import ResNet, ResNetConfig  # noqa: F401

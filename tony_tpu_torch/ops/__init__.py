@@ -1,5 +1,6 @@
-"""Attention ops: CUDA flash kernels on the card, plain PyTorch on the CPU."""
+"""Hot-path ops: CUDA kernels on the card, plain PyTorch on the CPU."""
 
 from tony_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention, flash_attention_with_lse, reference_attention,
 )
+from tony_tpu_torch.ops.convfuse import fused_groupnorm_relu  # noqa: F401

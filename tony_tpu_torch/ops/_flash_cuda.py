@@ -1,10 +1,9 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
 The sources are ``tony_tpu_torch/csrc/flash_{fwd,bwd_dq,bwd_dkv}.cu``. At
-first use each is compiled by its own ``nvcc`` (all three at once) for
-``sm_90a`` into a shared library with a plain C interface, under
-``tony_tpu_torch/_build/<hash of the sources and flags>/``, and loaded with
-``ctypes``. Nothing is downloaded and nothing is built at import.
+first use they are compiled (one ``nvcc`` each, all three at once) and
+loaded by ``ops/_build.py``. Nothing is downloaded and nothing is built at
+import.
 
 Each launch function checks its tensors, allocates the outputs, launches on
 PyTorch's current stream, raises if the C function returns a CUDA error, and
@@ -15,52 +14,33 @@ after.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
-PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-BUILD_ROOT = os.path.join(PKG_DIR, "_build")
-HEADERS = ("flash_common.cuh",)
-# kernel name -> (source file, C entry point)
-KERNELS = {
-    "flash_fwd": ("flash_fwd.cu", "tt_flash_fwd"),
-    "flash_bwd_dq": ("flash_bwd_dq.cu", "tt_flash_bwd_dq"),
-    "flash_bwd_dkv": ("flash_bwd_dkv.cu", "tt_flash_bwd_dkv"),
+from tony_tpu_torch.ops import _build
+from tony_tpu_torch.ops._build import F as _F, I as _I, P as _P
+
+SPECS = {
+    # q, k, v, o, lse; B, H, Hkv, Sq, Sk, D, dtype, out_f32; scale, causal,
+    # stream
+    "flash_fwd": _build.Kernel("flash_fwd.cu", "tt_flash_fwd",
+                               (_P,) * 5 + (_I,) * 8 + (_F, _I, _P)),
+    # q, k, v, do, lse, delta, dq; B, H, Hkv, Sq, Sk, D, dtype; scale,
+    # causal, stream
+    "flash_bwd_dq": _build.Kernel("flash_bwd_dq.cu", "tt_flash_bwd_dq",
+                                  (_P,) * 7 + (_I,) * 7 + (_F, _I, _P)),
+    # q, k, v, do, lse, delta, dk, dv; B, H, Hkv, Sq, Sk, D, dtype; scale,
+    # causal, stream
+    "flash_bwd_dkv": _build.Kernel("flash_bwd_dkv.cu", "tt_flash_bwd_dkv",
+                                   (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)),
 }
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# kernel name -> (source file, C entry point)
+KERNELS = {name: (k.source, k.entry) for name, k in SPECS.items()}
 HEAD_DIMS = (64, 128)
 
 # Launches per kernel since the last reset (plain integers, see module doc).
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
-
-_lock = threading.Lock()
-_fns: Dict[str, ctypes._CFuncPtr] = {}
-build_info: Dict[str, object] = {}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_ARGTYPES = {
-    # q, k, v, o, lse; B, H, Hkv, Sq, Sk, D, dtype, out_f32; scale, causal,
-    # stream
-    "flash_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
-    # q, k, v, do, lse, delta, dq; B, H, Hkv, Sq, Sk, D, dtype; scale,
-    # causal, stream
-    "flash_bwd_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
-    # q, k, v, do, lse, delta, dk, dv; B, H, Hkv, Sq, Sk, D, dtype; scale,
-    # causal, stream
-    "flash_bwd_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-}
 
 
 def reset_launch_counts() -> None:
@@ -68,84 +48,14 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH): the flash kernels are built from source")
-    return found
-
-
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in sorted(HEADERS + tuple(s for s, _ in KERNELS.values())):
-        with open(os.path.join(CSRC_DIR, name), "rb") as f:
-            h.update(name.encode() + b"\0" + f.read())
-    return h.hexdigest()[:16]
-
-
 def build() -> Dict[str, object]:
     """Compile (if not yet built) and load the three kernels; idempotent.
-
-    Returns ``build_info``: the build directory, the seconds the build
-    took (0 when the libraries were already there) and each source's
-    ``ptxas -v`` report (registers, shared memory, spills)."""
-    with _lock:
-        if _fns:
-            return build_info
-        out_dir = os.path.join(BUILD_ROOT, _source_hash())
-        os.makedirs(out_dir, exist_ok=True)
-        t0 = time.perf_counter()
-        procs: Dict[str, Tuple[subprocess.Popen, str, str]] = {}
-        for name, (src, _) in KERNELS.items():
-            lib = os.path.join(out_dir, f"lib{name}.so")
-            if os.path.exists(lib):
-                continue
-            tmp = f"{lib}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   os.path.join(CSRC_DIR, src)]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), tmp, lib)
-        logs = {}
-        failed = []
-        for name, (proc, tmp, lib) in procs.items():
-            out, _ = proc.communicate()
-            logs[name] = out
-            with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
-                f.write(out)
-            if proc.returncode != 0:
-                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
-            else:
-                os.replace(tmp, lib)
-        if failed:
-            raise RuntimeError("flash kernel build failed: "
-                               + "\n".join(failed))
-        seconds = time.perf_counter() - t0
-        for name, (_, entry) in KERNELS.items():
-            fn = getattr(ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so")),
-                         entry)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
-            _fns[name] = fn
-        build_info.update(dir=out_dir, seconds=seconds, ptxas=logs)
-        return build_info
+    Returns ``_build.build``'s report."""
+    return _build.build(SPECS)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
-    if not t.is_cuda:
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
-                         f"one on {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+    _build.check_tensor(name, t, (dtype,))
 
 
 def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
@@ -171,15 +81,6 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
     return b, h, hk, sq, sk, d
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def flash_fwd(q, k, v, scale: float, causal: bool,
               out_dtype: Optional[torch.dtype] = None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (o [B,Sq,H,D], lse [B,H,Sq] f32)."""
@@ -191,12 +92,12 @@ def flash_fwd(q, k, v, scale: float, causal: bool,
     o = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _fns["flash_fwd"](
+        err = _build.fn("flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, hk, sq, sk, d,
             int(q.dtype == torch.float32), int(out_dtype != q.dtype),
-            float(scale), int(causal), _stream(q))
-    _raise_on("flash_fwd", err)
+            float(scale), int(causal), _build.stream(q))
+    _build.raise_on("flash_fwd", err)
     launch_counts["flash_fwd"] += 1
     return o, lse
 
@@ -221,12 +122,12 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     build()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _fns["flash_bwd_dq"](
+        err = _build.fn("flash_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hk, sq,
             sk, d, int(q.dtype == torch.float32), float(scale), int(causal),
-            _stream(q))
-    _raise_on("flash_bwd_dq", err)
+            _build.stream(q))
+    _build.raise_on("flash_bwd_dq", err)
     launch_counts["flash_bwd_dq"] += 1
     return dq
 
@@ -238,11 +139,11 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _fns["flash_bwd_dkv"](
+        err = _build.fn("flash_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, h, hk, sq, sk, d, int(q.dtype == torch.float32), float(scale),
-            int(causal), _stream(q))
-    _raise_on("flash_bwd_dkv", err)
+            int(causal), _build.stream(q))
+    _build.raise_on("flash_bwd_dkv", err)
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv

@@ -1,5 +1,5 @@
 """Training state and the single-device train step."""
 
 from tony_tpu_torch.parallel.train import (  # noqa: F401
-    TrainState, adamw, train_step,
+    TrainState, adamw, sgd, train_step,
 )

@@ -28,6 +28,16 @@ def adamw(params: Iterable[torch.Tensor], learning_rate: float,
                              eps=eps, weight_decay=weight_decay)
 
 
+def sgd(params: Iterable[torch.Tensor], learning_rate: float,
+        momentum: Optional[float] = None) -> torch.optim.SGD:
+    """``torch.optim.SGD`` as ``optax.sgd``: heavy-ball momentum with no
+    dampening and no Nesterov. optax's trace starts at 0, so its first
+    update is ``0.9·0 + g = g``, which is torch's first buffer."""
+    return torch.optim.SGD(params, lr=learning_rate,
+                           momentum=momentum or 0.0, dampening=0.0,
+                           nesterov=False)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model (its parameters), its optimizer and the step count.
