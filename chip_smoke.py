@@ -10,16 +10,22 @@ result line:
    and power limit; TF32 off, so the f32 checks are full f32;
 2. the build: compiles the three flash kernels and the convfuse apply
    kernel from ``tony_tpu_torch/csrc`` (one ``nvcc`` each, all at once) and
-   prints the seconds it took and each kernel's registers and spills;
+   prints the seconds it took and each kernel's registers and spills; the
+   bf16 (wgmma) instantiations of the two backward kernels must report 0
+   spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
-   S=2048, H=8, Hkv=4, D=128, bf16, causal), a ragged case (S=1000,
-   non-causal, GQA, bf16, D=64) and a small f32 case, then
+   S=2048, H=8, Hkv=4, D=128, bf16, causal; dq, dk and dv must also be
+   bitwise equal across two runs), the Llama-3-8B attention shape of
+   ``TransformerConfig.llama3_8b`` at batch 1 (S=2048, H=32, Hkv=8, D=128,
+   bf16, causal), ragged cases (S=1000: non-causal and causal GQA bf16 at
+   D=64, causal bf16 at D=128) and small f32 cases, then
    ``flash_attention_with_lse(out_dtype=f32)`` with its lse cotangent,
    card against CPU; times each kernel,
    its plain version and ``scaled_dot_product_attention`` (the library
-   yardstick, used nowhere in the port) at the flagship shape with CUDA
-   events; then the convfuse apply kernel against its plain version on
+   yardstick, used nowhere in the port) at the flagship and Llama-3-8B
+   shapes with CUDA events; then the convfuse apply kernel against its
+   plain version on
    ResNet-50's stem shape ([256, 12544, 64] bf16, relu), its stage-3 shape
    ([256, 49, 2048] bf16, no relu: ragged rows, widest C), channel counts
    that take the scalar path and small f32 cases, timed at the stem shape
@@ -49,6 +55,8 @@ It imports nothing of JAX and nothing of ``tony_tpu``.
 
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import time
@@ -128,12 +136,48 @@ def phase_build():
     from tony_tpu_torch.ops import _build, _convfuse_cuda, _flash_cuda
 
     t0 = time.perf_counter()
-    info = _build.build({**_flash_cuda.SPECS, **_convfuse_cuda.SPECS})
+    specs = {**_flash_cuda.SPECS, **_convfuse_cuda.SPECS}
+    info = _build.build(specs)
     log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
-    for name, text in info["ptxas"].items():
+    # Registers and spills of every kernel (each source's ``ptxas -v`` log in
+    # the build directory). The bf16 backward kernels hold their
+    # accumulators in registers: a spill there fails the run.
+    for name in specs:
+        with open(os.path.join(info["dir"], f"{name}.log")) as f:
+            text = f.read()
+        report = ptxas_report(text)
+        for fn, regs, stores, loads in report:
+            log(f"  {name}: {fn}: {regs} registers, {stores} bytes spill "
+                f"stores, {loads} bytes spill loads")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "serialized" in line:
                 log(f"  {name}: {line.strip()}")
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            bf16 = [r for r in report if "wgmma" in r[0]]
+            check(len(bf16) == 2, f"{name}: no ptxas report of its bf16 "
+                  f"kernels")
+            for fn, _, stores, loads in bf16:
+                check(stores == 0 and loads == 0, f"{fn} spills registers")
+
+
+def ptxas_report(text):
+    """(entry function, registers, spill store bytes, spill load bytes) for
+    each entry function of a ``ptxas -v`` log."""
+    out, fn, spills = [], None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn, spills = m.group(1), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out.append((fn, int(m.group(1)), *spills))
+            fn = None
+    return out
 
 
 def make_case(b, s, h, hk, d, dtype, seed):
@@ -153,8 +197,11 @@ def rel_err(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False):
-    """Kernel against plain version for fwd, dq and dk/dv on one case."""
+def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
+               deterministic=False):
+    """Kernel against plain version for fwd, dq and dk/dv on one case;
+    with ``deterministic``, dq, dk and dv must come out bitwise equal from a
+    second run."""
     from tony_tpu_torch.ops import _flash_cuda as K
     from tony_tpu_torch.ops import attention as A
 
@@ -190,6 +237,14 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False):
         check(errs["lse"] <= TOL_BF16_LSE, f"{name}: lse err {errs['lse']}")
         for n, e in rels.items():
             check(e <= TOL_BF16_GRAD_REL, f"{name}: {n} rel err {e}")
+    if deterministic:
+        dq2 = K.flash_bwd_dq(q, k, v, do, lse_p, delta, scale, causal)
+        dk2, dv2 = K.flash_bwd_dkv(q, k, v, do, lse_p, delta, scale, causal)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in
+                   ((dq, dq2), (dk, dk2), (dv, dv2)))
+        log(f"{name}: dq, dk, dv bitwise equal across two runs: {same}")
+        check(same, f"{name}: the backward kernels are not deterministic")
     if not timed:
         return None
 
@@ -277,11 +332,25 @@ def check_with_lse():
 
 
 def phase_kernels():
+    from tony_tpu_torch.models.transformer import TransformerConfig
+
     res = check_case("flagship bf16 B4 S2048 H8/4 D128 causal",
                      4, 2048, 8, 4, 128, torch.bfloat16, True, 0,
-                     timed=True)
+                     timed=True, deterministic=True)
+    llama = TransformerConfig.llama3_8b()
+    h, hk = llama.n_heads, llama.n_kv_heads
+    d = llama.dim // h
+    res_llama = check_case(f"llama3-8b bf16 B1 S2048 H{h}/{hk} D{d} causal",
+                           1, 2048, h, hk, d, torch.bfloat16, True, 5,
+                           timed=True)
+    for name, r in res_llama.items():
+        res[name]["llama3_8b"] = {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tflops",
+            "max_abs_err")}
     check_case("ragged bf16 B2 S1000 H8/2 D64 non-causal",
                2, 1000, 8, 2, 64, torch.bfloat16, False, 1)
+    check_case("ragged bf16 B2 S1000 H8/2 D64 causal",
+               2, 1000, 8, 2, 64, torch.bfloat16, True, 7)
     check_case("ragged bf16 B1 S1000 H4/4 D128 causal",
                1, 1000, 4, 4, 128, torch.bfloat16, True, 2)
     check_case("f32 B1 S256 H4/2 D64 causal",
@@ -609,7 +678,8 @@ def main():
             "replaces": REPLACES[name], "launches": counts[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            **{k: t[k] for k in ("tflops", "llama3_8b") if k in t}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -179,6 +179,36 @@ def test_flash_with_lse_gradient_of_lse_alone():
     np.testing.assert_allclose(_np(tv.grad), 0.0, atol=1e-7)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_plain_backward_gqa4_ragged_causal_matches_jax_grad(d):
+    """The plain dq and dk/dv, which chip_smoke.py holds the bf16 wgmma
+    kernels against on the card, against jax.grad of the reference
+    attention at the structure of its new cases: GQA group 4, causal, a
+    sequence the 32-row blocks do not divide, head_dim 64 and 128."""
+    b, s, h, hk = 1, 100, 8, 2
+    q, k, v = _qkv(b=b, s=s, h=h, hk=hk, d=d, seed=11)
+    do = np.random.default_rng(12).standard_normal(q.shape, dtype=np.float32)
+    scale = d ** -0.5
+    tq, tk, tv, tdo = _torch(q, k, v, do)
+    o, lse = tattn.flash_fwd_plain(tq, tk, tv, scale, True, block_q=32,
+                                   block_k=32)
+    delta = (o * tdo).sum(-1).transpose(1, 2).contiguous()
+    dq = tattn.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, scale, True,
+                                  32, 32)
+    dk, dv = tattn.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse, delta, scale,
+                                       True, 32, 32)
+    g = h // hk
+
+    def loss(q, k, v):
+        o = jattn.reference_attention(q, jnp.repeat(k, g, axis=2),
+                                      jnp.repeat(v, g, axis=2), causal=True)
+        return jnp.sum(o * do)
+    jg = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, j, name in zip((dq, dk, dv), jg, "qkv"):
+        assert t.shape == j.shape
+        np.testing.assert_allclose(_np(t), j, **GRAD, err_msg=f"d{name}")
+
+
 @pytest.mark.parametrize("case,match", [
     ("kv_heads", "k heads"),
     ("causal_seq", "requires seq_q == seq_k"),

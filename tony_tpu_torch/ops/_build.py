@@ -80,12 +80,12 @@ def build(kernels: Mapping[str, Kernel]) -> Dict[str, object]:
     """Compile the kernels not yet built (one ``nvcc`` each, all at once)
     and load every one of ``kernels``; idempotent.
 
-    Returns the build directory, the seconds this call took and each
-    compiled source's ``ptxas -v`` report (registers, shared memory,
-    spills); a kernel already loaded or already on disk has no report."""
+    Returns the build directory and the seconds this call took. Each
+    source's ``nvcc`` output, with its ``ptxas -v`` report (registers,
+    shared memory, spills), stays beside its library as ``<name>.log``."""
     global _out_dir
     if all(n in _fns for n in kernels):           # the launch-time path
-        return {"dir": _out_dir, "seconds": 0.0, "ptxas": {}}
+        return {"dir": _out_dir, "seconds": 0.0}
     with _lock:
         t0 = time.perf_counter()
         out_dir = _out_dir = _out_dir or os.path.join(BUILD_ROOT,
@@ -103,11 +103,9 @@ def build(kernels: Mapping[str, Kernel]) -> Dict[str, object]:
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, lib)
-        logs = {}
         failed = []
         for name, (proc, tmp, lib) in procs.items():
             out, _ = proc.communicate()
-            logs[name] = out
             with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
                 f.write(out)
             if proc.returncode != 0:
@@ -124,8 +122,7 @@ def build(kernels: Mapping[str, Kernel]) -> Dict[str, object]:
             entry.argtypes = list(k.argtypes)
             entry.restype = ctypes.c_int
             _fns[name] = entry
-        return {"dir": out_dir, "seconds": time.perf_counter() - t0,
-                "ptxas": logs}
+        return {"dir": out_dir, "seconds": time.perf_counter() - t0}
 
 
 def fn(name: str) -> ctypes._CFuncPtr:

@@ -19,7 +19,13 @@ are rounded to the input dtype before their products.
 
 ``block_q``/``block_k`` set the plain version's tiles and are kept in the
 signatures so configs carry over; the CUDA kernels choose their own tiles
-(64 rows for bf16, 32 for f32) and ignore them.
+and ignore them. For bf16 the tiles are 64 rows: the forward runs
+``mma.sync`` with four warps; the dq and dk/dv kernels run one Hopper
+warpgroup each (``wgmma``, register accumulators, TMA loads through a
+two-stage ``mbarrier`` ring, ``csrc/hopper_common.cuh``), dq over 64 query
+rows streaming 64-key tiles, dk/dv over 64 keys streaming the group's
+64-row q tiles. For f32 all three are simple FMA kernels over 32-row
+tiles.
 """
 
 from __future__ import annotations
