@@ -146,6 +146,33 @@ def test_flash_with_lse_out_dtype_f32_from_bf16():
     np.testing.assert_allclose(_np(lse), jlse, **BF16)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_with_lse_out_f32_row_sum_matches_jax(d):
+    """The row sum l of the forward at out_dtype=f32: below head_dim 128 the
+    reference sums P rounded to bf16 (its ones-column P·V product), from
+    128 up the f32 P. Both sides share the 128-row block partition; S = 200
+    leaves a ragged tail.
+
+    The means are held at 2e-6: a port summing the f32 P at d = 64 is off by
+    ~2e-4 in the mean of lse. The maxima are held at the file's bf16
+    tolerance, not tighter: torch's and XLA's f32 exp differ by an ulp at
+    some arguments, which now and then puts one P on the other side of a
+    bf16 rounding and moves that row's o by up to ~3e-4."""
+    rng = np.random.default_rng(d)
+    q, k, v = (rng.standard_normal((1, 200, n, d), dtype=np.float32)
+               for n in (4, 2, 2))
+    o, lse = tattn.flash_attention_with_lse(
+        *_torch(q, k, v, dtype=torch.bfloat16), causal=True, block_q=128,
+        block_k=128, out_dtype=torch.float32)
+    jo, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=128, block_k=128, out_dtype=jnp.float32)
+    for name, t, j in (("o", o, jo), ("lse", lse, jlse)):
+        err = np.abs(_np(t) - np.asarray(j))
+        assert err.mean() <= 2e-6, f"{name}: mean abs err {err.mean()}"
+        np.testing.assert_allclose(_np(t), j, **BF16, err_msg=name)
+
+
 def test_flash_with_lse_gradient_flows_through_lse():
     """A loss of both o and lse (as the ring merge uses them): the dlse
     cotangent must match jax.grad of the reference kernels."""

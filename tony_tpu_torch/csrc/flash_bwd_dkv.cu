@@ -24,7 +24,7 @@
 //   dP^T = V . dO^T, dS^T = P^T * (dP^T - delta), in registers;
 //   dK += dS^T . Qs, dS^T rounded to bf16 as the register A operand.
 // dK and dV stay in registers across the whole loop and are written once.
-// What it does about the five causes of the mma.sync version's speed:
+// What it does about the five causes of the first (shared-memory) version's speed:
 //   1. products are wgmma (m64n64k16 and m64nDk16) from 128-byte-swizzled
 //      tiles through descriptors; the transposed operands are MN-major
 //      descriptors (the transpose bit), so the TN element gather is gone;

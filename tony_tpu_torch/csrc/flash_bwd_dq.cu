@@ -22,7 +22,7 @@
 // operand (the descriptor's transpose bit). dQ stays in registers and is
 // written once. delta = rowsum(o * do) - dlse is computed by the caller in
 // plain torch, as the reference computes it in XLA outside its kernels.
-// What it does about the five causes of the mma.sync version's speed:
+// What it does about the five causes of the first (shared-memory) version's speed:
 //   1. wgmma from 128-byte-swizzled tiles through descriptors, no
 //      fragment-by-fragment loads;
 //   2. S, P, dP and dS live in registers only; dQ never leaves registers

@@ -193,6 +193,14 @@ template <> struct Wg<64> {
 };
 
 template <> struct Wg<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TT_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : TT_D64
+        : "l"(a), "l"(b), "r"(acc));
+  }
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
@@ -209,13 +217,14 @@ template <> struct Wg<128> {
 #undef TT_R32
 #undef TT_R64
 
-// d (64 x 64) = A . B^T over a contraction of 16 * KSTEPS: A and B are
-// K-major [64, 16 KSTEPS] tiles in shared memory. Issued, not waited for.
-template <int KSTEPS>
-__device__ __forceinline__ void mma_ss_kk(float (&d)[32], const __nv_bfloat16* a,
+// d (64 x N) = A . B^T over a contraction of 16 * KSTEPS: A is a K-major
+// [64, 16 KSTEPS] tile and B a K-major [N, 16 KSTEPS] tile in shared
+// memory. Issued, not waited for.
+template <int KSTEPS, int N = 64>
+__device__ __forceinline__ void mma_ss_kk(float (&d)[N / 2], const __nv_bfloat16* a,
                                           const __nv_bfloat16* b) {
 #pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) Wg<64>::ss(d, desc_k<64>(a, kk), desc_k<64>(b, kk), kk > 0);
+  for (int kk = 0; kk < KSTEPS; ++kk) Wg<N>::ss(d, desc_k<64>(a, kk), desc_k<N>(b, kk), kk > 0);
 }
 
 // d (64 x N) += A . B with A from registers (a[kk] covers contraction rows
@@ -243,6 +252,10 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[8 * K], uint32_t (&a)[
     a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
+
+// The two bf16 of a packed register, exactly, as f32.
+__device__ __forceinline__ float bf16_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
 
 // Multiply every bf16 of a shared tile by `scale` and round back to bf16:
 // the reference's `x * scale` in the input dtype, in place. The layout does
@@ -278,6 +291,22 @@ __device__ __forceinline__ void store_acc(const float (&c)[N / 2], __nv_bfloat16
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
       *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
+  }
+}
+// The same rows written as f32, unrounded.
+template <int N>
+__device__ __forceinline__ void store_acc(const float (&c)[N / 2], float* g, long stride,
+                                          int nvalid, int tid) {
+  const int w = tid >> 5, l = tid & 31;
+  const int r0 = 16 * w + (l >> 2), c0 = 2 * (l & 3);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= nvalid) continue;
+    float* row = g + (long)r * stride + c0;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
   }
 }
 

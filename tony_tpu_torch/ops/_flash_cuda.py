@@ -1,14 +1,14 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
 The sources are ``tony_tpu_torch/csrc/flash_{fwd,bwd_dq,bwd_dkv}.cu``, with
-``flash_common.cuh`` (the forward and the f32 kernels: ``mma.sync`` or FMA
-products over shared-memory tiles) and ``hopper_common.cuh`` (the bf16
-backward pair: TMA loads, ``mbarrier`` rings and ``wgmma`` products with
-register accumulators; sm_90a only). At first use they are compiled (one
-``nvcc`` each, all three at once) and loaded by ``ops/_build.py``. Nothing
-is downloaded and nothing is built at import. The bf16 backward kernels
-build their TMA tensor maps from the pointers and shapes given here, so the
-tensors must be contiguous and 16-byte aligned, as ``_check`` demands.
+``hopper_common.cuh`` (the bf16 kernels: TMA loads, ``mbarrier`` rings and
+``wgmma`` products with register accumulators; sm_90a only) and
+``flash_common.cuh`` (the f32 kernels: FMA products over shared-memory
+tiles). At first use they are compiled (one ``nvcc`` each, all three at
+once) and loaded by ``ops/_build.py``. Nothing is downloaded and nothing is
+built at import. The bf16 kernels build their TMA tensor maps from the
+pointers and shapes given here, so the tensors must be contiguous and
+16-byte aligned, as ``_check`` demands.
 
 Each launch function checks its tensors, allocates the outputs, launches on
 PyTorch's current stream, raises if the C function returns a CUDA error, and

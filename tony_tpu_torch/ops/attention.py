@@ -15,17 +15,20 @@ tensor goes to the plain version beside it (``*_plain``), a blockwise
 online softmax with the same math: masked scores are ``NEG_INF``, the row
 sum is clamped at 1e-30, lse = m + log l, q is scaled in its own dtype
 before the forward's dot, k before dq's and q before dk/dv's, and P and dS
-are rounded to the input dtype before their products.
+are rounded to the input dtype before their products. The forward's row
+sum l follows the reference's ``fused_rowsum``: below head_dim 128 it sums
+P rounded to v's dtype (the reference takes l from its P·V product against
+a column of ones), from 128 up the f32 P; both accumulate in f32.
 
 ``block_q``/``block_k`` set the plain version's tiles and are kept in the
 signatures so configs carry over; the CUDA kernels choose their own tiles
-and ignore them. For bf16 the tiles are 64 rows: the forward runs
-``mma.sync`` with four warps; the dq and dk/dv kernels run one Hopper
-warpgroup each (``wgmma``, register accumulators, TMA loads through a
-two-stage ``mbarrier`` ring, ``csrc/hopper_common.cuh``), dq over 64 query
-rows streaming 64-key tiles, dk/dv over 64 keys streaming the group's
-64-row q tiles. For f32 all three are simple FMA kernels over 32-row
-tiles.
+and ignore them. For bf16 all three run on Hopper warpgroups (``wgmma``,
+register accumulators, TMA loads through ``mbarrier`` rings,
+``csrc/hopper_common.cuh``): the forward with two warpgroups over 128
+query rows streaming 128-key tiles, the next tile's S under this tile's
+softmax; dq with one warpgroup over 64 query rows streaming 64-key tiles;
+dk/dv with one over 64 keys streaming the group's 64-row q tiles. For f32
+all three are simple FMA kernels over 32-row tiles.
 """
 
 from __future__ import annotations
@@ -105,6 +108,10 @@ def flash_fwd_plain(q, k, v, scale: float, causal: bool,
     qs = _scaled(q, scale).transpose(1, 2)          # [B,H,Sq,D]
     kh, vh = _heads_first(k, g), _heads_first(v, g)
     nk = -(-sk // block_k)
+    # Below head_dim 128 the reference takes l from the P·V product against a
+    # column of ones, so l sums P rounded to v's dtype; from 128 up it sums
+    # the f32 P (tony_tpu/ops/attention.py, fused_rowsum).
+    sum_rounded = d < 128
     o = torch.empty((b, h, sq, d), dtype=out_dtype or q.dtype,
                     device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -124,8 +131,10 @@ def flash_fwd_plain(q, k, v, scale: float, causal: bool,
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            acc = acc * alpha + _mm(p.to(v.dtype), vb)
+            pv = p.to(v.dtype)
+            l = l * alpha + (pv.float() if sum_rounded else p).sum(
+                -1, keepdim=True)
+            acc = acc * alpha + _mm(pv, vb)
             m = m_new
         l = l.clamp_min(1e-30)
         o[:, :, q0:q0 + block_q] = (acc / l).to(o.dtype)
