@@ -50,17 +50,38 @@ result line:
    bottlenecks and the 4 projections); then the MNIST MLP (batch 4096, 20
    steps, no kernel) must give finite losses; then where a ResNet step's
    device time goes;
-7. prints the kernels' JSON line, then the result line.
+7. the training job's own loop at the flagship's width and depth: (a)
+   ``trainer.measure_token_file`` trains 10 steps from a 4,000,000-token
+   uint16 corpus through the prefetching iterator (prefetch 2, then 0),
+   16 launches of each flash kernel per step, its tokens/s beside phase
+   4's, and the iterator's first 3 batches equal
+   ``TokenFileDataset.load_local`` byte for byte; (b) a one-rank NCCL
+   group: accumulation 2 with 32 MiB buckets, the first batch's
+   accumulated gradients within 1e-2 (relative Frobenius) of one
+   full-batch step's, then 4 steps of ``train_step_accum`` with 32
+   launches of each flash kernel per optimizer step and a ``comms`` phase
+   booked on each; (c) ``trainer.train`` for 6 steps with async checkpoints
+   every 2 steps (``max_to_keep`` 2, the last step forced), no async
+   error, the newest verified step 5 restored into a fresh state bit for
+   bit (parameters and Adam moments), and the resume's steps 6-7 within
+   1e-3 of an uninterrupted 8-step run's losses; it prints the
+   checkpoint's bytes, the stall per save, the writer's seconds per save
+   and the restore's seconds;
+8. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
 
+import collections
+import dataclasses
 import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -86,6 +107,12 @@ TOL_MODEL_REL = 1e-4      # f32 decoder and ResNet on the card vs the CPU
 # f32 within 1e-6 * max|y|.
 TOL_CF_BF16_ULP = 2.0 ** -7
 TOL_CF_F32 = 1e-6
+# The training job: accumulation 2 against one full-batch step, relative
+# Frobenius error of all gradients together (bf16 activations: the two
+# microbatches' matmuls and the loss's mean round differently); the resumed
+# run's losses against the uninterrupted run's, relative.
+TOL_ACCUM_REL = 1e-2
+TOL_RESUME_REL = 1e-3
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
@@ -98,6 +125,7 @@ RESNET_BATCH = 256
 # The stem, three norms in each of 16 bottlenecks, four projections.
 RESNET_LAUNCHES_PER_STEP = 53
 MNIST_BATCH, MNIST_STEPS = 4096, 20
+AB_STEPS = 20           # timed steps per run of the training job's part (a)
 
 
 def check(ok, msg):
@@ -553,7 +581,7 @@ def phase_main_path():
     for name, n in counts.items():
         check(n == cfg.n_layers * STEPS,
               f"{name} launched {n} times, expected {cfg.n_layers * STEPS}")
-    return counts
+    return counts, r
 
 
 def profile(label, run_step, kind_of):
@@ -616,14 +644,18 @@ def phase_profile():
     for _ in range(2):
         train_step(state, batch)
 
-    def kind_of(low):
-        return ("flash_fwd" if "flash_fwd" in low else
-                "flash_bwd_dq" if "flash_bwd_dq" in low else
-                "flash_bwd_dkv" if "flash_bwd_dkv" in low else
-                "matmul" if any(w in low for w in ("gemm", "xmma", "nvjet",
-                                                   "cutlass")) else
-                "other")
-    profile("flagship", lambda: train_step(state, batch), kind_of)
+    profile("flagship", lambda: train_step(state, batch), flagship_kind)
+
+
+def flagship_kind(low):
+    """The kind of a flagship kernel, from its lower-cased name."""
+    return ("flash_fwd" if "flash_fwd" in low else
+            "flash_bwd_dq" if "flash_bwd_dq" in low else
+            "flash_bwd_dkv" if "flash_bwd_dkv" in low else
+            "matmul" if any(w in low for w in ("gemm", "xmma", "nvjet",
+                                               "cutlass")) else
+            "nccl" if "nccl" in low else
+            "other")
 
 
 def phase_resnet_path():
@@ -683,6 +715,313 @@ def phase_resnet_profile():
     profile("resnet50", lambda: train_step(state, batch), kind_of)
 
 
+def check_flash_counts(what, counts, want):
+    for name, n in counts.items():
+        check(n == want, f"{what}: {name} launched {n} times, expected "
+              f"{want}")
+
+
+def job_token_file(cfg, synthetic_tokens_per_sec):
+    """Part (a): the flagship trained from a token file through the
+    prefetching iterator (prefetch 2 and 0) and from synthetic batches made
+    before the loop, in two turns of opposite order, ``AB_STEPS`` timed
+    steps each; the host's read of a batch alone; and the iterator's first
+    batches against ``TokenFileDataset.load_local``, byte for byte."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import TokenFileDataset, token_file_batches
+    from tony_tpu_torch.ops import _flash_cuda
+
+    steps = AB_STEPS + 2
+    runs = {"synthetic": [], 2: [], 0: []}
+    for order in (("synthetic", 2, 0), (0, 2, "synthetic")):
+        for kind in order:
+            _flash_cuda.reset_launch_counts()
+            if kind == "synthetic":
+                r = trainer.measure(cfg, batch=4, seq=2048, steps=steps,
+                                    warmup=2, device="cuda", seed=0)
+            else:
+                r = trainer.measure_token_file(
+                    cfg, batch=4, seq=2048, steps=steps, warmup=2,
+                    device="cuda", seed=0, prefetch=kind)
+            counts = dict(_flash_cuda.launch_counts)
+            runs[kind].append(r)
+            waits = ("" if kind == "synthetic" else
+                     f", data_wait {r['data_wait_s_per_step'] * 1e3:.4f} "
+                     f"ms/step, h2d {r['h2d_s_per_step'] * 1e3:.4f} ms/step")
+            label = ("synthetic" if kind == "synthetic" else
+                     f"token file, prefetch {kind}")
+            log(f"job (a) {label}: "
+                f"{r['tokens_per_sec']:.1f} tokens/s, {r['step_ms']:.3f} "
+                f"ms/step{waits}, losses {r['losses'][0]:.4f} -> "
+                f"{r['losses'][-1]:.4f}, launches {json.dumps(counts)}")
+            check(all(math.isfinite(x) for x in r["losses"]),
+                  f"{kind} run: non-finite loss")
+            expected = math.log(cfg.vocab_size) + 0.5
+            check(abs(r["losses"][0] - expected) <= 0.5,
+                  f"{kind} run: first loss {r['losses'][0]} not near "
+                  "ln(vocab) + 1/2")
+            check_flash_counts(f"{kind} run", counts, cfg.n_layers * steps)
+    mean = {k: statistics.mean(r["tokens_per_sec"] for r in v)
+            for k, v in runs.items()}
+    log(f"job (a): mean of two turns: token file {mean[2]:.1f} tokens/s "
+        f"(prefetch 2), {mean[0]:.1f} (prefetch 0), synthetic "
+        f"{mean['synthetic']:.1f} (phase 4: {synthetic_tokens_per_sec:.1f});"
+        f" prefetch 2 / synthetic {mean[2] / mean['synthetic']:.4f}, "
+        f"prefetch 0 / synthetic {mean[0] / mean['synthetic']:.4f}")
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-tok-")
+    it = None
+    try:
+        path = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                    cfg.vocab_size)
+        ds = TokenFileDataset(path, 2048, seed=0)
+        reads, pins = [], []
+        for step in range(20):
+            t0 = time.perf_counter()
+            ids = ds.load_local(step, slice(0, 4))["tokens"]
+            t1 = time.perf_counter()
+            torch.from_numpy(ids).to(torch.int64).pin_memory()
+            reads.append(t1 - t0)
+            pins.append(time.perf_counter() - t1)
+        log(f"job (a): host read of a batch, card idle (median of 20): "
+            f"load_local {statistics.median(reads) * 1e3:.4f} ms, int64 + "
+            f"pin {statistics.median(pins) * 1e3:.4f} ms")
+        it = token_file_batches(path, 4, 2048, seed=0, device="cuda")
+        for step in range(3):
+            got = next(it)["tokens"]
+            want = ds.load_local(step, slice(0, 4))["tokens"]
+            check(got.dtype == torch.int64 and got.is_cuda,
+                  "token-file batch not int64 on the card")
+            check(got.cpu().numpy().astype(np.int32).tobytes()
+                  == want.tobytes(),
+                  f"token-file batch {step} differs from load_local")
+        log("job (a): 3 iterator batches equal TokenFileDataset.load_local "
+            "byte for byte")
+        job_telemetry(tmp)
+    finally:
+        if it is not None:
+            it.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def job_telemetry(tmp):
+    """The telemetry reporter's device stats and a profiler trace window,
+    read on the card."""
+    from tony_tpu_torch import profiler, telemetry
+
+    stats = telemetry.collect_device_stats()
+    log(f"job (a): telemetry: {stats.get('device_count')} device(s), "
+        f"{stats.get('hbm_bytes_in_use', 0) / 2**30:.2f} GiB in use, peak "
+        f"{stats.get('hbm_peak_bytes', 0) / 2**30:.2f} GiB, "
+        f"{stats.get('steps_completed')} steps, MFU since the first step "
+        f"{stats.get('mfu_vs_peak_bf16')}")
+    check(stats.get("device_count") == torch.cuda.device_count()
+          and stats["devices"][0]["kind"] == torch.cuda.get_device_name(0)
+          and stats["hbm_peak_bytes"] > 0 and "mfu_vs_peak_bf16" in stats,
+          f"telemetry device stats: {stats}")
+    # 50 products, ~1 ms of the card: after earlier profiler sessions in
+    # the process, torch.profiler drops a kernel or two at the edges of a
+    # window, so a window of two kernels can come back empty.
+    a = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    os.environ["TONY_PROFILE_DIR"] = tmp
+    try:
+        with profiler.trace_window("job") as out:
+            for _ in range(50):
+                a = a @ a.T / 64
+    finally:
+        del os.environ["TONY_PROFILE_DIR"]
+    with open(os.path.join(out, "trace.json")) as f:
+        cats = collections.Counter(e.get("cat")
+                                   for e in json.load(f)["traceEvents"])
+    log(f"job (a): trace_window wrote {cats['kernel']} kernel events for "
+        f"100 launches ({json.dumps(cats)})")
+    check(cats["kernel"], "trace_window recorded no kernel on the card")
+
+
+def job_accum_nccl(cfg, step_ms):
+    """Part (b): accumulation 2 with the bucketed all-reduce over a
+    one-rank NCCL group."""
+    from tony_tpu_torch import telemetry, trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import (accumulate_grads, bucketed_sync,
+                                         monolithic_grads, plan_buckets,
+                                         train_step_accum)
+
+    dist = torch.distributed
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-nccl-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        group = dist.group.WORLD
+        state = trainer.build_state(cfg, "cuda", seed=0)
+        params = list(state.model.parameters())
+        n_buckets = len(plan_buckets([(tuple(p.shape), p.dtype)
+                                      for p in params], 32))
+        batches = [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size,
+                                      device="cuda") for s in range(4)]
+        full = monolithic_grads(state.loss_fn, state.model, batches[0])
+        grads, _, _ = accumulate_grads(state, batches[0], 2)
+        synced = bucketed_sync(grads, 32, group)
+        num = sum(((synced[k].double() - full[k].double()) ** 2).sum()
+                  for k in full)
+        den = sum((full[k].double() ** 2).sum() for k in full)
+        rel = math.sqrt(num.item() / den.item())
+        worst = max(rel_err(synced[k], full[k]) for k in full)
+        state.optimizer.zero_grad(set_to_none=True)
+        del full, grads, synced
+        log(f"job (b): accum 2 vs one full-batch step on batch 0: grads rel "
+            f"Frobenius err {rel:.3e} (worst parameter {worst:.3e}); "
+            f"{n_buckets} buckets of <= 32 MiB over {len(params)} "
+            f"parameters")
+        check(rel <= TOL_ACCUM_REL,
+              f"accumulated grads rel err {rel} > {TOL_ACCUM_REL}")
+
+        _flash_cuda.reset_launch_counts()
+        telemetry._reset_phase_state()
+        comms = [0.0]
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches:
+            with telemetry.step():
+                m = train_step_accum(state, batch, 2, 32, group=group)
+            losses.append(m["loss"])
+            comms.append(telemetry.phase_stats()["cum"].get("comms", 0.0))
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / len(batches)
+        counts = dict(_flash_cuda.launch_counts)
+        telemetry._reset_phase_state()
+        losses = [float(x) for x in losses]
+        log(f"job (b): accum 2 over NCCL: {dt * 1e3:.3f} ms per optimizer "
+            f"step (phase 4's one-pass step: {step_ms:.3f} ms), comms "
+            f"{(comms[-1] / len(batches)) * 1e3:.3f} ms/step, losses "
+            f"{losses}, launches {json.dumps(counts)}")
+        check(all(math.isfinite(x) for x in losses), "accum: non-finite loss")
+        check(all(b > a for a, b in zip(comms, comms[1:])),
+              f"a step booked no comms phase: {comms}")
+        check_flash_counts("accum 2", counts, 2 * cfg.n_layers * len(batches))
+        # Where an optimizer step of accumulation 2 spends the card's time.
+        profile("accum 2 over NCCL", lambda: train_step_accum(
+            state, batches[0], 2, 32, group=group), flagship_kind)
+        del state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+
+
+def max_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def ms_by_step(seconds):
+    return json.dumps({k: round(v * 1e3, 3) for k, v in seconds.items()})
+
+
+def job_checkpoint_resume(cfg):
+    """Part (c): six steps with async checkpoints every 2 (the last
+    forced), a restore into a fresh state, and a resume against an
+    uninterrupted run."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.parallel import checkpoint_tree, load_checkpoint_tree
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    try:
+        # Disk for a checkpoint being written beside the two kept, and the
+        # one of the resumed run: cut depth, never width, when short.
+        per_layer = 12 * (4 * cfg.dim * cfg.dim * (1 + cfg.n_kv_heads
+                                                   / cfg.n_heads) / 2
+                          + 3 * cfg.dim * cfg.mlp_dim)
+        fixed = 12 * 2 * cfg.vocab_size * cfg.dim
+        free = shutil.disk_usage(tmp).free
+        layers = cfg.n_layers
+        while layers > 1 and 4 * (fixed + layers * per_layer) > 0.8 * free:
+            layers -= 1
+        log(f"job (c): {free / 2**30:.1f} GiB free under {tmp}; "
+            f"{layers} of {cfg.n_layers} layers")
+        if layers != cfg.n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        path = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                    cfg.vocab_size)
+        ckpt = os.path.join(tmp, "ckpt")
+        kw = dict(batch=4, seq=2048, device="cuda", seed=0)
+        full = trainer.train(cfg, path, steps=8, **kw)
+        first = trainer.train(cfg, path, steps=6, ckpt_dir=ckpt,
+                              save_interval=2, max_to_keep=2, **kw)
+        log(f"job (c): uninterrupted losses {full['losses']}")
+        log(f"job (c): 6 steps with saves: losses {first['losses']}, "
+            f"ckpt_stall {ms_by_step(first['save_stall_s'])} ms per save, "
+            f"writer {json.dumps(first['write_s'])} s per "
+            f"committed step, coalesced {first['coalesced_saves']}, "
+            f"{first['checkpoint_bytes']} bytes per checkpoint, async "
+            f"errors {first['async_errors']}")
+        check(first["async_errors"] == [],
+              f"async checkpoint errors: {first['async_errors']}")
+        check(max_rel(first["losses"], full["losses"][:6]) <= TOL_RESUME_REL,
+              "the run with saves trained differently")
+
+        saved = first.pop("state")
+        fresh = trainer.build_state(cfg, "cuda", seed=1)
+        mgr = CheckpointManager(ckpt, max_to_keep=2, save_interval_steps=2)
+        try:
+            check(mgr.latest_verified_step() == 5,
+                  f"newest verified step {mgr.latest_verified_step()}, "
+                  "expected 5")
+            t0 = time.perf_counter()
+            load_checkpoint_tree(fresh, mgr.restore(None,
+                                                    checkpoint_tree(fresh)))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        finally:
+            mgr.close()
+        check(fresh.step == 6, f"restored step count {fresh.step}")
+        same = all(torch.equal(a, b) for a, b in
+                   zip(saved.model.parameters(), fresh.model.parameters()))
+        sa = saved.optimizer.state_dict()["state"]
+        sb = fresh.optimizer.state_dict()["state"]
+        same_m = all(torch.equal(v, sb[k][n]) for k in sa
+                     for n, v in sa[k].items())
+        log(f"job (c): restore of step 5 into a fresh state: {restore_s:.3f}"
+            f" s; parameters bitwise equal {same}, Adam moments bitwise "
+            f"equal {same_m}")
+        check(same and same_m, "the restored state differs from the saved")
+        del saved, fresh
+
+        resumed = trainer.train(cfg, path, steps=8, ckpt_dir=ckpt,
+                                save_interval=2, max_to_keep=2, **kw)
+        got, want = resumed["losses"], full["losses"][6:]
+        rel = max_rel(got, want)
+        log(f"job (c): resumed at step {resumed['start_step']} (restored "
+            f"{resumed['restored_step']} in {resumed['restore_s']:.3f} s): "
+            f"losses {got} vs uninterrupted {want}, max rel diff {rel:.3e}, "
+            f"bit-identical {got == want}; its saves: ckpt_stall "
+            f"{ms_by_step(resumed['save_stall_s'])} ms, writer "
+            f"{json.dumps(resumed['write_s'])} s")
+        check(resumed["start_step"] == 6 and resumed["restored_step"] == 5,
+              "the resume did not start after step 5")
+        check(resumed["async_errors"] == [],
+              f"async checkpoint errors: {resumed['async_errors']}")
+        check(rel <= TOL_RESUME_REL, f"resumed losses differ by {rel}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_training_job(synthetic_tokens_per_sec, step_ms):
+    """The training job's own loop at the flagship's width and depth."""
+    from tony_tpu_torch import trainer
+
+    cfg = trainer.flagship_config(seq=2048)
+    t0 = time.perf_counter()
+    job_token_file(cfg, synthetic_tokens_per_sec)
+    job_accum_nccl(cfg, step_ms)
+    job_checkpoint_resume(cfg)
+    log(f"job: {time.perf_counter() - t0:.1f} s for parts (a)-(c)")
+
+
 def main():
     phase_device()
     phase_build()
@@ -690,10 +1029,11 @@ def main():
     timing["convfuse_apply"] = phase_convfuse()
     phase_small_model()
     phase_small_resnet()
-    counts = phase_main_path()
+    counts, main_run = phase_main_path()
     phase_profile()
     counts.update(phase_resnet_path())
     phase_resnet_profile()
+    phase_training_job(main_run["tokens_per_sec"], main_run["step_ms"])
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

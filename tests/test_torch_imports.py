@@ -52,6 +52,11 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import tony_tpu_torch, tony_tpu_torch.ops, tony_tpu_torch.models\n"
         "import tony_tpu_torch.parallel, tony_tpu_torch.data\n"
         "import tony_tpu_torch.convert, tony_tpu_torch.trainer\n"
+        "import tony_tpu_torch.telemetry, tony_tpu_torch.profiler\n"
+        "import tony_tpu_torch.faults, tony_tpu_torch.retry\n"
+        "import tony_tpu_torch.checkpoint, tony_tpu_torch.parallel.grad_sync\n"
+        "import tony_tpu_torch.conf.keys, tony_tpu_torch.constants\n"
+        "import tony_tpu_torch.utils.durable\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))

@@ -70,3 +70,31 @@ def train_step(state: TrainState, batch: Any) -> Dict[str, Any]:
     loss.backward()
     state.apply_gradients()
     return {"loss": loss.detach(), "step": state.step, **aux}
+
+
+def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
+    """The FULL training state as a checkpoint tree, ``{"step", "model",
+    "optim"}`` (parameters alone would resume with re-warming Adam moments
+    and a reset step counter). ``model`` and ``optim`` come from
+    ``torch.distributed.checkpoint.state_dict.get_state_dict``: their
+    tensors ARE the live parameters and moments (a restore loads into them
+    in place). An optimizer that has not stepped yet has no moments; for
+    it ``get_state_dict`` runs one step with zero gradients at learning
+    rate 0, which creates them and moves no parameter."""
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+    return {"step": state.step, "model": model_sd, "optim": optim_sd}
+
+
+def load_checkpoint_tree(state: TrainState, tree: Mapping[str, Any]
+                         ) -> TrainState:
+    """Put a (restored) checkpoint tree back into ``state``: parameters,
+    optimizer moments and hyper-parameters, and the step count."""
+    from torch.distributed.checkpoint.state_dict import set_state_dict
+
+    set_state_dict(state.model, state.optimizer,
+                   model_state_dict=tree["model"],
+                   optim_state_dict=tree["optim"])
+    state.step = int(tree["step"])
+    return state
