@@ -67,7 +67,28 @@ result line:
    1e-3 of an uninterrupted 8-step run's losses; it prints the
    checkpoint's bytes, the stall per save, the writer's seconds per save
    and the restore's seconds;
-8. prints the kernels' JSON line, then the result line.
+8. long context at the flagship's width: ``trainer.measure`` on bench's
+   three long-context points (4 x 8192, chunked cross-entropy, loss chunk
+   2048, 12 steps; 1 x 32768, loss chunk 8192, 8 steps; 8 x 8192 with
+   every other layer checkpointed, 8 steps) and its 0.95B point (dim 1536,
+   24 layers, 4 x 2048, loss chunk 1024, the same remat, AdamW with a bf16
+   first moment, 12 steps), each after 2 warm steps: finite losses, the
+   first near ln(32000) + 1/2, 16 launches of each flash kernel per step
+   without remat and one more forward per checkpointed layer with it (24 /
+   16 / 16 and 36 / 24 / 24); tokens/s, MFU and peak memory printed; where
+   the device time of a 1 x 32768 step and of a 0.95B step goes. Then the three flash kernels
+   against their plain versions at B1 S8192, and timed beside SDPA at B4
+   S8192 and B1 S32768;
+9. the quantized projections: int8 and fp8 resolve on the card with no
+   degrade; quantization on the card equals the CPU's bit for bit, the
+   int8 library product equals the exact sum and its output the CPU's bit
+   for bit, the fp8 product is within 1e-3 of the largest accumulator of
+   the f32 sum of the same values, at the flagship's projection shapes
+   (8192 rows; 1024 -> 1024, 512, 4096; 4096 -> 1024), each timed beside
+   bf16 ``F.linear``; then the flagship trained at bf16, int8 and fp8, 10
+   steps each, with 7 x 16 quantized products per int8 or fp8 step and 16
+   launches of each flash kernel;
+10. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
@@ -295,24 +316,40 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
     if not timed:
         return None
 
-    res = {}
-    res["flash_fwd"] = dict(
-        ms=cuda_ms(lambda: K.flash_fwd(q, k, v, scale, causal)),
+    res = time_flash(name, q, k, v, do, lse_p, delta, causal, o)
+    res["flash_fwd"].update(
         plain_ms=cuda_ms(lambda: A.flash_fwd_plain(
             q, k, v, scale, causal, block_q=128, block_k=128)),
         max_abs_err=max(errs["o"], errs["lse"]))
-    res["flash_bwd_dq"] = dict(
-        ms=cuda_ms(lambda: K.flash_bwd_dq(q, k, v, do, lse_p, delta, scale,
-                                          causal)),
+    res["flash_bwd_dq"].update(
         plain_ms=cuda_ms(lambda: A.flash_bwd_dq_plain(
             q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
         max_abs_err=errs["dq"])
-    res["flash_bwd_dkv"] = dict(
-        ms=cuda_ms(lambda: K.flash_bwd_dkv(q, k, v, do, lse_p, delta, scale,
-                                           causal)),
+    res["flash_bwd_dkv"].update(
         plain_ms=cuda_ms(lambda: A.flash_bwd_dkv_plain(
             q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
         max_abs_err=max(errs["dk"], errs["dv"]))
+    log(f"timing ({name}): " + json.dumps(res))
+    return res
+
+
+def time_flash(name, q, k, v, do, lse, delta, causal, o):
+    """Each flash kernel's ms by CUDA events, its TFLOP/s and bound, and
+    ``scaled_dot_product_attention``'s forward and backward (the library
+    yardstick, used nowhere in the port; its output is held against ``o``,
+    the forward kernel's or the plain version's)."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    res = {
+        "flash_fwd": dict(ms=cuda_ms(lambda: K.flash_fwd(q, k, v, scale,
+                                                         causal))),
+        "flash_bwd_dq": dict(ms=cuda_ms(lambda: K.flash_bwd_dq(
+            q, k, v, do, lse, delta, scale, causal))),
+        "flash_bwd_dkv": dict(ms=cuda_ms(lambda: K.flash_bwd_dkv(
+            q, k, v, do, lse, delta, scale, causal))),
+    }
 
     # Library yardstick: SDPA on [B,H,S,D] views, GQA by index.
     F = torch.nn.functional
@@ -328,7 +365,7 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
     sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     check(max_err(out.transpose(1, 2), o) <= TOL_BF16_O,
-          "SDPA disagrees with the forward kernel")
+          f"{name}: SDPA disagrees with the forward kernel")
     # SDPA's backward computes dq, dk and dv in one call: the yardstick of
     # the pair, given to both backward kernels.
     res["flash_bwd_dq"]["library_ms"] = sdpa_bwd_ms
@@ -347,9 +384,8 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
         res[n].update(bound_ms=max(tf, tb),
                       bound_by="operations" if tf >= tb else "bytes",
                       tflops=flops / res[n]["ms"] / 1e9)
-    log(f"timing ({name}): " + json.dumps(res))
-    log(f"sdpa backward (dq, dk and dv in one call): {sdpa_bwd_ms:.4f} ms "
-        f"vs dq + dk/dv kernels "
+    log(f"sdpa backward ({name}; dq, dk and dv in one call): "
+        f"{sdpa_bwd_ms:.4f} ms vs dq + dk/dv kernels "
         f"{res['flash_bwd_dq']['ms'] + res['flash_bwd_dkv']['ms']:.4f} ms")
     return res
 
@@ -1022,6 +1058,197 @@ def phase_training_job(synthetic_tokens_per_sec, step_ms):
     log(f"job: {time.perf_counter() - t0:.1f} s for parts (a)-(c)")
 
 
+def flash_launches_per_step(cfg):
+    """Launches of (fwd, dq, dk/dv) per step: every layer once each, and
+    the forward again for each checkpointed layer, re-run in backward."""
+    remat = sum(1 for i in range(cfg.n_layers) if cfg.remat and not (
+        cfg.remat_skip_every >= 2 and i % cfg.remat_skip_every == 0))
+    return {"flash_fwd": cfg.n_layers + remat,
+            "flash_bwd_dq": cfg.n_layers, "flash_bwd_dkv": cfg.n_layers}
+
+
+def train_point(label, cfg, batch, seq, steps, **kw):
+    """``trainer.measure`` on one of bench's decoder points, 2 warm steps
+    then ``steps`` timed: finite losses, the first near ln(vocab) + 1/2,
+    each flash kernel's launches as the configuration implies. Returns the
+    result and the quantized products' launches."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda, quant
+
+    torch.cuda.empty_cache()
+    _flash_cuda.reset_launch_counts()
+    quant.reset_launch_counts()
+    r = trainer.measure(cfg, batch=batch, seq=seq, steps=steps + 2,
+                        warmup=2, device="cuda", seed=0, **kw)
+    counts = dict(_flash_cuda.launch_counts)
+    qcounts = dict(quant.launch_counts)
+    log(f"{label}: {r['params']} params, batch {batch} x seq {seq}, "
+        f"{r['tokens_per_sec']:.1f} tokens/s, {r['step_ms']:.3f} ms/step, "
+        f"MFU {r['mfu_vs_peak_bf16']}, peak memory "
+        f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+        f"{json.dumps(counts)}, quantized products {json.dumps(qcounts)}, "
+        f"losses {r['losses']}")
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"{label}: non-finite loss")
+    expected = math.log(cfg.vocab_size) + 0.5
+    check(abs(r["losses"][0] - expected) <= 0.5,
+          f"{label}: first loss {r['losses'][0]} not near ln(vocab) + 1/2")
+    for name, n in flash_launches_per_step(cfg).items():
+        check(counts[name] == n * (steps + 2),
+              f"{label}: {name} launched {counts[name]} times, expected "
+              f"{n} per step")
+    return r, qcounts
+
+
+def profile_point(label, cfg, batch, seq, **kw):
+    """Where a step of a chunked-loss point spends the card's time, after
+    two warm steps."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.parallel import train_step
+
+    torch.cuda.empty_cache()
+    state = trainer.build_state(cfg, "cuda", 0, chunked=True, **kw)
+    tokens = synthetic_lm_batch(0, batch, seq, cfg.vocab_size, device="cuda")
+    for _ in range(2):
+        train_step(state, tokens)
+    profile(label, lambda: train_step(state, tokens), flagship_kind)
+
+
+def phase_long_context():
+    """Bench's long-context points and its 0.95B point at full width, then
+    the flash kernels at S = 8192 against their plain versions and timed
+    beside SDPA at B4 S8192 and B1 S32768."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    t0 = time.perf_counter()
+    points = (
+        # bench.py:1163-1190: label, config, batch, seq, loss chunk, steps
+        ("longctx_8k_chunked_ce", trainer.flagship_config(8192), 4, 8192,
+         2048, 12),
+        ("longctx_32k_chunked_ce", trainer.flagship_config(32768), 1, 32768,
+         8192, 8),
+        ("longctx_8k_b8_selective_remat", trainer.flagship_remat_config(8192),
+         8, 8192, 2048, 8),
+    )
+    for label, cfg, batch, seq, chunk, steps in points:
+        train_point(label, cfg, batch, seq, steps, chunked=True,
+                    loss_chunk=chunk)
+    # bench.py:1227-1247 (TONY_BENCH_BIG=1): AdamW with a bf16 first moment.
+    train_point("big_0p95b_remat_bf16mu", trainer.big_config(2048), 4, 2048,
+                12, chunked=True, loss_chunk=1024, mu_dtype=torch.bfloat16)
+    log(f"long context: {time.perf_counter() - t0:.1f} s for the points")
+
+    # Where the device time of a 1 x 32768 step and of a 0.95B step goes.
+    profile_point("longctx 32k", trainer.flagship_config(32768), 1, 32768,
+                  loss_chunk=8192)
+    profile_point("0.95B", trainer.big_config(2048), 4, 2048,
+                  loss_chunk=1024, mu_dtype=torch.bfloat16)
+
+    torch.cuda.empty_cache()
+    check_case("longctx bf16 B1 S8192 H8/4 D128 causal", 1, 8192, 8, 4, 128,
+               torch.bfloat16, True, 20)
+    timing = {}
+    for b, s in ((4, 8192), (1, 32768)):
+        q, k, v, do = make_case(b, s, 8, 4, 128, torch.bfloat16, 21)
+        o, lse = K.flash_fwd(q, k, v, 128 ** -0.5, True)
+        delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+        res = time_flash(f"B{b} S{s}", q, k, v, do, lse, delta, True, o)
+        log(f"timing (flash, B{b} S{s} H8/4 D128 causal): " + json.dumps(res))
+        timing[f"B{b}_S{s}"] = res
+        del q, k, v, do, o, lse, delta
+    log(f"long context: {time.perf_counter() - t0:.1f} s in all")
+    return timing
+
+
+# The flagship's projections at its 4 x 2048 tokens: (rows, in, out) of
+# wq (and wo), wk / wv, gate / up, down.
+QUANT_SHAPES = ((8192, 1024, 1024), (8192, 1024, 512), (8192, 1024, 4096),
+                (8192, 4096, 1024))
+# fp8 product on the card against the f32 product of the same fp8 values,
+# relative to the largest |accumulator|: cuBLASLt's fp8 path may keep fewer
+# accumulator bits between its f32 promotions than an f32 sum.
+TOL_FP8_ACC_REL = 1e-3
+
+
+def phase_quant():
+    """Both quantized modes resolve on the card; quantization and the
+    library products against the CPU's plain versions at the flagship's
+    projection shapes; their times beside bf16 ``F.linear``; then the
+    flagship trained at bf16, int8 and fp8 in one run."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import quant as Q
+
+    F = torch.nn.functional
+    for mode in Q.MODES:
+        check(Q.resolve_mode(mode, "cuda") == mode,
+              f"{mode} does not resolve on the card: {Q.fallback_events()}")
+    check(Q.fallback_events() == {}, f"degraded: {Q.fallback_events()}")
+    rng = np.random.default_rng(30)
+    rows = []
+    for m, kdim, n in QUANT_SHAPES:
+        x = torch.from_numpy(rng.standard_normal((m, kdim), dtype=np.float32)
+                             ).to("cuda", torch.bfloat16)
+        w = torch.from_numpy(rng.standard_normal((n, kdim), dtype=np.float32)
+                             / math.sqrt(kdim)).to("cuda", torch.bfloat16)
+        row = {"shape": [m, kdim, n],
+               "bf16_linear_ms": cuda_ms(lambda: F.linear(x, w))}
+        for mode in Q.MODES:
+            qx, sx = Q.quantize_symmetric(x, mode, axis=-1)
+            qw, sw = Q.quantize_symmetric(w, mode, axis=-1)
+            for name, got, ref in (
+                    ("x", (qx, sx), Q.quantize_symmetric(x.cpu(), mode, -1)),
+                    ("w", (qw, sw), Q.quantize_symmetric(w.cpu(), mode, -1))):
+                check(torch.equal(got[1].cpu(), ref[1]),
+                      f"{mode} {name} scales differ from the CPU's")
+                check(torch.equal(got[0].cpu().view(torch.uint8),
+                                  ref[0].view(torch.uint8)),
+                      f"{mode} {name} quantized values differ from the CPU's")
+            acc = Q.product_library(qx, qw, mode)
+            acc_p = Q.product_plain(qx, qw, mode)
+            out = Q._qmm_forward(x, w, mode)
+            out_cpu = Q._qmm_forward(x.cpu(), w.cpu(), mode)
+            acc_err = max_err(acc, acc_p)
+            acc_max = acc_p.abs().max().item()
+            out_err = max_err(out.cpu(), out_cpu)
+            if mode == Q.INT8:
+                check(acc.dtype == torch.int32 and torch.equal(acc, acc_p),
+                      f"int8 accumulator differs from the exact sum at "
+                      f"{row['shape']}")
+                check(torch.equal(out.cpu(), out_cpu),
+                      f"int8 output differs from the CPU's at {row['shape']}")
+            else:
+                check(acc_err <= TOL_FP8_ACC_REL * acc_max,
+                      f"fp8 accumulator err {acc_err} > {TOL_FP8_ACC_REL} "
+                      f"x {acc_max} at {row['shape']}")
+                rel = rel_err(out.cpu(), out_cpu)
+                check(rel <= TOL_FP8_ACC_REL, f"fp8 output rel err {rel}")
+            row[mode] = dict(
+                ms=cuda_ms(lambda: Q._qmm_forward(x, w, mode)),
+                product_ms=cuda_ms(lambda: Q.product_library(qx, qw, mode)),
+                acc_max_abs_err=acc_err, acc_max_abs=acc_max,
+                out_max_abs_err=out_err)
+        log(f"quant {json.dumps(row)}")
+        rows.append(row)
+        del x, w
+
+    runs = {}
+    for mode in (None, Q.INT8, Q.FP8_E4M3):
+        label = f"flagship {mode or 'bf16'}"
+        r, qcounts = train_point(label, trainer.flagship_config(2048, mode),
+                                 4, 2048, STEPS - 2)
+        want = 7 * 16 * STEPS if mode else 0
+        check(qcounts.get(mode, 0) == want and sum(qcounts.values()) == want,
+              f"{label}: quantized products {qcounts}, expected {want}")
+        runs[mode or "bf16"] = r["tokens_per_sec"]
+    check(Q.fallback_events() == {}, f"degraded: {Q.fallback_events()}")
+    log(f"quant: flagship tokens/s bf16 {runs['bf16']:.1f}, int8 "
+        f"{runs['int8']:.1f} ({runs['int8'] / runs['bf16']:.4f}), fp8 "
+        f"{runs['fp8_e4m3']:.1f} ({runs['fp8_e4m3'] / runs['bf16']:.4f})")
+    return rows
+
+
 def main():
     phase_device()
     phase_build()
@@ -1034,6 +1261,13 @@ def main():
     counts.update(phase_resnet_path())
     phase_resnet_profile()
     phase_training_job(main_run["tokens_per_sec"], main_run["step_ms"])
+    long_timing = phase_long_context()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        timing[name]["longctx"] = {
+            shape: {k: r[name][k] for k in ("ms", "bound_ms", "bound_by",
+                                            "library_ms", "tflops")}
+            for shape, r in long_timing.items()}
+    phase_quant()
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []
@@ -1046,7 +1280,8 @@ def main():
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("tflops", "llama3_8b") if k in t}})
+            **{k: t[k] for k in ("tflops", "llama3_8b", "longctx")
+               if k in t}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -158,7 +158,6 @@ def test_max_seq_len_guard():
 @pytest.mark.parametrize("kw,match", [
     (dict(attn_impl="ring"), "ring/Ulysses slice"),
     (dict(attn_impl="ulysses"), "ring/Ulysses slice"),
-    (dict(matmul_dtype="int8"), "quant slice"),
 ])
 def test_later_slices_raise_not_implemented(kw, match):
     with pytest.raises(NotImplementedError, match=match):

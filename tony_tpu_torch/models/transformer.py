@@ -12,7 +12,10 @@ the same places:
 - the embedding table is f32, gathered and then cast to ``cfg.dtype``;
 - logits come back f32;
 - attention is the flash kernel (``"flash"``) or the plain oracle
-  (``"xla"``, K/V repeated to the full head count).
+  (``"xla"``, K/V repeated to the full head count);
+- ``matmul_dtype`` ("int8" | "fp8_e4m3") sends the seven attention and MLP
+  projections through ``ops/quant.py``'s quantized product (the embedding
+  and the LM head stay unquantized); None is the bf16 path, bit for bit.
 
 Module names follow the flax tree (``embedding``, ``layers.{i}.attn.wq``,
 ``layers.{i}.mlp.gate``, ``*_norm.scale``, ``lm_head``) so weights convert
@@ -33,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.ops import quant
 from tony_tpu_torch.ops.attention import flash_attention, reference_attention
 
 # lecun_normal's truncated normal: std of a unit normal cut at ±2.
@@ -62,8 +66,8 @@ class TransformerConfig:
     attn_block_k: int = 1024
     tie_embeddings: bool = False
     lm_head_dtype: Optional[torch.dtype] = None  # None → activation dtype
-    # Quantized projections ("int8" | "fp8_e4m3") come with the quant
-    # slice; None is the bf16 path.
+    # Quantized projections ("int8" | "fp8_e4m3", see ops/quant.py); None
+    # is the bf16 path.
     matmul_dtype: Optional[str] = None
 
     @classmethod
@@ -90,23 +94,24 @@ def _check_supported(cfg: TransformerConfig) -> None:
             "with the ring/Ulysses slice of the port")
     if cfg.attn_impl not in ("flash", "xla"):
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    if cfg.matmul_dtype:
-        raise NotImplementedError(
-            f"matmul_dtype={cfg.matmul_dtype!r}: quantized projections come "
-            "with the quant slice of the port")
+    quant.check_mode(cfg.matmul_dtype)
 
 
 class Dense(nn.Module):
     """Bias-free projection with a flax ``Dense``'s numerics: weight
     ``[out, in]`` in ``param_dtype``; input and weight cast to ``dtype``
-    and multiplied there."""
+    and multiplied there. With ``matmul_dtype`` set (and resolved on the
+    input's device) the product is ``quant.quantized_matmul`` of the cast
+    operands, as the reference's ``QDense``; off, it is ``F.linear``."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, param_dtype: torch.dtype,
                  device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 matmul_dtype: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
+        self.matmul_dtype = quant.check_mode(matmul_dtype)
         self.weight = nn.Parameter(torch.empty(
             (out_features, in_features), dtype=param_dtype, device=device))
         std = 1.0 / math.sqrt(in_features) / _TRUNC_STD
@@ -114,7 +119,12 @@ class Dense(nn.Module):
                               generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        mode = self.matmul_dtype and quant.resolve_mode(self.matmul_dtype,
+                                                        x.device)
+        if mode:
+            return quant.quantized_matmul(x, w, mode)
+        return F.linear(x, w)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -153,7 +163,8 @@ class Attention(nn.Module):
         self.head_dim = hd
 
         def dense(i, o):
-            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator)
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator,
+                         cfg.matmul_dtype)
         self.wq = dense(cfg.dim, cfg.n_heads * hd)
         self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
@@ -185,7 +196,8 @@ class MLP(nn.Module):
         super().__init__()
 
         def dense(i, o):
-            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator)
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator,
+                         cfg.matmul_dtype)
         self.gate = dense(cfg.dim, cfg.mlp_dim)
         self.up = dense(cfg.dim, cfg.mlp_dim)
         self.down = dense(cfg.mlp_dim, cfg.dim)

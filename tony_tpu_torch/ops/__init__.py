@@ -4,3 +4,6 @@ from tony_tpu_torch.ops.attention import (  # noqa: F401
     flash_attention, flash_attention_with_lse, reference_attention,
 )
 from tony_tpu_torch.ops.convfuse import fused_groupnorm_relu  # noqa: F401
+from tony_tpu_torch.ops.quant import (  # noqa: F401
+    quantized_matmul, quantize_symmetric, resolve_mode,
+)

@@ -6,6 +6,6 @@ from tony_tpu_torch.parallel.grad_sync import (  # noqa: F401
     monolithic_grads, plan_buckets, train_step_accum,
 )
 from tony_tpu_torch.parallel.train import (  # noqa: F401
-    TrainState, adamw, checkpoint_tree, load_checkpoint_tree, sgd,
-    train_step,
+    AdamWLowPrecisionMu, TrainState, adamw, checkpoint_tree,
+    fill_missing_grads, load_checkpoint_tree, sgd, train_step,
 )

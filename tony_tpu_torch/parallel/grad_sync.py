@@ -43,7 +43,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
 import torch
 
 from tony_tpu_torch import telemetry
-from tony_tpu_torch.parallel.train import TrainState
+from tony_tpu_torch.parallel.train import TrainState, fill_missing_grads
 
 #: default bucket size (MiB) — matches tony.train.bucket-mb's default.
 DEFAULT_BUCKET_MB = 32
@@ -153,10 +153,12 @@ def bucketed_sync(grads: Mapping[str, torch.Tensor],
 def monolithic_grads(loss_fn: Callable, model: torch.nn.Module,
                      batch: Any) -> Dict[str, torch.Tensor]:
     """The reference the bucketed path is held against: the gradient of
-    one loss over the whole batch, by name, leaving ``.grad`` untouched."""
+    one loss over the whole batch, by name (zeros where the loss does not
+    reach a parameter), leaving ``.grad`` untouched."""
     named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
     loss, _ = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, [p for _, p in named])
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True, materialize_grads=True)
     return {k: g for (k, _), g in zip(named, grads)}
 
 
@@ -186,8 +188,10 @@ def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
                                 Dict[str, Any]]:
     """Forward and backward over ``accum_steps`` microbatches of
     ``batch``: ``(grads by name, mean loss, mean aux)``. The gradients are
-    the ``.grad`` fields, summed over microbatches and scaled by 1/A; no
-    collective runs here."""
+    the ``.grad`` fields, summed over microbatches and scaled by 1/A, with
+    zeros for a parameter the loss did not reach (every rank returns the
+    same names, so every rank plans the same buckets); no collective runs
+    here."""
     accum_steps = max(1, int(accum_steps))
     losses, auxes = [], []
     for micro in _microbatches(batch, accum_steps):
@@ -195,9 +199,7 @@ def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
         loss.backward()
         losses.append(loss.detach())
         auxes.append(aux)
-    named = [(k, p) for k, p in state.model.named_parameters()
-             if p.grad is not None]
-    grads = {k: p.grad for k, p in named}
+    grads = fill_missing_grads(state.model)
     if accum_steps > 1:
         inv = 1.0 / accum_steps
         for g in grads.values():

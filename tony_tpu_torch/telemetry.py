@@ -442,6 +442,13 @@ def collect_device_stats() -> Dict[str, float]:
     prof = profile_state()
     if prof is not None:
         out["profile"] = prof  # type: ignore[assignment]
+    quant = sys.modules.get("tony_tpu_torch.ops.quant")
+    if quant is not None:
+        # A quantized path that degraded to bf16: on the beacon, so the
+        # one-time event shows in metrics and not only in a log line.
+        fb = quant.fallback_events()
+        if fb:
+            out["quant_fallback"] = fb  # type: ignore[assignment]
     return out
 
 

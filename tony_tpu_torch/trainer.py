@@ -10,6 +10,24 @@ counts the same FLOPs as ``bench.py`` (6·params + 12·L·dim·S/2 per token,
 fwd + bwd, causal) over the card's dense bf16 peak, looked up from its
 name.
 
+``measure(chunked=True, loss_chunk=C)`` is bench's long-context path: the
+model returns its final-norm hidden states and ``chunked_causal_lm_loss``
+takes the cross-entropy over ``lm_head`` in sequence chunks of C, so the
+``[B, S, vocab]`` logits never exist (``bench.py:255-263``). Bench's
+decoder points on one chip, one command each:
+
+    python -m tony_tpu_torch.trainer                            # 4 × 2048
+    python -m tony_tpu_torch.trainer --matmul-dtype int8        # headline
+    python -m tony_tpu_torch.trainer --seq 8192 --chunked       # 4 × 8192
+    python -m tony_tpu_torch.trainer --seq 32768 --chunked      # 1 × 32768
+    python -m tony_tpu_torch.trainer --model flagship_remat     # 8 × 8192
+    python -m tony_tpu_torch.trainer --model big                # 0.95B
+
+``--seq`` picks bench's batch and loss chunk for that length (4 and 2048
+at 8192, 1 and 8192 at 32768); ``flagship_remat`` checkpoints every other
+layer (``remat_skip_every=2``) and ``big`` is the 0.95B point, trained
+with a bf16 Adam first moment (``mu_dtype``); both take the chunked loss.
+
 ``measure_token_file`` is the counterpart of ``bench.py``'s
 ``measure_token_file_point``: the same model trained from a 4,000,000-token
 uint16 ``.bin`` corpus through the prefetching iterator, the host read and
@@ -42,6 +60,8 @@ losses, the resume point and the checkpoint costs).
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -60,7 +80,8 @@ from tony_tpu_torch.data import (synthetic_lm_batch, token_file_batches,
 from tony_tpu_torch.models.mlp import MnistMLP, classification_loss
 from tony_tpu_torch.models.resnet import ResNet, ResNetConfig
 from tony_tpu_torch.models.transformer import (Transformer, TransformerConfig,
-                                               causal_lm_loss)
+                                               causal_lm_loss,
+                                               chunked_causal_lm_loss)
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
 from tony_tpu_torch.parallel.train import (TrainState, adamw,
@@ -72,10 +93,31 @@ from tony_tpu_torch.parallel.train import (TrainState, adamw,
 LEARNING_RATE = 3e-4    # bench.py's optax.adamw(3e-4)
 
 
-def flagship_config(seq: int = 2048) -> TransformerConfig:
+def flagship_config(seq: int = 2048,
+                    matmul_dtype: Optional[str] = None) -> TransformerConfig:
+    """``bench.py:190-212``'s flagship (``build_flagship_config``)."""
     return TransformerConfig(
         vocab_size=32000, dim=1024, n_layers=16, n_heads=8,
-        n_kv_heads=4, mlp_dim=4096, max_seq_len=seq, remat=False)
+        n_kv_heads=4, mlp_dim=4096, max_seq_len=seq, remat=False,
+        matmul_dtype=matmul_dtype)
+
+
+def flagship_remat_config(seq: int = 8192) -> TransformerConfig:
+    """``bench.py:1173-1176``'s 8×8192 point: the flagship with selective
+    remat, every other layer checkpointed."""
+    return TransformerConfig(
+        vocab_size=32000, dim=1024, n_layers=16, n_heads=8,
+        n_kv_heads=4, mlp_dim=4096, max_seq_len=seq, remat=True,
+        remat_skip_every=2)
+
+
+def big_config(seq: int = 2048) -> TransformerConfig:
+    """``bench.py:1233-1236``'s 0.95B point: dim 1536, 24 layers, 12 / 6
+    heads (head_dim 128), mlp 6144, selective remat."""
+    return TransformerConfig(
+        vocab_size=32000, dim=1536, n_layers=24, n_heads=12,
+        n_kv_heads=6, mlp_dim=6144, max_seq_len=seq, remat=True,
+        remat_skip_every=2)
 
 
 def lm_loss(model, batch):
@@ -83,15 +125,32 @@ def lm_loss(model, batch):
     return causal_lm_loss(model(tokens), tokens), {}
 
 
+def chunked_lm_loss(model, batch, loss_chunk: int = 2048):
+    """``bench.py:255-263``: the final-norm hidden states through
+    ``chunked_causal_lm_loss`` over the LM head in ``loss_chunk`` chunks."""
+    tokens = batch["tokens"]
+    head = (model.embedding if model.lm_head is None
+            else model.lm_head.weight).T
+    return chunked_causal_lm_loss(
+        model(tokens, return_hidden=True), head, tokens,
+        chunk_size=loss_chunk, head_dtype=model.cfg.lm_head_dtype), {}
+
+
 def build_state(cfg: TransformerConfig,
                 device: Union[str, torch.device] = "cuda",
-                seed: int = 0) -> TrainState:
-    """The model made from ``seed`` on ``device``, AdamW and the LM loss."""
+                seed: int = 0, chunked: bool = False,
+                loss_chunk: int = 2048,
+                mu_dtype: Optional[torch.dtype] = None) -> TrainState:
+    """The model made from ``seed`` on ``device``, AdamW (first moment in
+    ``mu_dtype``, None: the parameter's) and the LM loss (chunked over
+    ``loss_chunk`` positions with ``chunked``)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev,
                         generator=torch.Generator(dev).manual_seed(seed))
-    return TrainState(model, adamw(model.parameters(), LEARNING_RATE),
-                      lm_loss)
+    loss = (functools.partial(chunked_lm_loss, loss_chunk=loss_chunk)
+            if chunked else lm_loss)
+    return TrainState(model, adamw(model.parameters(), LEARNING_RATE,
+                                   mu_dtype=mu_dtype), loss)
 
 
 def _phase_cum(name: str) -> float:
@@ -142,6 +201,8 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
                 batch_of: Callable[[int], Any]) -> Dict[str, Any]:
     n_params = sum(p.numel() for p in state.model.parameters())
     fpt = flops_per_token(cfg, n_params, seq)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     losses, dt, wait, name, peak = _timed_steps(
         state, batch_of, steps, warmup, dev, flops=fpt * batch * seq,
         tokens=batch * seq)
@@ -155,19 +216,26 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
         "h2d_s_per_step": wait["h2d"] / (steps - warmup),
         "params": n_params, "batch": batch, "seq": seq, "steps": steps,
         "warmup": warmup, "device": name,
+        # The parameters, moments and the steps' peak, on the card.
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
     }
 
 
 def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
             steps: int = 10, warmup: int = 2,
             device: Union[str, torch.device] = "cuda",
-            seed: int = 0) -> Dict[str, Any]:
+            seed: int = 0, chunked: bool = False, loss_chunk: int = 2048,
+            mu_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Train ``steps`` steps (the first ``warmup`` of them untimed) and
-    return losses, tokens/s over the timed steps and MFU. Each step draws
-    fresh synthetic tokens for its step number, made before the loop."""
+    return losses, tokens/s over the timed steps, MFU and, on the card, the
+    peak of allocated memory (``peak_memory_bytes``). Each step draws fresh
+    synthetic tokens for its step number, made before the loop. ``chunked``,
+    ``loss_chunk`` and ``mu_dtype`` are ``bench.py``'s ``measure_point``
+    options (see ``build_state``)."""
     _check_steps(steps, warmup)
     dev = resolve_device(device)
-    state = build_state(cfg, dev, seed)
+    state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype)
     batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size, seed=seed,
                                   device=dev) for s in range(steps)]
     out = _measure_lm(state, cfg, batch, seq, steps, warmup, dev,
@@ -389,7 +457,17 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
 
 
 # --model -> bench's batch
-DEFAULT_BATCH = {"flagship": 4, "resnet50": 256, "mnist": 4096}
+DEFAULT_BATCH = {"flagship": 4, "flagship_remat": 8, "big": 4,
+                 "resnet50": 256, "mnist": 4096}
+# Bench's decoder points: --model -> (config, seq, loss chunk or None for
+# the unchunked loss, Adam's mu_dtype) (bench.py:1127-1190, 1227-1247).
+LM_POINTS = {
+    "flagship": (flagship_config, 2048, None, None),
+    "flagship_remat": (flagship_remat_config, 8192, 2048, None),
+    "big": (big_config, 2048, 1024, torch.bfloat16),
+}
+# The flagship at bench's long-context lengths: seq -> (batch, loss chunk).
+LONG_CONTEXT = {8192: (4, 2048), 32768: (1, 8192)}
 
 
 def main(argv=None) -> int:
@@ -409,19 +487,41 @@ def main(argv=None) -> int:
                     "it and save into it (with --data)")
     ap.add_argument("--save-every", type=int, default=1,
                     help="save interval in steps (with --ckpt-dir)")
+    ap.add_argument("--seq", type=int, help="sequence length of a decoder "
+                    "(default bench's: 2048, 8192 for flagship_remat); "
+                    "8192 and 32768 take bench's batch and loss chunk")
+    ap.add_argument("--chunked", action="store_true",
+                    help="chunked cross-entropy (implied by flagship_remat "
+                    "and big)")
+    ap.add_argument("--loss-chunk", type=int,
+                    help="positions per cross-entropy chunk")
+    ap.add_argument("--matmul-dtype", choices=["int8", "fp8_e4m3"],
+                    help="quantized attention and MLP projections")
     a = ap.parse_args(argv)
     batch = DEFAULT_BATCH[a.model]
+    if a.model in LM_POINTS:
+        config, seq, chunk, mu_dtype = LM_POINTS[a.model]
+        seq = a.seq or seq
+        if a.model == "flagship" and seq in LONG_CONTEXT:
+            batch = LONG_CONTEXT[seq][0]
+            chunk = LONG_CONTEXT[seq][1] if a.chunked else None
+        chunk = a.loss_chunk or chunk or (2048 if a.chunked else None)
+        cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype)
+    elif a.seq or a.chunked or a.loss_chunk or a.matmul_dtype:
+        ap.error(f"--seq, --chunked, --loss-chunk and --matmul-dtype are "
+                 f"for the decoders, not {a.model}")
     if a.data:
-        if a.model != "flagship":
-            ap.error("--data trains the flagship decoder")
-        out = train(flagship_config(), a.data, batch=batch, steps=a.steps,
+        if a.model != "flagship" or chunk is not None:
+            ap.error("--data trains the flagship decoder, unchunked")
+        out = train(cfg, a.data, batch=batch, seq=seq, steps=a.steps,
                     accum_steps=a.accum, bucket_mb=a.bucket_mb,
                     ckpt_dir=a.ckpt_dir, save_interval=a.save_every,
                     device=a.device)
         del out["state"]
-    elif a.model == "flagship":
-        out = measure(flagship_config(), batch=batch, steps=a.steps,
-                      device=a.device)
+    elif a.model in LM_POINTS:
+        out = measure(cfg, batch=batch, seq=seq, steps=a.steps,
+                      device=a.device, chunked=chunk is not None,
+                      loss_chunk=chunk or 2048, mu_dtype=mu_dtype)
     else:
         out = measure_vision(a.model, batch=batch, steps=a.steps,
                              device=a.device)
