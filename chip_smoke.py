@@ -88,13 +88,31 @@ result line:
    bf16 ``F.linear``; then the flagship trained at bf16, int8 and fp8, 10
    steps each, with 7 x 16 quantized products per int8 or fp8 step and 16
    launches of each flash kernel;
-10. prints the kernels' JSON line, then the result line.
+10. the mesh at world 1, over a one-rank NCCL group and
+   ``build_mesh(MeshSpec())`` (every axis 1): (a) ``trainer.measure(...,
+   mesh="fsdp=1")`` trains the flagship at full width and depth from
+   ``init_sharded_state`` (the tensor-parallel plan at tp=1, then FSDP2:
+   every projection, the table and the head are DTensors) with
+   ``sharded_train_step``, in alternating turns with the unsharded
+   ``trainer.measure`` (sharded, unsharded, sharded, unsharded; tokens/s
+   and peak memory of each); every sharded turn's ten losses must equal
+   phase 4's within ``TOL_MESH_REL`` (the largest difference printed,
+   with whether they are bit for bit), with 16 launches of each flash
+   kernel per step; (b) two sharded steps, a DCP save of the sharded state
+   whose manifest notes the mesh's shape, and a restore into a fresh
+   sharded state: parameters and Adam moments bitwise equal, no reshard
+   reported; (c) ResNet-50 (batch 256) sharded on the same mesh (the
+   head's kernel over fsdp, the rest replicated) against the unsharded
+   model, 3 SGD steps each: losses within ``TOL_MESH_REL``, 53 convfuse
+   launches per sharded step;
+11. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -134,6 +152,12 @@ TOL_CF_F32 = 1e-6
 # run's losses against the uninterrupted run's, relative.
 TOL_ACCUM_REL = 1e-2
 TOL_RESUME_REL = 1e-3
+# The sharded flagship at world 1 against phase 4's unsharded run, relative
+# per loss. Every collective of a one-rank mesh is a copy, and the DTensor
+# projections run the same matmuls on the same local tensors, so the losses
+# should agree bit for bit; the limit allows a different but equally exact
+# reduction order in a library kernel, not a different computation.
+TOL_MESH_REL = 1e-5
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
@@ -620,11 +644,12 @@ def phase_main_path():
     return counts, r
 
 
-def profile(label, run_step, kind_of):
+def profile(label, run_step, kind_of, host=False):
     """Where a step's device time goes: torch.profiler over PROFILE_STEPS
     calls of ``run_step`` (after warm ones); kernel time summed by
     ``kind_of(name)``, and the device's idle share of the host-clock
-    window."""
+    window. With ``host``, also where the host's time goes: the events with
+    the most CPU time of their own."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -666,6 +691,15 @@ def profile(label, run_step, kind_of):
     log("  by the aten op that launched it:")
     for us, count, name in sorted(ops, reverse=True)[:12]:
         log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<4d} {name}")
+    if host:
+        cpu = sorted(((e.self_cpu_time_total, e.count, e.key[:80])
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CPU),
+                     reverse=True)
+        log(f"  host: {sum(c[0] for c in cpu) / n / 1e3:.3f} ms/step of "
+            "self CPU time in profiled events; the largest:")
+        for us, count, name in cpu[:15]:
+            log(f"  {us / n / 1e3:9.3f} ms/step  x{count // n:<5d} {name}")
 
 
 def phase_profile():
@@ -1249,8 +1283,155 @@ def phase_quant():
     return rows
 
 
+def phase_mesh(unsharded, card):
+    """Phase 10: the flagship on a world-1 mesh over NCCL, against phase
+    4's unsharded run, then a sharded DCP save and restore."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                         checkpoint_tree,
+                                         load_checkpoint_tree, mesh_shape,
+                                         sharded_train_step)
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mesh-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        cfg = trainer.flagship_config(seq=2048)
+        mesh = build_mesh(MeshSpec(), "cuda")
+        log(f"mesh: {json.dumps(mesh_shape(mesh))} over "
+            f"{dist.get_backend()}; {card}")
+        want = unsharded["losses"]
+        rates = {"sharded": [], "unsharded": []}
+        for kind in ("sharded", "unsharded", "sharded", "unsharded"):
+            _flash_cuda.reset_launch_counts()
+            # A sharded model lives in reference cycles (FSDP2's hooks):
+            # free the last turn's before this turn's peak is taken.
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+            r = trainer.measure(cfg, batch=4, seq=2048, steps=STEPS,
+                                warmup=2, device="cuda", seed=0,
+                                mesh="fsdp=1" if kind == "sharded" else "")
+            counts = dict(_flash_cuda.launch_counts)
+            rates[kind].append(r["tokens_per_sec"])
+            log(f"mesh (a) {kind}: {r['tokens_per_sec']:.1f} tokens/s, "
+                f"{r['step_ms']:.3f} ms/step, peak memory "
+                f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+                f"{json.dumps(counts)}")
+            if kind == "unsharded":
+                continue
+            got = r["losses"]
+            rel = max_rel(got, want)
+            diff = max(abs(a - b) for a, b in zip(got, want))
+            log(f"mesh (a) sharded losses {got}; against phase 4: largest "
+                f"difference {diff:.3e} (relative {rel:.3e}), bit for bit "
+                f"{got == want}")
+            check(rel <= TOL_MESH_REL,
+                  f"sharded losses differ from phase 4's by {rel}")
+            check_flash_counts("mesh", counts, cfg.n_layers * STEPS)
+        ratio = statistics.median(rates["sharded"]) / statistics.median(
+            rates["unsharded"])
+        log(f"mesh (a): sharded / unsharded tokens/s {ratio:.4f} (medians "
+            f"of {len(rates['sharded'])} alternating turns each)")
+
+        gc.collect()
+        state = trainer.build_state(cfg, "cuda", seed=0, mesh=mesh)
+        batch = synthetic_lm_batch(0, 4, 2048, cfg.vocab_size,
+                                   device="cuda", mesh=mesh)
+        for _ in range(2):
+            sharded_train_step(state.loss_fn, mesh, state, batch)
+        # Where a sharded step's time goes, on the card and on the host.
+        profile("flagship on the world-1 mesh", lambda: sharded_train_step(
+            state.loss_fn, mesh, state, batch), flagship_kind, host=True)
+        ckpt = os.path.join(tmp, "ckpt")
+        mgr = CheckpointManager(ckpt)
+        try:
+            t1 = time.perf_counter()
+            mgr.save(state.step - 1, checkpoint_tree(state), force=True,
+                     mesh=mesh)
+            save_s = time.perf_counter() - t1
+            fresh = trainer.build_state(cfg, "cuda", seed=1, mesh=mesh)
+            t1 = time.perf_counter()
+            load_checkpoint_tree(fresh, mgr.restore(
+                None, checkpoint_tree(fresh), mesh=mesh))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            noted = mgr.saved_mesh_shape(mgr.latest_step())
+            nbytes = mgr.step_bytes(mgr.latest_step())
+            resharded = mgr.last_restore_resharded
+        finally:
+            mgr.close()
+        same = all(torch.equal(_local(a), _local(b)) for a, b in
+                   zip(state.model.parameters(), fresh.model.parameters()))
+        sa = state.optimizer.state_dict()["state"]
+        sb = fresh.optimizer.state_dict()["state"]
+        same_m = all(torch.equal(_local(v), _local(sb[k][n])) for k in sa
+                     for n, v in sa[k].items())
+        log(f"mesh (b): sharded save of step {state.step - 1} ({nbytes} "
+            f"bytes) {save_s:.3f} s, restore {restore_s:.3f} s; manifest "
+            f"mesh {json.dumps(noted)}; parameters bitwise equal {same}, "
+            f"Adam moments bitwise equal {same_m}, resharded {resharded}")
+        check(noted == mesh_shape(mesh), f"manifest notes mesh {noted}")
+        check(same and same_m, "the restored sharded state differs")
+        check(resharded is None, f"restore reported a reshard: {resharded}")
+        check(fresh.step == state.step, f"restored step {fresh.step}")
+        del state, fresh
+        mesh_resnet(mesh)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"mesh: {time.perf_counter() - t0:.1f} s for parts (a)-(b)")
+
+
+def mesh_resnet(mesh):
+    """Phase 10 (c): ResNet-50 on the world-1 mesh against unsharded."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _convfuse_cuda
+    from tony_tpu_torch.parallel import sharded_train_step, train_step
+
+    gc.collect()
+    losses = {}
+    for kind in ("unsharded", "sharded"):
+        state = trainer.build_vision_state(
+            "resnet50", "cuda", seed=0,
+            mesh=mesh if kind == "sharded" else None)
+        _convfuse_cuda.reset_launch_counts()
+        got = []
+        for s in range(3):
+            batch = trainer.vision_batch("resnet50", s, RESNET_BATCH,
+                                         device="cuda")
+            if kind == "sharded":
+                m = sharded_train_step(state.loss_fn, mesh, state, batch)[1]
+            else:
+                m = train_step(state, batch)
+            got.append(float(m["loss"]))
+        losses[kind] = got
+        launched = _convfuse_cuda.launch_counts["convfuse_apply"]
+        del state
+        gc.collect()
+    rel = max_rel(losses["sharded"], losses["unsharded"])
+    log(f"mesh (c) resnet50 batch {RESNET_BATCH}: sharded losses "
+        f"{losses['sharded']} vs unsharded {losses['unsharded']}, max rel "
+        f"{rel:.3e}, bit for bit {losses['sharded'] == losses['unsharded']};"
+        f" convfuse launches {launched} in 3 sharded steps")
+    check(rel <= TOL_MESH_REL, f"sharded ResNet-50 differs by {rel}")
+    check(launched == 3 * RESNET_LAUNCHES_PER_STEP,
+          f"convfuse_apply launched {launched} times in 3 sharded steps")
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 def main():
-    phase_device()
+    card = phase_device()
     phase_build()
     timing = phase_kernels()
     timing["convfuse_apply"] = phase_convfuse()
@@ -1268,6 +1449,7 @@ def main():
                                             "library_ms", "tflops")}
             for shape, r in long_timing.items()}
     phase_quant()
+    phase_mesh(main_run, card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

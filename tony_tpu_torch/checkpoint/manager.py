@@ -28,14 +28,27 @@ next ``optimizer.step()`` runs would be a silently corrupt checkpoint: the
 copies go to pinned memory (``non_blocking``) and the current stream is
 synchronised before the snapshot is handed on.
 
-DCP runs in its single-process mode (``no_dist``): no collective, so the
-writer thread never interleaves with the training thread's collectives.
-The state is replicated across data-parallel ranks, so a job in a group
-saves from one rank (``trainer.train`` saves from rank 0) and restores on
-every rank from a shared directory. The ``torch.distributed`` world size
-at save time is noted in the manifest; a restore under another world size
-is logged and recorded in ``last_restore_resharded``. Sharded state (FSDP)
-comes with meshes.
+A replicated tree (plain tensors) goes through DCP's single-process mode
+(``no_dist``): no collective, so the writer thread never interleaves with
+the training thread's collectives. Such a state is the same on every
+data-parallel rank, so a job in a group saves from one rank
+(``trainer.train`` saves from rank 0) and restores on every rank from a
+shared directory.
+
+A sharded tree (DTensors: the state of ``parallel.init_sharded_state``) is
+written by every rank, each its own shards, through DCP's collective mode
+on the default process group, synchronously on the calling thread: every
+rank must take part in DCP's planning, and per-rank writer threads could
+coalesce different steps. Rank 0 renames the step into place and writes the
+manifest between two barriers. Restoring loads each rank's shards of the
+target tree from whatever layout saved them, so a restore onto another mesh
+shape re-lays the shards.
+
+The ``torch.distributed`` world size at save time is noted in the manifest,
+and with ``save(..., mesh=)`` the mesh's ``{axis: size}`` too. A restore
+given the current ``mesh`` compares mesh shapes, one without it world
+sizes; a difference is logged as a reshard and recorded in
+``last_restore_resharded``.
 """
 
 from __future__ import annotations
@@ -48,9 +61,10 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from tony_tpu_torch import faults, telemetry
 from tony_tpu_torch.utils.durable import atomic_write, fsync_dir
@@ -74,6 +88,26 @@ def _world_size() -> int:
     dist = torch.distributed
     return dist.get_world_size() if (dist.is_available()
                                      and dist.is_initialized()) else 1
+
+
+def _mesh_shape(mesh: Any) -> Optional[Dict[str, int]]:
+    """``{axis: size}`` of a ``DeviceMesh`` (or of such a mapping)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _sharded(tree: Any) -> bool:
+    """Does the checkpoint tree hold DTensors (a sharded state)?"""
+    if isinstance(tree, DTensor):
+        return True
+    if isinstance(tree, dict):
+        return any(_sharded(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_sharded(v) for v in tree)
+    return False
 
 
 def _host_snapshot(tree: Any) -> Any:
@@ -110,15 +144,16 @@ class CheckpointManager:
         os.makedirs(self._directory, exist_ok=True)
         self._busy = False               # main thread inside save()/wait()
         self._preempt: Optional[dict] = None
-        # (saved_world, current_world) of the last restore that crossed
-        # world sizes; None when they matched (or were unknown).
+        # (saved, current) mesh shapes (or world sizes, for a restore given
+        # no mesh) of the last restore that crossed them; None when they
+        # matched (or were unknown).
         self.last_restore_resharded: Optional[tuple] = None
         self._overlap = bool(async_save)
         self._max_to_keep = max(1, int(max_to_keep))
         self._save_interval = max(1, int(save_interval_steps))
         self._wcond = threading.Condition()
-        # newest wins: (step, snapshot, world size)
-        self._wqueue: Optional[Tuple[int, Any, int]] = None
+        # newest wins: (step, snapshot, manifest note)
+        self._wqueue: Optional[Tuple[int, Any, Dict[str, Any]]] = None
         self._winflight: Optional[int] = None
         self._wstop = False
         self._wthread: Optional[threading.Thread] = None
@@ -134,7 +169,8 @@ class CheckpointManager:
         #: step → seconds its write took (serialise, fsync, manifest)
         self.write_s: Dict[int, float] = {}
 
-    def save(self, step: int, state: Any, force: bool = False) -> bool:
+    def save(self, step: int, state: Any, force: bool = False,
+             mesh: Any = None) -> bool:
         """Save the checkpoint tree ``state`` as ``step``; returns False
         when skipped by the save_interval_steps policy. In overlapped mode
         the training thread pays ONLY the device→host snapshot — the
@@ -142,12 +178,18 @@ class CheckpointManager:
         a save never stalls a step; ``wait()`` is the durability barrier.
         Synchronous mode writes before returning. Every committed step gets
         an integrity manifest, written strictly AFTER its bytes are durable
-        (manifest-last = the commit point)."""
+        (manifest-last = the commit point). A sharded tree is written
+        synchronously by every rank (module docstring), which must all call
+        ``save``. ``mesh`` (the ``DeviceMesh``) is noted in the manifest,
+        so that a restore onto another mesh shape is detected."""
         faults.check("checkpoint.save")
         step = int(step)
         if not force and not self.should_save(step):
             return False
-        world = _world_size()
+        note: Dict[str, Any] = {"world": _world_size()}
+        if mesh is not None:
+            note["mesh"] = _mesh_shape(mesh)
+        sharded = _sharded(state)
         # The card's queued work that produces the state is the step's,
         # not the save's: wait for it before the stall is timed.
         telemetry.block_until_ready(state)
@@ -157,15 +199,18 @@ class CheckpointManager:
             # the write) is the stall the training thread pays.
             with telemetry.phase("ckpt_stall"):
                 t0 = time.perf_counter()
-                snap = _host_snapshot(state)
-                if not self._overlap:
-                    self._write(step, snap, world)
+                if sharded:
+                    self._write(step, state, note, sharded=True)
+                else:
+                    snap = _host_snapshot(state)
+                    if not self._overlap:
+                        self._write(step, snap, note)
                 self.stall_s[step] = time.perf_counter() - t0
         finally:
             self._busy = False
             self._run_deferred_preemption()
-        if self._overlap:
-            self._enqueue(step, snap, world)
+        if self._overlap and not sharded:
+            self._enqueue(step, snap, note)
         return True
 
     # -- policy and the overlapped background writer ---------------------
@@ -185,7 +230,7 @@ class CheckpointManager:
         return (step - latest) >= self._save_interval \
             or step % self._save_interval == 0
 
-    def _enqueue(self, step: int, snap: Any, world: int) -> None:
+    def _enqueue(self, step: int, snap: Any, note: Dict[str, Any]) -> None:
         with self._wcond:
             if self._wthread is None:
                 self._wthread = threading.Thread(
@@ -198,7 +243,7 @@ class CheckpointManager:
                 self.coalesced_saves += 1
                 log.info("coalescing queued checkpoint step %d under "
                          "newer step %d", self._wqueue[0], step)
-            self._wqueue = (step, snap, world)
+            self._wqueue = (step, snap, note)
             self._last_queued = step
             self._wcond.notify_all()
 
@@ -219,13 +264,14 @@ class CheckpointManager:
                     self._winflight = None
                     self._wcond.notify_all()
 
-    def _write_one(self, step: int, snap: Any, world: int) -> None:
+    def _write_one(self, step: int, snap: Any,
+                   note: Dict[str, Any]) -> None:
         """One background save. Any failure leaves the step uncommitted
         (no manifest) — restore falls back to the previous committed
         step; an async write failure must never crash training."""
         try:
             faults.check("ckpt.async-write")
-            self._write(step, snap, world)
+            self._write(step, snap, note)
         except Exception as e:  # noqa: BLE001 — degrade, never crash
             log.warning(
                 "async checkpoint write of step %d FAILED (%s); step NOT "
@@ -233,26 +279,37 @@ class CheckpointManager:
                 "manifest", step, e)
             self.async_errors.append(f"step {step}: {e}")
 
-    def _write(self, step: int, snap: Any, world: int) -> None:
+    def _write(self, step: int, snap: Any, note: Dict[str, Any],
+               sharded: bool = False) -> None:
         """DCP-save ``snap`` under a partial name, rename it into place,
-        write the manifest, then drop steps beyond ``max_to_keep``."""
+        write the manifest, then drop steps beyond ``max_to_keep``. A
+        sharded tree: every rank writes its shards, rank 0 does the rest,
+        between barriers."""
         import torch.distributed.checkpoint as dcp
 
+        dist = torch.distributed
+        lead = not sharded or dist.get_rank() == 0
         final = self._step_dir(step)
         if os.path.exists(final):
             raise FileExistsError(f"checkpoint step {step} already exists "
                                   f"({final})")
         partial = final + PARTIAL_SUFFIX
-        shutil.rmtree(partial, ignore_errors=True)
+        if lead:
+            shutil.rmtree(partial, ignore_errors=True)
+        if sharded:
+            dist.barrier()
         t0 = time.perf_counter()
         dcp.save(snap, storage_writer=dcp.FileSystemWriter(partial),
-                 no_dist=True)
-        os.rename(partial, final)
-        fsync_dir(self._directory)
-        self._write_manifest(step, world)
-        self.write_s[step] = time.perf_counter() - t0
-        for old in self.all_steps()[:-self._max_to_keep]:
-            self.delete(old)
+                 no_dist=not sharded)
+        if lead:
+            os.rename(partial, final)
+            fsync_dir(self._directory)
+            self._write_manifest(step, note)
+            self.write_s[step] = time.perf_counter() - t0
+            for old in self.all_steps()[:-self._max_to_keep]:
+                self.delete(old)
+        if sharded:
+            dist.barrier()
 
     def _drain_writer(self) -> None:
         """Block until the writer queue is empty and no write is in
@@ -299,14 +356,14 @@ class CheckpointManager:
                 out.append(rel.replace(os.sep, "/"))
         return sorted(out)
 
-    def _write_manifest(self, step: int, world: int) -> None:
+    def _write_manifest(self, step: int, note: Dict[str, Any]) -> None:
         root = self._step_dir(step)
         files: Dict[str, Dict[str, Any]] = {}
         for rel in self._step_files(step):
             p = os.path.join(root, rel.replace("/", os.sep))
             files[rel] = {"sha256": _hash_file(p),
                           "size": os.path.getsize(p)}
-        doc = {"step": int(step), "files": files, "world": int(world)}
+        doc = {"step": int(step), "files": files, **note}
         # The manifest is the verified-restore contract: it must never be
         # adoptable half-written, and it must survive the host crash that
         # the restore is for — full atomic_write discipline.
@@ -359,28 +416,43 @@ class CheckpointManager:
         except (OSError, ValueError, KeyError, TypeError):
             return None
 
-    def _note_reshard(self, step: int) -> None:
+    def saved_mesh_shape(self, step: int) -> Optional[Dict[str, int]]:
+        """The ``{axis: size}`` mesh shape noted in a step's manifest at
+        save time (None: no manifest, or saved without a mesh)."""
+        try:
+            with open(self.manifest_path(step), encoding="utf-8") as f:
+                return _mesh_shape(json.load(f).get("mesh"))
+        except (OSError, ValueError, AttributeError, TypeError):
+            return None
+
+    def _note_reshard(self, step: int, mesh: Any) -> None:
+        """Record whether this restore crosses mesh shapes (given ``mesh``,
+        the current one) or world sizes (without): the elastic re-mesh
+        path, logged as a reshard."""
         self.last_restore_resharded = None
-        saved, current = self.saved_world_size(step), _world_size()
+        if mesh is not None:
+            saved, current = self.saved_mesh_shape(step), _mesh_shape(mesh)
+        else:
+            saved, current = self.saved_world_size(step), _world_size()
         if saved is not None and saved != current:
             self.last_restore_resharded = (saved, current)
-            log.warning("checkpoint step %d: saved at world size %d, "
-                        "restoring at %d", step, saved, current)
+            log.warning("checkpoint step %d: resharding on restore — saved "
+                        "at %s, restoring onto %s", step, saved, current)
 
-    def _load(self, step: int, like: Any) -> Any:
+    def _load(self, step: int, like: Any, mesh: Any = None) -> Any:
         import torch.distributed.checkpoint as dcp
 
         root = self._step_dir(step)
         if not os.path.isdir(root):
             raise FileNotFoundError(f"no checkpoint step {step} in "
                                     f"{self._directory}")
-        self._note_reshard(step)
+        self._note_reshard(step, mesh)
         dcp.load(like, storage_reader=dcp.FileSystemReader(root),
-                 no_dist=True)
+                 no_dist=not _sharded(like))
         return like
 
     def restore(self, step: Optional[int], like: Any,
-                verify: bool = True) -> Any:
+                verify: bool = True, mesh: Any = None) -> Any:
         """Restore ``step`` (or the newest GOOD step when None) into
         ``like``, a checkpoint tree of the same structure (for the training
         state: ``parallel.checkpoint_tree`` of a freshly built state). DCP
@@ -394,7 +466,10 @@ class CheckpointManager:
         all (the process died before the manifest was written) is attempted
         and skipped only if DCP itself rejects it. An explicit ``step`` is
         restored as requested — failing loudly if its manifest does not
-        verify."""
+        verify. A sharded ``like`` is loaded by every rank, each its own
+        shards, from whatever layout saved them. ``mesh`` (the current
+        ``DeviceMesh``) is compared with the mesh shape the step noted
+        (``last_restore_resharded``)."""
         if step is not None:
             step = int(step)
             self._drain_writer()   # an in-flight write of THIS step
@@ -403,7 +478,7 @@ class CheckpointManager:
                 raise IOError(
                     f"checkpoint step {step} failed integrity "
                     f"verification ({self.manifest_path(step)})")
-            return self._load(step, like)
+            return self._load(step, like, mesh)
         self.wait()
         candidates = list(reversed(self.all_steps()))
         if not candidates:
@@ -427,7 +502,7 @@ class CheckpointManager:
                                 cand, e)
                 continue
             try:
-                out = self._load(cand, like)
+                out = self._load(cand, like, mesh)
                 if cand != candidates[0]:
                     log.warning("restored verified step %d (newest was %d)",
                                 cand, candidates[0])

@@ -1,6 +1,7 @@
 """Configuration keys the port's training loop reads.
 
-The part of ``tony_tpu/conf/keys.py`` that ``parallel/grad_sync.py`` and
+The part of ``tony_tpu/conf/keys.py`` that ``parallel/grad_sync.py``,
+``parallel/mesh.py`` (the mesh shape's string form) and
 ``faults.install_from_conf`` read, with the same names, key strings,
 defaults and types; the rest of the registry comes with the control plane.
 A conf object is anything with ``get(name, default)`` and
@@ -29,6 +30,14 @@ def _key(name: str, default: Any, typ: type, doc: str, multi_value: bool = False
     _REGISTRY[name] = ConfigKey(name, default, typ, doc, multi_value)
     return name
 
+
+# --- mesh (parallel/mesh.py) ------------------------------------------------
+TPU_MESH_SHAPE = _key(
+    "tony.tpu.mesh-shape", "", str,
+    "Logical mesh axes as 'name=size,name=size' over the canonical axes "
+    "dp/fsdp/pp/ep/sp/tp (tony_tpu_torch.parallel.MeshSpec.from_string), "
+    "e.g. 'fsdp=4,tp=2'. One size may be -1 (inferred). Empty = pure-dp "
+    "mesh over all devices.")
 
 # --- training hot loop (parallel/grad_sync.py) -----------------------------
 TRAIN_ACCUM_STEPS = _key(

@@ -9,9 +9,11 @@ a restart at ``start_step`` resumes the identical stream.
 - ``ShardedBatchIterator`` wraps a per-process loader
   ``load_local(step, rows) -> {name: numpy array}`` and yields this
   process's rows as tensors on ``device``, with a prefetch thread that
-  reads ahead while the step computes. Where the reference lays batches
-  out over a mesh, the port takes ``rank``/``world`` (from
-  ``torch.distributed`` when it is up); meshes come with a later slice.
+  reads ahead while the step computes. With ``mesh`` (a ``DeviceMesh`` of
+  ``parallel/mesh.py``) a rank's rows are those of its batch coordinate, as
+  the reference's ``batch_sharding`` lays them out: ranks that differ only
+  in pp/ep/sp/tp read the same rows. Without one, ``rank``/``world`` (from
+  ``torch.distributed`` when it is up) pick them.
 - ``synthetic_lm_batches`` and ``synthetic_lm_load_local``: random tokens.
 - ``TokenFileDataset`` / ``token_file_batches``: random ``seq``-token
   windows of a memory-mapped ``.bin`` corpus; ``pack_documents`` and
@@ -33,15 +35,23 @@ import torch
 
 from tony_tpu_torch import telemetry
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.parallel.mesh import batch_rank, batch_world
 
 
 def process_batch_slice(global_batch: int, rank: Optional[int] = None,
-                        world: Optional[int] = None) -> slice:
+                        world: Optional[int] = None,
+                        mesh: Any = None) -> slice:
     """This process's contiguous row range of the global batch.
 
-    ``rank``/``world`` default to the initialized ``torch.distributed``
-    group, else to a single process. Every row of every step is consumed by
-    exactly one process at whatever world size ran that step."""
+    With ``mesh``, the block of its batch coordinate (``batch_rank`` of
+    ``batch_world``). Else ``rank``/``world``, which default to the
+    initialized ``torch.distributed`` group, else to a single process.
+    Every row of every step is consumed by exactly one batch coordinate at
+    whatever layout ran that step."""
+    if mesh is not None:
+        if rank is not None or world is not None:
+            raise ValueError("give a mesh or rank/world, not both")
+        rank, world = batch_rank(mesh), batch_world(mesh)
     dist = torch.distributed
     up = dist.is_available() and dist.is_initialized()
     n = int(world) if world is not None else (dist.get_world_size()
@@ -94,13 +104,14 @@ class ShardedBatchIterator:
     device: Union[str, torch.device] = "cuda"
     rank: Optional[int] = None
     world: Optional[int] = None
+    mesh: Any = None
 
     def __post_init__(self):
         self._dev = resolve_device(self.device)
         self._step = self.start_step        # next step the WORKER loads
         self._consumed = self.start_step    # next step the CONSUMER gets
         self._rows = process_batch_slice(self.global_batch, self.rank,
-                                         self.world)
+                                         self.world, self.mesh)
         self._q: Optional[queue.Queue] = None
         self._worker: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
@@ -222,7 +233,7 @@ def synthetic_lm_batches(global_batch: int, seq: int, vocab_size: int,
                          seed: int = 0, start_step: int = 0,
                          device: Union[str, torch.device] = "cuda",
                          prefetch: int = 2, rank: Optional[int] = None,
-                         world: Optional[int] = None
+                         world: Optional[int] = None, mesh: Any = None
                          ) -> ShardedBatchIterator:
     """Deterministic synthetic token batches: row ``r`` of step ``s`` is a
     pure function of (seed, s, r), so any process layout — and any restart
@@ -231,19 +242,19 @@ def synthetic_lm_batches(global_batch: int, seq: int, vocab_size: int,
         global_batch=global_batch,
         load_local=synthetic_lm_load_local(seq, vocab_size, seed),
         start_step=start_step, prefetch=prefetch, device=device, rank=rank,
-        world=world)
+        world=world, mesh=mesh)
 
 
 def synthetic_lm_batch(step: int, global_batch: int, seq: int,
                        vocab_size: int, seed: int = 0,
                        rank: Optional[int] = None,
                        world: Optional[int] = None,
-                       device: Union[str, torch.device] = "cuda"
-                       ) -> Dict[str, torch.Tensor]:
+                       device: Union[str, torch.device] = "cuda",
+                       mesh: Any = None) -> Dict[str, torch.Tensor]:
     """This process's rows of step ``step`` as int64 tensors on
     ``device``."""
     dev = resolve_device(device)
-    rows = process_batch_slice(global_batch, rank, world)
+    rows = process_batch_slice(global_batch, rank, world, mesh)
     local = synthetic_lm_load_local(seq, vocab_size, seed)(step, rows)
     return {k: torch.from_numpy(v).to(dev, torch.int64)
             for k, v in local.items()}
@@ -293,13 +304,15 @@ def token_file_batches(path: str, global_batch: int, seq: int,
                        dtype=np.uint16, seed: int = 0, start_step: int = 0,
                        device: Union[str, torch.device] = "cuda",
                        prefetch: int = 2, rank: Optional[int] = None,
-                       world: Optional[int] = None) -> ShardedBatchIterator:
+                       world: Optional[int] = None,
+                       mesh: Any = None) -> ShardedBatchIterator:
     """This process's LM batches from a memory-mapped token file."""
     ds = TokenFileDataset(path, seq, dtype=dtype, seed=seed)
     return ShardedBatchIterator(global_batch=global_batch,
                                 load_local=ds.load_local,
                                 start_step=start_step, prefetch=prefetch,
-                                device=device, rank=rank, world=world)
+                                device=device, rank=rank, world=world,
+                                mesh=mesh)
 
 
 def pack_documents(docs, seq: int, eos_id: int, pad_id: int = 0):

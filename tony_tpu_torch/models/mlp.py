@@ -33,8 +33,10 @@ def variance_scaling_(w: torch.Tensor, fan_in: int, scale: float,
 
 
 class DenseBias(nn.Module):
-    """flax ``Dense`` with bias in f32: weight ``[out, in]`` lecun-normal,
-    bias zeros; input and weight multiply in f32."""
+    """flax ``Dense`` with bias in f32: weight ``[out, in]`` lecun-normal
+    (drawn from ``generator`` when one is given, else left uninitialized:
+    a ``ResNet`` draws its head itself), bias zeros; input and weight
+    multiply in f32."""
 
     def __init__(self, in_features: int, out_features: int,
                  param_dtype: torch.dtype, device: torch.device,
@@ -42,7 +44,8 @@ class DenseBias(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(
             (out_features, in_features), dtype=param_dtype, device=device))
-        variance_scaling_(self.weight, in_features, 1.0, generator)
+        if generator is not None:
+            variance_scaling_(self.weight, in_features, 1.0, generator)
         self.bias = nn.Parameter(torch.zeros(out_features, dtype=param_dtype,
                                              device=device))
 

@@ -23,12 +23,16 @@ same places:
   mean sums in f32, divides, and rounds to ``cfg.dtype`` once, as
   ``jnp.mean`` does; the head is an f32 ``Dense`` with bias.
 
-Module names map one to one onto the flax tree (``convert.py``).
+Module names map one to one onto the flax tree (``convert.py``). The
+parameters are drawn in ``named_parameters()`` order
+(``ResNet.init_parameter_``, which a sharded init replays one tensor at a
+time); ``device="meta"`` builds the skeleton without drawing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -86,14 +90,12 @@ class _Conv(nn.Module):
     ``[out, in, k, k]`` f32 in channels_last memory."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, s: int,
-                 cfg: ResNetConfig, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 cfg: ResNetConfig, device: torch.device):
         super().__init__()
         self.k, self.s, self.dtype = k, s, cfg.dtype
-        w = torch.empty((out_ch, in_ch, k, k), dtype=cfg.param_dtype,
-                        device=device)
-        variance_scaling_(w, k * k * in_ch, 2.0, generator)   # he_normal
-        self.weight = nn.Parameter(w.contiguous(memory_format=_CL))
+        self.weight = nn.Parameter(torch.empty(
+            (out_ch, in_ch, k, k), dtype=cfg.param_dtype,
+            device=device).contiguous(memory_format=_CL))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = _pad_same(x.to(self.dtype), self.k, self.s)
@@ -131,8 +133,7 @@ class _Bottleneck(nn.Module):
     projection with its norm on the residual when the shapes differ."""
 
     def __init__(self, in_ch: int, features: int, stride: int,
-                 cfg: ResNetConfig, device: torch.device,
-                 generator: Optional[torch.Generator]):
+                 cfg: ResNetConfig, device: torch.device):
         super().__init__()
         out = features * 4
         specs = [(in_ch, features, 1, 1), (features, features, 3, stride),
@@ -141,7 +142,7 @@ class _Bottleneck(nn.Module):
         # block also changes the channel count, so this is the same test.
         if in_ch != out or stride != 1:
             specs.append((in_ch, out, 1, stride))           # projection
-        self.convs = nn.ModuleList(_Conv(i, o, k, s, cfg, device, generator)
+        self.convs = nn.ModuleList(_Conv(i, o, k, s, cfg, device)
                                    for i, o, k, s in specs)
         self.norms = nn.ModuleList(_Norm(o, cfg, device, relu=j < 2)
                                    for j, (_, o, _, _) in enumerate(specs))
@@ -160,30 +161,52 @@ class ResNet(nn.Module):
     """Images [B, H, W, 3] → logits [B, num_classes] f32.
 
     Parameters are made on ``device`` (default ``"cuda"``; raises without a
-    CUDA device unless ``"cpu"`` is asked for) from ``generator``, a
-    generator on that device (default: one seeded with 0)."""
+    CUDA device unless ``"cpu"`` is asked for; ``"meta"`` allocates and
+    draws nothing) from ``generator``, a generator on that device (default:
+    one seeded with 0)."""
 
     def __init__(self, cfg: ResNetConfig,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+        meta = torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
-        self.stem_conv = _Conv(3, cfg.width, 7, 2, cfg, dev, generator)
+        self.stem_conv = _Conv(3, cfg.width, 7, 2, cfg, dev)
         self.stem_norm = _Norm(cfg.width, cfg, dev)
         blocks, in_ch = [], cfg.width
         for stage, n_blocks in enumerate(cfg.stage_sizes):
             for block in range(n_blocks):
                 stride = 2 if stage > 0 and block == 0 else 1
                 features = cfg.width * 2 ** stage
-                blocks.append(_Bottleneck(in_ch, features, stride, cfg, dev,
-                                          generator))
+                blocks.append(_Bottleneck(in_ch, features, stride, cfg, dev))
                 in_ch = features * 4
         self.blocks = nn.ModuleList(blocks)
-        self.head = DenseBias(in_ch, cfg.num_classes, cfg.param_dtype, dev,
-                              generator)
+        self.head = DenseBias(in_ch, cfg.num_classes, cfg.param_dtype, dev)
+        if not meta:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    # Drawn contiguous: a conv weight is kept channels_last.
+                    whole = torch.empty(p.shape, dtype=p.dtype, device=dev)
+                    self.init_parameter_(name, whole, generator)
+                    p.copy_(whole)
+
+    def init_parameter_(self, name: str, t: torch.Tensor,
+                        generator: torch.Generator) -> None:
+        """Fill ``t``, the whole (contiguous) parameter ``name``, as the
+        constructor does: he_normal (fan in kh·kw·in) for a conv weight,
+        lecun_normal for the head's, ones for a norm scale, zeros for a
+        bias."""
+        if name.endswith(".scale"):
+            nn.init.ones_(t)
+        elif name.endswith(".bias"):
+            nn.init.zeros_(t)
+        elif t.dim() == 4:
+            variance_scaling_(t, math.prod(t.shape[1:]), 2.0, generator)
+        else:
+            variance_scaling_(t, t.shape[1], 1.0, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -11,6 +11,8 @@ the same places:
 - RoPE rotates the two halves of each head, in f32;
 - the embedding table is f32, gathered and then cast to ``cfg.dtype``;
 - logits come back f32;
+- the embedding lookup is ``F.embedding`` in the ``lookup`` submodule (no
+  parameters of its own), where a tensor-parallel plan can reach it;
 - attention is the flash kernel (``"flash"``) or the plain oracle
   (``"xla"``, K/V repeated to the full head count);
 - ``matmul_dtype`` ("int8" | "fp8_e4m3") sends the seven attention and MLP
@@ -21,7 +23,13 @@ Module names follow the flax tree (``embedding``, ``layers.{i}.attn.wq``,
 ``layers.{i}.mlp.gate``, ``*_norm.scale``, ``lm_head``) so weights convert
 one to one. Init follows flax: truncated-normal lecun (fan in) for the
 projections, normal(0.02) for the embedding, ones for the norms, drawn from
-an explicit ``torch.Generator``.
+an explicit ``torch.Generator`` in parameter order
+(``Transformer.init_parameter_``, which a sharded init replays one tensor at
+a time). ``device="meta"`` builds the skeleton without drawing.
+
+Under a tensor-parallel plan (``parallel/sharding.py:tp_plan``) each rank
+holds ``n_heads / tp`` heads: attention takes its head counts from the
+projections' local widths, never from the config.
 """
 
 from __future__ import annotations
@@ -97,26 +105,42 @@ def _check_supported(cfg: TransformerConfig) -> None:
     quant.check_mode(cfg.matmul_dtype)
 
 
-class Dense(nn.Module):
+def init_dense_(w: torch.Tensor,
+                generator: Optional[torch.Generator]) -> None:
+    """flax's lecun_normal on a ``[out, in]`` weight: a normal truncated at
+    ±2 std, std = 1/sqrt(fan in) over the truncation's own std."""
+    std = 1.0 / math.sqrt(w.shape[1]) / _TRUNC_STD
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                          generator=generator)
+
+
+class Dense(nn.Linear):
     """Bias-free projection with a flax ``Dense``'s numerics: weight
     ``[out, in]`` in ``param_dtype``; input and weight cast to ``dtype``
-    and multiplied there. With ``matmul_dtype`` set (and resolved on the
+    and multiplied there; drawn from ``generator`` when one is given,
+    else left uninitialized (a ``Transformer`` draws all its parameters
+    itself, in order). With ``matmul_dtype`` set (and resolved on the
     input's device) the product is ``quant.quantized_matmul`` of the cast
-    operands, as the reference's ``QDense``; off, it is ``F.linear``."""
+    operands, as the reference's ``QDense``; off, it is ``F.linear``.
+
+    An ``nn.Linear`` (``bias`` None) so that torch's ``ColwiseParallel`` and
+    ``RowwiseParallel`` take it; ``nn.Linear.__init__`` is skipped because
+    its ``reset_parameters`` would draw from the global generator."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, param_dtype: torch.dtype,
                  device: torch.device,
                  generator: Optional[torch.Generator] = None,
                  matmul_dtype: Optional[str] = None):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
         self.dtype = dtype
         self.matmul_dtype = quant.check_mode(matmul_dtype)
         self.weight = nn.Parameter(torch.empty(
             (out_features, in_features), dtype=param_dtype, device=device))
-        std = 1.0 / math.sqrt(in_features) / _TRUNC_STD
-        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
-                              generator=generator)
+        self.register_parameter("bias", None)
+        if generator is not None:
+            init_dense_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
@@ -125,6 +149,17 @@ class Dense(nn.Module):
         if mode:
             return quant.quantized_matmul(x, w, mode)
         return F.linear(x, w)
+
+
+class TableLookup(nn.Module):
+    """``F.embedding(tokens, table)``: the embedding lookup as a module of
+    its own, without parameters (the table stays the root's
+    ``embedding``), so that a tensor-parallel style can hook its inputs
+    and output (``parallel/sharding.py:VocabParallelTable``)."""
+
+    def forward(self, tokens: torch.Tensor,
+                table: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, table)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor,
@@ -155,16 +190,15 @@ class RMSNorm(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
         hd = cfg.dim // cfg.n_heads
         self.head_dim = hd
 
         def dense(i, o):
-            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator,
-                         cfg.matmul_dtype)
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device,
+                         matmul_dtype=cfg.matmul_dtype)
         self.wq = dense(cfg.dim, cfg.n_heads * hd)
         self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
@@ -173,9 +207,10 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         cfg, hd = self.cfg, self.head_dim
         b, s, _ = x.shape
-        q = self.wq(x).view(b, s, cfg.n_heads, hd)
-        k = self.wk(x).view(b, s, cfg.n_kv_heads, hd)
-        v = self.wv(x).view(b, s, cfg.n_kv_heads, hd)
+        # Head counts from the local widths: n_heads / tp under a plan.
+        q = self.wq(x).view(b, s, -1, hd)
+        k = self.wk(x).view(b, s, -1, hd)
+        v = self.wv(x).view(b, s, -1, hd)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         if cfg.attn_impl == "flash":
@@ -183,21 +218,20 @@ class Attention(nn.Module):
                                 block_q=cfg.attn_block_q,
                                 block_k=cfg.attn_block_k)
         else:                                            # "xla"
-            g = cfg.n_heads // cfg.n_kv_heads
+            g = q.shape[2] // k.shape[2]
             o = reference_attention(q, k.repeat_interleave(g, dim=2),
                                     v.repeat_interleave(g, dim=2),
                                     causal=True)
-        return self.wo(o.reshape(b, s, cfg.n_heads * hd))
+        return self.wo(o.reshape(b, s, -1))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
 
         def dense(i, o):
-            return Dense(i, o, cfg.dtype, cfg.param_dtype, device, generator,
-                         cfg.matmul_dtype)
+            return Dense(i, o, cfg.dtype, cfg.param_dtype, device,
+                         matmul_dtype=cfg.matmul_dtype)
         self.gate = dense(cfg.dim, cfg.mlp_dim)
         self.up = dense(cfg.dim, cfg.mlp_dim)
         self.down = dense(cfg.mlp_dim, cfg.dim)
@@ -207,15 +241,14 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype,
                                  device)
-        self.attn = Attention(cfg, device, generator)
+        self.attn = Attention(cfg, device)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype,
                                 device)
-        self.mlp = MLP(cfg, device, generator)
+        self.mlp = MLP(cfg, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         h = x + self.attn(self.attn_norm(x), positions)
@@ -226,35 +259,58 @@ class Transformer(nn.Module):
     """Causal LM: tokens [B, S] int → logits [B, S, vocab] f32.
 
     Parameters are made on ``device`` (default ``"cuda"``; raises without a
-    CUDA device unless ``"cpu"`` is asked for) from ``generator``, a
-    generator on that device (default: one seeded with 0)."""
+    CUDA device unless ``"cpu"`` is asked for; ``"meta"`` allocates and
+    draws nothing) from ``generator``, a generator on that device (default:
+    one seeded with 0)."""
 
     def __init__(self, cfg: TransformerConfig,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_supported(cfg)
-        dev = resolve_device(device)
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+        meta = torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty(
             (cfg.vocab_size, cfg.dim), dtype=cfg.param_dtype, device=dev))
-        nn.init.normal_(self.embedding, std=0.02, generator=generator)
+        self.lookup = TableLookup()
         self.layers = nn.ModuleList(
-            Block(cfg, dev, generator) for _ in range(cfg.n_layers))
+            Block(cfg, dev) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, dev)
         self.lm_head = None if cfg.tie_embeddings else Dense(
             cfg.dim, cfg.vocab_size, cfg.lm_head_dtype or cfg.dtype,
-            cfg.param_dtype, dev, generator)
+            cfg.param_dtype, dev)
+        if not meta:
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            with torch.no_grad():
+                for name, p in self.named_parameters():
+                    self.init_parameter_(name, p, generator)
+
+    def init_parameter_(self, name: str, t: torch.Tensor,
+                        generator: torch.Generator) -> None:
+        """Fill ``t``, the whole of parameter ``name``, as the constructor
+        does: normal(0.02) for the embedding, ones for a norm scale,
+        lecun's truncated normal for a projection. The constructor draws in
+        ``named_parameters()`` order; replaying that order from a generator
+        in the same state gives the same values, one tensor at a time."""
+        if name == "embedding":
+            nn.init.normal_(t, std=0.02, generator=generator)
+        elif name.endswith(".scale"):
+            nn.init.ones_(t)
+        else:
+            init_dense_(t, generator)
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
-                return_hidden: bool = False) -> torch.Tensor:
+                return_hidden: bool = False,
+                loss_chunk: Optional[int] = None) -> torch.Tensor:
         """``return_hidden=True`` skips the LM head and returns the
-        final-norm hidden states [B, S, D] — pair with
-        ``chunked_causal_lm_loss`` where the [B, S, vocab] logits are the
-        memory wall."""
+        final-norm hidden states [B, S, D]. ``loss_chunk=C`` returns the
+        next-token loss instead of logits, taken by
+        ``chunked_causal_lm_loss`` over the head in chunks of C positions,
+        so the [B, S, vocab] logits never exist; the head is read inside
+        this forward, where a sharded model's parameters are whole."""
         cfg = self.cfg
         seq = tokens.shape[1]
         if seq > cfg.max_seq_len:
@@ -264,7 +320,7 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(seq, device=tokens.device).expand(
                 tokens.shape)
-        x = self.embedding[tokens].to(cfg.dtype)
+        x = self.lookup(tokens, self.embedding).to(cfg.dtype)
         for i, blk in enumerate(self.layers):
             skip = cfg.remat_skip_every >= 2 and i % cfg.remat_skip_every == 0
             if cfg.remat and not skip and torch.is_grad_enabled():
@@ -275,6 +331,12 @@ class Transformer(nn.Module):
         if return_hidden:
             return x
         head_dtype = cfg.lm_head_dtype or cfg.dtype
+        if loss_chunk is not None:
+            if cfg.tie_embeddings:
+                return chunked_causal_lm_loss(x, self.embedding.T, tokens,
+                                              loss_chunk,
+                                              head_dtype=head_dtype)
+            return _chunked_nll(x, self.lm_head, tokens, loss_chunk, None)
         if cfg.tie_embeddings:
             # The reference accumulates this product in f32.
             logits = torch.matmul(x.to(head_dtype).float(),
@@ -282,6 +344,27 @@ class Transformer(nn.Module):
         else:
             logits = self.lm_head(x.to(head_dtype))
         return logits.float()
+
+
+def check_tensor_parallel(cfg: TransformerConfig, tp: int) -> None:
+    """Raise unless ``cfg`` runs under a tensor-parallel plan over ``tp``
+    ranks: every split width a multiple of tp (each rank keeps whole
+    heads, and the GQA groups stay whole with n_kv_heads % tp == 0), an
+    untied head, bf16/f32 projections."""
+    for knob in ("n_heads", "n_kv_heads", "mlp_dim", "vocab_size"):
+        if getattr(cfg, knob) % tp:
+            raise ValueError(
+                f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
+                f"mesh's tp ({tp})")
+    if cfg.tie_embeddings:
+        raise NotImplementedError(
+            "tie_embeddings under a tensor-parallel plan: the tied head "
+            "reads the vocab-sharded table outside the plan's styles")
+    if cfg.matmul_dtype:
+        raise NotImplementedError(
+            f"matmul_dtype={cfg.matmul_dtype!r} under a tensor-parallel "
+            "plan: the quantized projections take plain tensors, not the "
+            "plan's DTensors")
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
@@ -299,11 +382,41 @@ def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,
     return nll.mean()
 
 
-def _chunk_stats(xc, tc, mc, head_kernel, hd):
-    logits = torch.matmul(xc.to(hd), head_kernel.to(hd)).float()
+def _chunk_stats(xc, tc, mc, head):
+    logits = head(xc).float()
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((lse - picked) * mc).sum(), mc.sum()
+
+
+def _chunked_nll(hidden: torch.Tensor, head, tokens: torch.Tensor,
+                 chunk_size: int, mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    """Mean next-token cross entropy of ``head(hidden)`` (a callable: a
+    [.., D] chunk → its logits), in [B, C, D] sequence chunks, each under
+    ``torch.utils.checkpoint`` (see ``chunked_causal_lm_loss``)."""
+    if hidden.shape[1] != tokens.shape[1]:
+        raise ValueError(
+            f"hidden seq {hidden.shape[1]} != tokens seq {tokens.shape[1]} "
+            "— per-shard hidden states with full-sequence tokens? Gather "
+            "hidden states before the loss")
+    x = hidden[:, :-1]
+    t = tokens[:, 1:]
+    b, s, _ = x.shape
+    if s == 0:
+        return torch.zeros((), dtype=torch.float32, device=hidden.device)
+    valid = torch.ones((b, s), dtype=torch.float32, device=hidden.device) \
+        if mask is None else mask[:, 1:].float()
+    chunk_size = min(chunk_size, s)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk_size):
+        sl = slice(c0, c0 + chunk_size)
+        dn, dc = checkpoint(_chunk_stats, x[:, sl], t[:, sl], valid[:, sl],
+                            head, use_reentrant=False)
+        tot = tot + dn
+        cnt = cnt + dc
+    return tot / cnt.clamp_min(1.0)
 
 
 def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
@@ -319,27 +432,10 @@ def chunked_causal_lm_loss(hidden: torch.Tensor, head_kernel: torch.Tensor,
     Each chunk is reduced to (Σ nll, count) under ``torch.utils.checkpoint``
     so its logits are recomputed in backward, never kept: peak residency is
     O(B·C·V). Equals ``causal_lm_loss(model(tokens), tokens)`` for the untied
-    head; the product runs in ``head_dtype`` (default the hidden dtype)."""
-    if hidden.shape[1] != tokens.shape[1]:
-        raise ValueError(
-            f"hidden seq {hidden.shape[1]} != tokens seq {tokens.shape[1]} "
-            "— per-shard hidden states with full-sequence tokens? Gather "
-            "hidden states before the loss")
-    x = hidden[:, :-1]
-    t = tokens[:, 1:]
-    b, s, _ = x.shape
-    if s == 0:
-        return torch.zeros((), dtype=torch.float32, device=hidden.device)
-    valid = torch.ones((b, s), dtype=torch.float32, device=hidden.device) \
-        if mask is None else mask[:, 1:].float()
+    head; the product runs in ``head_dtype`` (default the hidden dtype).
+    ``Transformer(..., loss_chunk=C)`` takes the same loss inside the
+    model's forward."""
     hd = head_dtype or hidden.dtype
-    chunk_size = min(chunk_size, s)
-    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, s, chunk_size):
-        sl = slice(c0, c0 + chunk_size)
-        dn, dc = checkpoint(_chunk_stats, x[:, sl], t[:, sl], valid[:, sl],
-                            head_kernel, hd, use_reentrant=False)
-        tot = tot + dn
-        cnt = cnt + dc
-    return tot / cnt.clamp_min(1.0)
+    return _chunked_nll(
+        hidden, lambda xc: torch.matmul(xc.to(hd), head_kernel.to(hd)),
+        tokens, chunk_size, mask)

@@ -27,6 +27,16 @@ slice is one process of a ``torch.distributed`` group, the DDP shape:
 own function. With no group and world 1, ``train_step_accum`` runs no
 collective and books no comms phase.
 
+On a mesh (``train_step_accum(..., mesh=)``, the step
+``parallel/train.py:sharded_train_step`` runs), as the reference's
+``_build_accum_fn`` with ``sync_axes=("dcn_dp",)``: FSDP2 reduces the
+DTensor gradients over ``(dp, fsdp)`` once per step, on the last
+microbatch (``set_requires_gradient_sync``); the replicated parameters'
+gradients (those FSDP2 leaves alone) are averaged over ``fsdp`` and ``dp``
+here; then every gradient's local shard is averaged over ``dcn_dp`` by the
+bucketed all-reduce on that axis's group. The loss and aux are averaged
+over the batch axes.
+
 Semantics note: ``loss_fn(model, batch)`` must return a MEAN over its batch
 (the ``train_step`` contract) — the mean of per-rank/per-microbatch means
 then equals the global mean because every piece is the same size
@@ -41,8 +51,10 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
     Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from tony_tpu_torch import telemetry
+from tony_tpu_torch.parallel.mesh import BATCH_AXES, batch_world, mesh_shape
 from tony_tpu_torch.parallel.train import TrainState, fill_missing_grads
 
 #: default bucket size (MiB) — matches tony.train.bucket-mb's default.
@@ -182,6 +194,11 @@ def _microbatches(batch: Mapping[str, Any], accum_steps: int
     return micro
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (the same storage), or ``t``."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
                      accum_steps: int
                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
@@ -191,10 +208,14 @@ def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
     the ``.grad`` fields, summed over microbatches and scaled by 1/A, with
     zeros for a parameter the loss did not reach (every rank returns the
     same names, so every rank plans the same buckets); no collective runs
-    here."""
+    here, except FSDP2's reduction of a sharded model's gradients, which it
+    holds back until the last microbatch."""
     accum_steps = max(1, int(accum_steps))
+    sync = getattr(state.model, "set_requires_gradient_sync", None)
     losses, auxes = [], []
-    for micro in _microbatches(batch, accum_steps):
+    for a, micro in enumerate(_microbatches(batch, accum_steps)):
+        if sync is not None:
+            sync(a == accum_steps - 1)
         loss, aux = state.loss_fn(state.model, micro)
         loss.backward()
         losses.append(loss.detach())
@@ -203,25 +224,81 @@ def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
     if accum_steps > 1:
         inv = 1.0 / accum_steps
         for g in grads.values():
-            g.mul_(torch.tensor(inv, dtype=g.dtype))
+            _local(g).mul_(torch.tensor(inv, dtype=g.dtype))
     aux = {k: torch.stack([torch.as_tensor(a[k]).detach().float()
                            for a in auxes]).mean(0) for k in auxes[0]}
     return grads, torch.stack(losses).mean(), aux
+
+
+def _sync_into(grads: Dict[str, torch.Tensor], bucket_mb: int,
+               group: Any) -> None:
+    """``bucketed_sync`` over ``group``, written back into ``grads``."""
+    for k, g in bucketed_sync(grads, bucket_mb, group).items():
+        grads[k].copy_(g)
+
+
+def _mesh_sync(grads: Mapping[str, torch.Tensor], bucket_mb: int,
+               mesh: Any) -> None:
+    """The gradient averaging FSDP2 does not do, in place: replicated
+    parameters over ``fsdp`` then ``dp``, then every local shard over
+    ``dcn_dp``."""
+    shape = mesh_shape(mesh)
+    replicated = {k: g for k, g in grads.items()
+                  if not isinstance(g, DTensor)}
+    for axis in ("fsdp", "dp"):
+        if shape[axis] > 1 and replicated:
+            _sync_into(replicated, bucket_mb, mesh.get_group(axis))
+    if shape["dcn_dp"] > 1:
+        _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
+                   mesh.get_group("dcn_dp"))
+
+
+def batch_mean(x: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The mean of ``x`` over the batch axes of ``mesh`` (each rank's
+    value counted once per batch coordinate)."""
+    x = x.detach().clone()
+    shape = mesh_shape(mesh)
+    for axis in BATCH_AXES:
+        if shape[axis] > 1:
+            torch.distributed.all_reduce(x, group=mesh.get_group(axis))
+    return x / batch_world(mesh)
 
 
 def train_step_accum(state: TrainState, batch: Mapping[str, Any],
                      accum_steps: int = 1,
                      bucket_mb: int = DEFAULT_BUCKET_MB,
                      group: Optional[Any] = None,
-                     comms_phase: bool = True) -> Dict[str, Any]:
+                     comms_phase: bool = True,
+                     mesh: Optional[Any] = None) -> Dict[str, Any]:
     """The grad-sync twin of ``train_step``, counterpart of the step
     ``jit_train_step_accum`` builds: accumulate ``accum_steps``
     microbatches of this rank's ``batch``, mean-reduce the gradients over
     ``group`` in ``bucket_mb``-MiB buckets (inside the telemetry ``comms``
     phase unless ``comms_phase`` is False), then apply the optimizer.
     Returns what ``train_step`` returns. With no group there is no
-    collective: the gradients are this process's."""
+    collective: the gradients are this process's.
+
+    With ``mesh`` (in place of ``group``) the state is a sharded one
+    (``init_sharded_state``): the sync is the mesh's (module docstring; the
+    comms phase only where a batch axis is larger than 1, since a mesh of
+    one rank runs no explicit collective) and the loss and aux are the
+    global batch's means."""
+    if mesh is not None and group is not None:
+        raise ValueError("train_step_accum takes a group or a mesh, not "
+                         "both")
     grads, loss, aux = accumulate_grads(state, batch, accum_steps)
+    if mesh is not None:
+        shape = mesh_shape(mesh)
+        if comms_phase and any(shape[a] > 1 for a in BATCH_AXES):
+            telemetry.block_until_ready(grads)
+            with telemetry.phase("comms") as p:
+                _mesh_sync(grads, bucket_mb, mesh)
+                p.block_until_ready(grads)
+        else:
+            _mesh_sync(grads, bucket_mb, mesh)
+        state.apply_gradients()
+        return {"loss": batch_mean(loss, mesh), "step": state.step,
+                **{k: batch_mean(v, mesh) for k, v in aux.items()}}
     if group is not None:
         if comms_phase:
             # The backward still running on the card is the step's

@@ -1,10 +1,13 @@
-"""Training state and the train step, on one device.
+"""Training state and the train step, on one device and on a mesh.
 
-Counterpart of ``tony_tpu/parallel/train.py``'s ``TrainState`` and the step
-that ``jit_train_step`` builds: ``loss_fn(model, batch)`` returns
-``(loss, aux)``, the step differentiates it, applies the optimizer and
-returns ``{"loss", "step", **aux}``. Meshes, FSDP and TP come with a later
-slice.
+Counterpart of ``tony_tpu/parallel/train.py``: ``TrainState``, the step
+that ``jit_train_step`` builds (``train_step``: ``loss_fn(model, batch)``
+returns ``(loss, aux)``, the step differentiates it, applies the optimizer
+and returns ``{"loss", "step", **aux}``), ``init_sharded_state`` and its
+sharded step (``sharded_train_step``). On a mesh the model is laid out by
+``parallel/sharding.py`` (a tensor-parallel plan, then FSDP2), its
+parameters are DTensors, and the optimizers below update them shard by
+shard.
 """
 
 from __future__ import annotations
@@ -15,6 +18,11 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor, distribute_tensor
+
+from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, Placement,
+                                              shard_model)
 
 LossFn = Callable[[nn.Module, Any], Tuple[torch.Tensor, Dict[str, Any]]]
 
@@ -125,7 +133,7 @@ class TrainState:
     are the state's own buffers."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
-    loss_fn: LossFn
+    loss_fn: Optional[LossFn] = None
     step: int = 0
 
     def apply_gradients(self,
@@ -169,6 +177,75 @@ def train_step(state: TrainState, batch: Any) -> Dict[str, Any]:
     loss.backward()
     state.apply_gradients()
     return {"loss": loss.detach(), "step": state.step, **aux}
+
+
+def init_sharded_state(
+    build_model: Callable[[Any], nn.Module],
+    optimizer_fn: Callable[[Any], torch.optim.Optimizer],
+    mesh: DeviceMesh,
+    rules=DEFAULT_RULES,
+    seed: int = 0,
+) -> Tuple[TrainState, Dict[str, Placement]]:
+    """The training state laid out on ``mesh`` from the start: no rank ever
+    holds the whole model. Counterpart of the reference's
+    ``init_sharded_state`` (its ``out_shardings`` init).
+
+    ``build_model(device)`` is built on ``"meta"``, laid out by
+    ``sharding.shard_model`` (the tensor-parallel plan, FSDP2 on each block
+    and the root), given storage for its shards on the mesh's device (the
+    current CUDA device, or the CPU for a gloo mesh), and each shard filled
+    with the values the one-rank model ``build_model(device)`` made from a
+    generator seeded with ``seed`` has: the parameters are replayed in
+    order through ``model.init_parameter_``, one whole tensor at a time,
+    and each rank keeps its own slice of it. ``optimizer_fn(param_groups)``
+    makes the optimizer: one group of the DTensor parameters, one of the
+    replicated ones. Returns the state (no ``loss_fn``:
+    ``sharded_train_step`` takes it) and ``param_placements``."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+    model = build_model("meta")
+    placements = shard_model(model, mesh, rules)
+    model.to_empty(device=dev)
+    gen = torch.Generator(dev).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            whole = torch.empty(p.shape, dtype=p.dtype, device=dev)
+            model.init_parameter_(name, whole, gen)
+            if isinstance(p, DTensor):
+                whole = distribute_tensor(whole, p.device_mesh, p.placements,
+                                          src_data_rank=None).to_local()
+                p = p.to_local()
+            p.copy_(whole)
+    # DTensors and the replicated plain tensors in separate groups: torch's
+    # foreach optimizers (the default on the card) take one kind per call.
+    groups = [{"params": [p for p in model.parameters()
+                          if isinstance(p, DTensor) == sharded]}
+              for sharded in (True, False)]
+    return TrainState(model, optimizer_fn([g for g in groups
+                                           if g["params"]])), placements
+
+
+def sharded_train_step(loss_fn: LossFn, mesh: DeviceMesh, state: TrainState,
+                       batch: Any, accum_steps: int = 1,
+                       bucket_mb: Optional[int] = None
+                       ) -> Tuple[TrainState, Dict[str, Any]]:
+    """One step of ``state`` (from ``init_sharded_state`` on ``mesh``) on
+    this rank's rows of the global batch (``data.py``'s ``mesh=``): the
+    counterpart of the step ``jit_train_step`` builds. FSDP2 reduces the
+    gradients over ``(dp, fsdp)`` inside the backward; the replicated
+    parameters' gradients, and every gradient over ``dcn_dp``, are
+    averaged by ``grad_sync``'s bucketed all-reduce; the optimizer updates
+    each shard in place. Returns ``(state, {"loss", "step", **aux})``, the
+    loss and aux averaged over the batch axes: the global batch's mean,
+    the same on every rank. ``accum_steps`` microbatches per step as
+    ``grad_sync.train_step_accum``."""
+    from tony_tpu_torch.parallel import grad_sync
+
+    state.loss_fn = loss_fn
+    metrics = grad_sync.train_step_accum(
+        state, batch, accum_steps,
+        bucket_mb or grad_sync.DEFAULT_BUCKET_MB, mesh=mesh)
+    return state, metrics
 
 
 def checkpoint_tree(state: TrainState) -> Dict[str, Any]:

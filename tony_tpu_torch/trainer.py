@@ -39,6 +39,15 @@ gradient all-reduce (over the ``torch.distributed`` group when one is up),
 AdamW, telemetry step and phase accounting, async checkpoints, and a resume
 from the newest verified checkpoint.
 
+``measure(..., mesh="fsdp=1")`` and ``train(..., mesh=...)`` run the same
+steps on a ``DeviceMesh`` (``parallel/mesh.py``): the state from
+``init_sharded_state`` (the tensor-parallel plan, then FSDP2), each step
+``sharded_train_step``, each rank's rows those of its batch coordinate, and
+sharded checkpoints written by every rank. With no process group up, a
+mesh that resolves to one rank brings up a one-rank group (NCCL on the
+card) for the call; a larger mesh needs the caller's group
+(``torchrun``-style, one process per card).
+
 ``measure_vision`` is the counterpart of ``bench.py``'s
 ``measure_vision_point``: ResNet-50 (bf16 images ``[B, 224, 224, 3]``, 1000
 classes, batch 256 in bench) or ``MnistMLP(hidden=128)`` (f32
@@ -52,6 +61,7 @@ ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
     python -m tony_tpu_torch.trainer --model mnist --steps 20
     python -m tony_tpu_torch.trainer --data corpus.bin --accum 2 \\
         --ckpt-dir ckpt --save-every 50 --steps 200        # the job's loop
+    python -m tony_tpu_torch.trainer --mesh "fsdp=1"       # on a mesh
 
 prints one JSON object with the throughput and MFU (with ``--data``: the
 losses, the resume point and the checkpoint costs).
@@ -60,6 +70,7 @@ losses, the resume point and the checkpoint costs).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import json
@@ -80,14 +91,15 @@ from tony_tpu_torch.data import (synthetic_lm_batch, token_file_batches,
 from tony_tpu_torch.models.mlp import MnistMLP, classification_loss
 from tony_tpu_torch.models.resnet import ResNet, ResNetConfig
 from tony_tpu_torch.models.transformer import (Transformer, TransformerConfig,
-                                               causal_lm_loss,
-                                               chunked_causal_lm_loss)
+                                               causal_lm_loss)
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
+from tony_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mesh_shape
 from tony_tpu_torch.parallel.train import (TrainState, adamw,
                                            checkpoint_tree,
+                                           init_sharded_state,
                                            load_checkpoint_tree, sgd,
-                                           train_step)
+                                           sharded_train_step, train_step)
 
 
 LEARNING_RATE = 3e-4    # bench.py's optax.adamw(3e-4)
@@ -127,30 +139,72 @@ def lm_loss(model, batch):
 
 def chunked_lm_loss(model, batch, loss_chunk: int = 2048):
     """``bench.py:255-263``: the final-norm hidden states through
-    ``chunked_causal_lm_loss`` over the LM head in ``loss_chunk`` chunks."""
-    tokens = batch["tokens"]
-    head = (model.embedding if model.lm_head is None
-            else model.lm_head.weight).T
-    return chunked_causal_lm_loss(
-        model(tokens, return_hidden=True), head, tokens,
-        chunk_size=loss_chunk, head_dtype=model.cfg.lm_head_dtype), {}
+    ``chunked_causal_lm_loss`` over the LM head in ``loss_chunk`` chunks,
+    inside the model's forward (``Transformer(..., loss_chunk=)``), where a
+    sharded model's head is whole."""
+    return model(batch["tokens"], loss_chunk=loss_chunk), {}
 
 
 def build_state(cfg: TransformerConfig,
                 device: Union[str, torch.device] = "cuda",
                 seed: int = 0, chunked: bool = False,
                 loss_chunk: int = 2048,
-                mu_dtype: Optional[torch.dtype] = None) -> TrainState:
+                mu_dtype: Optional[torch.dtype] = None,
+                mesh: Any = None) -> TrainState:
     """The model made from ``seed`` on ``device``, AdamW (first moment in
     ``mu_dtype``, None: the parameter's) and the LM loss (chunked over
-    ``loss_chunk`` positions with ``chunked``)."""
+    ``loss_chunk`` positions with ``chunked``). With ``mesh`` (a
+    ``DeviceMesh`` on ``device``'s kind) the state is
+    ``init_sharded_state``'s, with the same values."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev,
-                        generator=torch.Generator(dev).manual_seed(seed))
     loss = (functools.partial(chunked_lm_loss, loss_chunk=loss_chunk)
             if chunked else lm_loss)
-    return TrainState(model, adamw(model.parameters(), LEARNING_RATE,
-                                   mu_dtype=mu_dtype), loss)
+
+    def optimizer(params):
+        return adamw(params, LEARNING_RATE, mu_dtype=mu_dtype)
+
+    if mesh is not None:
+        state, _ = init_sharded_state(
+            lambda d: Transformer(cfg, device=d), optimizer, mesh, seed=seed)
+        state.loss_fn = loss
+        return state
+    model = Transformer(cfg, device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed))
+    return TrainState(model, optimizer(model.parameters()), loss)
+
+
+@contextlib.contextmanager
+def mesh_scope(mesh: str, device: torch.device):
+    """The ``DeviceMesh`` of the spec string ``mesh`` (``"fsdp=2,tp=2"``;
+    "" yields None) over the process group. With none up, a spec that
+    resolves to one rank brings up a one-rank group (NCCL for a CUDA
+    device, gloo for the CPU), taken down on exit."""
+    if not mesh:
+        yield None
+        return
+    spec = MeshSpec.from_string(mesh)
+    dist = torch.distributed
+    own = not dist.is_initialized()
+    if own:
+        spec.resolve(1)
+        if device.index is not None:
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield build_mesh(spec, device.type)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def step_fn(mesh: Any) -> Callable[[TrainState, Any], Dict[str, Any]]:
+    """``train_step``, or on ``mesh`` ``sharded_train_step``'s metrics."""
+    if mesh is None:
+        return train_step
+    return lambda state, batch: sharded_train_step(
+        state.loss_fn, mesh, state, batch)[1]
 
 
 def _phase_cum(name: str) -> float:
@@ -159,8 +213,9 @@ def _phase_cum(name: str) -> float:
 
 def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
                  steps: int, warmup: int, dev: torch.device,
-                 flops: float = 0.0, tokens: float = 0.0):
-    """``train_step`` on ``batch_of(s)`` for s < ``steps``, each inside
+                 flops: float = 0.0, tokens: float = 0.0,
+                 step: Callable[[TrainState, Any], Any] = train_step):
+    """``step`` (``train_step``) on ``batch_of(s)`` for s < ``steps``, each inside
     ``telemetry.step``: the losses as floats, the synchronised seconds of
     the steps from ``warmup`` on and the telemetry ``data_wait`` and
     ``h2d`` seconds they booked, with the device's name and dense bf16
@@ -176,7 +231,7 @@ def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
             t0 = time.perf_counter()
             start = {p: _phase_cum(p) for p in phases}
         with telemetry.step(flops=flops, tokens=tokens):
-            losses.append(train_step(state, batch_of(s))["loss"])
+            losses.append(step(state, batch_of(s))["loss"])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -198,14 +253,15 @@ def flops_per_token(cfg: TransformerConfig, n_params: int, seq: int) -> int:
 
 def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
                 seq: int, steps: int, warmup: int, dev: torch.device,
-                batch_of: Callable[[int], Any]) -> Dict[str, Any]:
+                batch_of: Callable[[int], Any],
+                mesh: Any = None) -> Dict[str, Any]:
     n_params = sum(p.numel() for p in state.model.parameters())
     fpt = flops_per_token(cfg, n_params, seq)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     losses, dt, wait, name, peak = _timed_steps(
         state, batch_of, steps, warmup, dev, flops=fpt * batch * seq,
-        tokens=batch * seq)
+        tokens=batch * seq, step=step_fn(mesh))
     tokens_per_sec = batch * seq * (steps - warmup) / dt
     return {
         "losses": losses,
@@ -216,6 +272,7 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
         "h2d_s_per_step": wait["h2d"] / (steps - warmup),
         "params": n_params, "batch": batch, "seq": seq, "steps": steps,
         "warmup": warmup, "device": name,
+        "mesh": mesh_shape(mesh) if mesh is not None else None,
         # The parameters, moments and the steps' peak, on the card.
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
@@ -226,20 +283,27 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
             steps: int = 10, warmup: int = 2,
             device: Union[str, torch.device] = "cuda",
             seed: int = 0, chunked: bool = False, loss_chunk: int = 2048,
-            mu_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+            mu_dtype: Optional[torch.dtype] = None,
+            mesh: str = "") -> Dict[str, Any]:
     """Train ``steps`` steps (the first ``warmup`` of them untimed) and
     return losses, tokens/s over the timed steps, MFU and, on the card, the
     peak of allocated memory (``peak_memory_bytes``). Each step draws fresh
     synthetic tokens for its step number, made before the loop. ``chunked``,
     ``loss_chunk`` and ``mu_dtype`` are ``bench.py``'s ``measure_point``
-    options (see ``build_state``)."""
+    options (see ``build_state``). ``mesh`` (``"fsdp=1"``, see
+    ``mesh_scope``) trains the sharded state with ``sharded_train_step``:
+    ``batch`` is then the global batch, each rank's rows its batch
+    coordinate's, and the losses the global batch's."""
     _check_steps(steps, warmup)
     dev = resolve_device(device)
-    state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype)
-    batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size, seed=seed,
-                                  device=dev) for s in range(steps)]
-    out = _measure_lm(state, cfg, batch, seq, steps, warmup, dev,
-                      batches.__getitem__)
+    with mesh_scope(mesh, dev) as m:
+        state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype,
+                            mesh=m)
+        batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size,
+                                      seed=seed, device=dev, mesh=m)
+                   for s in range(steps)]
+        out = _measure_lm(state, cfg, batch, seq, steps, warmup, dev,
+                          batches.__getitem__, m)
     del out["data_wait_s_per_step"], out["h2d_s_per_step"]
     return out
 
@@ -292,7 +356,7 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
           bucket_mb: int = DEFAULT_BUCKET_MB, ckpt_dir: Optional[str] = None,
           save_interval: int = 1, max_to_keep: int = 3,
           device: Union[str, torch.device] = "cuda",
-          seed: int = 0) -> Dict[str, Any]:
+          seed: int = 0, mesh: str = "") -> Dict[str, Any]:
     """The training job's loop, steps ``start..steps-1`` of a job of
     ``steps`` optimizer steps.
 
@@ -309,17 +373,32 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     policy, ``max_to_keep`` retention; the last step is always saved; in a
     group, rank 0 saves). The manager is drained at the end.
 
+    With ``mesh`` (see ``mesh_scope``) the state is sharded: each rank
+    reads its batch coordinate's rows, the step is ``train_step_accum`` on
+    the mesh (FSDP2 and the explicit ``dcn_dp`` sync), every rank saves
+    its shards with the mesh's shape in the manifest, and a resume
+    restores them onto this mesh, whatever mesh saved them.
+
     Returns the losses of the steps run, ``start_step``, the restored
     step and restore seconds (None without a restore), the training
     thread's stall per saved step, the writer's seconds per committed step,
     ``coalesced_saves``, ``async_errors``, the bytes of the newest
     checkpoint, tokens/s over the loop and the final ``state``."""
     dev = resolve_device(device)
-    state = build_state(cfg, dev, seed)
+    with mesh_scope(mesh, dev) as m:
+        return _train(cfg, data_path, batch, seq, steps, accum_steps,
+                      bucket_mb, ckpt_dir, save_interval, max_to_keep, dev,
+                      seed, m)
+
+
+def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
+           ckpt_dir, save_interval, max_to_keep, dev, seed, mesh):
+    state = build_state(cfg, dev, seed, mesh=mesh)
     dist = torch.distributed
-    group = dist.group.WORLD if (dist.is_available()
+    group = dist.group.WORLD if (mesh is None and dist.is_available()
                                  and dist.is_initialized()) else None
-    rank = dist.get_rank() if group is not None else 0
+    # A sharded state is saved by every rank, a replicated one by rank 0.
+    saves = mesh is not None or group is None or dist.get_rank() == 0
     mgr = CheckpointManager(ckpt_dir, max_to_keep=max_to_keep,
                             save_interval_steps=save_interval) \
         if ckpt_dir else None
@@ -331,7 +410,7 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     try:
         if mgr is not None and mgr.latest_step() is not None:
             t0 = time.perf_counter()
-            tree = mgr.restore(None, checkpoint_tree(state))
+            tree = mgr.restore(None, checkpoint_tree(state), mesh=mesh)
             load_checkpoint_tree(state, tree)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -339,16 +418,16 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
             start = state.step
             restored = start - 1
         it = token_file_batches(data_path, batch, seq, seed=seed,
-                                start_step=start, device=dev)
+                                start_step=start, device=dev, mesh=mesh)
         t0 = time.perf_counter()
         for i in range(start, steps):
             with telemetry.step(flops=flops, tokens=batch * seq):
                 m = train_step_accum(state, next(it), accum_steps,
-                                     bucket_mb, group)
+                                     bucket_mb, group, mesh=mesh)
             losses.append(m["loss"])
-            if mgr is not None and rank == 0 and (i == steps - 1
-                                                  or mgr.should_save(i)):
-                mgr.save(i, checkpoint_tree(state), force=True)
+            if mgr is not None and saves and (i == steps - 1
+                                              or mgr.should_save(i)):
+                mgr.save(i, checkpoint_tree(state), force=True, mesh=mesh)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
@@ -365,7 +444,8 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
         "tokens_per_sec": (batch * seq * len(losses) / wall
                            if losses else None),
         "accum_steps": accum_steps, "bucket_mb": bucket_mb,
-        "world": dist.get_world_size() if group is not None else 1,
+        "world": dist.get_world_size() if dist.is_initialized() else 1,
+        "mesh": mesh_shape(mesh) if mesh is not None else None,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "state": state,
@@ -411,19 +491,33 @@ def vision_batch(kind: str, step: int, batch: int, image: int = 224,
 
 
 def build_vision_state(kind: str, device: Union[str, torch.device] = "cuda",
-                       seed: int = 0) -> TrainState:
+                       seed: int = 0, mesh: Any = None) -> TrainState:
     """ResNet-50 or ``MnistMLP(hidden=128)`` made from ``seed`` on
-    ``device``, SGD(0.1, 0.9) and the classification loss."""
+    ``device``, SGD(0.1, 0.9) and the classification loss. With ``mesh``,
+    ResNet-50's ``init_sharded_state`` with the same values (the head's
+    kernel sharded over fsdp, the rest replicated, as
+    ``examples/resnet/resnet_fsdp.py`` lays it out)."""
     if kind not in VISION:
         raise ValueError(f"unknown vision model {kind!r}: one of "
                          f"{sorted(VISION)}")
+
+    def optimizer(params):
+        return sgd(params, VISION_LR, momentum=VISION_MOMENTUM)
+
+    if mesh is not None:
+        if kind != "resnet50":
+            raise NotImplementedError(f"{kind} on a mesh")
+        state, _ = init_sharded_state(
+            lambda d: ResNet(ResNetConfig.resnet50(), device=d), optimizer,
+            mesh, seed=seed)
+        state.loss_fn = vision_loss
+        return state
     dev = resolve_device(device)
     gen = torch.Generator(dev).manual_seed(seed)
     model = (ResNet(ResNetConfig.resnet50(), device=dev, generator=gen)
              if kind == "resnet50" else
              MnistMLP(hidden=128, device=dev, generator=gen))
-    return TrainState(model, sgd(model.parameters(), VISION_LR,
-                                 momentum=VISION_MOMENTUM), vision_loss)
+    return TrainState(model, optimizer(model.parameters()), vision_loss)
 
 
 def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
@@ -497,6 +591,10 @@ def main(argv=None) -> int:
                     help="positions per cross-entropy chunk")
     ap.add_argument("--matmul-dtype", choices=["int8", "fp8_e4m3"],
                     help="quantized attention and MLP projections")
+    ap.add_argument("--mesh", default="",
+                    help="train a decoder sharded on this mesh, e.g. "
+                    "'fsdp=1' on one card or 'fsdp=2,tp=2' under a "
+                    "four-rank group (axes: dcn_dp dp fsdp pp ep sp tp)")
     a = ap.parse_args(argv)
     batch = DEFAULT_BATCH[a.model]
     if a.model in LM_POINTS:
@@ -507,21 +605,22 @@ def main(argv=None) -> int:
             chunk = LONG_CONTEXT[seq][1] if a.chunked else None
         chunk = a.loss_chunk or chunk or (2048 if a.chunked else None)
         cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype)
-    elif a.seq or a.chunked or a.loss_chunk or a.matmul_dtype:
-        ap.error(f"--seq, --chunked, --loss-chunk and --matmul-dtype are "
-                 f"for the decoders, not {a.model}")
+    elif a.seq or a.chunked or a.loss_chunk or a.matmul_dtype or a.mesh:
+        ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype and "
+                 f"--mesh are for the decoders, not {a.model}")
     if a.data:
         if a.model != "flagship" or chunk is not None:
             ap.error("--data trains the flagship decoder, unchunked")
         out = train(cfg, a.data, batch=batch, seq=seq, steps=a.steps,
                     accum_steps=a.accum, bucket_mb=a.bucket_mb,
                     ckpt_dir=a.ckpt_dir, save_interval=a.save_every,
-                    device=a.device)
+                    device=a.device, mesh=a.mesh)
         del out["state"]
     elif a.model in LM_POINTS:
         out = measure(cfg, batch=batch, seq=seq, steps=a.steps,
                       device=a.device, chunked=chunk is not None,
-                      loss_chunk=chunk or 2048, mu_dtype=mu_dtype)
+                      loss_chunk=chunk or 2048, mu_dtype=mu_dtype,
+                      mesh=a.mesh)
     else:
         out = measure_vision(a.model, batch=batch, steps=a.steps,
                              device=a.device)
