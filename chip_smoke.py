@@ -21,7 +21,9 @@ result line:
    D=128, bf16, causal), ragged cases (S=1000: non-causal and causal GQA
    bf16 at D=64, causal bf16 at D=128) and small f32 cases, then
    ``flash_attention_with_lse(out_dtype=f32)`` with its lse cotangent,
-   card against CPU, at D=64 (S=256) and D=128 (S=1000) (every bf16
+   kernels against plain versions on the card, at D=64 (S=256), D=128
+   (S=1000) and the ring's hops of phase 11 (causal B4 S2048, full B4 S512
+   and full B1 S8192, all H8/4 D128) (every bf16
    forward case holds lse in the mean as well as at its maximum, which
    catches a row sum over the wrong P below head_dim 128); times each kernel,
    its plain version and ``scaled_dot_product_attention`` (the library
@@ -105,7 +107,36 @@ result line:
    head's kernel over fsdp, the rest replicated) against the unsharded
    model, 3 SGD steps each: losses within ``TOL_MESH_REL``, 53 convfuse
    launches per sharded step;
-11. prints the kernels' JSON line, then the result line.
+11. sequence and expert parallelism at world 1, over a one-rank NCCL group:
+   (a) ``trainer.measure`` trains the flagship with ``attn_impl="ring"``
+   off any mesh (a ring of one rank), 3 steps against phase 10's first 3
+   losses within ``TOL_SP_REL``, 16 launches of each flash kernel per step;
+   then ``trainer.measure(..., mesh="fsdp=1")`` trains it at full
+   width and depth with ``attn_impl="ring"`` and then ``"ulysses"`` (the
+   sp group of one rank: ring runs its one diagonal hop through the f32-out
+   forward and the merge; Ulysses' swaps are the identity), 10 steps each:
+   every loss within ``TOL_SP_REL`` of phase 10's sharded flash losses, 16
+   launches of each flash kernel per step, tokens/s beside phase 10's;
+   (b) the ring's own ``schedule``, ``_hop`` and ``_merge`` (``ops/ring.py``)
+   driven for four virtual ranks on the card, causal, at B1 S32768 H8/4 D128
+   and at the flagship's B4 S2048, forward and backward through autograd:
+   the gathered output and dq/dk/dv within phase 3's bf16 tolerances of
+   whole-sequence ``flash_attention``, each virtual rank's forward +
+   backward timed (CUDA events, median) beside whole-sequence flash / 4, the
+   flash launches by kind, and at 32k each kernel's time on one hop (full
+   and diagonal, f32 out, the lse cotangent folded into delta); (c) a small
+   f32 MoE decoder (``MoEConfig.tiny_moe`` at head_dim 64) on the card
+   against the same weights on the CPU, 3 AdamW steps: losses and every
+   parameter within ``TOL_MODEL_REL``; then the MoE decoder at the
+   flagship's widths with ``MoEConfig``'s own defaults (8 experts, top-2,
+   capacity factor 1.25, aux weight 0.01, remat on), batch 4 x 2048: 10
+   unsharded steps (first loss within 0.5 of ln(32000) + 0.5; tokens/s,
+   step ms, MFU over the active parameters, peak memory, the share of
+   token-slots dropped by capacity, the flash launches per step), then 3
+   steps from ``init_sharded_state`` on the world-1 mesh (the experts
+   DTensors on ep) against the unsharded run's first 3 within
+   ``TOL_MESH_REL``; where a MoE step's device time goes;
+12. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
@@ -158,6 +189,14 @@ TOL_RESUME_REL = 1e-3
 # should agree bit for bit; the limit allows a different but equally exact
 # reduction order in a library kernel, not a different computation.
 TOL_MESH_REL = 1e-5
+# Phase 11 (a): the flagship with ring attention on a one-rank sp group
+# against phase 10's sharded flash run, relative per loss. The forward is
+# the same once rounded to bf16 (one diagonal hop; the merge with the empty
+# state multiplies by exp(0) = 1), but the backward's delta reads the
+# unrounded f32 o where flash reads the bf16 o, so the gradients differ in
+# their last bits and ten AdamW steps carry that into the losses, as far
+# as a bf16 run's reruns do (phase 7's resume is held to the same limit).
+TOL_SP_REL = 1e-3
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
@@ -414,30 +453,46 @@ def time_flash(name, q, k, v, do, lse, delta, causal, o):
     return res
 
 
-def check_with_lse(name, b, s, h, hk, d, seed):
-    """``flash_attention_with_lse`` with ``out_dtype=f32`` through autograd
-    (o and the lse cotangent), card against CPU on the same bf16 inputs:
-    the one path that launches the bf16-in, f32-out forward. The CPU's
-    plain version runs over 128-key tiles, as the kernel does, so that the
-    bf16 P of the row sum below head_dim 128 is rounded alike on both."""
-    from tony_tpu_torch.ops.attention import flash_attention_with_lse
+def check_with_lse(name, b, s, h, hk, d, seed, causal=True):
+    """``flash_attention_with_lse`` with ``out_dtype=f32`` through autograd,
+    with o's cotangent and a non-zero lse cotangent (a ring hop's call),
+    the kernels against their plain versions on the card on the same bf16
+    inputs: the plain forward, then the plain backward with the delta
+    ``_Flash.backward`` folds the lse cotangent into (rowsum(o·do) − dlse,
+    from the plain forward's o and lse). The plain versions run over
+    128-key tiles, as the kernels do, so that the bf16 P of the row sum
+    below head_dim 128 is rounded alike on both."""
+    from tony_tpu_torch.ops import attention as A
 
-    cpu = [t.cpu() for t in make_case(b, s, h, hk, d, torch.bfloat16, seed)]
-    outs = []
-    for dev in ("cuda", "cpu"):
-        q, k, v, do = (t.to(dev).requires_grad_(i < 3)
-                       for i, t in enumerate(cpu))
-        o, lse = flash_attention_with_lse(q, k, v, block_q=128, block_k=128,
-                                          out_dtype=torch.float32)
-        loss = (o * do.float()).sum() + torch.sin(lse).sum()
-        grads = torch.autograd.grad(loss, (q, k, v))
-        outs.append([t.detach().cpu() for t in (o, lse, *grads)])
-    check(outs[0][0].dtype == torch.float32, "out_dtype f32 not honoured")
+    q, k, v, do = make_case(b, s, h, hk, d, torch.bfloat16, seed)
+    scale = d ** -0.5
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o, lse = A.flash_attention_with_lse(*leaves, causal=causal, block_q=128,
+                                        block_k=128, out_dtype=torch.float32)
+    # d sin(lse) / d lse = cos(lse): the lse cotangent.
+    loss = (o * do.float()).sum() + torch.sin(lse).sum()
+    grads = torch.autograd.grad(loss, leaves)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, causal, torch.float32,
+                                   128, 128)
+    delta = ((o_p * do.float()).sum(-1).transpose(1, 2)
+             - torch.cos(lse_p)).contiguous()
+    dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, scale, causal,
+                                128, 128)
+    dk_p, dv_p = A.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scale,
+                                       causal, 128, 128)
+    torch.cuda.synchronize()
+    check(o.dtype == torch.float32, "out_dtype f32 not honoured")
+    lse = lse.transpose(1, 2)                    # [B,S,H] → the plain's
+    got, want = (o, lse, *grads), (o_p, lse_p, dq_p, dk_p, dv_p)
+    for n, x in zip(("o", "lse", "dq", "dk", "dv"), got):
+        check(bool(torch.isfinite(x).all()), f"with_lse {name}: {n} not "
+              f"finite")
     errs = {n: rel_err(x, y) for n, x, y in
-            zip(("o", "lse", "dq", "dk", "dv"), *outs)}
-    lse_mean = (outs[0][1] - outs[1][1]).abs().mean().item()
-    log(f"with_lse {name} bf16 -> f32 out, card vs cpu: rel err "
-        f"{json.dumps(errs)}, lse mean abs err {lse_mean:.3e}")
+            zip(("o", "lse", "dq", "dk", "dv"), got, want)}
+    lse_mean = (lse - lse_p).abs().mean().item()
+    log(f"with_lse {name} bf16 -> f32 out, lse cotangent, kernels vs plain "
+        f"on the card: rel err {json.dumps(errs)}, lse mean abs err "
+        f"{lse_mean:.3e}")
     for n, e in errs.items():
         check(e <= TOL_BF16_GRAD_REL, f"with_lse {name} {n} rel err {e}")
     check(lse_mean <= TOL_BF16_LSE_MEAN,
@@ -470,9 +525,19 @@ def phase_kernels():
                1, 256, 4, 2, 64, torch.float32, True, 3)
     check_case("f32 B1 S200 H2/1 D128 non-causal",
                1, 200, 2, 1, 128, torch.float32, False, 4)
-    # The f32-out forward at both head dims; S = 1000 leaves a ragged tail.
+    # The f32-out forward with an lse cotangent (the ring's hops) at both
+    # head dims; S = 1000 leaves a ragged tail. Then the ring's own shapes
+    # (phase 11): the flagship's one-rank ring (a causal B4 S2048 hop), a
+    # full hop of its four virtual ranks (B4, 512 against 512) and a full
+    # hop of the 32k ring's (B1, 8192 against 8192).
     check_with_lse("B1 S256 H4/2 D64", 1, 256, 4, 2, 64, 6)
     check_with_lse("ragged B1 S1000 H4/2 D128", 1, 1000, 4, 2, 128, 8)
+    check_with_lse("ring hop B4 S2048 H8/4 D128 causal",
+                   4, 2048, 8, 4, 128, 9, causal=True)
+    check_with_lse("ring hop B4 S512 H8/4 D128 full",
+                   4, 512, 8, 4, 128, 10, causal=False)
+    check_with_lse("ring hop B1 S8192 H8/4 D128 full",
+                   1, 8192, 8, 4, 128, 11, causal=False)
     return res
 
 
@@ -1339,6 +1404,8 @@ def phase_mesh(unsharded, card):
             rates["unsharded"])
         log(f"mesh (a): sharded / unsharded tokens/s {ratio:.4f} (medians "
             f"of {len(rates['sharded'])} alternating turns each)")
+        sharded = {"losses": got,
+                   "tokens_per_sec": statistics.median(rates["sharded"])}
 
         gc.collect()
         state = trainer.build_state(cfg, "cuda", seed=0, mesh=mesh)
@@ -1388,6 +1455,7 @@ def phase_mesh(unsharded, card):
         shutil.rmtree(tmp, ignore_errors=True)
     check(not dist.is_initialized(), "the NCCL group was not torn down")
     log(f"mesh: {time.perf_counter() - t0:.1f} s for parts (a)-(b)")
+    return sharded
 
 
 def mesh_resnet(mesh):
@@ -1426,6 +1494,360 @@ def mesh_resnet(mesh):
           f"convfuse_apply launched {launched} times in 3 sharded steps")
 
 
+def phase_seq_expert(mesh_run, long_timing, card):
+    """Phase 11: sequence and expert parallelism at world 1."""
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-sp-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        sp_flagship(mesh_run, card)
+        t1 = time.perf_counter()
+        virtual_ring(long_timing, card)
+        log(f"seq/expert (b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        small_moe()
+        moe_flagship(card)
+        log(f"seq/expert (c): {time.perf_counter() - t1:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"seq/expert: {time.perf_counter() - t0:.1f} s for parts (a)-(c)")
+
+
+OFF_MESH_STEPS = 3
+
+
+def sp_flagship(mesh_run, card):
+    """(a) The flagship with ring and with Ulysses attention over the mesh's
+    one-rank sp group, against phase 10's sharded flash run."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda
+
+    want = mesh_run["losses"]
+    # Off any mesh the ring is a ring of one rank: its hop runs the kernels.
+    cfg = dataclasses.replace(trainer.flagship_config(seq=2048),
+                              attn_impl="ring")
+    gc.collect()
+    _flash_cuda.reset_launch_counts()
+    got = trainer.measure(cfg, batch=4, seq=2048, steps=OFF_MESH_STEPS,
+                          warmup=1, device="cuda", seed=0)["losses"]
+    counts = dict(_flash_cuda.launch_counts)
+    rel = max_rel(got, want[:OFF_MESH_STEPS])
+    log(f"seq/expert (a) ring off any mesh: losses {got}, against phase "
+        f"10's first {OFF_MESH_STEPS}: largest relative difference "
+        f"{rel:.3e}; launches {json.dumps(counts)}")
+    check(rel <= TOL_SP_REL, f"ring off a mesh differs from phase 10's "
+          f"losses by {rel} > {TOL_SP_REL}")
+    check_flash_counts("ring off a mesh", counts,
+                       cfg.n_layers * OFF_MESH_STEPS)
+    for impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(trainer.flagship_config(seq=2048),
+                                  attn_impl=impl)
+        gc.collect()
+        _flash_cuda.reset_launch_counts()
+        r = trainer.measure(cfg, batch=4, seq=2048, steps=STEPS, warmup=2,
+                            device="cuda", seed=0, mesh="fsdp=1")
+        counts = dict(_flash_cuda.launch_counts)
+        got = r["losses"]
+        rel = max_rel(got, want)
+        log(f"seq/expert (a) {impl}: {r['tokens_per_sec']:.1f} tokens/s "
+            f"({r['step_ms']:.3f} ms/step; phase 10's sharded flash "
+            f"{mesh_run['tokens_per_sec']:.1f}), peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+            f"{json.dumps(counts)}; {card}")
+        log(f"seq/expert (a) {impl} losses {got}; against phase 10's sharded "
+            f"flash: largest relative difference {rel:.3e}, bit for bit "
+            f"{got == want}")
+        check(all(math.isfinite(x) for x in got), f"{impl}: non-finite loss")
+        check(rel <= TOL_SP_REL, f"{impl} losses differ from phase 10's by "
+              f"{rel} > {TOL_SP_REL}")
+        check_flash_counts(f"sp {impl}", counts, cfg.n_layers * STEPS)
+
+
+def ring_rank(qr, k, v, r, n, scale):
+    """Virtual rank r of an n-rank causal ring on one card: the output for
+    its Q chunk ``qr`` (``[B, S/n, H, D]``), through the ring's own
+    ``schedule``, ``_hop`` and ``_merge``, against the chunks of the whole
+    ``k``/``v`` in the order the ring would deliver them."""
+    from tony_tpu_torch.ops import ring as R
+
+    s = qr.shape[1]
+    o, lse = R.empty_state(qr)
+    for _, src, kind in R.schedule(r, n, True):
+        if kind == R.SKIP:
+            continue
+        oc, lc = R._hop(qr, k[:, src * s:(src + 1) * s],
+                        v[:, src * s:(src + 1) * s], kind, scale, 128, 128)
+        o, lse = R._merge(o, lse, oc, lc)
+    return o.to(qr.dtype)
+
+
+VIRTUAL_RANKS = 4
+
+
+def virtual_ring(long_timing, card):
+    """(b) Four virtual ranks of the causal ring at B1 S32768 and B4
+    S2048, against whole-sequence flash."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+    from tony_tpu_torch.ops.attention import flash_attention
+
+    n = VIRTUAL_RANKS
+    for b, s, seed in ((1, 32768, 40), (4, 2048, 41)):
+        torch.cuda.empty_cache()
+        name = f"B{b} S{s} H8/4 D128 bf16, {n} virtual ranks"
+        q, k, v, do = make_case(b, s, 8, 4, 128, torch.bfloat16, seed)
+        scale = 128 ** -0.5
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        chunk = s // n
+        K.reset_launch_counts()
+        o = torch.cat([ring_rank(leaves[0][:, r * chunk:(r + 1) * chunk],
+                                 *leaves[1:], r, n, scale)
+                       for r in range(n)], dim=1)
+        grads = torch.autograd.grad((o.float() * do.float()).sum(), leaves)
+        torch.cuda.synchronize()
+        counts = dict(K.launch_counts)
+        ref_leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        o_ref = flash_attention(*ref_leaves, causal=True)
+        ref = torch.autograd.grad((o_ref.float() * do.float()).sum(),
+                                  ref_leaves)
+        err_o = max_err(o, o_ref)
+        rels = {f"d{x}": rel_err(g, r) for x, g, r in zip("qkv", grads, ref)}
+        log(f"seq/expert (b) {name}: o max abs err {err_o:.3e} against "
+            f"whole-sequence flash, grad rel err {json.dumps(rels)}, "
+            f"launches {json.dumps(counts)} (forward + backward of the "
+            f"{n * (n + 1) // 2} hops the causal skip leaves)")
+        check(err_o <= TOL_BF16_O, f"{name}: o err {err_o}")
+        for x, e in rels.items():
+            check(e <= TOL_BF16_GRAD_REL, f"{name}: {x} rel err {e}")
+        hops = n * (n + 1) // 2
+        check(all(c == hops for c in counts.values()),
+              f"{name}: launches {counts}, expected {hops} of each")
+        del o, grads, o_ref, ref
+
+        # Each virtual rank's forward + backward alone, beside the whole
+        # sequence's.
+        ms = []
+        for r in range(n):
+            qr = q[:, r * chunk:(r + 1) * chunk].clone().requires_grad_()
+            dor = do[:, r * chunk:(r + 1) * chunk].float()
+            kv = [x.detach().requires_grad_(True) for x in (k, v)]
+
+            def rank_step():
+                o_r = ring_rank(qr, *kv, r, n, scale)
+                torch.autograd.grad((o_r.float() * dor).sum(), [qr, *kv])
+            ms.append(cuda_ms(rank_step, reps=10))
+        whole = [x.detach().requires_grad_(True) for x in (q, k, v)]
+
+        def whole_step():
+            o_w = flash_attention(*whole, causal=True)
+            torch.autograd.grad((o_w.float() * do.float()).sum(), whole)
+        whole_ms = cuda_ms(whole_step, reps=10)
+        log(f"seq/expert (b) {name}: forward + backward ms per virtual rank "
+            f"{json.dumps([round(x, 4) for x in ms])}; whole-sequence flash "
+            f"{whole_ms:.4f} ms, / {n} = {whole_ms / n:.4f}; slowest rank / "
+            f"(whole / {n}) {max(ms) / (whole_ms / n):.4f}; {card}")
+        if s == 32768:
+            hop_kernels(q, k, v, do, chunk, scale, long_timing, card)
+        del q, k, v, do, leaves, whole
+
+
+def hop_kernels(q, k, v, do, chunk, scale, long_timing, card):
+    """Each flash kernel's time on one 32k hop (an 8192-query chunk against
+    an 8192-key chunk, f32 out, a non-zero lse cotangent in delta), full and
+    diagonal, beside the whole 32k sequence's (phase 8)."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    qr = q[:, -chunk:].contiguous()
+    kc, vc = k[:, :chunk].contiguous(), v[:, :chunk].contiguous()
+    dor = do[:, -chunk:].contiguous()
+    whole = long_timing["B1_S32768"]
+    out = {}
+    for kind, causal in (("full", False), ("diagonal", True)):
+        o, lse = K.flash_fwd(qr, kc, vc, scale, causal, torch.float32)
+        dlse = torch.randn_like(lse) * 1e-2
+        delta = ((o * dor.float()).sum(-1).transpose(1, 2)
+                 - dlse).contiguous()
+        out[kind] = {
+            "flash_fwd": cuda_ms(lambda: K.flash_fwd(qr, kc, vc, scale,
+                                                     causal, torch.float32)),
+            "flash_bwd_dq": cuda_ms(lambda: K.flash_bwd_dq(
+                qr, kc, vc, dor, lse, delta, scale, causal)),
+            "flash_bwd_dkv": cuda_ms(lambda: K.flash_bwd_dkv(
+                qr, kc, vc, dor, lse, delta, scale, causal))}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        log(f"seq/expert (b) 32k hop {name}: full {out['full'][name]:.4f} "
+            f"ms, diagonal {out['diagonal'][name]:.4f} ms; whole 1 x 32768 "
+            f"sequence (phase 8) {whole[name]['ms']:.4f} ms; {card}")
+
+
+def small_moe():
+    """(c) A small f32 MoE decoder (head_dim 64, the kernels' f32 path) on
+    the card against the same weights on the CPU, 3 AdamW steps."""
+    from tony_tpu_torch.models.moe import (MoEConfig, MoETransformer,
+                                           moe_lm_loss)
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import adamw
+
+    cfg = MoEConfig.tiny_moe(vocab_size=512, dim=256, n_heads=4,
+                             n_kv_heads=2, mlp_dim=512, max_seq_len=256)
+    cpu = MoETransformer(cfg, device="cpu")
+    gpu = MoETransformer(cfg, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(1))
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (3, 2, 256)))
+    losses = {}
+    _flash_cuda.reset_launch_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        opt = adamw(model.parameters(), 1e-3)
+        got = []
+        for s in range(3):
+            tok = tokens[s].to(dev)
+            loss = moe_lm_loss(model(tok), tok, cfg.aux_loss_weight)
+            loss.backward()
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            got.append(loss.item())
+        losses[dev] = got
+    worst = max(rel_err(g.detach().cpu(), c.detach()) for c, g in
+                zip(cpu.parameters(), gpu.parameters()))
+    rel = max_rel(losses["cuda"], losses["cpu"])
+    counts = dict(_flash_cuda.launch_counts)
+    log(f"seq/expert (c) small f32 MoE: losses card {losses['cuda']} cpu "
+        f"{losses['cpu']} (max rel {rel:.3e}); worst parameter rel err after "
+        f"3 steps {worst:.3e}; launches {json.dumps(counts)}")
+    check(rel <= TOL_MODEL_REL, f"small MoE losses differ by {rel}")
+    check(worst <= TOL_MODEL_REL, f"small MoE parameters differ by {worst}")
+    check_flash_counts("small MoE", counts, 3 * cfg.n_layers)
+
+
+def moe_flagship_config():
+    """The MoE decoder at the flagship's widths (``bench.py:190-212``) with
+    ``MoEConfig``'s own defaults: 8 experts, top-2, capacity factor 1.25,
+    aux weight 0.01, remat on."""
+    from tony_tpu_torch.models.moe import MoEConfig
+
+    return MoEConfig(vocab_size=32000, dim=1024, n_layers=16, n_heads=8,
+                     n_kv_heads=4, mlp_dim=4096, max_seq_len=2048)
+
+
+def moe_dropped_share(model, cfg, tokens):
+    """The share of (token, slot) pairs that capacity drops, over the
+    layers, in one forward of ``tokens`` (one routing group)."""
+    from tony_tpu_torch.models import moe as M
+
+    seen = []
+    hooks = [blk.moe.router.register_forward_hook(
+        lambda m, i, o: seen.append(o)) for blk in model.layers]
+    try:
+        with torch.no_grad():
+            model(tokens)
+    finally:
+        for h in hooks:
+            h.remove()
+    dropped = 0
+    for logits in seen:
+        idx = M.top_k_experts(torch.softmax(logits, -1), cfg.top_k)
+        _, kept = M.route(cfg, idx, M.capacity(cfg, idx.shape[0]))
+        dropped += int((~kept).sum())
+    return dropped / (len(seen) * idx.numel())
+
+
+def moe_flagship(card):
+    """(c) The MoE decoder at the flagship's widths: 10 unsharded steps,
+    then 3 on the world-1 mesh against them."""
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.models.moe import MoETransformer, moe_lm_loss
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import (MeshSpec, TrainState, adamw,
+                                         build_mesh, init_sharded_state,
+                                         sharded_train_step, train_step)
+
+    cfg = moe_flagship_config()
+    batch, seq = 4, 2048
+
+    def loss_fn(model, b):
+        tok = b["tokens"]
+        return moe_lm_loss(model(tok), tok, cfg.aux_loss_weight), {}
+
+    batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size,
+                                  device="cuda") for s in range(STEPS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = MoETransformer(cfg, device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    state = TrainState(model, adamw(model.parameters(), 3e-4), loss_fn)
+    n_params = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters()
+                  if n.rsplit(".", 1)[-1] in ("gate", "up", "down"))
+    active = n_params - experts + experts * cfg.top_k // cfg.n_experts
+    _flash_cuda.reset_launch_counts()
+    losses = []
+    for s in range(STEPS):
+        if s == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(train_step(state, batches[s])["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (STEPS - 2)
+    losses = [float(x) for x in losses]
+    counts = dict(_flash_cuda.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_sec = batch * seq / dt
+    fpt = 6 * active + 12 * cfg.n_layers * cfg.dim * seq // 2
+    mfu = tokens_per_sec * fpt / PEAK_BF16
+    dropped = moe_dropped_share(model, cfg, batches[0]["tokens"])
+    per_step = {k: v / STEPS for k, v in counts.items()}
+    log(f"seq/expert (c) MoE at the flagship's widths: {n_params} params "
+        f"({active} active per token), batch {batch} x {seq}, "
+        f"{tokens_per_sec:.1f} tokens/s, {dt * 1e3:.3f} ms/step, MFU over "
+        f"the active parameters {mfu:.4f}, peak memory {peak / 2**30:.2f} "
+        f"GiB, token-slots dropped by capacity {dropped:.4f} (batch 0, after "
+        f"training), flash launches per step {json.dumps(per_step)}; {card}")
+    log(f"seq/expert (c) MoE losses {losses}")
+    check(all(math.isfinite(x) for x in losses), "MoE: non-finite loss")
+    expected = math.log(cfg.vocab_size) + 0.5
+    check(abs(losses[0] - expected) <= 0.5,
+          f"MoE: first loss {losses[0]} not near ln(vocab) + 1/2")
+    want = flash_launches_per_step(cfg)
+    for name, n in want.items():
+        check(counts[name] == n * STEPS, f"MoE: {name} launched "
+              f"{counts[name]} times, expected {n} per step")
+    # Where a MoE step's device time goes.
+    profile("MoE at the flagship's widths",
+            lambda: train_step(state, batches[0]), flagship_kind)
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = build_mesh(MeshSpec(), "cuda")
+    sharded, _ = init_sharded_state(
+        lambda d: MoETransformer(cfg, device=d),
+        lambda g: adamw(g, 3e-4), mesh, seed=0)
+    gate = sharded.model.layers[0].moe.gate
+    check(type(gate).__name__ == "DTensor", "MoE experts not DTensors")
+    got = []
+    t1 = time.perf_counter()
+    for s in range(3):
+        got.append(float(sharded_train_step(loss_fn, mesh, sharded,
+                                            batches[s])[1]["loss"]))
+    torch.cuda.synchronize()
+    rel = max_rel(got, losses[:3])
+    log(f"seq/expert (c) MoE on the world-1 mesh (experts on ep): losses "
+        f"{got} against unsharded {losses[:3]}: max rel {rel:.3e}, bit for "
+        f"bit {got == losses[:3]}; {(time.perf_counter() - t1) / 3 * 1e3:.1f}"
+        f" ms/step (first step included)")
+    check(rel <= TOL_MESH_REL, f"MoE on the mesh differs by {rel}")
+    del sharded
+    gc.collect()
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -1449,7 +1871,8 @@ def main():
                                             "library_ms", "tflops")}
             for shape, r in long_timing.items()}
     phase_quant()
-    phase_mesh(main_run, card)
+    mesh_run = phase_mesh(main_run, card)
+    phase_seq_expert(mesh_run, long_timing, card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

@@ -82,6 +82,22 @@ def test_bucketed_sync_stacked_matches_reference(bucket_mb):
                                    atol=1e-6, err_msg=k)
 
 
+@pytest.mark.parametrize("bucket_mb", [1, 32])
+def test_bucketed_sync_sum(bucket_mb):
+    """``mean=False`` (the sequence-parallel gradient sum) sums the same
+    buckets."""
+    rng = np.random.default_rng(1)
+    tree = {"a_small": rng.standard_normal((3, 8), np.float32),
+            "b_big": rng.standard_normal((3, 1 << 19), np.float32),
+            "c_mat": rng.standard_normal((3, 3, 5), np.float32)}
+    ours = bucketed_sync({k: torch.from_numpy(v) for k, v in tree.items()},
+                         bucket_mb, mean=False)
+    assert list(ours) == list(tree)
+    for k, v in tree.items():
+        np.testing.assert_allclose(ours[k].numpy(), v.sum(0), rtol=1e-6,
+                                   atol=1e-6, err_msg=k)
+
+
 @pytest.fixture(scope="module")
 def rig():
     """The tiny f32 decoder's initial params, a global batch of ids, and

@@ -219,13 +219,21 @@ def test_build_mesh_refuses_without_group_or_card():
 
 
 def test_sharding_later_axes_refused():
+    """pp > 1 (the pipeline slice) and the MoE decoder under tp > 1 (no plan
+    for the stacked experts) raise, naming the knob."""
+    from tony_tpu_torch.models.moe import MoEConfig, MoETransformer
+
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=2)
     try:
-        m = tmesh.build_mesh(tmesh.MeshSpec(sp=2, dp=1), "cpu")
-        with pytest.raises(NotImplementedError, match="sp"):
+        m = tmesh.build_mesh(tmesh.MeshSpec(pp=2, dp=1), "cpu")
+        with pytest.raises(NotImplementedError, match="pp"):
             tsh.shard_model(ttf.Transformer(ttf.TransformerConfig.tiny(),
                                             device="meta"), m)
+        m = tmesh.build_mesh(tmesh.MeshSpec(tp=2, dp=1), "cpu")
+        with pytest.raises(NotImplementedError, match="tp"):
+            tsh.shard_model(MoETransformer(MoEConfig.tiny_moe(),
+                                           device="meta"), m)
     finally:
         dist.destroy_process_group()
 

@@ -156,12 +156,27 @@ def test_max_seq_len_guard():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(attn_impl="ring"), "ring/Ulysses slice"),
-    (dict(attn_impl="ulysses"), "ring/Ulysses slice"),
+    (dict(attn_impl="ring"), "pp=2"),
+    (dict(attn_impl="ulysses"), "pp=2"),
 ])
 def test_later_slices_raise_not_implemented(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        ttf.Transformer(ttf.TransformerConfig.tiny(**kw), device="cpu")
+    """Ring and Ulysses build (the sequence-parallel slice is in); laying
+    the model out on a pipeline axis, a later slice, raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from tony_tpu_torch.parallel import MeshSpec, build_mesh, shard_model
+
+    cfg = ttf.TransformerConfig.tiny(**kw)
+    ttf.Transformer(cfg, device="cpu")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=2)
+    try:
+        mesh = build_mesh(MeshSpec(pp=2, dp=1), "cpu")
+        with pytest.raises(NotImplementedError, match=match):
+            shard_model(ttf.Transformer(cfg, device="meta"), mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_configs_carry_the_reference_geometry():

@@ -8,9 +8,12 @@ torch grads back to the flax tree with it). A flax ``Dense`` kernel is
 ``[in, out]`` and a ``Dense.weight`` here ``[out, in]``, so every projection
 is transposed; the embedding and the norm scales keep their layout.
 
-``from_flax_resnet_params``/``to_flax_resnet_params`` and
-``from_flax_mlp_params``/``to_flax_mlp_params`` are the same pair for
-``ResNet`` and ``MnistMLP``.
+``from_flax_resnet_params``/``to_flax_resnet_params``,
+``from_flax_mlp_params``/``to_flax_mlp_params`` and
+``from_flax_moe_params``/``to_flax_moe_params`` are the same pair for
+``ResNet``, ``MnistMLP`` and ``MoETransformer`` (whose stacked expert
+kernels ``layer_i/moe/{gate,up,down}`` keep their layout; its router is a
+``Dense``).
 """
 
 from __future__ import annotations
@@ -46,10 +49,14 @@ def _ids(keys, prefix: str) -> list:
 def from_flax_params(params: Mapping[str, Any]
                      ) -> Dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) → torch ``state_dict`` (CPU tensors)."""
+    return _from_flax_decoder(params, _DENSE)
+
+
+def _from_flax_decoder(params, dense):
     sd = {"embedding": _t(params["embedding"])}
     for i in _ids(params, "layer"):
         layer = params[f"layer_{i}"]
-        for sub, names in _DENSE.items():
+        for sub, names in dense.items():
             for n in names:
                 sd[f"layers.{i}.{sub}.{n}.weight"] = _t(
                     np.asarray(layer[sub][n]["kernel"]).T)
@@ -65,12 +72,16 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]
                    ) -> Dict[str, Any]:
     """torch ``state_dict`` (or a name → grad mapping of the same names)
     → flax param tree of numpy arrays."""
+    return _to_flax_decoder(state_dict, _DENSE)
+
+
+def _to_flax_decoder(state_dict, dense):
     out: Dict[str, Any] = {"embedding": _n(state_dict["embedding"])}
     ids = sorted({int(k.split(".")[1]) for k in state_dict
                   if k.startswith("layers.")})
     for i in ids:
         layer: Dict[str, Any] = {}
-        for sub, names in _DENSE.items():
+        for sub, names in dense.items():
             layer[sub] = {
                 nm: {"kernel": np.ascontiguousarray(
                     _n(state_dict[f"layers.{i}.{sub}.{nm}.weight"]).T)}
@@ -82,6 +93,35 @@ def to_flax_params(state_dict: Mapping[str, torch.Tensor]
     if "lm_head.weight" in state_dict:
         out["lm_head"] = {"kernel": np.ascontiguousarray(
             _n(state_dict["lm_head.weight"]).T)}
+    return out
+
+
+# The MoE decoder: the dense model's tree with ``moe`` in place of ``mlp``.
+_MOE_DENSE = {"attn": _DENSE["attn"], "moe": ("router",)}
+_EXPERTS = ("gate", "up", "down")
+
+
+def from_flax_moe_params(params: Mapping[str, Any]
+                         ) -> Dict[str, torch.Tensor]:
+    """flax ``MoETransformer`` param tree (numpy leaves) → torch
+    ``state_dict`` of ``tony_tpu_torch.models.moe.MoETransformer``."""
+    sd = _from_flax_decoder(params, _MOE_DENSE)
+    for i in _ids(params, "layer"):
+        for n in _EXPERTS:
+            sd[f"layers.{i}.moe.{n}"] = _t(params[f"layer_{i}"]["moe"][n])
+    return sd
+
+
+def to_flax_moe_params(state_dict: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, Any]:
+    """Inverse of ``from_flax_moe_params`` (also for a name → grad
+    mapping of the same names)."""
+    out = _to_flax_decoder(state_dict, _MOE_DENSE)
+    for key, layer in out.items():
+        if key.startswith("layer_"):
+            i = key.split("_")[1]
+            for n in _EXPERTS:
+                layer["moe"][n] = _n(state_dict[f"layers.{i}.moe.{n}"])
     return out
 
 

@@ -13,8 +13,11 @@ the same places:
 - logits come back f32;
 - the embedding lookup is ``F.embedding`` in the ``lookup`` submodule (no
   parameters of its own), where a tensor-parallel plan can reach it;
-- attention is the flash kernel (``"flash"``) or the plain oracle
-  (``"xla"``, K/V repeated to the full head count);
+- attention is the flash kernel (``"flash"``), the plain oracle (``"xla"``,
+  K/V repeated to the full head count), or sequence-parallel over the
+  mesh's ``sp`` group: ring attention (``"ring"``, ``ops/ring.py``) or
+  Ulysses (``"ulysses"``, ``ops/ulysses.py``), both through the flash
+  kernels;
 - ``matmul_dtype`` ("int8" | "fp8_e4m3") sends the seven attention and MLP
   projections through ``ops/quant.py``'s quantized product (the embedding
   and the LM head stay unquantized); None is the bf16 path, bit for bit.
@@ -30,6 +33,16 @@ a time). ``device="meta"`` builds the skeleton without drawing.
 Under a tensor-parallel plan (``parallel/sharding.py:tp_plan``) each rank
 holds ``n_heads / tp`` heads: attention takes its head counts from the
 projections' local widths, never from the config.
+
+On a mesh with an ``sp`` axis (``shard_model`` sets ``sp_group`` on the model
+and on each ``Attention``; None off a mesh) the model still takes the whole
+``[B, S]`` tokens every sp peer reads: each rank runs its sequence chunk
+``[r·S/n, (r+1)·S/n)`` at its global positions (RoPE offset ``r·S/n``), and
+the logits (or hidden states) are gathered over the group
+(``parallel/_comm.py:gather_from_group``), as the reference's ``shard_map``
+``out_specs`` gather them. The loss every sp rank then takes is the whole
+sequence's; each rank's parameter gradient is its chunk's share of it, and
+the train step sums them over sp (``parallel/grad_sync.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +59,9 @@ from torch.utils.checkpoint import checkpoint
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.ops import quant
 from tony_tpu_torch.ops.attention import flash_attention, reference_attention
+from tony_tpu_torch.ops.ring import ring_attention
+from tony_tpu_torch.ops.ulysses import ulysses_attention
+from tony_tpu_torch.parallel import _comm
 
 # lecun_normal's truncated normal: std of a unit normal cut at ±2.
 _TRUNC_STD = 0.87962566103423978
@@ -64,7 +80,7 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16          # activations
     param_dtype: torch.dtype = torch.float32
-    attn_impl: str = "flash"        # flash | xla (ring, ulysses: later)
+    attn_impl: str = "flash"                 # flash | ring | ulysses | xla
     remat: bool = True
     # With remat on and N >= 2, every Nth block runs without checkpointing.
     remat_skip_every: int = 0
@@ -95,12 +111,11 @@ class TransformerConfig:
         return cls(**defaults)
 
 
+SEQUENCE_PARALLEL = ("ring", "ulysses")
+
+
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.attn_impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is sequence-parallel and comes "
-            "with the ring/Ulysses slice of the port")
-    if cfg.attn_impl not in ("flash", "xla"):
+    if cfg.attn_impl not in ("flash", "xla") + SEQUENCE_PARALLEL:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     quant.check_mode(cfg.matmul_dtype)
 
@@ -203,6 +218,7 @@ class Attention(nn.Module):
         self.wk = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wo = dense(cfg.n_heads * hd, cfg.dim)
+        self.sp_group = None        # the mesh's sp group (shard_model)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         cfg, hd = self.cfg, self.head_dim
@@ -213,10 +229,15 @@ class Attention(nn.Module):
         v = self.wv(x).view(b, s, -1, hd)
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
+        blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
         if cfg.attn_impl == "flash":
-            o = flash_attention(q, k, v, causal=True,
-                                block_q=cfg.attn_block_q,
-                                block_k=cfg.attn_block_k)
+            o = flash_attention(q, k, v, causal=True, **blocks)
+        elif cfg.attn_impl == "ring":
+            # GQA-native: K/V travel the ring at kv-head width.
+            o = ring_attention(q, k, v, self.sp_group, causal=True, **blocks)
+        elif cfg.attn_impl == "ulysses":
+            o = ulysses_attention(q, k, v, self.sp_group, causal=True,
+                                  **blocks)
         else:                                            # "xla"
             g = q.shape[2] // k.shape[2]
             o = reference_attention(q, k.repeat_interleave(g, dim=2),
@@ -280,6 +301,7 @@ class Transformer(nn.Module):
         self.lm_head = None if cfg.tie_embeddings else Dense(
             cfg.dim, cfg.vocab_size, cfg.lm_head_dtype or cfg.dtype,
             cfg.param_dtype, dev)
+        self.sp_group = None        # the mesh's sp group (shard_model)
         if not meta:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -320,6 +342,23 @@ class Transformer(nn.Module):
         if positions is None:
             positions = torch.arange(seq, device=tokens.device).expand(
                 tokens.shape)
+        sp = self.sp_group
+        if _comm.group_size(sp) > 1:
+            if loss_chunk is not None:
+                raise ValueError(
+                    "chunked_causal_lm_loss inside an sp group of more than "
+                    "one rank would shift targets per shard (wrong at every "
+                    "shard boundary) and skip the cross-shard mean; take the "
+                    "loss on the gathered logits")
+            # This rank's sequence chunk, at its global positions.
+            tokens = _comm.split_to_group(tokens, sp, 1)
+            positions = _comm.split_to_group(positions, sp, 1)
+        out = self._forward(tokens, positions, return_hidden, loss_chunk)
+        return out if loss_chunk is not None else \
+            _comm.gather_from_group(out, sp, 1)
+
+    def _forward(self, tokens, positions, return_hidden, loss_chunk):
+        cfg = self.cfg
         x = self.lookup(tokens, self.embedding).to(cfg.dtype)
         for i, blk in enumerate(self.layers):
             skip = cfg.remat_skip_every >= 2 and i % cfg.remat_skip_every == 0

@@ -33,9 +33,11 @@ On a mesh (``train_step_accum(..., mesh=)``, the step
 DTensor gradients over ``(dp, fsdp)`` once per step, on the last
 microbatch (``set_requires_gradient_sync``); the replicated parameters'
 gradients (those FSDP2 leaves alone) are averaged over ``fsdp`` and ``dp``
-here; then every gradient's local shard is averaged over ``dcn_dp`` by the
-bucketed all-reduce on that axis's group. The loss and aux are averaged
-over the batch axes.
+here; on a sequence-parallel mesh every gradient's local shard is then
+SUMMED over ``sp`` by the same bucketed all-reduce (each sp rank's gradient is its sequence chunk's share
+of one loss, the whole sequence's); then every gradient's local shard is
+averaged over ``dcn_dp`` by the bucketed all-reduce on that axis's group.
+The loss and aux are averaged over the batch axes.
 
 Semantics note: ``loss_fn(model, batch)`` must return a MEAN over its batch
 (the ``train_step`` contract) — the mean of per-rank/per-microbatch means
@@ -111,8 +113,10 @@ def plan_buckets(leaf_descs: Sequence[Tuple[Tuple[int, ...], torch.dtype]],
 
 def bucketed_sync(grads: Mapping[str, torch.Tensor],
                   bucket_mb: int = DEFAULT_BUCKET_MB,
-                  group: Optional[Any] = None) -> Dict[str, torch.Tensor]:
-    """Mean-reduce gradients bucket by bucket, in the mapping's order.
+                  group: Optional[Any] = None,
+                  mean: bool = True) -> Dict[str, torch.Tensor]:
+    """Mean-reduce (with ``mean=False``: sum) gradients bucket by bucket, in
+    the mapping's order.
 
     With no ``group``, ``grads`` are stacked per-slice gradients
     ``[n, ...]`` and the mean is over the leading dim (the reference's
@@ -136,7 +140,7 @@ def bucketed_sync(grads: Mapping[str, torch.Tensor],
     pending = []
     for bucket in plan_buckets(descs, bucket_mb):
         dtype = leaves[bucket[0]].dtype
-        inv = torch.tensor(1.0 / n, dtype=dtype)
+        inv = torch.tensor(1.0 / n if mean else 1.0, dtype=dtype)
         if group is None:
             if len(bucket) == 1:
                 i = bucket[0]
@@ -231,23 +235,26 @@ def accumulate_grads(state: TrainState, batch: Mapping[str, Any],
 
 
 def _sync_into(grads: Dict[str, torch.Tensor], bucket_mb: int,
-               group: Any) -> None:
+               group: Any, mean: bool = True) -> None:
     """``bucketed_sync`` over ``group``, written back into ``grads``."""
-    for k, g in bucketed_sync(grads, bucket_mb, group).items():
+    for k, g in bucketed_sync(grads, bucket_mb, group, mean).items():
         grads[k].copy_(g)
 
 
 def _mesh_sync(grads: Mapping[str, torch.Tensor], bucket_mb: int,
                mesh: Any) -> None:
-    """The gradient averaging FSDP2 does not do, in place: replicated
-    parameters over ``fsdp`` then ``dp``, then every local shard over
-    ``dcn_dp``."""
+    """The gradient reductions FSDP2 does not do, in place: replicated
+    parameters averaged over ``fsdp`` then ``dp``, every local shard summed
+    over ``sp``, then averaged over ``dcn_dp``."""
     shape = mesh_shape(mesh)
     replicated = {k: g for k, g in grads.items()
                   if not isinstance(g, DTensor)}
     for axis in ("fsdp", "dp"):
         if shape[axis] > 1 and replicated:
             _sync_into(replicated, bucket_mb, mesh.get_group(axis))
+    if shape["sp"] > 1:
+        _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
+                   mesh.get_group("sp"), mean=False)
     if shape["dcn_dp"] > 1:
         _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
                    mesh.get_group("dcn_dp"))
@@ -280,8 +287,8 @@ def train_step_accum(state: TrainState, batch: Mapping[str, Any],
 
     With ``mesh`` (in place of ``group``) the state is a sharded one
     (``init_sharded_state``): the sync is the mesh's (module docstring; the
-    comms phase only where a batch axis is larger than 1, since a mesh of
-    one rank runs no explicit collective) and the loss and aux are the
+    comms phase only where a batch axis or sp is larger than 1, since a
+    mesh of one rank runs no explicit collective) and the loss and aux are the
     global batch's means."""
     if mesh is not None and group is not None:
         raise ValueError("train_step_accum takes a group or a mesh, not "
@@ -289,7 +296,7 @@ def train_step_accum(state: TrainState, batch: Mapping[str, Any],
     grads, loss, aux = accumulate_grads(state, batch, accum_steps)
     if mesh is not None:
         shape = mesh_shape(mesh)
-        if comms_phase and any(shape[a] > 1 for a in BATCH_AXES):
+        if comms_phase and any(shape[a] > 1 for a in BATCH_AXES + ("sp",)):
             telemetry.block_until_ready(grads)
             with telemetry.phase("comms") as p:
                 _mesh_sync(grads, bucket_mb, mesh)

@@ -11,8 +11,10 @@ device:
     fsdp    data parallelism with sharded parameters and optimizer state
             (FSDP2's shard dim)
     pp      pipeline stages          (a later slice)
-    ep      expert parallelism       (a later slice)
-    sp      sequence parallelism     (a later slice)
+    ep      expert parallelism: the MoE decoder's experts, all-to-all
+            dispatch (``models/moe.py``)
+    sp      sequence parallelism: ring or Ulysses attention
+            (``ops/ring.py``, ``ops/ulysses.py``)
     tp      tensor parallelism (DTensor plans, ``parallel/sharding.py``)
 
 ``MESH_AXES``, ``BATCH_AXES`` and ``MeshSpec`` are copies of the reference's,

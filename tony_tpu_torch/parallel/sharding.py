@@ -19,7 +19,13 @@ into what torch runs:
   is synced by the explicit bucketed all-reduce (``parallel/grad_sync.py``),
   the reference's multislice design. The FSDP2 mesh is then a plain slice
   of the mesh (``("dp", "fsdp")``), so no private ``DeviceMesh._flatten`` is
-  needed.
+  needed;
+- ``ep`` on the MoE decoder's stacked experts (``expert`` → ep) → the
+  weights become DTensors ``Shard(0)`` on the mesh's ep axis, which FSDP2
+  then shards over fsdp on their ``embed`` dim like every other weight;
+- ``sp``: no parameter names it (parameters stay replicated over sp, as in
+  the reference); the model gets the sp group, over which its attention
+  runs (ring or Ulysses) and the train step sums the gradients.
 """
 
 from __future__ import annotations
@@ -37,10 +43,10 @@ from torch.distributed.tensor.parallel import (ColwiseParallel, ParallelStyle,
                                                RowwiseParallel,
                                                parallelize_module)
 
-from tony_tpu_torch.models.resnet import _Bottleneck
-from tony_tpu_torch.models.transformer import (Block, Transformer,
-                                               check_tensor_parallel)
 from tony_tpu_torch.parallel.mesh import BATCH_AXES, mesh_shape
+
+# The model classes are imported where they are used: the models import
+# this package (its collectives, ``parallel/_comm.py``).
 
 # Logical name → mesh axis (or tuple of axes): the reference's table.
 DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
@@ -87,6 +93,12 @@ PARAM_AXES: Dict[str, Tuple[Any, ...]] = {
     "convs.weight": ("mlp", None, None, None),
     "head.weight": ("vocab", "embed"),
     "bias": (None,),
+    # The MoE decoder (tony_tpu/models/moe.py:118 the router, :133-135 the
+    # stacked experts in the reference's own layout).
+    "moe.router.weight": ("expert_logits", "embed"),
+    "moe.gate": ("expert", "embed", "mlp"),
+    "moe.up": ("expert", "embed", "mlp"),
+    "moe.down": ("expert", "mlp", "embed"),
 }
 
 
@@ -142,11 +154,14 @@ def param_placements(model: nn.Module,
     """Per parameter (by name): which mesh axes shard which tensor dim, and
     its local shard shape on ``mesh`` (a ``DeviceMesh`` or ``{axis:
     size}``). Counterpart of ``param_shardings``; the shapes are the
-    reference's ``shard_shape`` of the same parameter."""
+    reference's ``shard_shape`` of the same parameter. A model class may
+    name some of its parameters' axes itself (``PARAM_AXES``, by full
+    name), where they differ from the table's."""
     sizes = _sizes(mesh)
+    own = getattr(model, "PARAM_AXES", {})
     out = {}
     for name, p in model.named_parameters():
-        dims = mesh_axes(logical_axes(name), rules)
+        dims = mesh_axes(own.get(name) or logical_axes(name), rules)
         local = tuple(-(-n // math.prod(sizes[a] for a in axes))
                       for n, axes in zip(p.shape, dims))
         out[name] = Placement(dims, local)
@@ -195,6 +210,8 @@ def tp_plan(cfg, tp: int = 1,
     With the default rules: ``wq``/``wk``/``wv``/``gate``/``up`` colwise,
     ``wo``/``down`` rowwise, ``lm_head`` colwise over the vocab with its
     logits gathered, and the table's rows over tp."""
+    from tony_tpu_torch.models.transformer import check_tensor_parallel
+
     check_tensor_parallel(cfg, tp)
 
     def tp_dim(logical):
@@ -242,34 +259,93 @@ def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
         else mesh["fsdp"]
 
 
+def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
+                        placements: Mapping[str, Placement]) -> None:
+    """Each stacked expert weight of the MoE decoder becomes a DTensor
+    sharded over ``ep`` on the dim its rules give it (``expert``: dim 0).
+    On the meta device nothing is allocated."""
+    from tony_tpu_torch.models.moe import MoEMLP
+
+    for prefix, mod in model.named_modules():
+        if not isinstance(mod, MoEMLP):
+            continue
+        for name in ("gate", "up", "down"):
+            p = getattr(mod, name)
+            dims = placements[f"{prefix}.{name}"].dims
+            d = next(i for i, axes in enumerate(dims) if "ep" in axes)
+            mod.register_parameter(name, nn.Parameter(
+                distribute_tensor(p.data, mesh["ep"], [Shard(d)],
+                                  src_data_rank=None),
+                requires_grad=p.requires_grad))
+
+
 def shard_model(model: nn.Module, mesh: DeviceMesh,
                 rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
                 ) -> Dict[str, Placement]:
     """Lay ``model`` (best on the meta device) out on ``mesh``: a
-    ``Transformer``'s tensor-parallel plan over ``tp``, then FSDP2 on each
-    ``Block`` (each ResNet bottleneck holding a sharded parameter) and on
-    the root, the replicated parameters left out. Parameters stay f32 (no
-    mixed-precision policy: the projections cast as the reference's do).
-    Returns ``param_placements``. The pp, ep and sp axes must be 1."""
+    ``Transformer``'s tensor-parallel plan over ``tp`` (an ``MoETransformer``'s
+    experts over ``ep``), then FSDP2 on each ``Block`` / ``MoEBlock`` (each
+    ResNet bottleneck holding a sharded parameter) and on the root, the
+    replicated parameters left out; the model's attention gets the ``sp``
+    group, each ``MoEMLP`` the ``ep`` group and the batch axes' groups.
+    Parameters stay f32 (no mixed-precision policy: the projections cast as
+    the reference's do). Returns ``param_placements``.
+
+    Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
+    pipeline slice comes later), ``sp`` > 1 except for a ``Transformer``
+    with ring or Ulysses attention, ``sp`` or ``tp`` > 1 for the MoE
+    decoder (the reference leaves its tp to XLA; the port has no plan for
+    the stacked experts), ``tp`` > 1 for ResNet."""
+    from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
+    from tony_tpu_torch.models.resnet import _Bottleneck
+    from tony_tpu_torch.models.transformer import (SEQUENCE_PARALLEL,
+                                                   Attention, Block,
+                                                   Transformer)
+
     shape = mesh_shape(mesh)
-    later = [a for a in ("pp", "ep", "sp") if shape[a] > 1]
-    if later:
+    kind = type(model).__name__
+    if shape["pp"] > 1:
         raise NotImplementedError(
-            f"mesh axes {later} > 1: pipeline, expert and sequence "
-            "parallelism come with later slices of the port")
+            f"mesh axis pp={shape['pp']} > 1: pipeline parallelism comes "
+            "with a later slice of the port")
+    if isinstance(model, MoETransformer):
+        for knob in ("sp", "tp"):
+            if shape[knob] > 1:
+                raise NotImplementedError(
+                    f"mesh axis {knob}={shape[knob]} > 1 for {kind}: the "
+                    "MoE decoder runs on the batch axes and ep only")
+    elif shape["sp"] > 1 and not (
+            isinstance(model, Transformer)
+            and model.cfg.attn_impl in SEQUENCE_PARALLEL):
+        raise NotImplementedError(
+            f"mesh axis sp={shape['sp']} > 1 for {kind} with attn_impl="
+            f"{getattr(getattr(model, 'cfg', None), 'attn_impl', None)!r}: "
+            f"sequence parallelism takes a Transformer with attn_impl in "
+            f"{SEQUENCE_PARALLEL}")
     if isinstance(model, Transformer):
         for key, style in tp_plan(model.cfg, shape["tp"], rules).items():
             parallelize_module(model.get_submodule(key), mesh["tp"], style)
     elif shape["tp"] > 1:
         raise NotImplementedError(
-            f"tensor parallelism for {type(model).__name__}")
+            f"tensor parallelism for {kind}")
     placements = param_placements(model, mesh, rules)
+    if isinstance(model, MoETransformer):
+        _distribute_experts(model, mesh, placements)
+    sp_group = mesh["sp"].get_group()
+    batch_groups = tuple(mesh[a].get_group() for a in BATCH_AXES
+                         if shape[a] > 1)
+    for unit in model.modules():
+        if isinstance(unit, (Transformer, Attention)):
+            unit.sp_group = sp_group
+        elif isinstance(unit, MoEMLP):
+            unit.ep_group = mesh["ep"].get_group()
+            unit.batch_groups = batch_groups
     replicated = {p for name, p in model.named_parameters()
                   if not any("fsdp" in a for a in placements[name].dims)}
     kw = dict(mesh=fsdp_mesh(mesh),
               shard_placement_fn=fsdp_placement_fn(model, placements))
     for unit in model.modules():
-        if isinstance(unit, (Block, _Bottleneck)) and any(
+        if isinstance(unit, (Block, MoEBlock, _Bottleneck)) and any(
                 p not in replicated for p in unit.parameters()):
             fully_shard(unit, ignored_params=replicated, **kw)
     fully_shard(model, ignored_params=replicated, **kw)

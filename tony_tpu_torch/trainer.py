@@ -46,7 +46,9 @@ steps on a ``DeviceMesh`` (``parallel/mesh.py``): the state from
 sharded checkpoints written by every rank. With no process group up, a
 mesh that resolves to one rank brings up a one-rank group (NCCL on the
 card) for the call; a larger mesh needs the caller's group
-(``torchrun``-style, one process per card).
+(``torchrun``-style, one process per card). A mesh with ``sp`` > 1 needs
+``--attn-impl ring`` or ``ulysses`` (sequence-parallel attention over the
+sp group; ``TransformerConfig.attn_impl``).
 
 ``measure_vision`` is the counterpart of ``bench.py``'s
 ``measure_vision_point``: ResNet-50 (bf16 images ``[B, 224, 224, 3]``, 1000
@@ -62,6 +64,7 @@ ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
     python -m tony_tpu_torch.trainer --data corpus.bin --accum 2 \\
         --ckpt-dir ckpt --save-every 50 --steps 200        # the job's loop
     python -m tony_tpu_torch.trainer --mesh "fsdp=1"       # on a mesh
+    python -m tony_tpu_torch.trainer --mesh "fsdp=1" --attn-impl ring
 
 prints one JSON object with the throughput and MFU (with ``--data``: the
 losses, the resume point and the checkpoint costs).
@@ -595,6 +598,11 @@ def main(argv=None) -> int:
                     help="train a decoder sharded on this mesh, e.g. "
                     "'fsdp=1' on one card or 'fsdp=2,tp=2' under a "
                     "four-rank group (axes: dcn_dp dp fsdp pp ep sp tp)")
+    ap.add_argument("--attn-impl", default="flash",
+                    choices=["flash", "xla", "ring", "ulysses"],
+                    help="the decoder's attention (TransformerConfig."
+                    "attn_impl); ring and ulysses run over the mesh's sp "
+                    "axis")
     a = ap.parse_args(argv)
     batch = DEFAULT_BATCH[a.model]
     if a.model in LM_POINTS:
@@ -604,10 +612,12 @@ def main(argv=None) -> int:
             batch = LONG_CONTEXT[seq][0]
             chunk = LONG_CONTEXT[seq][1] if a.chunked else None
         chunk = a.loss_chunk or chunk or (2048 if a.chunked else None)
-        cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype)
-    elif a.seq or a.chunked or a.loss_chunk or a.matmul_dtype or a.mesh:
-        ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype and "
-                 f"--mesh are for the decoders, not {a.model}")
+        cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype,
+                                  attn_impl=a.attn_impl)
+    elif (a.seq or a.chunked or a.loss_chunk or a.matmul_dtype or a.mesh
+          or a.attn_impl != "flash"):
+        ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype, --mesh "
+                 f"and --attn-impl are for the decoders, not {a.model}")
     if a.data:
         if a.model != "flagship" or chunk is not None:
             ap.error("--data trains the flagship decoder, unchunked")
