@@ -136,7 +136,26 @@ result line:
    steps from ``init_sharded_state`` on the world-1 mesh (the experts
    DTensors on ep) against the unsharded run's first 3 within
    ``TOL_MESH_REL``; where a MoE step's device time goes;
-12. prints the kernels' JSON line, then the result line.
+12. the orchestrator's job path: ``python -m tony_tpu_torch.cli submit``
+   as a subprocess, a one-worker ``pytorch`` job on the local backend whose
+   command is ``python -m tony_tpu_torch.trainer --model flagship --steps
+   10`` on the card: (a) a cold job: the CLI exits 0 and the history says
+   SUCCEEDED, the worker's JSON line parses with finite losses and 16
+   launches of each flash kernel per step, its tokens/s printed beside
+   phase 4's, ``client.submit`` and ``executor.first_step`` present and
+   every span closed, ``submit_to_first_step_s`` printed with
+   ``tracing.cold_start_breakdown``'s phases (which must sum to it), the
+   monitor's peak device memory (``MAX_TPU_HBM_BYTES`` of the
+   TASK_FINISHED event) above 0 and below the card's memory, and the
+   command lines of the coordinator and the executor (read from /proc
+   while the job runs) naming ``tony_tpu_torch`` and no module of the
+   reference; (b) the same job again (warm), its ``submit_to_first_step_s``
+   and phases beside (a)'s, each job's ``user_boot`` split into the
+   interpreter's boot, the imports, the set-up and the first step (from
+   the trainer's start-up wall times), and the seconds a fresh interpreter
+   takes to import torch and the trainer module; (c) a worker that exits
+   1: the CLI exits non-zero, the job ends FAILED with a diagnosis report;
+13. prints the kernels' JSON line, then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
@@ -151,6 +170,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -1848,6 +1868,235 @@ def moe_flagship(card):
     gc.collect()
 
 
+# Phase 12: the orchestrator's job path on the card.
+REPO = os.path.dirname(os.path.abspath(__file__))
+JOB_TIMEOUT_S = 300
+# A command line that names a module of the reference package.
+REFERENCE_MODULE = re.compile(r"\btony_tpu(?!_torch)\.")
+
+
+def descendant_cmdlines(root):
+    """Command lines of the processes below ``root`` (read from /proc)."""
+    parent, cmd = {}, {}
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                parent[int(pid)] = int(f.read().rsplit(") ", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd[int(pid)] = f.read().replace(b"\0", b" ").decode(
+                    errors="replace").strip()
+        except (OSError, IndexError, ValueError):
+            continue
+    out = set()
+    for pid, c in cmd.items():
+        p = parent.get(pid)
+        while p is not None and p > 1 and p != root:
+            p = parent.get(p)
+        if p == root:
+            out.add(c)
+    return out
+
+
+def submit_job(tmp, label, command):
+    """``python -m tony_tpu_torch.cli submit`` of a one-worker pytorch job
+    on the local backend, its history under ``tmp``: the CLI's exit code,
+    its output, the application id, the history root, the client workdir
+    and the command lines of the CLI's descendants while the job ran (read
+    from /proc every 0.1 s)."""
+    hist = os.path.join(tmp, label, "history")
+    work = os.path.join(tmp, label, "work")
+    out_path = os.path.join(tmp, f"{label}.out")
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
+            "--conf", "tony.application.framework=pytorch",
+            "--conf", "tony.application.backend=local",
+            "--conf", "tony.worker.instances=1",
+            "--conf", f"tony.worker.command={command}",
+            "--conf", f"tony.history.location={hist}",
+            "--conf", f"tony.application.timeout-s={JOB_TIMEOUT_S}",
+            "--workdir", work]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (REPO + os.pathsep
+                         + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    seen = set()
+    with open(out_path, "w") as out:
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + JOB_TIMEOUT_S + 60
+        try:
+            while proc.poll() is None:
+                seen |= descendant_cmdlines(proc.pid)
+                if time.monotonic() > deadline:
+                    break
+                time.sleep(0.1)
+        finally:
+            if proc.poll() is None:
+                proc.terminate()      # the CLI kills its application
+                proc.wait(timeout=120)
+                check(False, f"{label}: the job outlasted {JOB_TIMEOUT_S} s")
+    with open(out_path) as f:
+        text = f.read()
+    m = re.search(r"submitted application (\S+)", text)
+    check(m is not None, f"{label}: no application id in {text[-2000:]}")
+    return proc.returncode, text, m.group(1), hist, work, seen
+
+
+def job_task_log(work, app_id, name="stdout.log"):
+    path = os.path.join(work, "jobs", app_id, "tasks", "worker_0", name)
+    with open(path, errors="replace") as f:
+        return f.read()
+
+
+def job_history(hist, app_id):
+    """The job's final status, its history directory and its events."""
+    from tony_tpu_torch.events import history
+
+    status = [r.status for r in history.list_jobs(hist) if r.app_id == app_id]
+    job_dir = history.list_job_dirs(hist).get(app_id)
+    check(job_dir is not None, f"no history directory for {app_id}")
+    return (status[0] if status else None, job_dir,
+            history.read_job_events(hist, app_id) or [])
+
+
+def first_step_latency(job_dir):
+    """``submit_to_first_step_s`` from the job's own spans (``client.submit``
+    start to ``executor.first_step`` end) and ``cold_start_breakdown``'s
+    phases, which must sum to it; every span closed."""
+    from tony_tpu_torch import constants, tracing
+
+    records = tracing.load_records(os.path.join(job_dir,
+                                                constants.TRACE_FILE))
+    check(records, f"no span records in {job_dir}")
+    payload = tracing.to_trace_events(records)
+    check(not payload["unclosedSpans"],
+          f"unclosed spans: {payload['unclosedSpans']}")
+    spans = [e for e in payload["traceEvents"] if e.get("ph") == "X"]
+    submit = [e for e in spans if e["name"] == "client.submit"]
+    first = [e for e in spans if e["name"] == "executor.first_step"]
+    check(submit and first, "client.submit or executor.first_step missing: "
+          f"{sorted({e['name'] for e in spans})}")
+    first_end = min(e["ts"] + e.get("dur", 0) for e in first)
+    latency = (first_end - min(e["ts"] for e in submit)) / 1e6
+    bd = tracing.cold_start_breakdown(records)
+    check(abs(bd["total_s"] - latency) < 1e-3,
+          f"breakdown total {bd['total_s']} != span latency {latency}")
+    check(abs(sum(bd["phases"].values()) - latency) < 1e-3,
+          f"phases {bd['phases']} do not sum to {latency}")
+    user = min((e for e in spans if e["name"] == "executor.user_process"),
+               key=lambda e: e["ts"])
+    return latency, bd, user["ts"] / 1e6, first_end / 1e6
+
+
+def user_boot_split(run, user_start, first_end):
+    """``user_boot`` in four parts, from the trainer's start-up wall times
+    (``startup_ts``, ``first_step_start_ts``) between the user process's
+    span start and the first step's end: the interpreter's boot, the
+    imports (torch and the port), the set-up (CUDA, the model built on the
+    card, the batches) and the first step."""
+    ts = run["startup_ts"]
+    marks = [user_start, ts["package"], ts["main"],
+             run["first_step_start_ts"], first_end]
+    return dict(zip(("interpreter", "imports", "setup", "first_step"),
+                    (round(b - a, 4) for a, b in zip(marks, marks[1:]))))
+
+
+def orchestrated_flagship(tmp, label, in_process):
+    """(a) and (b): the flagship, 10 steps, submitted as a one-worker job;
+    returns its submit-to-first-step seconds and phases."""
+    from tony_tpu_torch.ops import _flash_cuda
+
+    command = (f"{sys.executable} -m tony_tpu_torch.trainer "
+               f"--model flagship --steps {STEPS}")
+    rc, text, app, hist, work, cmdlines = submit_job(tmp, label, command)
+    check(rc == 0, f"{label}: the CLI exited {rc}: {text[-3000:]}\n"
+          f"{job_task_log(work, app, 'stderr.log')[-3000:]}")
+    status, job_dir, events = job_history(hist, app)
+    check(status == "SUCCEEDED", f"{label}: history says {status}")
+    run = json.loads(job_task_log(work, app).strip().splitlines()[-1])
+    check(all(math.isfinite(x) for x in run["losses"]),
+          f"{label}: non-finite loss {run['losses']}")
+    for name in _flash_cuda.KERNELS:
+        check(run["launches_per_step"][name] == 16,
+              f"{label}: {name} {run['launches_per_step'][name]} launches "
+              "per step, expected 16")
+    coord = [c for c in cmdlines if "-m tony_tpu_torch.coordinator" in c]
+    execs = [c for c in cmdlines if "-m tony_tpu_torch.executor" in c]
+    check(coord and execs, f"{label}: no coordinator or executor of the "
+          f"port among {sorted(cmdlines)}")
+    bad = [c for c in cmdlines if REFERENCE_MODULE.search(c)]
+    check(not bad, f"{label}: a process ran the reference: {bad}")
+    finished = [e for e in events if e.type.value == "TASK_FINISHED"]
+    check(len(finished) == 1, f"{label}: {len(finished)} TASK_FINISHED")
+    peak = float(finished[0].payload.get("metrics", {})
+                 .get("MAX_TPU_HBM_BYTES", 0))
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    check(0 < peak < card_bytes, f"{label}: the monitor's peak device "
+          f"memory {peak} is not in (0, {card_bytes})")
+    latency, bd, user_start, first_end = first_step_latency(job_dir)
+    bd["user_boot_split"] = user_boot_split(run, user_start, first_end)
+    log(f"orchestrator ({label}): {app} SUCCEEDED, "
+        f"submit_to_first_step_s {latency:.4f}, phases "
+        f"{json.dumps(bd['phases'])}, user_boot "
+        f"{json.dumps(bd['user_boot_split'])}, spans "
+        f"{json.dumps(bd['span_durations'])}")
+    log(f"orchestrator ({label}): {run['tokens_per_sec']:.1f} tokens/s "
+        f"submitted vs {in_process:.1f} in process (phase 4), "
+        f"{run['step_ms']:.3f} ms/step, launches per step "
+        f"{json.dumps(run['launches_per_step'])}, the monitor's peak device "
+        f"memory {peak / 2**30:.2f} GiB, processes "
+        f"{len(coord)} coordinator / {len(execs)} executor")
+    return latency, bd
+
+
+def import_seconds(module):
+    """Host seconds a fresh interpreter takes to import ``module``."""
+    code = (f"import time; t = time.time(); import {module}; "
+            f"print(time.time() - t)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300,
+                       check=True)
+    return float(r.stdout.strip().splitlines()[-1])
+
+
+def phase_orchestrator(in_process_tokens_per_sec):
+    """Phase 12: the orchestrator's job path on the card."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()     # the submitted job needs the card's memory
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-orch-")
+    try:
+        cold = orchestrated_flagship(tmp, "cold", in_process_tokens_per_sec)
+        warm = orchestrated_flagship(tmp, "warm", in_process_tokens_per_sec)
+        log(f"orchestrator: submit_to_first_step_s cold {cold[0]:.4f} "
+            f"warm {warm[0]:.4f}; phases cold "
+            f"{json.dumps(cold[1]['phases'])} warm "
+            f"{json.dumps(warm[1]['phases'])}; user_boot cold "
+            f"{json.dumps(cold[1]['user_boot_split'])} warm "
+            f"{json.dumps(warm[1]['user_boot_split'])}")
+        # What the user process's imports are made of: torch alone, then
+        # the trainer module (torch and the port's modules).
+        log(f"orchestrator: import seconds in a fresh interpreter: torch "
+            f"{import_seconds('torch'):.4f}, tony_tpu_torch.trainer "
+            f"{import_seconds('tony_tpu_torch.trainer'):.4f}")
+        rc, text, app, hist, _, _ = submit_job(
+            tmp, "failing", f"{sys.executable} -c 'import sys; sys.exit(1)'")
+        check(rc != 0, f"failing job: the CLI exited 0: {text[-2000:]}")
+        status, job_dir, _ = job_history(hist, app)
+        check(status == "FAILED", f"failing job: history says {status}")
+        from tony_tpu_torch import constants
+
+        with open(os.path.join(job_dir, constants.INCIDENT_FILE)) as f:
+            incident = json.load(f)
+        verdict = incident.get("verdict") or {}
+        log(f"orchestrator (failing): {app} {status}, CLI exit {rc}, "
+            f"diagnosis {verdict.get('category')}: "
+            f"{str(verdict.get('summary', ''))[:200]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"orchestrator: {time.perf_counter() - t0:.1f} s")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -1873,6 +2122,7 @@ def main():
     phase_quant()
     mesh_run = phase_mesh(main_run, card)
     phase_seq_expert(mesh_run, long_timing, card)
+    phase_orchestrator(main_run["tokens_per_sec"])
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

@@ -1,8 +1,9 @@
 """Weights carried between the flax models and the port's.
 
-``from_flax_params`` takes the flax param tree of
-``tony_tpu.models.Transformer`` as nested dicts of numpy arrays and returns
-a ``state_dict`` for ``tony_tpu_torch.models.Transformer``;
+``from_flax_params`` takes the flax param tree of the reference's
+``Transformer`` (``tony_tpu/models/transformer.py``) as nested dicts of
+numpy arrays and returns a ``state_dict`` for
+``tony_tpu_torch.models.Transformer``;
 ``to_flax_params`` is its exact inverse (the gradient parity tests carry
 torch grads back to the flax tree with it). A flax ``Dense`` kernel is
 ``[in, out]`` and a ``Dense.weight`` here ``[out, in]``, so every projection

@@ -67,7 +67,16 @@ ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
     python -m tony_tpu_torch.trainer --mesh "fsdp=1" --attn-impl ring
 
 prints one JSON object with the throughput and MFU (with ``--data``: the
-losses, the resume point and the checkpoint costs).
+losses, the resume point and the checkpoint costs), each kernel's launches
+per step (``launches_per_step``) and the wall times of the start-up
+(``startup_ts``: the package's import and ``main`` began;
+``first_step_start_ts``: the first step began).
+
+Submitted as a job's command (``python -m tony_tpu_torch.cli submit``),
+the trainer runs under the executor's rendezvous env: ``--mesh`` then
+joins the gang's group through ``env://`` (``mesh_scope``), and the final
+step count and device memory are published to the executor's telemetry
+file before the process exits.
 """
 
 from __future__ import annotations
@@ -86,7 +95,8 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
-from tony_tpu_torch import telemetry
+import tony_tpu_torch
+from tony_tpu_torch import constants, telemetry
 from tony_tpu_torch._device import peak_bf16, resolve_device
 from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.data import (synthetic_lm_batch, token_file_batches,
@@ -95,6 +105,7 @@ from tony_tpu_torch.models.mlp import MnistMLP, classification_loss
 from tony_tpu_torch.models.resnet import ResNet, ResNetConfig
 from tony_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                                causal_lm_loss)
+from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
 from tony_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mesh_shape
@@ -176,12 +187,22 @@ def build_state(cfg: TransformerConfig,
     return TrainState(model, optimizer(model.parameters()), loss)
 
 
+#: The rendezvous env of a job's task (the pytorch runtime's, and
+#: torchrun's): with all four set, ``mesh_scope`` joins the gang's group.
+RENDEZVOUS_ENV = (constants.RANK, constants.WORLD_SIZE, constants.MASTER_ADDR,
+                  constants.MASTER_PORT)
+
+
 @contextlib.contextmanager
 def mesh_scope(mesh: str, device: torch.device):
     """The ``DeviceMesh`` of the spec string ``mesh`` (``"fsdp=2,tp=2"``;
-    "" yields None) over the process group. With none up, a spec that
-    resolves to one rank brings up a one-rank group (NCCL for a CUDA
-    device, gloo for the CPU), taken down on exit."""
+    "" yields None) over the process group. With none up, a process
+    started with the rendezvous env (``RENDEZVOUS_ENV``, as a submitted
+    job's executor exports it) joins its gang's group through ``env://``:
+    NCCL on ``cuda:LOCAL_RANK`` for a CUDA device without an index, gloo
+    for the CPU. Without that env, a spec that resolves to one rank brings
+    up a one-rank group (NCCL for a CUDA device, gloo for the CPU). The
+    group is taken down on exit."""
     if not mesh:
         yield None
         return
@@ -189,12 +210,19 @@ def mesh_scope(mesh: str, device: torch.device):
     dist = torch.distributed
     own = not dist.is_initialized()
     if own:
-        spec.resolve(1)
-        if device.index is not None:
-            torch.cuda.set_device(device)
-        dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            store=dist.HashStore(), rank=0, world_size=1)
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        gang = all(os.environ.get(k) for k in RENDEZVOUS_ENV)
+        if not gang:
+            spec.resolve(1)
+        if device.type == "cuda":
+            torch.cuda.set_device(
+                device if device.index is not None or not gang
+                else int(os.environ.get(constants.LOCAL_RANK, "0")))
+        if gang:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
     try:
         yield build_mesh(spec, device.type)
     finally:
@@ -222,9 +250,10 @@ def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
     ``telemetry.step``: the losses as floats, the synchronised seconds of
     the steps from ``warmup`` on and the telemetry ``data_wait`` and
     ``h2d`` seconds they booked, with the device's name and dense bf16
-    peak (None off the card)."""
+    peak (None off the card), and the wall time the first step began."""
     losses = []
     t0 = time.perf_counter()
+    first_ts = time.time()
     phases = ("data_wait", "h2d")
     start = {p: _phase_cum(p) for p in phases}
     for s in range(steps):
@@ -241,7 +270,8 @@ def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     peak = peak_bf16(name) if dev.type == "cuda" else None
     return ([float(x) for x in losses], dt,
-            {p: _phase_cum(p) - start[p] for p in phases}, name, peak)
+            {p: _phase_cum(p) - start[p] for p in phases}, name, peak,
+            first_ts)
 
 
 def _check_steps(steps: int, warmup: int) -> None:
@@ -262,7 +292,7 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
     fpt = flops_per_token(cfg, n_params, seq)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, dt, wait, name, peak = _timed_steps(
+    losses, dt, wait, name, peak, first_ts = _timed_steps(
         state, batch_of, steps, warmup, dev, flops=fpt * batch * seq,
         tokens=batch * seq, step=step_fn(mesh))
     tokens_per_sec = batch * seq * (steps - warmup) / dt
@@ -274,7 +304,7 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
         "data_wait_s_per_step": wait["data_wait"] / (steps - warmup),
         "h2d_s_per_step": wait["h2d"] / (steps - warmup),
         "params": n_params, "batch": batch, "seq": seq, "steps": steps,
-        "warmup": warmup, "device": name,
+        "warmup": warmup, "device": name, "first_step_start_ts": first_ts,
         "mesh": mesh_shape(mesh) if mesh is not None else None,
         # The parameters, moments and the steps' peak, on the card.
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
@@ -535,7 +565,7 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
     state = build_vision_state(kind, device, seed)
     dev = next(state.model.parameters()).device
     n_params = sum(p.numel() for p in state.model.parameters())
-    losses, dt, _, name, peak = _timed_steps(
+    losses, dt, _, name, peak, first_ts = _timed_steps(
         state, lambda s: vision_batch(kind, s, batch, image, dev, seed),
         steps, warmup, dev)
     samples_per_sec = batch * (steps - warmup) / dt
@@ -549,7 +579,7 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
         "step_ms": dt / (steps - warmup) * 1e3,
         "params": n_params, "batch": batch,
         "image": image if kind == "resnet50" else 28, "steps": steps,
-        "warmup": warmup, "device": name,
+        "warmup": warmup, "device": name, "first_step_start_ts": first_ts,
     }
 
 
@@ -568,6 +598,7 @@ LONG_CONTEXT = {8192: (4, 2048), 32768: (1, 8192)}
 
 
 def main(argv=None) -> int:
+    main_ts = time.time()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=sorted(DEFAULT_BATCH),
                     default="flagship")
@@ -618,6 +649,8 @@ def main(argv=None) -> int:
           or a.attn_impl != "flash"):
         ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype, --mesh "
                  f"and --attn-impl are for the decoders, not {a.model}")
+    _flash_cuda.reset_launch_counts()
+    _convfuse_cuda.reset_launch_counts()
     if a.data:
         if a.model != "flagship" or chunk is not None:
             ap.error("--data trains the flagship decoder, unchunked")
@@ -634,6 +667,21 @@ def main(argv=None) -> int:
     else:
         out = measure_vision(a.model, batch=batch, steps=a.steps,
                              device=a.device)
+    # Wall times of the start-up: the package's import began (before
+    # torch), main began, and (in out) the first step began.
+    out["startup_ts"] = {"package": tony_tpu_torch.IMPORT_TS,
+                         "main": main_ts}
+    # Which kernels the run went through: launches of each per step.
+    out["launches_per_step"] = {
+        name: n / a.steps for name, n in {**_flash_cuda.launch_counts,
+                                          **_convfuse_cuda.launch_counts}
+        .items()}
+    metrics_file = os.environ.get(constants.METRICS_FILE, "")
+    if metrics_file:
+        # Inside a job: publish the final step count and device memory now.
+        # The run can end before the reporter's next tick, and the
+        # executor reads this file once more after the process exits.
+        telemetry.write_stats_once(metrics_file)
     print(json.dumps(out))
     return 0
 
