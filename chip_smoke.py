@@ -4,7 +4,12 @@
     python3 chip_smoke.py          # from the root of the repository
 
 Phases, in order; any failure ends the run with a non-zero exit and no
-result line:
+result line. Phases 7-11 run the flagship's earlier paths (and bench's
+0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
+= 4 layers: their launch counts are per layer of that depth, their rates
+and peak memory are not those of the whole model, and their labels say
+"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12 and 13 run all
+16:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -19,7 +24,9 @@ result line:
    also be bitwise equal across two runs), the Llama-3-8B attention shape
    of ``TransformerConfig.llama3_8b`` at batch 1 (S=2048, H=32, Hkv=8,
    D=128, bf16, causal), ragged cases (S=1000: non-causal and causal GQA
-   bf16 at D=64, causal bf16 at D=128) and small f32 cases, then
+   bf16 at D=64, causal bf16 at D=128), a microbatch of the pipelined
+   flagship (phase 13: B=1, S=2048, H=8, Hkv=4, D=128, bf16, causal) and
+   small f32 cases, then
    ``flash_attention_with_lse(out_dtype=f32)`` with its lse cotangent,
    kernels against plain versions on the card, at D=64 (S=256), D=128
    (S=1000) and the ring's hops of phase 11 (causal B4 S2048, full B4 S512
@@ -52,89 +59,89 @@ result line:
    bottlenecks and the 4 projections); then the MNIST MLP (batch 4096, 20
    steps, no kernel) must give finite losses; then where a ResNet step's
    device time goes;
-7. the training job's own loop at the flagship's width and depth: (a)
+7. the training job's own loop at the flagship's width: (a)
    ``trainer.measure_token_file`` trains 10 steps from a 4,000,000-token
-   uint16 corpus through the prefetching iterator (prefetch 2, then 0),
-   16 launches of each flash kernel per step, its tokens/s beside phase
-   4's, and the iterator's first 3 batches equal
+   uint16 corpus through the prefetching iterator (prefetch 2, then 0), one
+   launch of each flash kernel per layer and step, its tokens/s beside
+   phase 4's (16 layers), and the iterator's first 3 batches equal
    ``TokenFileDataset.load_local`` byte for byte; (b) a one-rank NCCL
-   group: accumulation 2 with 32 MiB buckets, the first batch's
-   accumulated gradients within 1e-2 (relative Frobenius) of one
-   full-batch step's, then 4 steps of ``train_step_accum`` with 32
-   launches of each flash kernel per optimizer step and a ``comms`` phase
-   booked on each; (c) ``trainer.train`` for 6 steps with async checkpoints
-   every 2 steps (``max_to_keep`` 2, the last step forced), no async
-   error, the newest verified step 5 restored into a fresh state bit for
-   bit (parameters and Adam moments), and the resume's steps 6-7 within
-   1e-3 of an uninterrupted 8-step run's losses; it prints the
-   checkpoint's bytes, the stall per save, the writer's seconds per save
-   and the restore's seconds;
+   group: accumulation 2 with 32 MiB buckets, the first batch's accumulated
+   gradients within 1e-2 (relative Frobenius) of one full-batch step's,
+   then 4 steps of ``train_step_accum`` with two launches of each flash
+   kernel per layer and optimizer step and a ``comms`` phase booked on
+   each; (c) ``trainer.train`` for 6 steps with async checkpoints every 2
+   steps (``max_to_keep`` 2, the last step forced), no async error, the
+   newest verified step 5 restored into a fresh state bit for bit
+   (parameters and Adam moments), and the resume's steps 6-7 within 1e-3 of
+   an uninterrupted 8-step run's losses; it prints the checkpoint's bytes,
+   the stall per save, the writer's seconds per save and the restore's
+   seconds;
 8. long context at the flagship's width: ``trainer.measure`` on bench's
    three long-context points (4 x 8192, chunked cross-entropy, loss chunk
-   2048, 12 steps; 1 x 32768, loss chunk 8192, 8 steps; 8 x 8192 with
-   every other layer checkpointed, 8 steps) and its 0.95B point (dim 1536,
-   24 layers, 4 x 2048, loss chunk 1024, the same remat, AdamW with a bf16
+   2048, 12 steps; 1 x 32768, loss chunk 8192, 8 steps; 8 x 8192 with every
+   other layer checkpointed, 8 steps) and its 0.95B point (dim 1536, 24
+   layers, 4 x 2048, loss chunk 1024, the same remat, AdamW with a bf16
    first moment, 12 steps), each after 2 warm steps: finite losses, the
-   first near ln(32000) + 1/2, 16 launches of each flash kernel per step
-   without remat and one more forward per checkpointed layer with it (24 /
-   16 / 16 and 36 / 24 / 24); tokens/s, MFU and peak memory printed; where
-   the device time of a 1 x 32768 step and of a 0.95B step goes. Then the three flash kernels
+   first near ln(32000) + 1/2, one launch of each flash kernel per layer
+   and step without remat and one more forward per checkpointed layer with
+   it; tokens/s, MFU and peak memory printed; where the device time of a 1
+   x 32768 step and of a 0.95B step goes. Then the three flash kernels
    against their plain versions at B1 S8192, and timed beside SDPA at B4
    S8192 and B1 S32768;
 9. the quantized projections: int8 and fp8 resolve on the card with no
-   degrade; quantization on the card equals the CPU's bit for bit, the
-   int8 library product equals the exact sum and its output the CPU's bit
-   for bit, the fp8 product is within 1e-3 of the largest accumulator of
-   the f32 sum of the same values, at the flagship's projection shapes
-   (8192 rows; 1024 -> 1024, 512, 4096; 4096 -> 1024), each timed beside
-   bf16 ``F.linear``; then the flagship trained at bf16, int8 and fp8, 10
-   steps each, with 7 x 16 quantized products per int8 or fp8 step and 16
-   launches of each flash kernel;
+   degrade; quantization on the card equals the CPU's bit for bit, the int8
+   library product equals the exact sum and its output the CPU's bit for
+   bit, the fp8 product is within 1e-3 of the largest accumulator of the
+   f32 sum of the same values, at the flagship's projection shapes (8192
+   rows; 1024 -> 1024, 512, 4096; 4096 -> 1024), each timed beside bf16
+   ``F.linear``; then the flagship trained at bf16, int8 and fp8, 10 steps
+   each, with 7 quantized products per layer of an int8 or fp8 step and one
+   launch of each flash kernel per layer;
 10. the mesh at world 1, over a one-rank NCCL group and
    ``build_mesh(MeshSpec())`` (every axis 1): (a) ``trainer.measure(...,
-   mesh="fsdp=1")`` trains the flagship at full width and depth from
+   mesh="fsdp=1")`` trains the flagship at full width from
    ``init_sharded_state`` (the tensor-parallel plan at tp=1, then FSDP2:
    every projection, the table and the head are DTensors) with
    ``sharded_train_step``, in alternating turns with the unsharded
-   ``trainer.measure`` (sharded, unsharded, sharded, unsharded; tokens/s
-   and peak memory of each); every sharded turn's ten losses must equal
-   phase 4's within ``TOL_MESH_REL`` (the largest difference printed,
-   with whether they are bit for bit), with 16 launches of each flash
-   kernel per step; (b) two sharded steps, a DCP save of the sharded state
-   whose manifest notes the mesh's shape, and a restore into a fresh
-   sharded state: parameters and Adam moments bitwise equal, no reshard
-   reported; (c) ResNet-50 (batch 256) sharded on the same mesh (the
-   head's kernel over fsdp, the rest replicated) against the unsharded
+   ``trainer.measure`` (unsharded, sharded, unsharded, sharded; tokens/s
+   and peak memory of each); every sharded turn's ten losses must equal the
+   first unsharded turn's within ``TOL_MESH_REL`` (the largest difference
+   printed, with whether they are bit for bit), with one launch of each
+   flash kernel per layer and step; (b) two sharded steps, a DCP save of
+   the sharded state whose manifest notes the mesh's shape, and a restore
+   into a fresh sharded state: parameters and Adam moments bitwise equal,
+   no reshard reported; (c) ResNet-50 (batch 256) sharded on the same mesh
+   (the head's kernel over fsdp, the rest replicated) against the unsharded
    model, 3 SGD steps each: losses within ``TOL_MESH_REL``, 53 convfuse
    launches per sharded step;
 11. sequence and expert parallelism at world 1, over a one-rank NCCL group:
    (a) ``trainer.measure`` trains the flagship with ``attn_impl="ring"``
    off any mesh (a ring of one rank), 3 steps against phase 10's first 3
-   losses within ``TOL_SP_REL``, 16 launches of each flash kernel per step;
-   then ``trainer.measure(..., mesh="fsdp=1")`` trains it at full
-   width and depth with ``attn_impl="ring"`` and then ``"ulysses"`` (the
-   sp group of one rank: ring runs its one diagonal hop through the f32-out
-   forward and the merge; Ulysses' swaps are the identity), 10 steps each:
-   every loss within ``TOL_SP_REL`` of phase 10's sharded flash losses, 16
-   launches of each flash kernel per step, tokens/s beside phase 10's;
-   (b) the ring's own ``schedule``, ``_hop`` and ``_merge`` (``ops/ring.py``)
-   driven for four virtual ranks on the card, causal, at B1 S32768 H8/4 D128
-   and at the flagship's B4 S2048, forward and backward through autograd:
-   the gathered output and dq/dk/dv within phase 3's bf16 tolerances of
-   whole-sequence ``flash_attention``, each virtual rank's forward +
-   backward timed (CUDA events, median) beside whole-sequence flash / 4, the
-   flash launches by kind, and at 32k each kernel's time on one hop (full
-   and diagonal, f32 out, the lse cotangent folded into delta); (c) a small
-   f32 MoE decoder (``MoEConfig.tiny_moe`` at head_dim 64) on the card
-   against the same weights on the CPU, 3 AdamW steps: losses and every
-   parameter within ``TOL_MODEL_REL``; then the MoE decoder at the
-   flagship's widths with ``MoEConfig``'s own defaults (8 experts, top-2,
-   capacity factor 1.25, aux weight 0.01, remat on), batch 4 x 2048: 10
-   unsharded steps (first loss within 0.5 of ln(32000) + 0.5; tokens/s,
-   step ms, MFU over the active parameters, peak memory, the share of
-   token-slots dropped by capacity, the flash launches per step), then 3
-   steps from ``init_sharded_state`` on the world-1 mesh (the experts
-   DTensors on ep) against the unsharded run's first 3 within
+   losses within ``TOL_SP_REL``, one launch of each flash kernel per layer
+   and step; then ``trainer.measure(..., mesh="fsdp=1")`` trains it at full
+   width with ``attn_impl="ring"`` and then ``"ulysses"`` (the sp group of
+   one rank: ring runs its one diagonal hop through the f32-out forward and
+   the merge; Ulysses' swaps are the identity), 10 steps each: every loss
+   within ``TOL_SP_REL`` of phase 10's sharded flash losses, one launch of
+   each flash kernel per layer and step, tokens/s beside phase 10's; (b)
+   the ring's own ``schedule``, ``_hop`` and ``_merge`` (``ops/ring.py``)
+   driven for four virtual ranks on the card, causal, at B1 S32768 H8/4
+   D128 and at the flagship's B4 S2048, forward and backward through
+   autograd: the gathered output and dq/dk/dv within phase 3's bf16
+   tolerances of whole-sequence ``flash_attention``, each virtual rank's
+   forward + backward timed (CUDA events, median) beside whole-sequence
+   flash / 4, the flash launches by kind, and at 32k each kernel's time on
+   one hop (full and diagonal, f32 out, the lse cotangent folded into
+   delta); (c) a small f32 MoE decoder (``MoEConfig.tiny_moe`` at head_dim
+   64) on the card against the same weights on the CPU, 3 AdamW steps:
+   losses and every parameter within ``TOL_MODEL_REL``; then the MoE
+   decoder at the flagship's widths with ``MoEConfig``'s own defaults (8
+   experts, top-2, capacity factor 1.25, aux weight 0.01, remat on), batch
+   4 x 2048: 10 unsharded steps (first loss within 0.5 of ln(32000) + 0.5;
+   tokens/s, step ms, MFU over the active parameters, peak memory, the
+   share of token-slots dropped by capacity, the flash launches per step),
+   then 3 steps from ``init_sharded_state`` on the world-1 mesh (the
+   experts DTensors on ep) against the unsharded run's first 3 within
    ``TOL_MESH_REL``; where a MoE step's device time goes;
 12. the orchestrator's job path: ``python -m tony_tpu_torch.cli submit``
    as a subprocess, a one-worker ``pytorch`` job on the local backend whose
@@ -153,15 +160,48 @@ result line:
    and phases beside (a)'s, each job's ``user_boot`` split into the
    interpreter's boot, the imports, the set-up and the first step (from
    the trainer's start-up wall times), and the seconds a fresh interpreter
-   takes to import torch and the trainer module; (c) a worker that exits
-   1: the CLI exits non-zero, the job ends FAILED with a diagnosis report;
-13. prints the kernels' JSON line, then the result line.
+   takes to import torch and the trainer module; (d) the same job against
+   a warm executor pool (``python -m tony_tpu_torch.cli pool start --size
+   1``, the default ``torch`` preload, then ``--conf tony.pool.dir``): a
+   ``pool.lease`` span without error and the executor's register span
+   ``adopted``, the adopted worker the one that was warm, no pool worker
+   among ``nvidia-smi``'s compute processes while warm or during the job,
+   its ``submit_to_first_step_s`` and phases beside (a)'s and (b)'s, and
+   after ``pool stop`` no process of the pool alive; (c) a worker that
+   exits 1: the CLI exits non-zero, the job ends FAILED with a diagnosis
+   report;
+13. GPipe (``parallel/pipeline.py``): (a) a small f32 pipelined decoder (4
+   layers, head_dim 64, M=2) on the card against the same weights on the
+   CPU, 3 AdamW steps: the losses and the first step's gradients within
+   ``TOL_MODEL_REL``, the elements whose gradient differs in sign between
+   card and CPU at some step counted (at most ``TOL_SIGN_SHARE`` of them:
+   AdamW parts such an element by about 2·lr) and every parameter within
+   ``TOL_MODEL_REL`` outside them, 8 launches of each flash kernel per
+   step; (b) the pipelined flagship at full width and depth (16 layers,
+   dim 1024, 4 x 2048, its f32 final norm and f32 head) on a world-1 NCCL
+   mesh (pp=1), ``trainer.measure(..., mesh="pp=1",
+   model=partial(PipelineTransformer, num_microbatches=M))`` at M=1 and
+   M=4, 10 AdamW steps each: finite losses, the first within 0.5 of
+   ln(32000) + 0.5, 16·M launches of each flash kernel per step, M=1 and
+   M=4 within ``TOL_PIPE_M_REL``, tokens/s, step ms, MFU and peak memory,
+   the head's f32 FLOPs printed; then one state for both M: the first
+   step's gradients at M=4 against M=1 within ``TOL_ACCUM_REL``, and where
+   a step's device time goes at each M; (c)
+   four virtual stages of four layers: one stage's tick (forward +
+   backward on a B1 S2048 microbatch), the schedule's (M + S - 1) ticks at
+   M=4 against the whole 16-layer stack's forward + backward on B4 / 4, and
+   the measured bubble against (S - 1) / (M + S - 1) = 3/7, each timed by
+   CUDA events (the host's launches included) and by the device's kernel
+   time (torch.profiler);
+14. prints the kernels' JSON line (each flash kernel with its launches per
+   step on the pipelined flagship), then the result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
 
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -203,7 +243,7 @@ TOL_CF_F32 = 1e-6
 # run's losses against the uninterrupted run's, relative.
 TOL_ACCUM_REL = 1e-2
 TOL_RESUME_REL = 1e-3
-# The sharded flagship at world 1 against phase 4's unsharded run, relative
+# The sharded flagship at world 1 against the unsharded one, relative
 # per loss. Every collective of a one-rank mesh is a copy, and the DTensor
 # projections run the same matmuls on the same local tensors, so the losses
 # should agree bit for bit; the limit allows a different but equally exact
@@ -217,6 +257,22 @@ TOL_MESH_REL = 1e-5
 # their last bits and ten AdamW steps carry that into the losses, as far
 # as a bf16 run's reruns do (phase 7's resume is held to the same limit).
 TOL_SP_REL = 1e-3
+# Phase 13 (a): the share of the small pipelined decoder's elements whose
+# gradient differs in sign between card and CPU at one of 3 AdamW steps,
+# left out of its parameter comparison. The H100 read 261 of 2,623,744
+# (1.0e-4); the limit is ten times that, so the comparison still holds
+# 99.9 % of the elements.
+TOL_SIGN_SHARE = 1e-3
+# Phase 13 (b): the pipelined flagship at M=1 against M=4, relative per
+# loss over ten AdamW steps. M=4 computes each weight's gradient as four
+# bf16 products (one per microbatch) summed in f32 where M=1 rounds one
+# product over the whole batch; every run on the H100 read 6.555e-05, and
+# the limit is about 15 times that. On random tokens the loss barely
+# depends on the data, so the first step's gradients at M=1 and M=4 on the
+# same weights and batch are held by relative Frobenius error to
+# ``TOL_ACCUM_REL``, phase 7's limit for the same split of one batch (a
+# microbatch dropped or repeated moves them by tens of percent).
+TOL_PIPE_M_REL = 1e-3
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
@@ -225,11 +281,27 @@ PEAK_F32 = 67e12
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's ~2 GHz boost clock
 STEPS = 10
 PROFILE_STEPS = 3
+# Phases 7-11 drive their paths at the flagship's full width and this
+# depth (its layers; the 0.95B point's too), so that the script stays near
+# 400 s with phases 12 (d) and 13 in it. Phase 4 (the main path), the
+# submitted jobs of phase 12 and the pipelined flagship of phase 13 keep
+# all 16 layers.
+EARLIER_DEPTH = 4
 RESNET_BATCH = 256
 # The stem, three norms in each of 16 bottlenecks, four projections.
 RESNET_LAUNCHES_PER_STEP = 53
 MNIST_BATCH, MNIST_STEPS = 4096, 20
 AB_STEPS = 20           # timed steps per run of the training job's part (a)
+
+
+def earlier(cfg):
+    """``cfg`` at ``EARLIER_DEPTH`` layers."""
+    return dataclasses.replace(cfg, n_layers=EARLIER_DEPTH)
+
+
+def cut_label(label, cfg):
+    """``label`` of a point that runs ``earlier(cfg)``, saying so."""
+    return f"{label} ({EARLIER_DEPTH} of {cfg.n_layers} layers)"
 
 
 def check(ok, msg):
@@ -541,6 +613,10 @@ def phase_kernels():
                2, 1000, 8, 2, 64, torch.bfloat16, True, 7)
     check_case("ragged bf16 B1 S1000 H4/4 D128 causal",
                1, 1000, 4, 4, 128, torch.bfloat16, True, 2)
+    # A microbatch of the pipelined flagship (phase 13 b at M=4, each
+    # virtual stage of 13 c): one row, where dk/dv has 64 CTAs.
+    check_case("pipelined microbatch bf16 B1 S2048 H8/4 D128 causal",
+               1, 2048, 8, 4, 128, torch.bfloat16, True, 12)
     check_case("f32 B1 S256 H4/2 D64 causal",
                1, 256, 4, 2, 64, torch.float32, True, 3)
     check_case("f32 B1 S200 H2/1 D128 non-causal",
@@ -1166,10 +1242,13 @@ def job_checkpoint_resume(cfg):
 
 
 def phase_training_job(synthetic_tokens_per_sec, step_ms):
-    """The training job's own loop at the flagship's width and depth."""
+    """The training job's own loop at the flagship's width,
+    ``EARLIER_DEPTH`` layers."""
     from tony_tpu_torch import trainer
 
-    cfg = trainer.flagship_config(seq=2048)
+    full = trainer.flagship_config(seq=2048)
+    cfg = earlier(full)
+    log(cut_label("job: the flagship", full))
     t0 = time.perf_counter()
     job_token_file(cfg, synthetic_tokens_per_sec)
     job_accum_nccl(cfg, step_ms)
@@ -1252,17 +1331,20 @@ def phase_long_context():
          8, 8192, 2048, 8),
     )
     for label, cfg, batch, seq, chunk, steps in points:
-        train_point(label, cfg, batch, seq, steps, chunked=True,
-                    loss_chunk=chunk)
+        train_point(cut_label(label, cfg), earlier(cfg), batch, seq, steps,
+                    chunked=True, loss_chunk=chunk)
     # bench.py:1227-1247 (TONY_BENCH_BIG=1): AdamW with a bf16 first moment.
-    train_point("big_0p95b_remat_bf16mu", trainer.big_config(2048), 4, 2048,
-                12, chunked=True, loss_chunk=1024, mu_dtype=torch.bfloat16)
+    big = trainer.big_config(2048)
+    train_point(cut_label("big_0p95b_remat_bf16mu", big), earlier(big), 4,
+                2048, 12, chunked=True, loss_chunk=1024,
+                mu_dtype=torch.bfloat16)
     log(f"long context: {time.perf_counter() - t0:.1f} s for the points")
 
     # Where the device time of a 1 x 32768 step and of a 0.95B step goes.
-    profile_point("longctx 32k", trainer.flagship_config(32768), 1, 32768,
+    long = trainer.flagship_config(32768)
+    profile_point(cut_label("longctx 32k", long), earlier(long), 1, 32768,
                   loss_chunk=8192)
-    profile_point("0.95B", trainer.big_config(2048), 4, 2048,
+    profile_point(cut_label("0.95B", big), earlier(big), 4, 2048,
                   loss_chunk=1024, mu_dtype=torch.bfloat16)
 
     torch.cuda.empty_cache()
@@ -1354,10 +1436,11 @@ def phase_quant():
 
     runs = {}
     for mode in (None, Q.INT8, Q.FP8_E4M3):
-        label = f"flagship {mode or 'bf16'}"
-        r, qcounts = train_point(label, trainer.flagship_config(2048, mode),
-                                 4, 2048, STEPS - 2)
-        want = 7 * 16 * STEPS if mode else 0
+        full = trainer.flagship_config(2048, mode)
+        label = cut_label(f"flagship {mode or 'bf16'}", full)
+        cfg = earlier(full)
+        r, qcounts = train_point(label, cfg, 4, 2048, STEPS - 2)
+        want = 7 * cfg.n_layers * STEPS if mode else 0
         check(qcounts.get(mode, 0) == want and sum(qcounts.values()) == want,
               f"{label}: quantized products {qcounts}, expected {want}")
         runs[mode or "bf16"] = r["tokens_per_sec"]
@@ -1368,9 +1451,10 @@ def phase_quant():
     return rows
 
 
-def phase_mesh(unsharded, card):
-    """Phase 10: the flagship on a world-1 mesh over NCCL, against phase
-    4's unsharded run, then a sharded DCP save and restore."""
+def phase_mesh(card):
+    """Phase 10: the flagship (``EARLIER_DEPTH`` layers) on a world-1 mesh
+    over NCCL, in turns with the unsharded model, then a sharded DCP save
+    and restore."""
     from tony_tpu_torch import trainer
     from tony_tpu_torch.checkpoint import CheckpointManager
     from tony_tpu_torch.data import synthetic_lm_batch
@@ -1388,13 +1472,13 @@ def phase_mesh(unsharded, card):
                             store=dist.FileStore(os.path.join(tmp, "store"),
                                                  1))
     try:
-        cfg = trainer.flagship_config(seq=2048)
+        cfg = earlier(trainer.flagship_config(seq=2048))
         mesh = build_mesh(MeshSpec(), "cuda")
         log(f"mesh: {json.dumps(mesh_shape(mesh))} over "
-            f"{dist.get_backend()}; {card}")
-        want = unsharded["losses"]
+            f"{dist.get_backend()}; {card}; {cfg.n_layers} layers")
+        want = None
         rates = {"sharded": [], "unsharded": []}
-        for kind in ("sharded", "unsharded", "sharded", "unsharded"):
+        for kind in ("unsharded", "sharded", "unsharded", "sharded"):
             _flash_cuda.reset_launch_counts()
             # A sharded model lives in reference cycles (FSDP2's hooks):
             # free the last turn's before this turn's peak is taken.
@@ -1410,15 +1494,16 @@ def phase_mesh(unsharded, card):
                 f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
                 f"{json.dumps(counts)}")
             if kind == "unsharded":
+                want = want or r["losses"]
                 continue
             got = r["losses"]
             rel = max_rel(got, want)
             diff = max(abs(a - b) for a, b in zip(got, want))
-            log(f"mesh (a) sharded losses {got}; against phase 4: largest "
-                f"difference {diff:.3e} (relative {rel:.3e}), bit for bit "
-                f"{got == want}")
+            log(f"mesh (a) sharded losses {got}; against the first unsharded "
+                f"turn: largest difference {diff:.3e} (relative {rel:.3e}), "
+                f"bit for bit {got == want}")
             check(rel <= TOL_MESH_REL,
-                  f"sharded losses differ from phase 4's by {rel}")
+                  f"sharded losses differ from the unsharded by {rel}")
             check_flash_counts("mesh", counts, cfg.n_layers * STEPS)
         ratio = statistics.median(rates["sharded"]) / statistics.median(
             rates["unsharded"])
@@ -1524,6 +1609,8 @@ def phase_seq_expert(mesh_run, long_timing, card):
                             store=dist.FileStore(os.path.join(tmp, "store"),
                                                  1))
     try:
+        log(cut_label("seq/expert (a), (c): the flagship and its MoE",
+                      moe_flagship_config()))
         sp_flagship(mesh_run, card)
         t1 = time.perf_counter()
         virtual_ring(long_timing, card)
@@ -1550,7 +1637,7 @@ def sp_flagship(mesh_run, card):
 
     want = mesh_run["losses"]
     # Off any mesh the ring is a ring of one rank: its hop runs the kernels.
-    cfg = dataclasses.replace(trainer.flagship_config(seq=2048),
+    cfg = dataclasses.replace(earlier(trainer.flagship_config(seq=2048)),
                               attn_impl="ring")
     gc.collect()
     _flash_cuda.reset_launch_counts()
@@ -1566,7 +1653,7 @@ def sp_flagship(mesh_run, card):
     check_flash_counts("ring off a mesh", counts,
                        cfg.n_layers * OFF_MESH_STEPS)
     for impl in ("ring", "ulysses"):
-        cfg = dataclasses.replace(trainer.flagship_config(seq=2048),
+        cfg = dataclasses.replace(earlier(trainer.flagship_config(seq=2048)),
                                   attn_impl=impl)
         gc.collect()
         _flash_cuda.reset_launch_counts()
@@ -1788,7 +1875,7 @@ def moe_flagship(card):
                                          build_mesh, init_sharded_state,
                                          sharded_train_step, train_step)
 
-    cfg = moe_flagship_config()
+    cfg = earlier(moe_flagship_config())
     batch, seq = 4, 2048
 
     def loss_fn(model, b):
@@ -1840,7 +1927,7 @@ def moe_flagship(card):
         check(counts[name] == n * STEPS, f"MoE: {name} launched "
               f"{counts[name]} times, expected {n} per step")
     # Where a MoE step's device time goes.
-    profile("MoE at the flagship's widths",
+    profile(cut_label("MoE at the flagship's widths", moe_flagship_config()),
             lambda: train_step(state, batches[0]), flagship_kind)
     del state, model
     gc.collect()
@@ -1899,12 +1986,39 @@ def descendant_cmdlines(root):
     return out
 
 
-def submit_job(tmp, label, command):
+def gpu_apps():
+    """The rows of ``nvidia-smi --query-compute-apps=pid,used_memory``,
+    one per CUDA context on the card, as (pid, MiB). In a container whose
+    pid namespace nvidia-smi cannot translate the pid may be wrong, but
+    there is still one row per context."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60)
+    rows = []
+    for line in r.stdout.splitlines():
+        parts = [x.strip() for x in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            rows.append((int(parts[0]), parts[1]))
+    return rows
+
+
+def gpu_used_mib():
+    """The card's used memory (MiB), every process's together."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0])
+
+
+def submit_job(tmp, label, command, conf=(), roots=()):
     """``python -m tony_tpu_torch.cli submit`` of a one-worker pytorch job
-    on the local backend, its history under ``tmp``: the CLI's exit code,
-    its output, the application id, the history root, the client workdir
-    and the command lines of the CLI's descendants while the job ran (read
-    from /proc every 0.1 s)."""
+    on the local backend, its history under ``tmp`` (``conf``: more
+    ``key=value`` settings): the CLI's exit code, its output, the
+    application id, the history root, the client workdir, the command
+    lines of the CLI's descendants and of ``roots``' (a pool daemon's)
+    while the job ran (read from /proc every 0.1 s), and with ``roots``
+    the most compute processes ``nvidia-smi`` listed at once meanwhile
+    and their pids (read every second)."""
     hist = os.path.join(tmp, label, "history")
     work = os.path.join(tmp, label, "work")
     out_path = os.path.join(tmp, f"{label}.out")
@@ -1916,17 +2030,26 @@ def submit_job(tmp, label, command):
             "--conf", f"tony.history.location={hist}",
             "--conf", f"tony.application.timeout-s={JOB_TIMEOUT_S}",
             "--workdir", work]
+    for kv in conf:
+        argv += ["--conf", kv]
     env = dict(os.environ)
     env["PYTHONPATH"] = (REPO + os.pathsep
                          + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
-    seen = set()
+    seen, next_smi = set(), 0.0
+    on_card = {"max_rows": 0, "pids": set()}
     with open(out_path, "w") as out:
         proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=out,
                                 stderr=subprocess.STDOUT)
         deadline = time.monotonic() + JOB_TIMEOUT_S + 60
         try:
             while proc.poll() is None:
-                seen |= descendant_cmdlines(proc.pid)
+                for root in (proc.pid, *roots):
+                    seen |= descendant_cmdlines(root)
+                if roots and time.monotonic() > next_smi:
+                    rows = gpu_apps()
+                    on_card["max_rows"] = max(on_card["max_rows"], len(rows))
+                    on_card["pids"] |= {p for p, _ in rows}
+                    next_smi = time.monotonic() + 1.0
                 if time.monotonic() > deadline:
                     break
                 time.sleep(0.1)
@@ -1939,7 +2062,7 @@ def submit_job(tmp, label, command):
         text = f.read()
     m = re.search(r"submitted application (\S+)", text)
     check(m is not None, f"{label}: no application id in {text[-2000:]}")
-    return proc.returncode, text, m.group(1), hist, work, seen
+    return proc.returncode, text, m.group(1), hist, work, seen, on_card
 
 
 def job_task_log(work, app_id, name="stdout.log"):
@@ -1985,7 +2108,7 @@ def first_step_latency(job_dir):
           f"phases {bd['phases']} do not sum to {latency}")
     user = min((e for e in spans if e["name"] == "executor.user_process"),
                key=lambda e: e["ts"])
-    return latency, bd, user["ts"] / 1e6, first_end / 1e6
+    return latency, bd, user["ts"] / 1e6, first_end / 1e6, spans
 
 
 def user_boot_split(run, user_start, first_end):
@@ -2001,14 +2124,19 @@ def user_boot_split(run, user_start, first_end):
                     (round(b - a, 4) for a, b in zip(marks, marks[1:]))))
 
 
-def orchestrated_flagship(tmp, label, in_process):
-    """(a) and (b): the flagship, 10 steps, submitted as a one-worker job;
-    returns its submit-to-first-step seconds and phases."""
+def orchestrated_flagship(tmp, label, in_process, pool=None):
+    """(a), (b) and (d): the flagship, 10 steps, submitted as a one-worker
+    job (with ``pool``, ``(pool dir, daemon pid)``, against that warm
+    pool); returns its submit-to-first-step seconds and phases, and for a
+    pooled job its spans and the pids seen on the card."""
     from tony_tpu_torch.ops import _flash_cuda
 
     command = (f"{sys.executable} -m tony_tpu_torch.trainer "
                f"--model flagship --steps {STEPS}")
-    rc, text, app, hist, work, cmdlines = submit_job(tmp, label, command)
+    rc, text, app, hist, work, cmdlines, on_card = submit_job(
+        tmp, label, command,
+        conf=[f"tony.pool.dir={pool[0]}"] if pool else (),
+        roots=[pool[1]] if pool else ())
     check(rc == 0, f"{label}: the CLI exited {rc}: {text[-3000:]}\n"
           f"{job_task_log(work, app, 'stderr.log')[-3000:]}")
     status, job_dir, events = job_history(hist, app)
@@ -2021,7 +2149,9 @@ def orchestrated_flagship(tmp, label, in_process):
               f"{label}: {name} {run['launches_per_step'][name]} launches "
               "per step, expected 16")
     coord = [c for c in cmdlines if "-m tony_tpu_torch.coordinator" in c]
-    execs = [c for c in cmdlines if "-m tony_tpu_torch.executor" in c]
+    # A pooled job's executor is the adopted warm worker.
+    execs = [c for c in cmdlines if "-m tony_tpu_torch.executor" in c
+             or (pool and "-m tony_tpu_torch.pool worker" in c)]
     check(coord and execs, f"{label}: no coordinator or executor of the "
           f"port among {sorted(cmdlines)}")
     bad = [c for c in cmdlines if REFERENCE_MODULE.search(c)]
@@ -2033,7 +2163,7 @@ def orchestrated_flagship(tmp, label, in_process):
     card_bytes = torch.cuda.get_device_properties(0).total_memory
     check(0 < peak < card_bytes, f"{label}: the monitor's peak device "
           f"memory {peak} is not in (0, {card_bytes})")
-    latency, bd, user_start, first_end = first_step_latency(job_dir)
+    latency, bd, user_start, first_end, spans = first_step_latency(job_dir)
     bd["user_boot_split"] = user_boot_split(run, user_start, first_end)
     log(f"orchestrator ({label}): {app} SUCCEEDED, "
         f"submit_to_first_step_s {latency:.4f}, phases "
@@ -2046,7 +2176,7 @@ def orchestrated_flagship(tmp, label, in_process):
         f"{json.dumps(run['launches_per_step'])}, the monitor's peak device "
         f"memory {peak / 2**30:.2f} GiB, processes "
         f"{len(coord)} coordinator / {len(execs)} executor")
-    return latency, bd
+    return latency, bd, spans, on_card, run
 
 
 def import_seconds(module):
@@ -2057,6 +2187,117 @@ def import_seconds(module):
                        capture_output=True, text=True, timeout=300,
                        check=True)
     return float(r.stdout.strip().splitlines()[-1])
+
+
+def alive(pid):
+    """Whether ``pid`` runs (a zombie, exited but not reaped, does not)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(") ", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def pool_cli(*args):
+    """``python -m tony_tpu_torch.cli pool ...``: its exit code and
+    output."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (REPO + os.pathsep
+                         + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli", "pool",
+                        *args], cwd=REPO, env=env, capture_output=True,
+                       text=True, timeout=300)
+    return r.returncode, r.stdout + r.stderr
+
+
+def pooled_flagship(tmp, in_process, cold, warm):
+    """(d) The flagship submitted against a warm pool of one executor
+    (``pool start --size 1``, the default ``torch`` preload): the job
+    adopts the warm worker (a ``pool.lease`` span without error, the
+    executor's register span ``adopted``), the worker holds no CUDA
+    context while warm nor while it runs the job as its executor, and
+    ``pool stop`` leaves no worker alive."""
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.pool import PoolClient
+
+    pool_dir = os.path.join(tmp, "pool")
+    base_rows, base_mib = gpu_apps(), gpu_used_mib()
+    t0 = time.perf_counter()
+    rc, out = pool_cli("start", "--dir", pool_dir, "--size", "1")
+    check(rc == 0, f"pool start exited {rc}: {out[-2000:]}")
+    with open(os.path.join(pool_dir, constants.POOL_ADDR_FILE)) as f:
+        daemon = int(json.load(f)["pid"])
+    client = PoolClient(pool_dir)
+    seen_workers = set()
+    try:
+        deadline = time.monotonic() + 180
+        while True:
+            st = client.call("pool.status")
+            seen_workers |= {w["pid"] for w in st["workers"]}
+            if st["ready"] >= 1 or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        ready = [w for w in st["workers"] if w["state"] == "ready"]
+        check(ready, f"no warm worker became ready: {st}")
+        check("torch" in ready[0]["preloaded"],
+              f"the warm worker did not preload torch: {ready[0]}")
+        idle, idle_mib = gpu_apps(), gpu_used_mib()
+        log(f"orchestrator (d): pool ready in {ready_s:.2f} s (start to a "
+            f"warm worker), worker pid {ready[0]['pid']} preloaded "
+            f"{ready[0]['preloaded']}; nvidia-smi compute processes before "
+            f"the pool {base_rows}, while warm {idle}; the card's used "
+            f"memory {base_mib:.0f} -> {idle_mib:.0f} MiB")
+        # A context would add a row and hold memory (~0.5 GiB on this card).
+        check(len(idle) == len(base_rows)
+              and ready[0]["pid"] not in {p for p, _ in idle},
+              "the idle warm worker holds a CUDA context")
+        check(idle_mib - base_mib < 256,
+              f"the card's used memory grew {idle_mib - base_mib} MiB with "
+              "the warm worker")
+        latency, bd, spans, on_card, run = orchestrated_flagship(
+            tmp, "pooled", in_process, pool=(pool_dir, daemon))
+        lease = [e for e in spans if e["name"] == "pool.lease"]
+        reg = [e for e in spans if e["name"] == "executor.register"]
+        check(lease and "error" not in lease[0]["args"],
+              f"no successful pool.lease span: {lease}")
+        check(reg and reg[0]["args"].get("adopted") is True,
+              f"the executor's register span is not adopted: {reg}")
+        worker = lease[0]["args"]["pid"]
+        log(f"orchestrator (d): pool.lease {json.dumps(lease[0]['args'])}, "
+            f"{lease[0].get('dur', 0) / 1e3:.3f} ms; executor.register "
+            f"{json.dumps(reg[0]['args'])}; during the job at most "
+            f"{on_card['max_rows']} compute processes on the card (before "
+            f"the pool {len(base_rows)}; the user process adds one), pids "
+            f"{sorted(on_card['pids'])}, the adopted executor {worker}")
+        check(worker == ready[0]["pid"],
+              f"the job adopted pid {worker}, not the warm {ready[0]}")
+        check(on_card["max_rows"] <= len(base_rows) + 1
+              and worker not in on_card["pids"],
+              "the adopted executor held a CUDA context during the job")
+        log(f"orchestrator: submit_to_first_step_s cold {cold[0]:.4f} warm "
+            f"{warm[0]:.4f} pooled {latency:.4f}; phases cold "
+            f"{json.dumps(cold[1]['phases'])} warm "
+            f"{json.dumps(warm[1]['phases'])} pooled "
+            f"{json.dumps(bd['phases'])}; user_boot pooled "
+            f"{json.dumps(bd['user_boot_split'])}; pooled tokens/s "
+            f"{run['tokens_per_sec']:.1f} against {in_process:.1f} in "
+            "process (phase 4)")
+        st = client.call("pool.status")
+        seen_workers |= {w["pid"] for w in st["workers"]}
+    finally:
+        client.close()
+        rc, out = pool_cli("stop", "--dir", pool_dir)
+    check(rc == 0, f"pool stop exited {rc}: {out[-2000:]}")
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and any(
+            alive(p) for p in seen_workers | {daemon}):
+        time.sleep(0.2)
+    left = sorted(p for p in seen_workers | {daemon} if alive(p))
+    log(f"orchestrator (d): pool stopped; daemon {daemon} and workers "
+        f"{sorted(seen_workers)} alive after it: {left}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(not left, f"processes of the pool still alive: {left}")
 
 
 def phase_orchestrator(in_process_tokens_per_sec):
@@ -2074,12 +2315,13 @@ def phase_orchestrator(in_process_tokens_per_sec):
             f"{json.dumps(warm[1]['phases'])}; user_boot cold "
             f"{json.dumps(cold[1]['user_boot_split'])} warm "
             f"{json.dumps(warm[1]['user_boot_split'])}")
+        pooled_flagship(tmp, in_process_tokens_per_sec, cold, warm)
         # What the user process's imports are made of: torch alone, then
         # the trainer module (torch and the port's modules).
         log(f"orchestrator: import seconds in a fresh interpreter: torch "
             f"{import_seconds('torch'):.4f}, tony_tpu_torch.trainer "
             f"{import_seconds('tony_tpu_torch.trainer'):.4f}")
-        rc, text, app, hist, _, _ = submit_job(
+        rc, text, app, hist, _, _, _ = submit_job(
             tmp, "failing", f"{sys.executable} -c 'import sys; sys.exit(1)'")
         check(rc != 0, f"failing job: the CLI exited 0: {text[-2000:]}")
         status, job_dir, _ = job_history(hist, app)
@@ -2095,6 +2337,276 @@ def phase_orchestrator(in_process_tokens_per_sec):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"orchestrator: {time.perf_counter() - t0:.1f} s")
+
+
+# Phase 13: GPipe on the card.
+PIPE_MICROBATCHES = (1, 4)
+VIRTUAL_STAGES = 4
+
+
+def small_pipeline():
+    """(a) A small f32 pipelined decoder (head_dim 64, 4 layers, M=2) on
+    the card against the same weights on the CPU, 3 AdamW steps: the
+    losses, the first step's gradients and every parameter after the steps
+    within ``TOL_MODEL_REL``. AdamW moves an element by about lr whatever
+    its gradient's size, so an element whose gradient is below the card's
+    difference from the CPU, and so differs in sign between them, parts
+    the two by about 2·lr: one such element of the embedding is 2.8e-4 of
+    its norm. Those elements are counted (at most ``TOL_SIGN_SHARE`` of
+    the model's) and the parameters are held outside them."""
+    from tony_tpu_torch.models.transformer import TransformerConfig
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import adamw
+    from tony_tpu_torch.parallel.pipeline import (PipelineTransformer,
+                                                  pipeline_loss)
+
+    cfg = TransformerConfig.tiny(vocab_size=512, dim=256, n_layers=4,
+                                 n_heads=4, n_kv_heads=2, mlp_dim=512,
+                                 max_seq_len=256)
+    m = 2
+    cpu = PipelineTransformer(cfg, device="cpu")
+    gpu = PipelineTransformer(cfg, device="cuda",
+                              generator=torch.Generator("cuda").manual_seed(1))
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (3, 4, 256)))
+    losses, grads = {}, {}
+    _flash_cuda.reset_launch_counts()
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        opt = adamw(model.parameters(), 1e-3)
+        got, steps = [], []
+        for s in range(3):
+            loss = pipeline_loss(model, tokens[s].to(dev), m)
+            loss.backward()
+            steps.append({k: p.grad.detach().cpu().clone()
+                          for k, p in model.named_parameters()})
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            got.append(loss.item())
+        losses[dev], grads[dev] = got, steps
+    counts = dict(_flash_cuda.launch_counts)
+    grad_err = {k: rel_err(grads["cuda"][0][k], g)
+                for k, g in grads["cpu"][0].items()}
+    worst = max(grad_err, key=grad_err.get)
+    # Elements whose gradient differs in sign at the first step, and at any.
+    first = sum(int((c.sign() != grads["cuda"][0][k].sign()).sum())
+                for k, c in grads["cpu"][0].items())
+    flipped = {k: sum((c[k].sign() != g[k].sign()).int() for c, g in
+                      zip(grads["cpu"], grads["cuda"])) > 0
+               for k in grads["cpu"][0]}
+    n_flipped = sum(int(f.sum()) for f in flipped.values())
+    n_all = sum(f.numel() for f in flipped.values())
+    on_card = dict(gpu.named_parameters())
+    params, kept = {}, {}
+    for k, c in cpu.named_parameters():
+        g, c = on_card[k].detach().cpu(), c.detach()
+        params[k] = rel_err(g, c)
+        kept[k] = rel_err(g[~flipped[k]], c[~flipped[k]])
+    moved = max(params, key=params.get)
+    held = max(kept, key=kept.get)
+    rel = max_rel(losses["cuda"], losses["cpu"])
+    log(f"pipeline (a) small f32 pipelined decoder (4 layers, M={m}): "
+        f"losses card {losses['cuda']} cpu {losses['cpu']} (max rel "
+        f"{rel:.3e}); worst first-step grad rel err {grad_err[worst]:.3e} "
+        f"({worst}); elements whose gradient differs in sign between card "
+        f"and CPU at the first step: {first}, at some step: {n_flipped} of "
+        f"{n_all} "
+        f"{json.dumps({k: int(f.sum()) for k, f in flipped.items() if f.any()})}"
+        f"; after 3 AdamW steps the parameters differ by {params[moved]:.3e}"
+        f" at most ({moved}), outside those elements by {kept[held]:.3e} "
+        f"({held}); launches {json.dumps(counts)}")
+    check(rel <= TOL_MODEL_REL, f"small pipeline losses differ by {rel}")
+    check(grad_err[worst] <= TOL_MODEL_REL,
+          f"small pipeline {worst} grad rel err {grad_err[worst]}")
+    check(n_flipped <= TOL_SIGN_SHARE * n_all,
+          f"small pipeline: {n_flipped} gradient signs of {n_all} differ")
+    check(kept[held] <= TOL_MODEL_REL,
+          f"small pipeline {held} parameter rel err {kept[held]}")
+    check_flash_counts("small pipeline", counts, 3 * cfg.n_layers * m)
+
+
+def pipeline_kind(low):
+    """``flagship_kind``, with the f32 head's products apart."""
+    if any(w in low for w in ("sgemm", "f32f32", "tf32", "s1688", "simt")):
+        return "matmul f32 (the head)"
+    return flagship_kind(low)
+
+
+def pipelined_flagship(card, in_process):
+    """(b) The pipelined flagship at full width and depth on the world-1
+    mesh (pp=1), M=1 and M=4, 10 AdamW steps each; then one state for
+    both M: the first step's gradients at M=1 and M=4, and a profile of a
+    step at each."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel.pipeline import (PipelineTransformer,
+                                                  pipeline_loss,
+                                                  pipeline_train_step)
+
+    cfg = trainer.flagship_config(seq=2048)
+    b, seq = 4, 2048
+    head_flop = 3 * 2 * b * seq * cfg.dim * cfg.vocab_size
+    log(f"pipeline (b): the f32 head's products (forward, and the two of "
+        f"the backward) {head_flop / 1e12:.4f} TFLOP per step, "
+        f"{head_flop / PEAK_F32 * 1e3:.2f} ms at the f32 peak of "
+        f"{PEAK_F32 / 1e12:.0f} TFLOP/s; {card}")
+    runs, launches = {}, {}
+    for m in PIPE_MICROBATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _flash_cuda.reset_launch_counts()
+        r = trainer.measure(
+            cfg, batch=b, seq=seq, steps=STEPS, warmup=2, device="cuda",
+            seed=0, mesh="pp=1", model=functools.partial(
+                PipelineTransformer, num_microbatches=m))
+        counts = dict(_flash_cuda.launch_counts)
+        runs[m], launches[m] = r, counts
+        log(f"pipeline (b) M={m}: {r['params']} params, "
+            f"{r['tokens_per_sec']:.1f} tokens/s (phase 4 in process: "
+            f"{in_process:.1f}), {r['step_ms']:.3f} ms/step, MFU "
+            f"{r['mfu_vs_peak_bf16']}, peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, mesh "
+            f"{json.dumps(r['mesh'])}, launches {json.dumps(counts)}, "
+            f"losses {r['losses']}; {card}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"pipelined M={m}: non-finite loss")
+        expected = math.log(cfg.vocab_size) + 0.5
+        check(abs(r["losses"][0] - expected) <= 0.5,
+              f"pipelined M={m}: first loss {r['losses'][0]} not near "
+              "ln(vocab) + 1/2")
+        check_flash_counts(f"pipelined M={m}", counts,
+                           cfg.n_layers * m * STEPS)
+    a, c = (runs[m]["losses"] for m in PIPE_MICROBATCHES)
+    rel = max_rel(c, a)
+    log(f"pipeline (b): M={PIPE_MICROBATCHES[1]} against "
+        f"M={PIPE_MICROBATCHES[0]}: largest relative loss difference "
+        f"{rel:.3e} (limit {TOL_PIPE_M_REL}), first losses "
+        f"{a[0]} / {c[0]}")
+    check(rel <= TOL_PIPE_M_REL, f"pipelined M=1 and M=4 losses differ by "
+          f"{rel}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with trainer.mesh_scope("pp=1", torch.device("cuda")) as mesh:
+        state = trainer.build_state(cfg, "cuda", seed=0, mesh=mesh,
+                                    model=PipelineTransformer)
+        batch = synthetic_lm_batch(0, b, seq, cfg.vocab_size,
+                                   device="cuda", mesh=mesh)
+        grads = {}
+        for m in PIPE_MICROBATCHES:
+            pipeline_loss(state.model, batch["tokens"], m).backward()
+            grads[m] = torch.cat([_local(p.grad).float().flatten()
+                                  for p in state.model.parameters()])
+            state.model.zero_grad(set_to_none=True)
+        grad_rel = rel_err(*(grads[m] for m in PIPE_MICROBATCHES[::-1]))
+        del grads
+        log(f"pipeline (b): the first step's gradients at "
+            f"M={PIPE_MICROBATCHES[1]} against M={PIPE_MICROBATCHES[0]} on "
+            f"the same weights and batch: rel Frobenius err {grad_rel:.3e} "
+            f"(limit {TOL_ACCUM_REL})")
+        check(grad_rel <= TOL_ACCUM_REL, f"pipelined M=1 and M=4 gradients "
+              f"differ by {grad_rel}")
+        for m in PIPE_MICROBATCHES:
+            for _ in range(2):
+                pipeline_train_step(mesh, state, batch, m)
+            profile(f"pipelined flagship M={m} on the world-1 mesh",
+                    lambda: pipeline_train_step(mesh, state, batch, m),
+                    pipeline_kind)
+        del state
+    return {"runs": runs, "launches": launches}
+
+
+def device_ms(fn, reps=5):
+    """Milliseconds of kernel time per call of ``fn``: the device's own
+    time, summed by torch.profiler over ``reps`` calls after a warm one
+    (CUDA events around an eager call that launches many small kernels
+    time the host's launches instead)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False))
+    return us / reps / 1e3
+
+
+def virtual_stages(card):
+    """(c) The flagship's 16 layers as four virtual stages of four on one
+    card: one stage's tick (forward + backward of its layers on one B1
+    S2048 microbatch) against the whole stack's step on B4 / 4, and the
+    schedule's (M + S - 1) ticks at M=4, each by CUDA events (what an
+    eager step waits for, the host's launches included) and by the
+    device's kernel time (what the schedule costs the card)."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.parallel.pipeline import PipelineTransformer
+
+    cfg = trainer.flagship_config(seq=2048)
+    n, m, seq = VIRTUAL_STAGES, 4, 2048
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = PipelineTransformer(cfg, device="cuda")
+    blocks = list(model.layers.values())
+    per = len(blocks) // n
+    gen = torch.Generator("cuda").manual_seed(17)
+
+    def fwd_bwd(layers, rows):
+        x = torch.randn((rows, seq, cfg.dim), device="cuda", generator=gen,
+                        dtype=cfg.dtype).requires_grad_()
+        dy = torch.randn_like(x)
+        pos = torch.arange(seq, device="cuda").expand(rows, seq)
+        params = [p for blk in layers for p in blk.parameters()]
+
+        def run():
+            h = x
+            for blk in layers:
+                h = blk(h, pos)
+            torch.autograd.grad((h.float() * dy.float()).sum(),
+                                [x] + params)
+        return run
+
+    stages = [fwd_bwd(blocks[s * per:(s + 1) * per], 1) for s in range(n)]
+    whole_fn = fwd_bwd(blocks, m)
+    out = {}
+    for clock, timer in (("events", lambda f, r: cuda_ms(f, reps=r)),
+                         ("device", lambda f, r: device_ms(f, reps=r))):
+        tick = [timer(f, 10) for f in stages]
+        whole = timer(whole_fn, 5)
+        tick_ms = statistics.median(tick)
+        schedule = (m + n - 1) * tick_ms
+        ideal = whole / n
+        bubble = 1 - ideal / schedule
+        out[clock] = (tick, whole, bubble)
+        log(f"pipeline (c) {n} virtual stages of {per} layers, microbatch "
+            f"B1 S{seq}, M={m}, by {clock}: tick (forward + backward of one "
+            f"stage) ms per stage {json.dumps([round(t, 4) for t in tick])}"
+            f"; the whole 16-layer stack on B{m} {whole:.4f} ms, / {n} = "
+            f"{ideal:.4f}; {m} ticks {m * tick_ms:.4f} ms against it "
+            f"({m * tick_ms / ideal:.4f}); the schedule's (M + S - 1) x "
+            f"tick {schedule:.4f} ms; measured bubble {bubble:.4f} against "
+            f"(S - 1) / (M + S - 1) = {(n - 1) / (m + n - 1):.4f}; {card}")
+    check(all(math.isfinite(t) and t > 0 for clock in out.values()
+              for t in clock[0] + [clock[1]]),
+          "virtual stages: a timing is not positive")
+    del model, blocks, stages, whole_fn
+
+
+def phase_pipeline(in_process, card):
+    """Phase 13: GPipe on the card."""
+    t0 = time.perf_counter()
+    small_pipeline()
+    t1 = time.perf_counter()
+    runs = pipelined_flagship(card, in_process)
+    log(f"pipeline (b): {time.perf_counter() - t1:.1f} s")
+    virtual_stages(card)
+    log(f"pipeline: {time.perf_counter() - t0:.1f} s for parts (a)-(c)")
+    return runs
 
 
 def _local(t):
@@ -2120,9 +2632,10 @@ def main():
                                             "library_ms", "tflops")}
             for shape, r in long_timing.items()}
     phase_quant()
-    mesh_run = phase_mesh(main_run, card)
+    mesh_run = phase_mesh(card)
     phase_seq_expert(mesh_run, long_timing, card)
     phase_orchestrator(main_run["tokens_per_sec"])
+    pipe = phase_pipeline(main_run["tokens_per_sec"], card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []
@@ -2136,7 +2649,11 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("tflops", "llama3_8b", "longctx")
-               if k in t}})
+               if k in t},
+            **({"pipelined_launches_per_step": {
+                f"M={m}": counts_m[name] / STEPS
+                for m, counts_m in pipe["launches"].items()}}
+               if name in _flash_cuda.SPECS else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

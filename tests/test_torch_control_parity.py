@@ -30,7 +30,8 @@ from tony_tpu_torch.rpc import wire
 from tony_tpu_torch.runtimes import base as runtimes
 
 #: Keys whose default the port changes on purpose: (reference, port).
-PORT_DEFAULTS = {keys.APPLICATION_FRAMEWORK: ("jax", "pytorch")}
+PORT_DEFAULTS = {keys.APPLICATION_FRAMEWORK: ("jax", "pytorch"),
+                 keys.POOL_PRELOAD: ("jax", "torch")}
 
 #: Cluster specs: one host; two hosts; a chief plus workers over two hosts.
 SPECS = {
@@ -98,9 +99,12 @@ def test_layered_config_freezes_to_the_same_artifact(tmp_path,
     conf_file, overrides = _layers(tmp_path)
     mine = TonyTpuConfig.from_layers(conf_file, overrides)
     ref = JConfig.from_layers(conf_file, overrides)
-    # The framework is set by the job, so the artifacts differ nowhere.
+    # The framework is set by the job, and the pool's preload by its
+    # operator (the two defaults the port changes, PORT_DEFAULTS), so the
+    # artifacts differ nowhere.
     for c in (mine, ref):
         c.set(keys.APPLICATION_FRAMEWORK, "pytorch")
+        c.set(keys.POOL_PRELOAD, "torch")
     a = json.loads(open(mine.freeze(str(tmp_path / "port.json"))).read())
     b = json.loads(open(ref.freeze(str(tmp_path / "ref.json"))).read())
     assert a == b
@@ -235,20 +239,14 @@ def test_exit_decoders_match_reference():
 @pytest.mark.parametrize("backend", ["tpu-slice", "gcloud", "nope"])
 def test_only_the_local_backend_and_no_pool(tmp_path, backend):
     """The port has the local backend only: any other raises, naming the
-    ROADMAP item, and so does the warm pool; neither degrades quietly."""
-    from tony_tpu_torch.cluster.local import LocalProcessBackend
+    ROADMAP item; it does not degrade quietly. (The warm pool is ported:
+    tests/test_torch_pool.py.)"""
     from tony_tpu_torch.coordinator.__main__ import _make_backend
 
     conf = TonyTpuConfig()
     conf.set(keys.APPLICATION_BACKEND, backend)
     with pytest.raises(ValueError, match="A11b"):
         _make_backend(conf, str(tmp_path))
-    conf.set(keys.APPLICATION_BACKEND, "local")
-    conf.set(keys.POOL_DIR, str(tmp_path / "pool"))
-    with pytest.raises(NotImplementedError, match="A11c"):
-        _make_backend(conf, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A11c"):
-        LocalProcessBackend(str(tmp_path), pool_dir=str(tmp_path / "pool"))
 
 
 def test_monitor_reads_device_memory_from_the_user_process(tmp_path):

@@ -62,6 +62,7 @@ def test_import_leaves_jax_out_of_sys_modules():
         "import tony_tpu_torch.checkpoint, tony_tpu_torch.parallel.grad_sync\n"
         "import tony_tpu_torch.conf.keys, tony_tpu_torch.constants\n"
         "import tony_tpu_torch.utils.durable\n"
+        "import tony_tpu_torch.parallel.pipeline, tony_tpu_torch.pool\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))
@@ -107,9 +108,29 @@ def test_control_plane_imports_without_torch():
         "import tony_tpu_torch.coordinator.__main__\n"
         "import tony_tpu_torch.executor.executor\n"
         "import tony_tpu_torch.client, tony_tpu_torch.cluster.local\n"
+        "import tony_tpu_torch.pool\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN + ("torch",),))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", ["parallel/pipeline.py", "pool.py",
+                                    "cli/main.py"])
+def test_spawn_argvs_name_the_port(module):
+    """The scans above cover the pipeline and the pool, and every ``-m``
+    module the pool (its workers), the CLI (the pool daemon) and the
+    pipeline spawn is the port's."""
+    path = os.path.join(REPO, "tony_tpu_torch", module)
+    assert path in _port_files()
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.List):
+            items = [e.value for e in node.elts
+                     if isinstance(e, ast.Constant)]
+            for i, v in enumerate(items[:-1]):
+                if v == "-m":
+                    assert items[i + 1].startswith("tony_tpu_torch."), \
+                        (module, items)

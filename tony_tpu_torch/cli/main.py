@@ -7,15 +7,17 @@ the portal's jobs-index view for terminals (``tony-portal/conf/routes:1``).
 
 The port's CLI has the subcommands of the job path: ``submit``, ``kill``,
 ``status``, ``recover``, ``history``, ``events``, ``logs``, ``trace`` and
-``diagnose``. The reference's others (notebook, resize, migrate, profile,
-bench, top, alerts, portal, gcloud-gc, lint, check, chaos, pool, fleet) are
-ROADMAP A11c.
+``diagnose``, and ``pool`` (``start``, ``status``, ``stop``: the warm
+executor pool, ``tony_tpu_torch/pool.py``). The reference's others
+(notebook, resize, migrate, profile, bench, top, alerts, portal, gcloud-gc,
+lint, check, chaos, fleet) are ROADMAP A11c.
 
 Usage:
     python -m tony_tpu_torch.cli submit --conf-file job.yaml [--conf k=v ...]
     python -m tony_tpu_torch.cli submit --executable train.py --instances 2
     python -m tony_tpu_torch.cli history [--history-root DIR]
     python -m tony_tpu_torch.cli events <app_id>
+    python -m tony_tpu_torch.cli pool start --size 1 [--dir DIR]
 """
 
 from __future__ import annotations
@@ -449,6 +451,98 @@ def _cmd_logs(args: argparse.Namespace) -> int:
     return 0
 
 
+def _pool_dir(args: argparse.Namespace) -> str:
+    return os.path.abspath(os.path.expanduser(
+        args.dir or os.path.join(_default_workdir(args.workdir), "pool")))
+
+
+def _cmd_pool(args: argparse.Namespace) -> int:
+    """Warm-executor-pool operations (tony_tpu_torch/pool.py): `start` spawns
+    the daemon detached and waits for its endpoint; `status` prints the
+    fleet; `stop` asks the daemon to shut idle workers down (leased
+    executors belong to their jobs and are left alone). Point submits at
+    it with tony.pool.dir=<dir>. No compile cache is mounted: the port's
+    kernels persist under tony_tpu_torch/_build/ (ops/_build.py)."""
+    import subprocess
+
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.pool import PoolClient
+    from tony_tpu_torch.utils import proc as procutil
+
+    pool_dir = _pool_dir(args)
+    addr_path = os.path.join(pool_dir, constants.POOL_ADDR_FILE)
+    if args.action == "start":
+        if os.path.exists(addr_path):
+            client = PoolClient(pool_dir)
+            try:
+                st = client.call("pool.status")
+                print(f"pool already running under {pool_dir} "
+                      f"({st.get('ready', '?')} ready / "
+                      f"{st.get('size', '?')} size)")
+                return 0
+            except Exception:  # noqa: BLE001 — stale addr from a dead pool
+                os.unlink(addr_path)
+            finally:
+                client.close()
+        os.makedirs(pool_dir, exist_ok=True)
+        from tony_tpu_torch.conf.config import TonyTpuConfig
+
+        conf = TonyTpuConfig.from_layers(config_file=args.conf_file,
+                                         overrides=tuple(args.conf or []))
+        size = args.size if args.size is not None \
+            else conf.get_int(K.POOL_SIZE, 2)
+        preload = args.preload if args.preload is not None \
+            else str(conf.get(K.POOL_PRELOAD, "torch"))
+        max_age = conf.get_int(K.POOL_MAX_LEASE_AGE_S, 600)
+        pool_log = open(os.path.join(pool_dir, "pool.log"), "ab")
+        cmd = [sys.executable, "-m", "tony_tpu_torch.pool", "serve",
+               "--dir", pool_dir, "--size", str(size),
+               "--preload", preload, "--max-lease-age-s", str(max_age)]
+        proc = subprocess.Popen(cmd, stdout=pool_log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        pool_log.close()
+
+        def read_addr():
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"pool daemon exited with {proc.returncode}; see "
+                    f"{os.path.join(pool_dir, 'pool.log')}")
+            return os.path.exists(addr_path) or None
+
+        if procutil.poll_till_non_null(read_addr, interval_s=0.1,
+                                       timeout_s=60) is None:
+            print(f"pool daemon never published its endpoint under "
+                  f"{pool_dir}", file=sys.stderr)
+            return 1
+        print(f"pool running under {pool_dir} (size {size}, "
+              f"preload {preload!r}); submit with "
+              f"--conf {K.POOL_DIR}={pool_dir}")
+        return 0
+    client = PoolClient(pool_dir)
+    try:
+        if args.action == "status":
+            st = client.call("pool.status")
+            print(f"{pool_dir}  size={st['size']}  ready={st['ready']}  "
+                  f"leased={st['leased']}")
+            for w in st.get("workers", []):
+                print(f"  {w['worker']}  pid={w['pid']:<8}"
+                      f"{w['state']:<9}age={w['age_s']:.0f}s"
+                      + (f"  task={w['task']}" if w.get("task") else ""))
+            return 0
+        if args.action == "stop":
+            client.call("pool.stop")
+            print(f"pool under {pool_dir} stopping (leased executors "
+                  f"are left to their jobs)")
+            return 0
+    except Exception as e:  # noqa: BLE001
+        print(f"no reachable pool under {pool_dir}: {e}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
+    return 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tony-tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -540,6 +634,25 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--task", help="only this task, e.g. worker:0")
     lg.add_argument("--history-root")
     lg.set_defaults(fn=_cmd_logs)
+
+    pl = sub.add_parser(
+        "pool",
+        help="warm executor pool: keep pre-spawned executors (python + "
+             "tony_tpu_torch + torch imported) that submits adopt "
+             "(tony.pool.* keys)")
+    pl.add_argument("action", choices=("start", "stop", "status"))
+    pl.add_argument("--dir", help="pool directory (default: "
+                                  "<workdir>/pool)")
+    pl.add_argument("--workdir")
+    pl.add_argument("--size", type=int, default=None,
+                    help="warm executors to keep ready "
+                         "(default: tony.pool.size)")
+    pl.add_argument("--preload", default=None,
+                    help="modules to pre-import per worker "
+                         "(default: tony.pool.preload)")
+    pl.add_argument("--conf-file")
+    pl.add_argument("--conf", action="append", metavar="K=V")
+    pl.set_defaults(fn=_cmd_pool)
 
     return p
 

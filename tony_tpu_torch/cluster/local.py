@@ -15,11 +15,14 @@ are captured per task like YARN container logs
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import signal
 import subprocess
 import sys
 import threading
+import time
 from typing import Dict, List, Optional, Tuple
 
 from tony_tpu_torch import constants
@@ -41,6 +44,44 @@ class _Proc:
         self.reported = False
 
 
+class _LeasedProc:
+    """Popen-shaped handle over a warm-pool executor. The process is the
+    POOL DAEMON's child, not ours, so liveness is a signal-0 probe and
+    the exit code comes from the ``pool-exit.json`` the adopted executor
+    writes into its task workdir at exit (constants.POOL_EXIT_FILE) —
+    pid-dead with no report reads as a crash (EXIT_FAILURE)."""
+
+    def __init__(self, pid: int, workdir: str, worker_id: str):
+        self.pid = pid
+        self.workdir = workdir
+        self.worker_id = worker_id
+        self.returncode: object = None
+
+    def poll(self):
+        if self.returncode is not None:
+            return self.returncode
+        path = os.path.join(self.workdir, constants.POOL_EXIT_FILE)
+        try:
+            with open(path, encoding="utf-8") as f:
+                self.returncode = int(json.load(f).get("exit_code", 1))
+            return self.returncode
+        except (OSError, ValueError, TypeError):
+            pass
+        try:
+            os.kill(self.pid, 0)
+            return None               # still running
+        except ProcessLookupError:
+            # Dead without a report: killed or crashed pre-report. Mirror
+            # waitpid's negative-signal convention (what a SIGKILLed cold
+            # spawn reports) so poll_completions maps it to 137 →
+            # INFRA_TRANSIENT — a kill must stay retryable, not become a
+            # USER_ERROR exit-1, just because the executor was pooled.
+            self.returncode = -int(signal.SIGKILL)
+            return self.returncode
+        except PermissionError:
+            return None
+
+
 class LocalProcessBackend(Backend):
     def __init__(self, workdir: str, python: str = sys.executable,
                  inherit_env: bool = True, pool_dir: str = ""):
@@ -49,13 +90,14 @@ class LocalProcessBackend(Backend):
         self.inherit_env = inherit_env
         self._procs: Dict[str, _Proc] = {}
         self._lock = threading.Lock()
-        # The reference's warm executor pool (tony_tpu/pool.py, keyed by
-        # tony.pool.dir) is not ported: asking for it raises rather than
-        # quietly taking the cold path.
+        # Warm executor pool (tony_tpu_torch/pool.py): with tony.pool.dir set,
+        # launch_task tries to ADOPT a pre-warmed executor before cold-
+        # spawning; every pool failure degrades to the cold path below.
+        self._pool = None
         if pool_dir:
-            raise NotImplementedError(
-                f"tony.pool.dir={pool_dir!r}: the warm executor pool is not "
-                f"in the port yet (ROADMAP A11c, the warm pool)")
+            from tony_tpu_torch.pool import PoolClient
+
+            self._pool = PoolClient(pool_dir)
         os.makedirs(workdir, exist_ok=True)
 
     def launch_task(self, spec: TaskLaunchSpec) -> object:
@@ -69,6 +111,12 @@ class LocalProcessBackend(Backend):
             os.path.dirname(os.path.abspath(__file__))))
         env["PYTHONPATH"] = (repo_root + os.pathsep + env.get("PYTHONPATH", "")
                              ).rstrip(os.pathsep)
+        if self._pool is not None and not spec.docker_image:
+            proc = self._try_pool_lease(spec, task_dir, env)
+            if proc is not None:
+                with self._lock:
+                    self._procs[spec.task_id] = proc
+                return proc
         stdout = open(os.path.join(task_dir, "stdout.log"), "ab")
         stderr = open(os.path.join(task_dir, "stderr.log"), "ab")
         popen = subprocess.Popen(
@@ -83,6 +131,77 @@ class LocalProcessBackend(Backend):
         log.info("launched %s pid=%d dir=%s", spec.task_id, popen.pid, task_dir)
         return proc
 
+    def _try_pool_lease(self, spec: TaskLaunchSpec, task_dir: str,
+                        env: Dict[str, str]) -> Optional[_Proc]:
+        """Adopt a warm executor for this task, or None → cold spawn.
+        Pool trouble of ANY shape — daemon gone, lease refused, stale
+        generation, worker dead on adoption (each rehearsable via the
+        pool.* fault sites) — degrades to the cold path; it must never
+        fail the launch. A granted-but-unusable lease is DISCARDED at the
+        daemon (never returned to the pool) before falling back."""
+        from tony_tpu_torch import faults, tracing
+        from tony_tpu_torch.pool import PoolError
+
+        t0 = tracing.now_us()
+        lease = None
+        try:
+            faults.check("pool.lease")
+            faults.check("pool.stale")
+            lease = self._pool.lease(
+                spec.task_id, env, task_dir,
+                app_id=env.get(constants.APP_ID, ""),
+                generation=int(
+                    env.get(constants.COORDINATOR_GENERATION, "0") or 0))
+            dead: Optional[BaseException] = None
+            try:
+                faults.check("pool.adopt")
+                os.kill(int(lease["pid"]), 0)
+            except ProcessLookupError as e:
+                dead = e
+            except PermissionError:
+                pass                   # alive, just not ours to signal
+            except faults.InjectedFault as e:
+                dead = e
+            if dead is not None:
+                self._pool.discard(str(lease.get("worker_id", "")),
+                                   reason=f"dead on adoption: {dead}")
+                raise PoolError(
+                    f"leased executor pid {lease.get('pid')} dead on "
+                    f"adoption: {dead}") from dead
+        except Exception as e:  # noqa: BLE001 — every shape cold-spawns
+            # A granted-then-unusable lease names its worker in the span:
+            # the trace is how an operator finds the discarded worker.
+            worker = str(lease.get("worker_id", "")) if lease else ""
+            self._emit_lease_span(spec, t0, error=str(e)[:200],
+                                  **({"worker": worker} if worker else {}))
+            log.warning("pool lease for %s failed (%s); cold-spawning",
+                        spec.task_id, e)
+            return None
+        self._emit_lease_span(spec, t0, worker=lease["worker_id"],
+                              pid=int(lease["pid"]),
+                              worker_age_s=lease.get("age_s"))
+        log.info("adopted warm executor for %s: worker %s pid %d",
+                 spec.task_id, lease["worker_id"], lease["pid"])
+        return _Proc(spec.task_id,
+                     _LeasedProc(int(lease["pid"]), task_dir,
+                                 str(lease["worker_id"])),
+                     task_dir)
+
+    def _emit_lease_span(self, spec: TaskLaunchSpec, start_us: int,
+                         **attrs) -> None:
+        """pool.lease span under the task's lifecycle span (the trace
+        parent the coordinator stamped into the launch env) — how a warm
+        adoption (or its failure→fallback) shows up on the timeline."""
+        tracer = getattr(self, "tracer", None)
+        if tracer is None:
+            return
+        from tony_tpu_torch import tracing
+
+        tracer.emit("pool.lease", start_us=start_us,
+                    end_us=tracing.now_us(),
+                    parent=spec.env.get(constants.TRACE_PARENT_ENV, ""),
+                    task=spec.task_id, attrs=attrs)
+
     def kill_task(self, handle: object, grace_s: float = 0.0) -> None:
         proc = handle
         if not isinstance(proc, _Proc):
@@ -95,7 +214,9 @@ class LocalProcessBackend(Backend):
         # — signalling the executor's group alone never reaches it. Deliver
         # the TERM→grace→KILL ladder to both groups; the pgid file is how we
         # reach the user tree even when the executor is already dead
-        # (constants.USER_PGID_FILE contract).
+        # (constants.USER_PGID_FILE contract). Pooled executors work the
+        # same way: the daemon spawned them session-leading, so their pid
+        # IS their pgid.
         from tony_tpu_torch.utils.proc import kill_process_groups, read_pgid_file
 
         groups = [proc.popen.pid] if proc.popen.poll() is None else []

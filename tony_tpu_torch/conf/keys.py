@@ -918,7 +918,7 @@ POOL_DIR = _key(
     "tony.pool.dir", "", str,
     "Directory of a running warm-executor pool (tony-tpu pool start). "
     "When set, the local backend tries to ADOPT a pre-warmed executor "
-    "(Python up, tony_tpu_torch + jax imported, compile cache mounted) via a "
+    "(Python up, tony_tpu_torch + torch imported) via a "
     "pool.lease RPC before cold-spawning; any pool failure degrades to "
     "the cold path. Empty = no pool. Do NOT point jobs at a pool started "
     "under different credentials or execution env — warm workers carry "
@@ -935,11 +935,11 @@ POOL_MAX_LEASE_AGE_S = _key(
     "drift between pool start and adoption — a rotated storage token or "
     "changed execution env reaches new workers within this window).")
 POOL_PRELOAD = _key(
-    "tony.pool.preload", "jax", str,
+    "tony.pool.preload", "torch", str,
     "Comma-separated modules each warm worker imports while idle (on top "
-    "of the always-preloaded executor stack). 'jax' also initializes the "
-    "backend — the multi-second cold-start slice the pool exists to "
-    "hide. Empty = interpreter + tony_tpu_torch only.")
+    "of the always-preloaded executor stack). 'torch' also counts the CUDA "
+    "devices (libcuda loaded; no context, which would hold card memory in "
+    "the executor). Empty = interpreter + tony_tpu_torch only.")
 
 # --- fleet: persistent multi-job gang scheduler (tony_tpu_torch/fleet/) ---------
 FLEET_DIR = _key(

@@ -14,13 +14,14 @@ is transposed; the embedding and the norm scales keep their layout.
 ``from_flax_moe_params``/``to_flax_moe_params`` are the same pair for
 ``ResNet``, ``MnistMLP`` and ``MoETransformer`` (whose stacked expert
 kernels ``layer_i/moe/{gate,up,down}`` keep their layout; its router is a
-``Dense``).
+``Dense``); ``from_flax_pipeline_params``/``to_flax_pipeline_params`` for
+the pipelined decoder (``parallel/pipeline.py``), whole or one stage's.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -124,6 +125,68 @@ def to_flax_moe_params(state_dict: Mapping[str, torch.Tensor]
             for n in _EXPERTS:
                 layer["moe"][n] = _n(state_dict[f"layers.{i}.moe.{n}"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The pipelined decoder (``parallel/pipeline.py``): the reference's
+# ``init_pipeline_params`` tree stacks every block leaf on a leading layer
+# dim (``blocks/attn/wq/kernel`` ``[L, in, out]``), keeps ``final_norm`` a
+# bare vector and ``lm_head`` a bare ``[dim, vocab]`` kernel; the port's
+# ``PipelineTransformer`` names its blocks ``layers.{i}`` by global index and
+# keeps ``final_norm`` and ``lm_head`` in that layout.
+# ---------------------------------------------------------------------------
+def _stage_range(n_layers: int, stage, n_stages: int) -> range:
+    from tony_tpu_torch.parallel.pipeline import stage_layers
+
+    return range(n_layers) if stage is None else \
+        stage_layers(n_layers, n_stages, stage)
+
+
+def from_flax_pipeline_params(params: Mapping[str, Any],
+                              stage: Optional[int] = None,
+                              n_stages: int = 1
+                              ) -> Dict[str, torch.Tensor]:
+    """The reference's pipeline tree (numpy leaves) → torch ``state_dict``
+    of ``PipelineTransformer``; with ``stage``, only pp rank ``stage``'s
+    layers of ``n_stages`` (and the head, which every stage holds)."""
+    blocks = params["blocks"]
+    sd = {"embedding": _t(params["embedding"])}
+    for i in _stage_range(len(blocks["attn_norm"]["scale"]), stage,
+                          n_stages):
+        for sub, names in _DENSE.items():
+            for n in names:
+                sd[f"layers.{i}.{sub}.{n}.weight"] = _t(
+                    np.asarray(blocks[sub][n]["kernel"][i]).T)
+        for n in _NORMS:
+            sd[f"layers.{i}.{n}.scale"] = _t(blocks[n]["scale"][i])
+    sd["final_norm"] = _t(params["final_norm"])
+    sd["lm_head"] = _t(params["lm_head"])
+    return sd
+
+
+def to_flax_pipeline_params(state_dict: Mapping[str, torch.Tensor],
+                            stage: Optional[int] = None,
+                            n_stages: int = 1) -> Dict[str, Any]:
+    """Inverse of ``from_flax_pipeline_params`` (also for a name → grad
+    mapping of the same names): the layers present, in order, stacked on
+    the leading dim; with ``stage``, only pp rank ``stage``'s of
+    ``n_stages`` (out of every layer the mapping holds)."""
+    ids = sorted({int(k.split(".")[1]) for k in state_dict
+                  if k.startswith("layers.")})
+    ids = [ids[i] for i in _stage_range(len(ids), stage, n_stages)]
+
+    def stacked(suffix, transpose=False):
+        return np.stack([np.ascontiguousarray(
+            _n(state_dict[f"layers.{i}.{suffix}"]).T if transpose
+            else _n(state_dict[f"layers.{i}.{suffix}"])) for i in ids])
+
+    blocks: Dict[str, Any] = {
+        sub: {n: {"kernel": stacked(f"{sub}.{n}.weight", True)}
+              for n in names} for sub, names in _DENSE.items()}
+    blocks.update({n: {"scale": stacked(f"{n}.scale")} for n in _NORMS})
+    return {"embedding": _n(state_dict["embedding"]), "blocks": blocks,
+            "final_norm": _n(state_dict["final_norm"]),
+            "lm_head": _n(state_dict["lm_head"])}
 
 
 # ---------------------------------------------------------------------------

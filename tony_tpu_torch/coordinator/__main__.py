@@ -44,8 +44,8 @@ def _make_backend(conf, workdir):
             from tony_tpu_torch.cluster.local import VirtualExecutorBackend
 
             return VirtualExecutorBackend.from_conf(conf, workdir)
-        # LocalProcessBackend raises for tony.pool.dir: the warm pool is
-        # not ported yet.
+        # With tony.pool.dir the backend adopts a warm executor
+        # (tony_tpu_torch/pool.py) before cold-spawning.
         pool_dir = os.path.expanduser(
             str(conf.get(K.POOL_DIR, "") or ""))
         return LocalProcessBackend(workdir, pool_dir=pool_dir)

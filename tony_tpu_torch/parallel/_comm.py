@@ -23,7 +23,16 @@ collectives have no autograd, so each one the port needs is a
   the group computes the same loss from the gathered tensor, so the
   gradient each rank receives is already the whole one
   (``torch.distributed.nn.functional.all_gather`` sums it, counting a
-  replicated loss n times).
+  replicated loss n times);
+- ``sum_grad_over_group(x, group)``: the identity; backward: the gradients
+  of every rank of the group summed (what JAX's transpose gives a value
+  every rank holds alike but only some use: the pipeline's embedded
+  tokens, which only stage 0 injects);
+- ``broadcast_from_group(x, group, src)``: every rank leaves with group
+  rank ``src``'s ``x``; backward: ``src`` keeps its gradient, the others
+  get zeros (every rank takes the same loss from the broadcast value, so
+  ``src``'s gradient is already the whole one; summing the replicas would
+  count it n times).
 
 Peers are global ranks, found from the group (a ``DeviceMesh`` axis's
 ``get_group()``). A group of one rank, or none, makes each function the
@@ -170,3 +179,46 @@ def gather_from_group(x: torch.Tensor, group: Optional[Any],
     if group_size(group) == 1:
         return x
     return _Gather.apply(x, group, dim)
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_grad_over_group(x: torch.Tensor,
+                        group: Optional[Any]) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``group``."""
+    if group_size(group) == 1:
+        return x
+    return _SumGrad.apply(x, group)
+
+
+class _Broadcast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.mine = dist.get_rank(group) == src
+        out = x.contiguous().clone()
+        dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def broadcast_from_group(x: torch.Tensor, group: Optional[Any],
+                         src: int) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of ``group``; the gradient
+    reaches ``src`` once."""
+    if group_size(group) == 1:
+        return x
+    return _Broadcast.apply(x, group, src)

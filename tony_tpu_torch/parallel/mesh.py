@@ -10,7 +10,7 @@ device:
             dim, HSDP)
     fsdp    data parallelism with sharded parameters and optimizer state
             (FSDP2's shard dim)
-    pp      pipeline stages          (a later slice)
+    pp      pipeline stages: the GPipe schedule (``parallel/pipeline.py``)
     ep      expert parallelism: the MoE decoder's experts, all-to-all
             dispatch (``models/moe.py``)
     sp      sequence parallelism: ring or Ulysses attention

@@ -292,7 +292,8 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     the reference's do). Returns ``param_placements``.
 
     Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
-    pipeline slice comes later), ``sp`` > 1 except for a ``Transformer``
+    pipelined decoder is ``parallel/pipeline.py``'s, laid out by its
+    ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer``
     with ring or Ulysses attention, ``sp`` or ``tp`` > 1 for the MoE
     decoder (the reference leaves its tp to XLA; the port has no plan for
     the stacked experts), ``tp`` > 1 for ResNet."""
@@ -306,8 +307,10 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     kind = type(model).__name__
     if shape["pp"] > 1:
         raise NotImplementedError(
-            f"mesh axis pp={shape['pp']} > 1: pipeline parallelism comes "
-            "with a later slice of the port")
+            f"mesh axis pp={shape['pp']} > 1 for {kind}: a sequential model "
+            "does not pipeline; the GPipe schedule over pp is "
+            "PipelineTransformer's (tony_tpu_torch/parallel/pipeline.py, "
+            "laid out by pipeline_shard)")
     if isinstance(model, MoETransformer):
         for knob in ("sp", "tp"):
             if shape[knob] > 1:

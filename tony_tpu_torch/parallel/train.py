@@ -185,32 +185,41 @@ def init_sharded_state(
     mesh: DeviceMesh,
     rules=DEFAULT_RULES,
     seed: int = 0,
+    layout: Callable[..., Dict[str, Any]] = shard_model,
 ) -> Tuple[TrainState, Dict[str, Placement]]:
     """The training state laid out on ``mesh`` from the start: no rank ever
     holds the whole model. Counterpart of the reference's
     ``init_sharded_state`` (its ``out_shardings`` init).
 
     ``build_model(device)`` is built on ``"meta"``, laid out by
-    ``sharding.shard_model`` (the tensor-parallel plan, FSDP2 on each block
-    and the root), given storage for its shards on the mesh's device (the
-    current CUDA device, or the CPU for a gloo mesh), and each shard filled
-    with the values the one-rank model ``build_model(device)`` made from a
-    generator seeded with ``seed`` has: the parameters are replayed in
-    order through ``model.init_parameter_``, one whole tensor at a time,
-    and each rank keeps its own slice of it. ``optimizer_fn(param_groups)``
+    ``layout(model, mesh, rules)`` (``sharding.shard_model``: the
+    tensor-parallel plan, FSDP2 on each block and the root;
+    ``pipeline.pipeline_shard`` for a ``PipelineTransformer``, which also
+    drops the other stages' layers), given storage for its shards on the
+    mesh's device (the current CUDA device, or the CPU for a gloo mesh),
+    and each shard filled with the values the one-rank model
+    ``build_model(device)`` made from a generator seeded with ``seed`` has:
+    every parameter of the whole model is replayed in order through
+    ``model.init_parameter_``, one whole tensor at a time, and each rank
+    keeps its own slice of those it holds. ``optimizer_fn(param_groups)``
     makes the optimizer: one group of the DTensor parameters, one of the
     replicated ones. Returns the state (no ``loss_fn``:
     ``sharded_train_step`` takes it) and ``param_placements``."""
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device("cpu"))
     model = build_model("meta")
-    placements = shard_model(model, mesh, rules)
+    order = [(name, p.shape, p.dtype) for name, p in model.named_parameters()]
+    placements = layout(model, mesh, rules)
     model.to_empty(device=dev)
+    held = dict(model.named_parameters())
     gen = torch.Generator(dev).manual_seed(seed)
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            whole = torch.empty(p.shape, dtype=p.dtype, device=dev)
+        for name, shape, dtype in order:
+            whole = torch.empty(shape, dtype=dtype, device=dev)
             model.init_parameter_(name, whole, gen)
+            p = held.get(name)
+            if p is None:
+                continue
             if isinstance(p, DTensor):
                 whole = distribute_tensor(whole, p.device_mesh, p.placements,
                                           src_data_rank=None).to_local()

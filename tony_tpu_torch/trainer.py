@@ -94,6 +94,7 @@ from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 import tony_tpu_torch
 from tony_tpu_torch import constants, telemetry
@@ -109,6 +110,9 @@ from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
 from tony_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mesh_shape
+from tony_tpu_torch.parallel.pipeline import (PipelineTransformer,
+                                              pipeline_shard)
+from tony_tpu_torch.parallel.sharding import shard_model
 from tony_tpu_torch.parallel.train import (TrainState, adamw,
                                            checkpoint_tree,
                                            init_sharded_state,
@@ -164,27 +168,48 @@ def build_state(cfg: TransformerConfig,
                 seed: int = 0, chunked: bool = False,
                 loss_chunk: int = 2048,
                 mu_dtype: Optional[torch.dtype] = None,
-                mesh: Any = None) -> TrainState:
+                mesh: Any = None,
+                model: Callable[..., nn.Module] = Transformer) -> TrainState:
     """The model made from ``seed`` on ``device``, AdamW (first moment in
     ``mu_dtype``, None: the parameter's) and the LM loss (chunked over
-    ``loss_chunk`` positions with ``chunked``). With ``mesh`` (a
-    ``DeviceMesh`` on ``device``'s kind) the state is
-    ``init_sharded_state``'s, with the same values."""
+    ``loss_chunk`` positions with ``chunked``). ``model`` builds the
+    decoder as ``model(cfg, device=, generator=)``: the sequential
+    ``Transformer``, or the pipelined decoder of ``parallel/pipeline.py``
+    (``functools.partial(PipelineTransformer, num_microbatches=M)``: the
+    GPipe schedule over the mesh's pp, its f32 head, the whole loss only).
+    With ``mesh`` (a ``DeviceMesh`` on ``device``'s kind) the state is
+    ``init_sharded_state``'s, with the same values, laid out by
+    ``shard_model`` or, for the pipelined decoder, ``pipeline_shard``."""
     dev = resolve_device(device)
     loss = (functools.partial(chunked_lm_loss, loss_chunk=loss_chunk)
             if chunked else lm_loss)
+
+    def build(device, generator=None):
+        built = model(cfg, device=device, generator=generator)
+        if chunked and isinstance(built, PipelineTransformer):
+            raise ValueError("the pipelined decoder takes the whole loss, "
+                             "not the chunked one")
+        return built
 
     def optimizer(params):
         return adamw(params, LEARNING_RATE, mu_dtype=mu_dtype)
 
     if mesh is not None:
         state, _ = init_sharded_state(
-            lambda d: Transformer(cfg, device=d), optimizer, mesh, seed=seed)
+            lambda d: build(device=d), optimizer, mesh, seed=seed,
+            layout=_layout)
         state.loss_fn = loss
         return state
-    model = Transformer(cfg, device=dev,
-                        generator=torch.Generator(dev).manual_seed(seed))
-    return TrainState(model, optimizer(model.parameters()), loss)
+    built = build(dev, torch.Generator(dev).manual_seed(seed))
+    return TrainState(built, optimizer(built.parameters()), loss)
+
+
+def _layout(model: nn.Module, mesh: Any, rules: Any) -> Any:
+    """``model`` laid out on ``mesh``: the pipelined decoder by
+    ``pipeline_shard``, any other by ``shard_model``."""
+    if isinstance(model, PipelineTransformer):
+        return pipeline_shard(model, mesh, rules)
+    return shard_model(model, mesh, rules)
 
 
 #: The rendezvous env of a job's task (the pytorch runtime's, and
@@ -215,9 +240,12 @@ def mesh_scope(mesh: str, device: torch.device):
         if not gang:
             spec.resolve(1)
         if device.type == "cuda":
+            # A device without an index: the gang's LOCAL_RANK, or the
+            # current device (set_device refuses a bare "cuda").
             torch.cuda.set_device(
-                device if device.index is not None or not gang
-                else int(os.environ.get(constants.LOCAL_RANK, "0")))
+                device.index if device.index is not None
+                else int(os.environ.get(constants.LOCAL_RANK, "0")) if gang
+                else torch.cuda.current_device())
         if gang:
             dist.init_process_group(backend, init_method="env://")
         else:
@@ -317,7 +345,8 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
             device: Union[str, torch.device] = "cuda",
             seed: int = 0, chunked: bool = False, loss_chunk: int = 2048,
             mu_dtype: Optional[torch.dtype] = None,
-            mesh: str = "") -> Dict[str, Any]:
+            mesh: str = "",
+            model: Callable[..., nn.Module] = Transformer) -> Dict[str, Any]:
     """Train ``steps`` steps (the first ``warmup`` of them untimed) and
     return losses, tokens/s over the timed steps, MFU and, on the card, the
     peak of allocated memory (``peak_memory_bytes``). Each step draws fresh
@@ -326,12 +355,14 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
     options (see ``build_state``). ``mesh`` (``"fsdp=1"``, see
     ``mesh_scope``) trains the sharded state with ``sharded_train_step``:
     ``batch`` is then the global batch, each rank's rows its batch
-    coordinate's, and the losses the global batch's."""
+    coordinate's, and the losses the global batch's. ``model`` builds the
+    decoder (see ``build_state``: the pipelined one runs over the mesh's
+    pp, ``mesh="pp=..."``)."""
     _check_steps(steps, warmup)
     dev = resolve_device(device)
     with mesh_scope(mesh, dev) as m:
         state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype,
-                            mesh=m)
+                            mesh=m, model=model)
         batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size,
                                       seed=seed, device=dev, mesh=m)
                    for s in range(steps)]
