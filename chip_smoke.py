@@ -8,8 +8,8 @@ result line. Phases 7-11 run the flagship's earlier paths (and bench's
 0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
 = 4 layers: their launch counts are per layer of that depth, their rates
 and peak memory are not those of the whole model, and their labels say
-"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12 and 13 run all
-16:
+"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12, 13 and 14 run
+all 16:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -193,8 +193,35 @@ and peak memory are not those of the whole model, and their labels say
    the measured bubble against (S - 1) / (M + S - 1) = 3/7, each timed by
    CUDA events (the host's launches included) and by the device's kernel
    time (torch.profiler);
-14. prints the kernels' JSON line (each flash kernel with its launches per
-   step on the pipelined flagship), then the result line.
+14. surviving failures, the flagship at full width and depth trained by
+   ``python -m tony_tpu_torch.trainer --data <corpus> --steps 300`` (the
+   corpus ``trainer.write_corpus`` makes) as a one-worker ``pytorch`` job,
+   against an uninterrupted in-process ``trainer.train`` of 300 steps on
+   the same corpus and seed: (a) the job's coordinator (``python -m
+   tony_tpu_torch.coordinator``) is SIGKILLed after the first step and
+   ``python -m tony_tpu_torch.cli recover`` brings it home: recover exits
+   0, the job SUCCEEDED in one journal epoch, the worker's process the
+   same across the outage, 300 finite losses with 16 launches of each
+   flash kernel per step (no step ran twice), the first 20 within
+   ``TOL_RESUME_REL`` of the uninterrupted run's; the outage (SIGKILL to
+   the worker's re-registration) and recover's wall time printed; (b) a
+   job submitted with ``tony.elastic.enabled=true``, ``--ckpt-dir`` and a
+   save interval above its steps, moved by ``python -m
+   tony_tpu_torch.cli migrate <app> slice-1`` after step 5 (and its first
+   step's save): the CLI exits 0, the journal holds REC_MIGRATE ``start``
+   and ``applied`` in its one epoch, the drained trainer's SIGTERM save
+   holds step k and the relaunched one restores it and starts at k + 1 (0
+   steps re-run) with 16 launches of each flash kernel per step it runs
+   and losses within ``TOL_RESUME_REL`` of the uninterrupted run's same
+   steps; the drain save's bytes and seconds (beside the drain grace),
+   the restore's seconds and the migration's wall time (the request to
+   the relaunched worker's re-registration) printed. On one machine the
+   destination is the same card: this measures drain, save, relaunch and
+   restore, no transfer between hosts; (c) ``python -m
+   tony_tpu_torch.cli check`` exits 0 on both job dirs;
+15. prints the whole run's seconds, the kernels' JSON line (each flash
+   kernel with its launches per step on the pipelined flagship), then the
+   result line.
 
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
@@ -213,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -1962,6 +1990,14 @@ JOB_TIMEOUT_S = 300
 REFERENCE_MODULE = re.compile(r"\btony_tpu(?!_torch)\.")
 
 
+def repo_env():
+    """This environment with the repository first on ``PYTHONPATH``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (REPO + os.pathsep
+                         + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    return env
+
+
 def descendant_cmdlines(root):
     """Command lines of the processes below ``root`` (read from /proc)."""
     parent, cmd = {}, {}
@@ -2032,9 +2068,7 @@ def submit_job(tmp, label, command, conf=(), roots=()):
             "--workdir", work]
     for kv in conf:
         argv += ["--conf", kv]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = (REPO + os.pathsep
-                         + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    env = repo_env()
     seen, next_smi = set(), 0.0
     on_card = {"max_rows": 0, "pids": set()}
     with open(out_path, "w") as out:
@@ -2201,9 +2235,7 @@ def alive(pid):
 def pool_cli(*args):
     """``python -m tony_tpu_torch.cli pool ...``: its exit code and
     output."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = (REPO + os.pathsep
-                         + env.get("PYTHONPATH", "")).rstrip(os.pathsep)
+    env = repo_env()
     r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli", "pool",
                         *args], cwd=REPO, env=env, capture_output=True,
                        text=True, timeout=300)
@@ -2609,11 +2641,401 @@ def phase_pipeline(in_process, card):
     return runs
 
 
+# Phase 14: surviving failures on the card.
+# ~26 s of flagship steps at phase 4's ~85 ms: (a) outlives the outage,
+# and (b) still runs when the migration lands, after the first step's
+# save (~12 s of the writer) is durable.
+FAIL_STEPS = 300
+FAIL_MIGRATE_AT = 5       # migrate once the job reports this many steps
+# Above FAIL_STEPS: the interval policy saves the first step only, so the
+# drain's save is the one that carries the state across the move.
+FAIL_SAVE_EVERY = 10_000
+# The migrated job's drain grace. The key's default is 15 s; the drain
+# save of the flagship's ~3.8 GB is printed against it.
+FAIL_DRAIN_GRACE_S = 60
+FAIL_TIMEOUT_S = 600
+TRAINER = f"{sys.executable} -m tony_tpu_torch.trainer"
+
+
+def failure_conf(hist, command, extra=()):
+    """The settings of a one-worker pytorch job of phase 14: the recovery
+    drills' cadences (tests/test_torch_e2e_recovery.py), so that the
+    executor sees its coordinator gone within a second. A job submitted
+    through the client keeps ``num-clients-to-wait``: its coordinator
+    waits for the client to read the final report."""
+    from tony_tpu_torch.conf import keys as K
+
+    return [(K.APPLICATION_FRAMEWORK, "pytorch"),
+            (K.APPLICATION_BACKEND, "local"),
+            ("tony.worker.instances", 1),
+            ("tony.worker.command", command),
+            (K.HISTORY_LOCATION, hist),
+            (K.APPLICATION_TIMEOUT_S, FAIL_TIMEOUT_S),
+            (K.TASK_REGISTRATION_TIMEOUT_S, 300),
+            (K.COORDINATOR_MONITOR_INTERVAL_MS, 100),
+            (K.APPLICATION_RETRY_COUNT, 1),
+            (K.TASK_HEARTBEAT_INTERVAL_MS, 200),
+            (K.TASK_COORDINATOR_LOSS_HEARTBEATS, 2),
+            (K.TASK_ORPHAN_DEADLINE_S, 120),
+            (K.COORDINATOR_REREGISTRATION_GRACE_S, 90),
+            (K.RPC_MAX_RETRIES, 2),
+            (K.RPC_RETRY_SLEEP_S, 0.2),
+            (K.RPC_CALL_TIMEOUT_S, 5.0), *extra]
+
+
+def coordinator_rpc(job_dir, timeout=120):
+    """An RpcClient to the job's coordinator, from its address file."""
+    from tony_tpu_torch.rpc.wire import RpcClient
+
+    addr_file = os.path.join(job_dir, "coordinator.addr")
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(addr_file):
+        check(time.monotonic() < deadline,
+              f"no coordinator address at {addr_file}")
+        time.sleep(0.1)
+    with open(addr_file) as f:
+        addr = json.load(f)
+    return RpcClient(addr["host"], addr["port"],
+                     token=addr.get("token") or None, max_retries=2,
+                     retry_sleep_s=0.1)
+
+
+def poll(fn, what, timeout=300):
+    """``fn()`` once it is true; an RPC error while the coordinator
+    (re)starts counts as false."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        try:
+            got = fn()
+        except Exception:  # noqa: BLE001 — the coordinator is (re)starting
+            got = None
+        if got:
+            return got
+        time.sleep(0.2)
+    check(False, f"timed out waiting for {what}")
+
+
+def job_steps(rpc):
+    """The job's step count, from its worker's progress beacon."""
+    live = rpc.call("metrics.live")
+    return max([t.get("steps", 0) or 0 for t in live.get("tasks", [])]
+               or [0])
+
+
+def journal(hist, app):
+    """The job's write-ahead journal records."""
+    from tony_tpu_torch import constants
+
+    path = os.path.join(hist, constants.HISTORY_INTERMEDIATE, app,
+                        constants.JOURNAL_FILE)
+    records = []
+    with open(path) as f:
+        for line in f:
+            try:
+                records.append(json.loads(line))
+            except ValueError:
+                break         # the record being written now
+    return records
+
+
+def first_after(records, index, kind):
+    """The first record of ``kind`` after ``records[index]``."""
+    return next((r for r in records[index + 1:] if r.get("t") == kind),
+                None)
+
+
+def kill_app(app):
+    """SIGKILL every process whose environment carries the job's id (its
+    executors and user processes) — the clean-up of a failed drill."""
+    import signal
+
+    needle = f"TONY_APP_ID={app}\0".encode()
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit() or int(pid) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                if needle in f.read() + b"\0":
+                    os.kill(int(pid), signal.SIGKILL)
+        except OSError:
+            continue
+
+
+def check_job_launches(label, run, steps):
+    """The job's trainer launched 16 of each flash kernel per step it ran
+    (its counters count this process's launches, its JSON divides them by
+    ``--steps``), so no step ran twice in it."""
+    from tony_tpu_torch.ops import _flash_cuda
+
+    for name in _flash_cuda.KERNELS:
+        got = round(run["launches_per_step"][name] * FAIL_STEPS)
+        check(got == 16 * steps, f"{label}: {name} launched {got} times "
+              f"in {steps} steps, expected {16 * steps}")
+
+
+def worker_run(work, app):
+    """The last JSON line of the job's trainer, and its stderr."""
+    run = json.loads(job_task_log(work, app).strip().splitlines()[-1])
+    return run, job_task_log(work, app, "stderr.log")
+
+
+def held_to(label, losses, want, start):
+    """``losses`` (steps start, start + 1, ...) are finite and within
+    ``TOL_RESUME_REL`` of the uninterrupted run's same steps."""
+    check(all(math.isfinite(x) for x in losses),
+          f"{label}: non-finite loss {losses}")
+    err = max_rel(losses, want[start:start + len(losses)])
+    check(err <= TOL_RESUME_REL, f"{label}: losses {err:.3e} from the "
+          f"uninterrupted run's, limit {TOL_RESUME_REL}")
+    return err
+
+
+def recover_drill(tmp, corpus, want, card):
+    """(a) The operator flow of a coordinator crash: the coordinator of a
+    one-worker flagship job is SIGKILLed after the first step, and
+    ``cli recover`` brings the job home with the same worker process."""
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.conf import keys as K
+    from tony_tpu_torch.conf.config import TonyTpuConfig
+
+    # Unique per run: kill_app's clean-up finds the job's processes by it.
+    app = f"chip_smoke_recover_{uuid.uuid4().hex[:8]}"
+    base = os.path.join(tmp, "recover")
+    hist, work = os.path.join(base, "history"), os.path.join(base, "work")
+    job_dir = os.path.join(work, "jobs", app)
+    os.makedirs(job_dir)
+    conf = TonyTpuConfig()
+    # No client: the coordinator must not wait for one.
+    for k, v in failure_conf(
+            hist, f"exec {TRAINER} --data {corpus} --steps {FAIL_STEPS}",
+            extra=[(K.APPLICATION_NUM_CLIENTS_TO_WAIT, False)]):
+        conf.set(k, v)
+    frozen = conf.freeze(os.path.join(job_dir, constants.FINAL_CONFIG_FILE))
+    argv = [sys.executable, "-m", "tony_tpu_torch.coordinator",
+            "--conf", frozen, "--app-id", app, "--history-root", hist,
+            "--workdir", os.path.join(job_dir, "tasks"),
+            "--addr-file", os.path.join(job_dir, "coordinator.addr"),
+            "--user", "chip-smoke"]
+    procs = []
+    try:
+        with open(os.path.join(base, "coordinator.log"), "ab") as out:
+            procs.append(subprocess.Popen(argv, cwd=REPO, env=repo_env(),
+                                          stdout=out,
+                                          stderr=subprocess.STDOUT))
+        rpc = coordinator_rpc(job_dir)
+        poll(lambda: job_steps(rpc) >= 1, "the first step")
+        rpc.close()
+        pgid = os.path.join(job_dir, "tasks", "worker_0",
+                            constants.USER_PGID_FILE)
+        with open(pgid) as f:
+            pid = int(f.read().strip())
+        killed_at = time.time()
+        procs[0].kill()
+        procs[0].wait(timeout=60)
+        os.unlink(os.path.join(job_dir, "coordinator.addr"))
+        t0 = time.perf_counter()
+        with open(os.path.join(base, "recover.log"), "ab") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tony_tpu_torch.cli", "recover", app,
+                 "--workdir", work], cwd=REPO, env=repo_env(), stdout=out,
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 120
+        while True:
+            recs = journal(hist, app)
+            gens = [i for i, r in enumerate(recs)
+                    if r.get("t") == "gen" and r.get("generation") == 2]
+            reg = first_after(recs, gens[-1], "register") if gens else None
+            if reg is not None:
+                break
+            check(time.monotonic() < deadline and procs[1].poll() is None,
+                  "the worker never re-registered with the recovered "
+                  "coordinator")
+            time.sleep(0.05)
+        outage = reg["ts"] / 1e3 - killed_at
+        with open(pgid) as f:
+            same = int(f.read().strip()) == pid and alive(pid)
+        check(same, f"the worker's process {pid} did not survive the "
+              "outage")
+        rc = procs[1].wait(timeout=FAIL_TIMEOUT_S)
+        recover_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        kill_app(app)
+    with open(os.path.join(base, "recover.log"), errors="replace") as f:
+        text = f.read()
+    check(rc == 0, f"recover exited {rc}: {text[-3000:]}\n"
+          f"{job_task_log(work, app, 'stderr.log')[-3000:]}")
+    status, job_dir_hist, _ = job_history(hist, app)
+    check(status == "SUCCEEDED", f"recovered job: history says {status}")
+    epochs = [r["session"] for r in journal(hist, app)
+              if r.get("t") == "epoch"]
+    check(epochs == [0], f"recovered job: epochs {epochs}, expected [0]")
+    run, _ = worker_run(work, app)
+    check(len(run["losses"]) == FAIL_STEPS and run["start_step"] == 0,
+          f"recovered job: {len(run['losses'])} losses from step "
+          f"{run['start_step']}")
+    check_job_launches("recovered job", run, FAIL_STEPS)
+    err = held_to("recovered job", run["losses"][:20], want, 0)
+    log(f"failures (a) coordinator SIGKILL + cli recover: {app} SUCCEEDED "
+        f"in one epoch, worker pid {pid} unchanged, outage (SIGKILL to the "
+        f"worker's re-registration) {outage:.4f} s, recover's wall "
+        f"{recover_s:.4f} s, {FAIL_STEPS} steps with 16 launches of each "
+        f"flash kernel per step, first 20 losses {err:.3e} from the "
+        f"uninterrupted run's; {card}")
+    return job_dir_hist
+
+
+def migrate_drill(tmp, corpus, want, card):
+    """(b) ``cli migrate`` of a one-worker elastic flagship job: the drain
+    TERMs the trainer, its handler saves the state of the last whole step,
+    and the relaunched trainer resumes from it with no step re-run."""
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.conf import keys as K
+
+    base = os.path.join(tmp, "migrate")
+    hist, work = os.path.join(base, "history"), os.path.join(base, "work")
+    ckpt = os.path.join(base, "ckpt")
+    command = (f"exec {TRAINER} --data {corpus} --steps {FAIL_STEPS} "
+               f"--ckpt-dir {ckpt} --save-every {FAIL_SAVE_EVERY}")
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
+            "--workdir", work]
+    for k, v in failure_conf(hist, command, extra=[
+            (K.ELASTIC_ENABLED, True),
+            (K.ELASTIC_DRAIN_GRACE_S, FAIL_DRAIN_GRACE_S)]):
+        argv += ["--conf", f"{k}={v}"]
+    os.makedirs(base)
+    out_path = os.path.join(base, "submit.log")
+    app = None
+    with open(out_path, "w") as out:
+        submit = subprocess.Popen(argv, cwd=REPO, env=repo_env(),
+                                  stdout=out, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.monotonic() + 120
+        while app is None:
+            with open(out_path) as f:
+                m = re.search(r"submitted application (\S+)", f.read())
+            app = m.group(1) if m else None
+            check(app or (time.monotonic() < deadline
+                          and submit.poll() is None),
+                  "migrate: no application id from the CLI")
+            time.sleep(0.1)
+        rpc = coordinator_rpc(os.path.join(work, "jobs", app))
+        mgr = CheckpointManager(ckpt)
+        poll(lambda: job_steps(rpc) >= FAIL_MIGRATE_AT
+             and os.path.exists(mgr.manifest_path(0)),
+             f"step {FAIL_MIGRATE_AT} and the first step's save")
+        requested = time.time()
+        r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
+                            "migrate", app, "slice-1", "--workdir", work],
+                           cwd=REPO, env=repo_env(), capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f"cli migrate exited {r.returncode}: "
+              f"{r.stdout}{r.stderr}")
+
+        def applied():
+            recs = journal(hist, app)
+            done = [i for i, x in enumerate(recs) if x.get("t") == "migrate"
+                    and x.get("phase") == "applied"]
+            report = rpc.call("get_application_report")
+            return done and first_after(recs, done[-1], "register") \
+                and not (report.get("elastic") or {}).get("resizing")
+        poll(applied, "the migration to land",
+             timeout=FAIL_DRAIN_GRACE_S + 240)
+        rpc.close()
+        rc = submit.wait(timeout=FAIL_TIMEOUT_S)
+    finally:
+        if submit.poll() is None:
+            submit.terminate()       # the CLI kills its application
+            submit.wait(timeout=120)
+        if app:
+            kill_app(app)
+    with open(out_path, errors="replace") as f:
+        text = f.read()
+    check(rc == 0, f"migrate: the CLI exited {rc}: {text[-3000:]}\n"
+          f"{job_task_log(work, app, 'stderr.log')[-3000:]}")
+    status, job_dir, _ = job_history(hist, app)
+    check(status == "SUCCEEDED", f"migrated job: history says {status}")
+    recs = journal(hist, app)
+    epochs = [x["session"] for x in recs if x.get("t") == "epoch"]
+    moves = [(i, x) for i, x in enumerate(recs) if x.get("t") == "migrate"]
+    check(epochs == [0] and [x["phase"] for _, x in moves]
+          == ["start", "applied"], f"migrated job: epochs {epochs}, "
+          f"migrate records {[x for _, x in moves]}")
+    reg = first_after(recs, moves[-1][0], "register")
+    wall = reg["ts"] / 1e3 - requested
+    run, err_log = worker_run(work, app)
+    saved = re.search(r"saving preemption checkpoint at step (\d+)",
+                      err_log)
+    durable = re.search(r"preemption checkpoint durable in ([\d.]+) s",
+                        err_log)
+    check(saved and durable, "migrated job: the drained trainer logged no "
+          f"preemption save: {err_log[-3000:]}")
+    k = int(saved.group(1))
+    start = run["start_step"]
+    check(run["restored_step"] == k and start == k + 1,
+          f"migrated job: the drain saved step {k}, the relaunch restored "
+          f"{run['restored_step']} and started at {start}: "
+          f"{k + 1 - start} steps re-run")
+    check(len(run["losses"]) == FAIL_STEPS - start,
+          f"migrated job: {len(run['losses'])} losses from step {start}")
+    check_job_launches("migrated job", run, FAIL_STEPS - start)
+    err = held_to("migrated job", run["losses"], want, start)
+    mgr = CheckpointManager(ckpt)
+    size = mgr.step_bytes(k)
+    log(f"failures (b) cli migrate {app} slice-1: SUCCEEDED, one epoch, "
+        f"REC_MIGRATE start and applied; the drain's save of step {k} "
+        f"{size / 2**30:.3f} GiB in {float(durable.group(1)):.3f} s "
+        f"(tony.elastic.drain-grace-s default 15 s; this job's "
+        f"{FAIL_DRAIN_GRACE_S} s), the relaunch's restore "
+        f"{run['restore_s']:.3f} s and start at step {start}: "
+        f"{k + 1 - start} steps re-run; migration wall (request to the "
+        f"relaunched worker's re-registration) {wall:.4f} s; "
+        f"{FAIL_STEPS - start} steps with 16 launches of each flash kernel "
+        f"per step, losses {err:.3e} from the uninterrupted run's; {card}")
+    return job_dir
+
+
+def phase_failures(card):
+    """Phase 14: surviving failures on the card."""
+    from tony_tpu_torch import trainer
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fail-")
+    try:
+        cfg = trainer.flagship_config(seq=2048)
+        corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                      cfg.vocab_size)
+        ref = trainer.train(cfg, corpus, batch=4, seq=2048,
+                            steps=FAIL_STEPS)
+        want = ref["losses"]
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()   # the jobs need the card's memory
+        dirs = [recover_drill(tmp, corpus, want, card),
+                migrate_drill(tmp, corpus, want, card)]
+        for job_dir in dirs:
+            r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
+                                "check", job_dir], cwd=REPO, env=repo_env(),
+                               capture_output=True, text=True, timeout=300)
+            check(r.returncode == 0, f"cli check {job_dir} exited "
+                  f"{r.returncode}: {r.stdout[-3000:]}{r.stderr[-2000:]}")
+        log("failures (c) cli check: both job dirs clean")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"failures: {time.perf_counter() - t0:.1f} s")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
 def main():
+    started = time.perf_counter()
     card = phase_device()
     phase_build()
     timing = phase_kernels()
@@ -2636,6 +3058,7 @@ def main():
     phase_seq_expert(mesh_run, long_timing, card)
     phase_orchestrator(main_run["tokens_per_sec"])
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
+    phase_failures(card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []
@@ -2654,6 +3077,7 @@ def main():
                 f"M={m}": counts_m[name] / STEPS
                 for m, counts_m in pipe["launches"].items()}}
                if name in _flash_cuda.SPECS else {})})
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

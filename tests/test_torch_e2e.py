@@ -33,6 +33,8 @@ from tony_tpu_torch.conf import keys as K
 from tony_tpu_torch.conf.config import TonyTpuConfig
 from tony_tpu_torch.events import history
 
+from test_torch_e2e_recovery import check_artifacts
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # A module of the reference named in a command line.
 REFERENCE_MODULE = re.compile(r"\btony_tpu(?!_torch)\.")
@@ -197,6 +199,7 @@ def test_e2e_gang_rendezvous_events_and_command_lines(tmp_path):
     jtypes = [e.type.value for e in jhistory.read_job_events(
         str(tmp_path / "ref" / "history"), jrec.app_id)]
     assert collections.Counter(types) == collections.Counter(jtypes)
+    check_artifacts(tmp_path)
 
 
 @pytest.mark.timeout_s(120)
@@ -218,6 +221,7 @@ def test_e2e_worker_failure_fails_job_with_diagnosis(tmp_path):
     types = [e.type.value for e in history.read_job_events(root, rec.app_id)]
     assert "JOB_DIAGNOSED" in types
     assert cli_main(["diagnose", rec.app_id, "--history-root", root]) == 0
+    check_artifacts(tmp_path)
 
 
 def _wait(pred, timeout_s=60):
@@ -286,6 +290,7 @@ def test_e2e_cli_submit_status_kill_history_events(tmp_path, capsys):
                      "--history-root", hist]) == 0
     assert "KILLED" in capsys.readouterr().out
     assert cli_main(["kill", "app_nope", "--workdir", work]) == 1
+    check_artifacts(tmp_path)
 
 
 @pytest.mark.timeout_s(180)
@@ -330,3 +335,4 @@ def test_e2e_port_trainer_on_submitted_gang(tmp_path):
     bd = tracing.cold_start_breakdown(records)
     assert bd["total_s"] > 0
     assert abs(sum(bd["phases"].values()) - bd["total_s"]) < 1e-3
+    check_artifacts(tmp_path)

@@ -25,6 +25,8 @@ from tony_tpu_torch.conf.config import TonyTpuConfig
 from tony_tpu_torch.events import history
 from tony_tpu_torch.pool import PoolClient, PoolDaemon
 
+from test_torch_e2e_recovery import check_artifacts
+
 # One telemetry step (the anchor of executor.first_step), published before
 # the process exits, which is sooner than the reporter's tick.
 SCRIPTS = {
@@ -193,6 +195,7 @@ def test_warm_pool_resubmit_under_2s_with_adoption_spans(tmp_path,
     assert bd["total_s"] <= 2.0, f"warm resubmit took {bd['total_s']}s"
     assert round(sum(bd["phases"].values()), 4) == round(bd["total_s"], 4)
     assert "pool.lease" in bd["span_durations"]
+    check_artifacts(tmp_path)
 
 
 @pytest.mark.timeout_s(170)
@@ -226,6 +229,7 @@ def test_adoption_failure_falls_back_to_cold_spawn(tmp_path, warm_pool):
         lambda: discarded not in {w["worker"]
                                   for w in daemon.status()["workers"]},
         what="discarded worker to leave the fleet")
+    check_artifacts(tmp_path)
 
 
 @pytest.mark.timeout_s(170)
@@ -292,6 +296,7 @@ def test_mid_lease_kill_retries_cold_with_no_job_failure(tmp_path,
                and e.payload.get("failure_domain") == "INFRA_TRANSIENT"
                for e in finishes), [e.payload for e in finishes]
     assert finishes[-1].payload.get("exit_code") == 0
+    check_artifacts(tmp_path)
 
 
 @pytest.mark.timeout_s(170)

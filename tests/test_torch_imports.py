@@ -134,3 +134,40 @@ def test_spawn_argvs_name_the_port(module):
                 if v == "-m":
                     assert items[i + 1].startswith("tony_tpu_torch."), \
                         (module, items)
+
+
+def test_gates_and_failure_verbs_import_nothing_of_the_reference(tmp_path):
+    """``devtools/{invariants,protocol,tonylint}.py`` and the CLI's
+    ``check``, ``lint``, ``resize`` and ``migrate``, run in a fresh
+    process, load nothing of jax or the reference, and not torch either
+    (they are control-plane tools)."""
+    job = tmp_path / "job"
+    job.mkdir()
+    (job / "session.journal.jsonl").write_text(
+        '{"t": "gen", "generation": 1}\n')
+    code = (
+        "import sys\n"
+        "from tony_tpu_torch.cli.main import main\n"
+        "import tony_tpu_torch.devtools.protocol\n"
+        "assert main(['check', %r]) == 0\n"
+        "assert main(['lint', '--rule', 'bare-except']) == 0\n"
+        "assert main(['resize', 'app-x', '2', '--workdir', %r]) == 1\n"
+        "assert main(['migrate', 'app-x', 'slice-1', '--workdir', %r]) == 1\n"
+        "assert 'tony_tpu_torch.devtools.invariants' in sys.modules\n"
+        "assert 'tony_tpu_torch.devtools.tonylint' in sys.modules\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+        % (str(job), str(tmp_path), str(tmp_path), FORBIDDEN + ("torch",)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("module", ["devtools/invariants.py",
+                                    "devtools/protocol.py",
+                                    "devtools/tonylint.py"])
+def test_gates_are_scanned(module):
+    """The AST and string scans above cover the gates copied from the
+    reference."""
+    assert os.path.join(REPO, "tony_tpu_torch", module) in _port_files()

@@ -53,6 +53,7 @@ sizes; a difference is logged as a reshard and recorded in
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 import json
@@ -61,7 +62,7 @@ import os
 import shutil
 import threading
 import time
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -142,7 +143,9 @@ class CheckpointManager:
                  save_interval_steps: int = 1, async_save: bool = True):
         self._directory = os.path.abspath(str(directory))
         os.makedirs(self._directory, exist_ok=True)
-        self._busy = False               # main thread inside save()/wait()
+        # Depth of the main thread's busy scopes: inside save()/wait(), or
+        # inside a step that updates the checkpoint tree in place.
+        self._busy = 0
         self._preempt: Optional[dict] = None
         # (saved, current) mesh shapes (or world sizes, for a restore given
         # no mesh) of the last restore that crossed them; None when they
@@ -193,8 +196,7 @@ class CheckpointManager:
         # The card's queued work that produces the state is the step's,
         # not the save's: wait for it before the stall is timed.
         telemetry.block_until_ready(state)
-        self._busy = True
-        try:
+        with self.updating():
             # Step-time attribution: the snapshot copy (and, synchronous,
             # the write) is the stall the training thread pays.
             with telemetry.phase("ckpt_stall"):
@@ -206,11 +208,10 @@ class CheckpointManager:
                     if not self._overlap:
                         self._write(step, snap, note)
                 self.stall_s[step] = time.perf_counter() - t0
-        finally:
-            self._busy = False
-            self._run_deferred_preemption()
-        if self._overlap and not sharded:
-            self._enqueue(step, snap, note)
+            # Inside the busy scope: a TERM deferred from the snapshot
+            # runs its final save after this step is queued.
+            if self._overlap and not sharded:
+                self._enqueue(step, snap, note)
         return True
 
     # -- policy and the overlapped background writer ---------------------
@@ -517,8 +518,25 @@ class CheckpointManager:
             "no restorable checkpoint: " + "; ".join(errors))
 
     # -- preemption ------------------------------------------------------
-    def install_preemption_handler(self, snapshot, exit_code: int = 143
-                                   ) -> None:
+    @contextlib.contextmanager
+    def updating(self) -> Iterator[None]:
+        """Mark the main thread busy: inside a save or wait, or inside a
+        training step that updates the checkpoint tree IN PLACE (torch's
+        optimizers write parameters and moments one tensor after
+        another). A SIGTERM landing inside is deferred, and the final
+        save runs when the outermost scope ends, at the step's boundary:
+        a snapshot taken between two tensors' updates would be a torn
+        checkpoint. (The reference's snapshot is an immutable pytree and
+        needs no such scope for the step.)"""
+        self._busy += 1
+        try:
+            yield
+        finally:
+            self._busy -= 1
+            self._run_deferred_preemption()
+
+    def install_preemption_handler(self, snapshot, exit_code: int = 143,
+                                   mesh: Any = None) -> None:
         """Save-on-SIGTERM: when the job is being torn down, synchronously
         save the state ``snapshot()`` returns, then exit.
 
@@ -527,14 +545,20 @@ class CheckpointManager:
         completed steps instead of rolling back to the last periodic save.
         ``snapshot`` must return ``(step, checkpoint tree)`` and be cheap
         to call from the main thread (it runs between Python bytecodes).
+        Queued saves are made durable first, and a step they committed is
+        not saved again. ``mesh`` is passed to ``save``. Wrap in-place
+        updates of the tree in ``updating()``.
 
         Install from the MAIN thread of the training process. Exits with
         ``exit_code`` (default 143 = 128+SIGTERM).
+        ``remove_preemption_handler`` puts the previous handler back.
         """
         import signal
 
         self._preempt = {"fired": False, "deferred": False,
-                         "snapshot": snapshot, "exit_code": exit_code}
+                         "snapshot": snapshot, "exit_code": exit_code,
+                         "mesh": mesh,
+                         "previous": signal.getsignal(signal.SIGTERM)}
 
         def _handler(signum, frame):
             st = self._preempt
@@ -542,10 +566,11 @@ class CheckpointManager:
                 # Teardown delivers TERM more than once — first one wins.
                 return
             if self._busy:
-                # TERM landed while the main thread is INSIDE a save or
-                # wait: a re-entrant save would corrupt the in-flight
-                # write. Defer — save()/wait() run the final save the
-                # moment the in-flight call completes.
+                # TERM landed while the main thread is INSIDE a save, a
+                # wait or an in-place update: a re-entrant save would
+                # corrupt the in-flight write or snapshot a half-updated
+                # tree. Defer: the end of the outermost busy scope runs
+                # the final save.
                 st["deferred"] = True
                 return
             st["fired"] = True
@@ -553,9 +578,20 @@ class CheckpointManager:
 
         signal.signal(signal.SIGTERM, _handler)
 
+    def remove_preemption_handler(self) -> None:
+        """Put back the SIGTERM handler that ``install_preemption_handler``
+        replaced."""
+        import signal
+
+        st, self._preempt = self._preempt, None
+        if st is not None:
+            # None: the previous handler was not installed from Python.
+            signal.signal(signal.SIGTERM, st["previous"] or signal.SIG_DFL)
+
     def _run_deferred_preemption(self) -> None:
         st = self._preempt
-        if st is not None and st["deferred"] and not st["fired"]:
+        if (st is not None and st["deferred"] and not st["fired"]
+                and not self._busy):
             st["fired"] = True
             self._do_preemption_save()
 
@@ -563,28 +599,30 @@ class CheckpointManager:
         import sys
 
         st = self._preempt
+        t0 = time.perf_counter()
         try:
             step, state = st["snapshot"]()
-            log.warning("SIGTERM: saving preemption checkpoint at step %s",
-                        step)
-            self.save(int(step), state, force=True)
+            step = int(step)
             self.wait()
-            log.warning("preemption checkpoint durable; exiting")
+            if os.path.exists(self.manifest_path(step)):
+                log.warning("SIGTERM: step %d is already saved", step)
+            else:
+                log.warning("SIGTERM: saving preemption checkpoint at "
+                            "step %d", step)
+                self.save(step, state, force=True, mesh=st["mesh"])
+                self.wait()
+            log.warning("preemption checkpoint durable in %.3f s; exiting",
+                        time.perf_counter() - t0)
         except Exception:  # noqa: BLE001 — still exit promptly
             log.exception("preemption save failed")
         sys.exit(st["exit_code"])
 
     def wait(self) -> None:
         """Block until queued async saves are durable (call before exit)."""
-        self._busy = True
-        try:
-            # A mid-training wait() is exactly the stall async
-            # checkpointing exists to avoid — attribute it.
-            with telemetry.phase("ckpt_stall"):
-                self._drain_writer()
-        finally:
-            self._busy = False
-            self._run_deferred_preemption()
+        # A mid-training wait() is exactly the stall async checkpointing
+        # exists to avoid — attribute it.
+        with self.updating(), telemetry.phase("ckpt_stall"):
+            self._drain_writer()
 
     def close(self) -> None:
         self._drain_writer()

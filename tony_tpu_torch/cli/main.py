@@ -7,10 +7,12 @@ the portal's jobs-index view for terminals (``tony-portal/conf/routes:1``).
 
 The port's CLI has the subcommands of the job path: ``submit``, ``kill``,
 ``status``, ``recover``, ``history``, ``events``, ``logs``, ``trace`` and
-``diagnose``, and ``pool`` (``start``, ``status``, ``stop``: the warm
-executor pool, ``tony_tpu_torch/pool.py``). The reference's others
-(notebook, resize, migrate, profile, bench, top, alerts, portal, gcloud-gc,
-lint, check, chaos, fleet) are ROADMAP A11c.
+``diagnose``; ``resize`` and ``migrate`` (a running elastic job's gang);
+``pool`` (``start``, ``status``, ``stop``: the warm executor pool,
+``tony_tpu_torch/pool.py``); and the gates ``check`` (a finished job's
+artifacts against the protocol invariants) and ``lint`` (tonylint over
+``tony_tpu_torch/``). The reference's others (notebook, profile, bench,
+top, alerts, portal, gcloud-gc, chaos, fleet) are ROADMAP queue A.
 
 Usage:
     python -m tony_tpu_torch.cli submit --conf-file job.yaml [--conf k=v ...]
@@ -18,6 +20,9 @@ Usage:
     python -m tony_tpu_torch.cli history [--history-root DIR]
     python -m tony_tpu_torch.cli events <app_id>
     python -m tony_tpu_torch.cli pool start --size 1 [--dir DIR]
+    python -m tony_tpu_torch.cli migrate <app_id> slice-1
+    python -m tony_tpu_torch.cli check <app_id|job_dir> [--json]
+    python -m tony_tpu_torch.cli lint [--json] [--rule RULE]
 """
 
 from __future__ import annotations
@@ -175,6 +180,73 @@ def _coordinator_rpc(app_id: str, workdir: Optional[str]):
                      token=addr.get("token") or None,
                      max_retries=2, retry_sleep_s=0.5, tls=tls,
                      peer="coordinator")
+
+
+def _cmd_resize(args: argparse.Namespace) -> int:
+    """Elastic resize of a RUNNING job's gang (coordinator/elastic.py):
+    shrink drains the survivors at a step barrier and re-meshes —
+    releasing the highest indices — grow re-admits members through the
+    same barrier. Requires tony.elastic.enabled on the job; refused
+    below tony.elastic.min-tasks."""
+    rpc = _coordinator_rpc(args.app_id, args.workdir)
+    if rpc is None:
+        print(f"no coordinator address for {args.app_id} under "
+              f"{_default_workdir(args.workdir)} (job finished? wrong "
+              f"--workdir?) — resize needs a live job", file=sys.stderr)
+        return 1
+    try:
+        res = rpc.call("resize_application", size=args.size,
+                       job=args.job or "")
+    except Exception as e:  # noqa: BLE001
+        print(f"resize failed (coordinator gone?): {e}", file=sys.stderr)
+        return 1
+    finally:
+        rpc.close()
+    if not isinstance(res, dict) or not res.get("ok"):
+        msg = res.get("message", "refused") if isinstance(res, dict) \
+            else str(res)
+        print(f"resize refused: {msg}", file=sys.stderr)
+        return 1
+    print(res.get("message", "resize accepted"))
+    print(f"members: {res.get('members')}")
+    print(f"watch it land with `python -m tony_tpu_torch.cli events "
+          f"{args.app_id}` (GANG_RESIZED)")
+    return 0
+
+
+def _cmd_migrate(args: argparse.Namespace) -> int:
+    """Live migration of a RUNNING job's gang to another slice
+    (coordinator/migrate.py): fenced DRAIN at a step barrier → final
+    durable saves → relaunch/adopt on the target → restore-with-reshard
+    — a planned move with steps_lost==0, vs. the crash-shaped path a
+    reclaim would force. Requires tony.elastic.enabled on the job."""
+    rpc = _coordinator_rpc(args.app_id, args.workdir)
+    if rpc is None:
+        print(f"no coordinator address for {args.app_id} under "
+              f"{_default_workdir(args.workdir)} (job finished? wrong "
+              f"--workdir?) — migrate needs a live job", file=sys.stderr)
+        return 1
+    try:
+        res = rpc.call("migrate_application", target=args.target,
+                       job=args.job or "")
+    except Exception as e:  # noqa: BLE001
+        print(f"migrate failed (coordinator gone?): {e}",
+              file=sys.stderr)
+        return 1
+    finally:
+        rpc.close()
+    if not isinstance(res, dict) or not res.get("ok"):
+        msg = res.get("message", "refused") if isinstance(res, dict) \
+            else str(res)
+        print(f"migrate refused: {msg}", file=sys.stderr)
+        return 1
+    print(res.get("message", "migration accepted"))
+    print(f"members: {res.get('members')}")
+    print(f"route:   {res.get('source') or '(default pool)'} -> "
+          f"{res.get('target')}")
+    print(f"watch it land with `python -m tony_tpu_torch.cli events "
+          f"{args.app_id}` (GANG_MIGRATED)")
+    return 0
 
 
 def _cmd_status(args: argparse.Namespace) -> int:
@@ -543,6 +615,46 @@ def _cmd_pool(args: argparse.Namespace) -> int:
     return 1
 
 
+def _cmd_lint(args: argparse.Namespace) -> int:
+    """`tony-tpu lint` — the static invariant checker (tonylint)."""
+    from tony_tpu_torch.devtools import tonylint
+
+    argv: List[str] = []
+    if args.list_rules:
+        argv.append("--list")
+    if args.json:
+        argv.append("--json")
+    if args.root:
+        argv += ["--root", args.root]
+    for rule in args.rule or []:
+        argv += ["--rule", rule]
+    return tonylint.main(argv)
+
+
+def _cmd_check(args: argparse.Namespace) -> int:
+    """`tony-tpu check` — the cross-artifact trace invariant checker
+    (tonycheck's runtime half; devtools/invariants.py)."""
+    from tony_tpu_torch.devtools import invariants
+    from tony_tpu_torch.events import history
+
+    target = args.target
+    if os.path.isdir(target):
+        job_dir = target
+    else:
+        root = _history_root(args)
+        job_dir = history.list_job_dirs(root).get(target)
+        if job_dir is None:
+            print(f"unknown application {target} under {root}",
+                  file=sys.stderr)
+            return 2
+    report = invariants.check_job_dir(job_dir)
+    if args.json:
+        print(json.dumps(report.to_dict(), indent=1, sort_keys=True))
+    else:
+        print(invariants.render_text([report]))
+    return 0 if report.ok else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tony-tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -580,6 +692,38 @@ def build_parser() -> argparse.ArgumentParser:
                     help="override tony.history.location from the frozen "
                          "config")
     rc.set_defaults(fn=_cmd_recover)
+
+    rz = sub.add_parser(
+        "resize",
+        help="elastically resize a running job's gang — shrink drains "
+             "and re-meshes without restarting (no burned epochs), grow "
+             "re-admits members live (tony.elastic.* keys)")
+    rz.add_argument("app_id")
+    rz.add_argument("size", type=int, help="new gang size")
+    rz.add_argument("--job", default="",
+                    help="jobtype to resize (default: the configured "
+                         "tony.elastic.jobtype)")
+    rz.add_argument("--workdir", help="client workdir the job was "
+                                      "submitted from (default ~/.tony-tpu)")
+    rz.set_defaults(fn=_cmd_resize)
+
+    mg = sub.add_parser(
+        "migrate",
+        help="live-migrate a running job's gang to another slice: "
+             "fenced drain at a step barrier, final durable saves, "
+             "relaunch/adopt on the target, restore with reshard — "
+             "steps_lost==0 spot survival and defrag "
+             "(tony.elastic.* keys)")
+    mg.add_argument("app_id")
+    mg.add_argument("target",
+                    help="destination node pool / slice name, e.g. "
+                         "slice-1")
+    mg.add_argument("--job", default="",
+                    help="jobtype to migrate (default: the configured "
+                         "tony.elastic.jobtype)")
+    mg.add_argument("--workdir", help="client workdir the job was "
+                                      "submitted from (default ~/.tony-tpu)")
+    mg.set_defaults(fn=_cmd_migrate)
 
     st = sub.add_parser("status",
                         help="live report for a running job (falls back "
@@ -653,6 +797,39 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--conf-file")
     pl.add_argument("--conf", action="append", metavar="K=V")
     pl.set_defaults(fn=_cmd_pool)
+
+    ln = sub.add_parser(
+        "lint",
+        help="run tonylint, the project invariant checker: conf-key / "
+             "fault-site / event-type / rpc-parity registries plus the "
+             "durable-write, clock, span, thread and lock disciplines. "
+             "Exits nonzero on findings.")
+    ln.add_argument("--json", action="store_true",
+                    help="emit findings as JSON")
+    ln.add_argument("--rule", action="append", metavar="RULE",
+                    help="run only this rule id (repeatable)")
+    ln.add_argument("--root", default=None,
+                    help="repo root to lint (default: this install)")
+    ln.add_argument("--list", dest="list_rules", action="store_true",
+                    help="list rule ids and exit")
+    ln.set_defaults(fn=_cmd_lint)
+
+    ck = sub.add_parser(
+        "check",
+        help="verify a finished job's artifacts against the "
+             "control-plane protocol invariants: journal gen/mgen "
+             "monotonicity, resize pairing, epoch fences, terminal-"
+             "state discipline, span-tree closure, phase sums, and the "
+             "metrics registry. Run it BEFORE diagnose: a protocol "
+             "violation means the artifacts themselves may be lying. "
+             "Exits nonzero on violations.")
+    ck.add_argument("target",
+                    help="an app id (resolved under the history root) "
+                         "or a job-dir path")
+    ck.add_argument("--history-root")
+    ck.add_argument("--json", action="store_true",
+                    help="emit the report as JSON")
+    ck.set_defaults(fn=_cmd_check)
 
     return p
 

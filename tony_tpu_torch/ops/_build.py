@@ -28,6 +28,8 @@ from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
 
+from tony_tpu_torch.utils import durable
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "_build")
@@ -111,7 +113,10 @@ def build(kernels: Mapping[str, Kernel]) -> Dict[str, object]:
             if proc.returncode != 0:
                 failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
             else:
-                os.replace(tmp, lib)
+                # A library adopted after a crash must be whole: fsync
+                # it before the rename, and the directory after.
+                durable.fsync_path(tmp)
+                durable.durable_replace(tmp, lib)
         if failed:
             raise RuntimeError("CUDA kernel build failed: "
                                + "\n".join(failed))

@@ -486,6 +486,15 @@ def cold_start_breakdown(records: List[Dict[str, Any]]) -> Dict[str, Any]:
         return int(e["ts"] + (e.get("dur", 0) if edge == "end" else 0))
 
     t0 = int(submit["ts"])
+
+    def _at(ts: int) -> float:
+        # Each boundary is rounded once, against t0; a phase is the
+        # difference of two rounded boundaries, so the phases telescope
+        # to total_s exactly. (The reference rounds each phase on its
+        # own, and its sum can miss the rounded total by a few 1e-4; a
+        # phase here differs from the reference's by at most 1e-4.)
+        return round((ts - t0) / 1e6, 4)
+
     phases: Dict[str, float] = {}
     prev = t0
     end = int(first["ts"] + first.get("dur", 0))
@@ -496,12 +505,12 @@ def cold_start_breakdown(records: List[Dict[str, Any]]) -> Dict[str, Any]:
             # phase instead of losing it (the sum must stay exact).
             continue
         b = max(min(b, end), prev)   # clamp: monotonic, inside the window
-        phases[phase] = round((b - prev) / 1e6, 4)
+        phases[phase] = round(_at(b) - _at(prev), 4)
         prev = b
     # Anything after the last known boundary still belongs to the total.
     if end > prev:
         phases["user_boot"] = round(
-            phases.get("user_boot", 0.0) + (end - prev) / 1e6, 4)
+            phases.get("user_boot", 0.0) + _at(end) - _at(prev), 4)
     durations: Dict[str, float] = {}
     for name in ("client.stage", "executor.localize", "executor.register",
                  "executor.user_process", "executor.first_step",
@@ -511,5 +520,5 @@ def cold_start_breakdown(records: List[Dict[str, Any]]) -> Dict[str, Any]:
         if cands:
             e = min(cands, key=lambda c: c["ts"])
             durations[name] = round(e.get("dur", 0) / 1e6, 4)
-    return {"total_s": round((end - t0) / 1e6, 4), "task": task,
+    return {"total_s": _at(end), "task": task,
             "phases": phases, "span_durations": durations}

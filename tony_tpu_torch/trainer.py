@@ -437,6 +437,18 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     policy, ``max_to_keep`` retention; the last step is always saved; in a
     group, rank 0 saves). The manager is drained at the end.
 
+    With ``ckpt_dir`` the loop also obeys the drain contract it is
+    launched under (an elastic resize or a migration TERMs the process and
+    expects one final save): once its first step is done it installs the
+    manager's SIGTERM handler for the rest of the loop. The step updates
+    the state in place, so it runs inside ``mgr.updating()``: a TERM
+    landing mid-step is deferred to the step's boundary, and the final
+    save holds the state after the last whole step with its step count.
+    The process then exits 143. Only a job of one process installs it:
+    ranks that each took the TERM at their own step would meet in
+    different collectives (a save's barrier, a step's), so a larger group
+    keeps the default TERM and resumes from its last periodic save.
+
     With ``mesh`` (see ``mesh_scope``) the state is sharded: each rank
     reads its batch coordinate's rows, the step is ``train_step_accum`` on
     the mesh (FSDP2 and the explicit ``dcn_dp`` sync), every rank saves
@@ -471,6 +483,14 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
     start, restored, restore_s = 0, None, None
     losses = []
     it = None
+    drain = mgr is not None and not (dist.is_available()
+                                     and dist.is_initialized()
+                                     and dist.get_world_size() > 1)
+
+    def snapshot():
+        # The state after the last whole step: iteration step - 1.
+        return state.step - 1, checkpoint_tree(state)
+
     try:
         if mgr is not None and mgr.latest_step() is not None:
             t0 = time.perf_counter()
@@ -486,8 +506,14 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
         t0 = time.perf_counter()
         for i in range(start, steps):
             with telemetry.step(flops=flops, tokens=batch * seq):
-                m = train_step_accum(state, next(it), accum_steps,
-                                     bucket_mb, group, mesh=mesh)
+                b = next(it)
+                with mgr.updating() if mgr is not None \
+                        else contextlib.nullcontext():
+                    m = train_step_accum(state, b, accum_steps, bucket_mb,
+                                         group, mesh=mesh)
+            if drain and i == start:
+                # From here on a TERM has a whole step to save.
+                mgr.install_preemption_handler(snapshot, mesh=mesh)
             losses.append(m["loss"])
             if mgr is not None and saves and (i == steps - 1
                                               or mgr.should_save(i)):
@@ -501,6 +527,7 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
         if it is not None:
             it.close()
         if mgr is not None:
+            mgr.remove_preemption_handler()
             mgr.close()
     out: Dict[str, Any] = {
         "losses": [float(x) for x in losses], "start_step": start,
