@@ -8,8 +8,8 @@ result line. Phases 7-11 run the flagship's earlier paths (and bench's
 0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
 = 4 layers: their launch counts are per layer of that depth, their rates
 and peak memory are not those of the whole model, and their labels say
-"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12, 13 and 14 run
-all 16:
+"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12, 13, 14 and 15
+run all 16:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -219,7 +219,30 @@ all 16:
    destination is the same card: this measures drain, save, relaunch and
    restore, no transfer between hosts; (c) ``python -m
    tony_tpu_torch.cli check`` exits 0 on both job dirs;
-15. prints the whole run's seconds, the kernels' JSON line (each flash
+15. the GPU host backend and the fleet, the flagship at full width and
+   depth: (a) ``python -m tony_tpu_torch.cli submit`` with
+   ``tony.application.backend=gpu-host``, the fake provisioner and one
+   host, the trainer for 10 steps as the worker command: the job
+   SUCCEEDED, its task ran under ``<workdir>/fakehost-0/`` with
+   ``TONY_HOST_ID`` and ``TONY_HOST_LOCAL_ORDINAL`` set, no
+   ``TPU_WORKER_*`` and the caller's ``CUDA_VISIBLE_DEVICES``, 16 launches
+   of each flash kernel per step, ``cli check`` clean on its job dir; its
+   ``submit_to_first_step_s`` and phases printed beside phase 12's cold
+   local-backend job's, its tokens/s beside phase 4's; (b) ``cli pool
+   start --size 1``, then ``cli fleet start --slices 2 --hosts-per-slice
+   1`` on that pool, and ``cli fleet submit`` of phase 14 (b)'s elastic
+   job (the same corpus and seed, ``--ckpt-dir``, 150 steps); past step 20
+   ``cli fleet migrate <job> 1``: the job FINISHED in one epoch with
+   REC_MIGRATE ``start`` and ``applied``, 0 steps re-run, 16 launches of
+   each flash kernel per step, losses within ``TOL_RESUME_REL`` of phase
+   14's uninterrupted run's same steps, ``cli check`` clean on the fleet
+   dir (the fleet rules, ``fleet-sim-parity`` included), and after ``fleet
+   stop`` and ``pool stop`` neither daemon alive; the queue wait, the
+   grant to the first step, the migration's wall time, the drain save's
+   bytes and seconds, the ledger's goodput and chip-seconds for the job
+   and one ``fleet top`` frame printed. The two "slices" share the one
+   card: the move measures drain, save, relaunch and restore;
+16. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -2046,9 +2069,9 @@ def gpu_used_mib():
     return float(r.stdout.strip().splitlines()[0])
 
 
-def submit_job(tmp, label, command, conf=(), roots=()):
+def submit_job(tmp, label, command, conf=(), roots=(), backend="local"):
     """``python -m tony_tpu_torch.cli submit`` of a one-worker pytorch job
-    on the local backend, its history under ``tmp`` (``conf``: more
+    on ``backend``, its history under ``tmp`` (``conf``: more
     ``key=value`` settings): the CLI's exit code, its output, the
     application id, the history root, the client workdir, the command
     lines of the CLI's descendants and of ``roots``' (a pool daemon's)
@@ -2060,7 +2083,7 @@ def submit_job(tmp, label, command, conf=(), roots=()):
     out_path = os.path.join(tmp, f"{label}.out")
     argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
             "--conf", "tony.application.framework=pytorch",
-            "--conf", "tony.application.backend=local",
+            "--conf", f"tony.application.backend={backend}",
             "--conf", "tony.worker.instances=1",
             "--conf", f"tony.worker.command={command}",
             "--conf", f"tony.history.location={hist}",
@@ -2232,12 +2255,10 @@ def alive(pid):
         return False
 
 
-def pool_cli(*args):
-    """``python -m tony_tpu_torch.cli pool ...``: its exit code and
-    output."""
-    env = repo_env()
-    r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli", "pool",
-                        *args], cwd=REPO, env=env, capture_output=True,
+def cli(*args):
+    """``python -m tony_tpu_torch.cli ...``: its exit code and output."""
+    r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli", *args],
+                       cwd=REPO, env=repo_env(), capture_output=True,
                        text=True, timeout=300)
     return r.returncode, r.stdout + r.stderr
 
@@ -2255,7 +2276,7 @@ def pooled_flagship(tmp, in_process, cold, warm):
     pool_dir = os.path.join(tmp, "pool")
     base_rows, base_mib = gpu_apps(), gpu_used_mib()
     t0 = time.perf_counter()
-    rc, out = pool_cli("start", "--dir", pool_dir, "--size", "1")
+    rc, out = cli("pool", "start", "--dir", pool_dir, "--size", "1")
     check(rc == 0, f"pool start exited {rc}: {out[-2000:]}")
     with open(os.path.join(pool_dir, constants.POOL_ADDR_FILE)) as f:
         daemon = int(json.load(f)["pid"])
@@ -2319,7 +2340,7 @@ def pooled_flagship(tmp, in_process, cold, warm):
         seen_workers |= {w["pid"] for w in st["workers"]}
     finally:
         client.close()
-        rc, out = pool_cli("stop", "--dir", pool_dir)
+        rc, out = cli("pool", "stop", "--dir", pool_dir)
     check(rc == 0, f"pool stop exited {rc}: {out[-2000:]}")
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline and any(
@@ -2369,6 +2390,7 @@ def phase_orchestrator(in_process_tokens_per_sec):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"orchestrator: {time.perf_counter() - t0:.1f} s")
+    return cold
 
 
 # Phase 13: GPipe on the card.
@@ -2761,14 +2783,14 @@ def kill_app(app):
             continue
 
 
-def check_job_launches(label, run, steps):
+def check_job_launches(label, run, steps, total=FAIL_STEPS):
     """The job's trainer launched 16 of each flash kernel per step it ran
     (its counters count this process's launches, its JSON divides them by
-    ``--steps``), so no step ran twice in it."""
+    ``--steps``, ``total``), so no step ran twice in it."""
     from tony_tpu_torch.ops import _flash_cuda
 
     for name in _flash_cuda.KERNELS:
-        got = round(run["launches_per_step"][name] * FAIL_STEPS)
+        got = round(run["launches_per_step"][name] * total)
         check(got == 16 * steps, f"{label}: {name} launched {got} times "
               f"in {steps} steps, expected {16 * steps}")
 
@@ -3028,6 +3050,254 @@ def phase_failures(card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"failures: {time.perf_counter() - t0:.1f} s")
+    return want
+
+
+# Phase 15: the GPU host backend and the fleet on the card.
+# The fleet's job: phase 14's corpus and seed, so phase 14's uninterrupted
+# losses hold its steps; migrated once it is past FLEET_MIGRATE_AFTER.
+FLEET_STEPS = 150
+FLEET_MIGRATE_AFTER = 20
+FLEET_TIMEOUT_S = 480
+TASK_ENV_FILE = "task_env.txt"
+
+
+def host_backend_job(tmp, in_process, cold, card):
+    """(a) The flagship, 10 steps, submitted on the ``gpu-host`` backend
+    with the fake provisioner (one LocalSim host): the task runs under
+    ``<workdir>/<host id>/`` with the backend's host env and nothing of
+    libtpu, 16 launches of each flash kernel per step, and ``cli check``
+    clean on the job dir."""
+    from tony_tpu_torch.ops import _flash_cuda
+
+    command = (f"env > {TASK_ENV_FILE} && exec {TRAINER} --model flagship "
+               f"--steps {STEPS}")
+    rc, text, app, hist, work, cmdlines, _ = submit_job(
+        tmp, "gpu-host", command, backend="gpu-host",
+        conf=["tony.slice.provisioner=fake", "tony.slice.num-hosts=1"])
+    tasks = os.path.join(work, "jobs", app, "tasks")
+    hosts = sorted(os.listdir(tasks)) if os.path.isdir(tasks) else []
+    check(rc == 0 and hosts, f"gpu-host: the CLI exited {rc}, task dirs "
+          f"{hosts}: {text[-3000:]}")
+    task_dir = os.path.join(tasks, hosts[0], "worker_0")
+    with open(os.path.join(task_dir, "stderr.log"), errors="replace") as f:
+        err_text = f.read()
+    status, job_dir, _ = job_history(hist, app)
+    check(status == "SUCCEEDED", f"gpu-host: history says {status}: "
+          f"{err_text[-3000:]}")
+    check(hosts == ["fakehost-0"] and os.listdir(os.path.join(
+        tasks, hosts[0])) == ["worker_0"],
+        f"gpu-host: the task ran under {hosts}, not <workdir>/fakehost-0/")
+    env = {}
+    with open(os.path.join(task_dir, TASK_ENV_FILE), errors="replace") as f:
+        for line in f:
+            k, sep, v = line.rstrip("\n").partition("=")
+            if sep:
+                env[k] = v
+    tpu = sorted(k for k in env if k.startswith("TPU_WORKER_"))
+    check(env.get("TONY_HOST_ID") == hosts[0]
+          and env.get("TONY_HOST_LOCAL_ORDINAL") == "0" and not tpu
+          and env.get("CUDA_VISIBLE_DEVICES")
+          == os.environ.get("CUDA_VISIBLE_DEVICES"),
+          f"gpu-host: the task's host env TONY_HOST_ID="
+          f"{env.get('TONY_HOST_ID')} TONY_HOST_LOCAL_ORDINAL="
+          f"{env.get('TONY_HOST_LOCAL_ORDINAL')}, libtpu's {tpu}, "
+          f"CUDA_VISIBLE_DEVICES={env.get('CUDA_VISIBLE_DEVICES')}")
+    with open(os.path.join(task_dir, "stdout.log"), errors="replace") as f:
+        run = json.loads(f.read().strip().splitlines()[-1])
+    check(all(math.isfinite(x) for x in run["losses"]),
+          f"gpu-host: non-finite loss {run['losses']}")
+    for name in _flash_cuda.KERNELS:
+        check(run["launches_per_step"][name] == 16,
+              f"gpu-host: {name} {run['launches_per_step'][name]} launches "
+              "per step, expected 16")
+    check(any("-m tony_tpu_torch.coordinator" in c for c in cmdlines)
+          and any("-m tony_tpu_torch.executor" in c for c in cmdlines),
+          f"gpu-host: no coordinator or executor of the port among "
+          f"{sorted(cmdlines)}")
+    bad = [c for c in cmdlines if REFERENCE_MODULE.search(c)]
+    check(not bad, f"gpu-host: a process ran the reference: {bad}")
+    latency, bd, _, _, _ = first_step_latency(job_dir)
+    rc, out = cli("check", job_dir)
+    check(rc == 0, f"gpu-host: cli check exited {rc}: {out[-3000:]}")
+    log(f"host backend (a) gpu-host + fake provisioner: {app} SUCCEEDED on "
+        f"host {env['TONY_HOST_ID']} (TONY_HOST_LOCAL_ORDINAL "
+        f"{env['TONY_HOST_LOCAL_ORDINAL']}, no TPU_WORKER_*), "
+        f"submit_to_first_step_s {latency:.4f} against phase 12's cold "
+        f"local backend {cold[0]:.4f}; phases {json.dumps(bd['phases'])} "
+        f"against {json.dumps(cold[1]['phases'])}; "
+        f"{run['tokens_per_sec']:.1f} tokens/s against {in_process:.1f} in "
+        f"process (phase 4), {run['step_ms']:.3f} ms/step, launches per "
+        f"step {json.dumps(run['launches_per_step'])}; cli check clean; "
+        f"{card}")
+
+
+def fleet_rows(fleet_dir):
+    """The fleet's job rows by job id, from a live daemon."""
+    from tony_tpu_torch.fleet.client import FleetClient
+
+    client = FleetClient(fleet_dir)
+    try:
+        return {r["job"]: r for r in client.status().get("jobs", [])}
+    finally:
+        client.close()
+
+
+def fleet_job(tmp, want, card):
+    """(b) The flagship as phase 14 (b)'s elastic job, submitted through
+    ``cli fleet`` to a daemon of two one-host slices backed by a warm pool
+    of one executor, moved to slice 1 by ``fleet migrate`` once it is past
+    step ``FLEET_MIGRATE_AFTER``: no step re-run, the losses phase 14's
+    uninterrupted run's, ``cli check`` clean on the fleet dir."""
+    from tony_tpu_torch import constants, trainer
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.conf import keys as K
+    from tony_tpu_torch.fleet import ledger as fledger
+
+    cfg = trainer.flagship_config(seq=2048)
+    corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                  cfg.vocab_size)
+    pool_dir = os.path.join(tmp, "pool")
+    fleet_dir = os.path.join(tmp, "fleet")
+    hist = os.path.join(fleet_dir, "history")
+    ckpt = os.path.join(tmp, "ckpt")
+    command = (f"exec {TRAINER} --data {corpus} --steps {FLEET_STEPS} "
+               f"--ckpt-dir {ckpt} --save-every {FAIL_SAVE_EVERY}")
+    # Phase 14's job settings; the fleet sets the gang size, the backend's
+    # pool dir and the history root.
+    own = {K.APPLICATION_BACKEND, "tony.worker.instances",
+           K.HISTORY_LOCATION}
+    conf = [(k, v) for k, v in failure_conf(hist, command, extra=[
+        (K.ELASTIC_ENABLED, True),
+        (K.ELASTIC_DRAIN_GRACE_S, FAIL_DRAIN_GRACE_S)]) if k not in own]
+    t0 = time.perf_counter()
+    rc, out = cli("pool", "start", "--dir", pool_dir, "--size", "1")
+    check(rc == 0, f"fleet: pool start exited {rc}: {out[-2000:]}")
+    with open(os.path.join(pool_dir, constants.POOL_ADDR_FILE)) as f:
+        pool_pid = int(json.load(f)["pid"])
+    daemon, job, app, top = None, None, None, ""
+    try:
+        rc, out = cli("fleet", "start", "--dir", fleet_dir, "--slices", "2",
+                      "--hosts-per-slice", "1", "--pool-dir", pool_dir,
+                      "--conf", f"{K.FLEET_TICK_INTERVAL_S}=0.2")
+        check(rc == 0, f"fleet start exited {rc}: {out[-2000:]}")
+        with open(os.path.join(fleet_dir, constants.FLEET_ADDR_FILE)) as f:
+            daemon = int(json.load(f)["pid"])
+        argv = ["fleet", "submit", "--dir", fleet_dir, "--tenant",
+                "chip-smoke", "--hosts", "1", "--model", "flagship"]
+        for k, v in conf:
+            argv += ["--conf", f"{k}={v}"]
+        rc, out = cli(*argv)
+        m = re.search(r"queued (\S+)", out)
+        check(rc == 0 and m, f"fleet submit exited {rc}: {out[-2000:]}")
+        job = m.group(1)
+        work = os.path.join(fleet_dir, "jobs", job)
+        row = poll(lambda: (lambda r: r if r.get("state") == "RUNNING"
+                            and r.get("app_id") else None)(
+                                fleet_rows(fleet_dir).get(job, {})),
+                   f"{job} granted and its application found")
+        app = row["app_id"]
+        rpc = coordinator_rpc(os.path.join(work, "jobs", app))
+        poll(lambda: job_steps(rpc) > FLEET_MIGRATE_AFTER,
+             f"{job} past step {FLEET_MIGRATE_AFTER}")
+        requested = time.time()
+        rc, out = cli("fleet", "migrate", "--dir", fleet_dir, job, "1")
+        check(rc == 0, f"fleet migrate exited {rc}: {out[-2000:]}")
+
+        def applied():
+            recs = journal(hist, app)
+            done = [i for i, x in enumerate(recs) if x.get("t") == "migrate"
+                    and x.get("phase") == "applied"]
+            report = rpc.call("get_application_report")
+            return done and first_after(recs, done[-1], "register") \
+                and not (report.get("elastic") or {}).get("resizing")
+        poll(applied, "the migration to land",
+             timeout=FAIL_DRAIN_GRACE_S + 240)
+        rpc.close()
+        row = poll(lambda: (lambda r: r if r.get("state") in (
+            "FINISHED", "FAILED", "CANCELLED") else None)(
+                fleet_rows(fleet_dir).get(job, {})),
+            f"{job} to finish", timeout=FLEET_TIMEOUT_S)
+        rc, top = cli("fleet", "top", "--dir", fleet_dir, "--once")
+        check(rc == 0, f"fleet top exited {rc}: {top[-2000:]}")
+    finally:
+        if daemon is not None:
+            cli("fleet", "stop", "--dir", fleet_dir)
+        cli("pool", "stop", "--dir", pool_dir)
+        if app:
+            kill_app(app)
+        left = [p for p in (daemon, pool_pid) if p is not None]
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and any(alive(p) for p in left):
+            time.sleep(0.2)
+    left = [p for p in (daemon, pool_pid) if p is not None and alive(p)]
+    check(not left, f"fleet: daemon processes still alive: {left}")
+    check(row["state"] == "FINISHED", f"fleet: {job} ended {row['state']}:"
+          f" {job_task_log(work, app, 'stderr.log')[-3000:]}")
+    recs = journal(hist, app)
+    epochs = [x["session"] for x in recs if x.get("t") == "epoch"]
+    moves = [(i, x) for i, x in enumerate(recs) if x.get("t") == "migrate"]
+    check(epochs == [0] and [x["phase"] for _, x in moves]
+          == ["start", "applied"], f"fleet job: epochs {epochs}, migrate "
+          f"records {[x for _, x in moves]}")
+    reg = first_after(recs, moves[-1][0], "register")
+    wall = reg["ts"] / 1e3 - requested
+    run, err_log = worker_run(work, app)
+    saved = re.search(r"saving preemption checkpoint at step (\d+)",
+                      err_log)
+    durable = re.search(r"preemption checkpoint durable in ([\d.]+) s",
+                        err_log)
+    check(saved and durable, "fleet job: the drained trainer logged no "
+          f"preemption save: {err_log[-3000:]}")
+    k = int(saved.group(1))
+    start = run["start_step"]
+    check(run["restored_step"] == k and start == k + 1,
+          f"fleet job: the drain saved step {k}, the relaunch restored "
+          f"{run['restored_step']} and started at {start}: "
+          f"{k + 1 - start} steps re-run")
+    check(len(run["losses"]) == FLEET_STEPS - start,
+          f"fleet job: {len(run['losses'])} losses from step {start}")
+    check_job_launches("fleet job", run, FLEET_STEPS - start,
+                       total=FLEET_STEPS)
+    err = held_to("fleet job", run["losses"], want, start)
+    size = CheckpointManager(ckpt).step_bytes(k)
+    led = fledger.fold_fleet_dir(fleet_dir)["jobs"][job]
+    ph = led["phases_s"]
+    start_kind = f"{led.get('start_kind') or 'cold'}_start"
+    rc, out = cli("check", fleet_dir)
+    check(rc == 0, f"fleet: cli check exited {rc}: {out[-3000:]}")
+    log(f"fleet (b) {job} ({app}) FINISHED in one epoch: queue wait "
+        f"{ph.get('queued', 0):.4f} s, grant to first step "
+        f"{ph.get('provision', 0) + ph.get(start_kind, 0):.4f} s "
+        f"(provision {ph.get('provision', 0):.4f} + {start_kind} "
+        f"{ph.get(start_kind, 0):.4f}); fleet migrate {job} 1: wall (request "
+        f"to the relaunched worker's re-registration) {wall:.4f} s, the "
+        f"drain's save of step {k} {size / 2**30:.3f} GiB durable in "
+        f"{float(durable.group(1)):.3f} s (tony.elastic.drain-grace-s "
+        f"default 15 s; this job's {FAIL_DRAIN_GRACE_S} s), restore "
+        f"{run['restore_s']:.3f} s, start at step {start}: "
+        f"{k + 1 - start} steps re-run; {FLEET_STEPS - start} steps with 16 "
+        f"launches of each flash kernel per step, losses {err:.3e} from "
+        f"phase 14's uninterrupted run's; ledger goodput_fraction "
+        f"{led['goodput_fraction']}, held {led['held_chip_s']} "
+        f"chip-seconds, phases {json.dumps(ph)}, chip-seconds "
+        f"{json.dumps(led['chip_seconds'])}; cli check on the fleet dir "
+        f"clean; {time.perf_counter() - t0:.1f} s; {card}")
+    log("fleet (b) fleet top --once:\n" + top.rstrip())
+
+
+def phase_host_and_fleet(in_process, cold, want, card):
+    """Phase 15: the GPU host backend and the fleet on the card."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
+    try:
+        host_backend_job(tmp, in_process, cold, card)
+        fleet_job(tmp, want, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"host backend and fleet: {time.perf_counter() - t0:.1f} s")
 
 
 def _local(t):
@@ -3056,9 +3326,10 @@ def main():
     phase_quant()
     mesh_run = phase_mesh(card)
     phase_seq_expert(mesh_run, long_timing, card)
-    phase_orchestrator(main_run["tokens_per_sec"])
+    cold = phase_orchestrator(main_run["tokens_per_sec"])
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
-    phase_failures(card)
+    want = phase_failures(card)
+    phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

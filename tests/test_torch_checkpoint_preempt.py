@@ -365,14 +365,19 @@ def test_module_cli_tree_scan(tmp_path, capsys):
     assert len(invariants.find_job_dirs(str(tmp_path))) == 2
 
 
-def test_check_raises_on_a_fleet_artifact(tmp_path):
-    """The fleet is not ported: a tree that holds a fleet journal raises,
-    naming fleet/ and ROADMAP queue A, instead of passing unchecked."""
-    (tmp_path / constants.FLEET_JOURNAL_FILE).write_text("")
-    with pytest.raises(NotImplementedError, match="fleet/.*queue A"):
-        invariants.check_tree(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="fleet/"):
-        cli_main(["check", str(tmp_path)])
+def test_check_raises_on_a_fleet_artifact(tmp_path, capsys):
+    """A tree that holds a fleet journal goes through the fleet rules of
+    the port's fleet/: ``cli check`` passes a clean fleet dir and flags a
+    broken one (the reference's golden and bad fixtures)."""
+    fixtures = os.path.join(REPO, "tests", "fixtures")
+    golden = os.path.join(fixtures, "golden_fleetdir")
+    assert os.path.exists(os.path.join(golden, constants.FLEET_JOURNAL_FILE))
+    assert cli_main(["check", golden]) == 0
+    assert "OK" in capsys.readouterr().out
+    assert cli_main(["check", os.path.join(fixtures, "fleetdir_bad")]) == 1
+    assert "fleet-" in capsys.readouterr().out
+    reports = invariants.check_tree(golden)
+    assert reports and all(r.ok for r in reports)
 
 
 def test_cli_lint_exit_codes_and_json(capsys):

@@ -236,16 +236,24 @@ def test_exit_decoders_match_reference():
                 assert (mine and mine.value) == (ref and ref.value), code
 
 
-@pytest.mark.parametrize("backend", ["tpu-slice", "gcloud", "nope"])
+@pytest.mark.parametrize("backend", ["gpu-host", "tpu-slice", "nope"])
 def test_only_the_local_backend_and_no_pool(tmp_path, backend):
-    """The port has the local backend only: any other raises, naming the
-    ROADMAP item; it does not degrade quietly. (The warm pool is ported:
-    tests/test_torch_pool.py.)"""
+    """Beside ``local``, the port's one backend is ``gpu-host``
+    (cluster/gpu.py, the counterpart of the reference's ``tpu-slice``):
+    it builds a GpuHostBackend; the reference's value raises naming
+    ``gpu-host`` instead of quietly aliasing it; any other raises. (The
+    warm pool is ported: tests/test_torch_pool.py.)"""
+    from tony_tpu_torch.cluster.gpu import GpuHostBackend
     from tony_tpu_torch.coordinator.__main__ import _make_backend
 
     conf = TonyTpuConfig()
     conf.set(keys.APPLICATION_BACKEND, backend)
-    with pytest.raises(ValueError, match="A11b"):
+    if backend == "gpu-host":
+        assert isinstance(_make_backend(conf, str(tmp_path)),
+                          GpuHostBackend)
+        return
+    with pytest.raises(ValueError, match="gpu-host" if backend ==
+                       "tpu-slice" else "unknown tony.application"):
         _make_backend(conf, str(tmp_path))
 
 

@@ -108,7 +108,11 @@ def test_control_plane_imports_without_torch():
         "import tony_tpu_torch.coordinator.__main__\n"
         "import tony_tpu_torch.executor.executor\n"
         "import tony_tpu_torch.client, tony_tpu_torch.cluster.local\n"
-        "import tony_tpu_torch.pool\n"
+        "import tony_tpu_torch.pool, tony_tpu_torch.cluster\n"
+        "import tony_tpu_torch.cluster.gpu, tony_tpu_torch.cluster.gcloud\n"
+        "import tony_tpu_torch.fleet.daemon, tony_tpu_torch.fleet.client\n"
+        "import tony_tpu_torch.fleet.__main__, tony_tpu_torch.fleet.simulator\n"
+        "import tony_tpu_torch.fleet.diagnose, tony_tpu_torch.fleet.health\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n" % (FORBIDDEN + ("torch",),))
@@ -118,11 +122,13 @@ def test_control_plane_imports_without_torch():
 
 
 @pytest.mark.parametrize("module", ["parallel/pipeline.py", "pool.py",
-                                    "cli/main.py"])
+                                    "cli/main.py", "fleet/daemon.py",
+                                    "cluster/gpu.py", "cluster/gcloud.py"])
 def test_spawn_argvs_name_the_port(module):
-    """The scans above cover the pipeline and the pool, and every ``-m``
-    module the pool (its workers), the CLI (the pool daemon) and the
-    pipeline spawn is the port's."""
+    """The scans above cover the pipeline, the pool, the fleet and the
+    GPU host backend, and every ``-m`` module the pool (its workers), the
+    CLI (the pool and fleet daemons), the fleet daemon (its jobs'
+    ``cli submit`` clients) and the pipeline spawn is the port's."""
     path = os.path.join(REPO, "tony_tpu_torch", module)
     assert path in _port_files()
     tree = ast.parse(open(path).read(), path)
@@ -171,3 +177,50 @@ def test_gates_are_scanned(module):
     """The AST and string scans above cover the gates copied from the
     reference."""
     assert os.path.join(REPO, "tony_tpu_torch", module) in _port_files()
+
+
+FLEET_AND_HOST_MODULES = sorted(
+    ["cluster/gpu.py", "cluster/gcloud.py", "cluster/__init__.py"]
+    + [f"fleet/{f}" for f in os.listdir(os.path.join(REPO, "tony_tpu_torch",
+                                                     "fleet"))
+       if f.endswith(".py")])
+
+
+def test_fleet_and_host_backend_are_all_there():
+    """Every module of the reference's fleet/ has its counterpart."""
+    ref = sorted(f for f in os.listdir(os.path.join(REPO, "tony_tpu",
+                                                    "fleet"))
+                 if f.endswith(".py"))
+    assert [m for m in FLEET_AND_HOST_MODULES if m.startswith("fleet/")] \
+        == [f"fleet/{f}" for f in ref]
+
+
+@pytest.mark.parametrize("module", FLEET_AND_HOST_MODULES)
+def test_fleet_and_host_backend_are_scanned(module):
+    """The AST and string scans above cover the GPU host backend and the
+    fleet."""
+    assert os.path.join(REPO, "tony_tpu_torch", module) in _port_files()
+
+
+def test_fleet_and_gcloud_verbs_import_nothing_of_the_reference(tmp_path):
+    """``cli fleet`` (offline verbs), ``cli gcloud-gc`` and ``cli trace
+    --fleet`` run in a fresh process without jax, torch or the
+    reference."""
+    golden = os.path.join(REPO, "tests", "fixtures", "golden_fleetdir")
+    code = (
+        "import sys\n"
+        "from tony_tpu_torch.cli.main import main\n"
+        "assert main(['fleet', 'diagnose', '--dir', %r]) == 0\n"
+        "assert main(['fleet', 'whatif', '--dir', %r]) == 0\n"
+        "assert main(['fleet', 'explain', 'fj-0001', '--dir', %r]) in (0, 1)\n"
+        "assert main(['check', %r]) == 0\n"
+        "assert main(['trace', '--fleet', %r]) == 1\n"
+        "assert main(['gcloud-gc', '--help']) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+        % (golden, golden, golden, golden, str(tmp_path),
+           FORBIDDEN + ("torch",)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -51,24 +51,12 @@ FIXTURES = (
     "test_metrics_registry_dead_entry_detected",
 )
 
-_FLEET = "fleet/ (ROADMAP queue A)"
 _OBSERVERS = "portal/ and the observer verbs profile, alerts (ROADMAP queue A)"
 #: (rule, file, the name the finding quotes) -> the unported module that
 #: references it in the reference (where its call site or exporter is).
 KNOWN_FINDINGS = {
-    **{("metrics-registry", "tony_tpu_torch/metrics.py", f"tony_fleet_{s}"):
-       _FLEET for s in (
-           "grants_total", "host_health", "hosts", "jobs",
-           "migrations_total", "phase_seconds", "preemptions_total",
-           "quarantined_hosts", "queue_depth", "quota_denials_total",
-           "reclaim_notices_total", "sick_slices_total", "tenant_hosts")},
-    **{("fault-site", "tony_tpu_torch/faults.py", site): _FLEET
-       for site in ("fleet.explain", "fleet.grant", "fleet.ledger",
-                    "fleet.preempt", "health.probe", "host.flaky",
-                    "slice.preempt")},
-    **{("rpc-parity", "tony_tpu_torch/coordinator/coordinator.py", m):
-       _OBSERVERS for m in ("profile.start", "profile.status", "alerts")},
-}
+    ("rpc-parity", "tony_tpu_torch/coordinator/coordinator.py", m):
+    _OBSERVERS for m in ("profile.start", "profile.status", "alerts")}
 
 
 def _port(text: str) -> str:
@@ -119,7 +107,7 @@ def test_port_tree_reports_exactly_the_known_findings():
     gone = sorted(set(KNOWN_FINDINGS) - set(got))
     assert not gone, f"known findings that no longer fire (prune them " \
                      f"here and in ROADMAP.md): {gone}"
-    assert len(findings) == len(KNOWN_FINDINGS) == 23
+    assert len(findings) == len(KNOWN_FINDINGS) == 3
     assert suppressed == []
 
 

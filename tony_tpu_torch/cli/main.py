@@ -9,10 +9,13 @@ The port's CLI has the subcommands of the job path: ``submit``, ``kill``,
 ``status``, ``recover``, ``history``, ``events``, ``logs``, ``trace`` and
 ``diagnose``; ``resize`` and ``migrate`` (a running elastic job's gang);
 ``pool`` (``start``, ``status``, ``stop``: the warm executor pool,
-``tony_tpu_torch/pool.py``); and the gates ``check`` (a finished job's
-artifacts against the protocol invariants) and ``lint`` (tonylint over
-``tony_tpu_torch/``). The reference's others (notebook, profile, bench,
-top, alerts, portal, gcloud-gc, chaos, fleet) are ROADMAP queue A.
+``tony_tpu_torch/pool.py``); ``fleet`` (the multi-job scheduler,
+``tony_tpu_torch/fleet/``) with all its verbs; ``gcloud-gc`` (the reaper
+of leaked tony-managed Cloud TPU nodes); and the gates ``check`` (a
+finished job's or a fleet dir's artifacts against the protocol
+invariants) and ``lint`` (tonylint over ``tony_tpu_torch/``). The
+reference's others (notebook, profile, bench, top, alerts, portal, chaos)
+are ROADMAP queue A.
 
 Usage:
     python -m tony_tpu_torch.cli submit --conf-file job.yaml [--conf k=v ...]
@@ -20,6 +23,8 @@ Usage:
     python -m tony_tpu_torch.cli history [--history-root DIR]
     python -m tony_tpu_torch.cli events <app_id>
     python -m tony_tpu_torch.cli pool start --size 1 [--dir DIR]
+    python -m tony_tpu_torch.cli fleet start --slices 2 --hosts-per-slice 1
+    python -m tony_tpu_torch.cli fleet submit --tenant t --hosts 1 --conf ...
     python -m tony_tpu_torch.cli migrate <app_id> slice-1
     python -m tony_tpu_torch.cli check <app_id|job_dir> [--json]
     python -m tony_tpu_torch.cli lint [--json] [--rule RULE]
@@ -33,6 +38,7 @@ import logging
 import os
 import signal
 import sys
+import time
 from typing import List, Optional
 
 from tony_tpu_torch.client import TaskUpdateListener, TonyTpuClient
@@ -361,6 +367,12 @@ def _cmd_trace(args: argparse.Namespace) -> int:
     from tony_tpu_torch import constants, tracing
     from tony_tpu_torch.events import history
 
+    if args.fleet:
+        return _trace_fleet(args)
+    if not args.app_id:
+        print("trace needs an app_id (or --fleet <fleet_dir>)",
+              file=sys.stderr)
+        return 2
     root = _history_root(args)
     job_dir = history.list_job_dirs(root).get(args.app_id)
     if job_dir is None:
@@ -409,6 +421,58 @@ def _cmd_trace(args: argparse.Namespace) -> int:
           + (f" ({', '.join(unclosed)})" if unclosed else ""),
           file=sys.stderr)
     return 0
+
+
+def _trace_fleet(args: argparse.Namespace) -> int:
+    """`tony-tpu trace --fleet <fleet_dir>`: merge the fleet daemon's
+    own span log (queue spans, fleet.job lifetimes, preempt/restore
+    instants) with EVERY job's span log under the fleet's history root
+    — all sharing the fleet trace id the grants injected — into one
+    Perfetto export of the whole pool."""
+    from tony_tpu_torch import constants, tracing
+    from tony_tpu_torch.fleet import ledger as fledger
+
+    fleet_dir = os.path.abspath(os.path.expanduser(args.fleet))
+    fleet_trace_path = os.path.join(fleet_dir, constants.TRACE_FILE)
+    if not os.path.exists(fleet_trace_path):
+        print(f"no fleet span log at {fleet_trace_path} — not a fleet "
+              f"dir, or the daemon predates fleet tracing",
+              file=sys.stderr)
+        return 1
+    records = tracing.load_records(fleet_trace_path)
+    n_jobs = 0
+    for app_id, job_dir in sorted(
+            fledger.job_history_dirs(fleet_dir).items()):
+        path = os.path.join(job_dir, constants.TRACE_FILE)
+        if not os.path.exists(path):
+            continue
+        job_records = tracing.load_records(path)
+        # Prefix the task track with the app id so 40 jobs' worker:0
+        # rows stay distinguishable on the merged timeline.
+        for rec in job_records:
+            if rec.get("task"):
+                rec["task"] = f"{app_id}/{rec['task']}"
+            elif rec.get("svc") in ("client", "coordinator"):
+                rec["task"] = app_id
+        records.extend(job_records)
+        n_jobs += 1
+    payload = tracing.to_trace_events(records)
+    text = json.dumps(payload, indent=1)
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            f.write(text)
+        print(f"wrote {args.out}", file=sys.stderr)
+    else:
+        print(text)
+    n_spans = sum(1 for e in payload["traceEvents"]
+                  if e.get("ph") == "X")
+    unclosed = payload.get("unclosedSpans", [])
+    print(f"fleet trace {payload.get('traceId', '?')}: {n_jobs} "
+          f"job(s), {n_spans} spans, {len(unclosed)} unclosed"
+          + (f" ({', '.join(unclosed[:8])})" if unclosed else ""),
+          file=sys.stderr)
+    return 0
+
 
 
 def _cmd_diagnose(args: argparse.Namespace) -> int:
@@ -521,6 +585,170 @@ def _cmd_logs(args: argparse.Namespace) -> int:
               file=sys.stderr)
         return 1
     return 0
+
+
+def _render_alert_rows(res: dict) -> str:
+    """Shared `alerts` table for job and fleet scope: one row per rule
+    with its state-machine position, plus firing summaries."""
+    lines = []
+    if res.get("degraded"):
+        lines.append("alerting: DEGRADED — evaluation disabled after a "
+                     "fault (restart the evaluator to re-arm)")
+    rows = res.get("alerts") or []
+    if not rows:
+        lines.append("no alert rules evaluated")
+        return "\n".join(lines)
+    lines.append(f"{'RULE':<22}{'STATE':<9}{'SEV':<6}{'VALUE':>10}  "
+                 f"{'FOR':>7}  SERIES")
+    for r in rows:
+        v = r.get("value")
+        since = r.get("since_s")
+        lines.append(
+            f"{r.get('rule', '?'):<22}{r.get('state', '?'):<9}"
+            f"{r.get('severity', '?'):<6}"
+            f"{(f'{v:.4g}' if v is not None else '-'):>10}  "
+            f"{(f'{since:.0f}s' if since is not None else '-'):>7}  "
+            f"{r.get('series', '')}")
+    for r in rows:
+        if r.get("state") == "firing" and r.get("summary"):
+            lines.append(f"  {r['rule']}: {r['summary']}")
+    return "\n".join(lines)
+
+
+
+def _cmd_gcloud_gc(args: argparse.Namespace) -> int:
+    """Janitor for leaked tony-managed TPU nodes. The provisioner deletes
+    its node on release and on failed acquires, but a HARD-crashed
+    coordinator (SIGKILL, power loss) can strand a billing node — the
+    reference relied on YARN's ResourceManager to reap containers; with
+    no RM, this command is the operator's reaper. Lists nodes carrying
+    the ``tony-managed`` label (and matching --prefix); --delete deletes
+    them. NEVER touches unlabeled nodes."""
+    from tony_tpu_torch.cluster.gcloud import TpuApiClient
+
+    api = TpuApiClient(project=args.project, zone=args.zone,
+                       endpoint=args.api_endpoint or None)
+
+    def _rid(res: dict) -> str:
+        return res.get("name", "").rsplit("/", 1)[-1]
+
+    def _qr_is_managed(qr: dict) -> bool:
+        for spec in (qr.get("tpu") or {}).get("nodeSpec") or []:
+            labels = (spec.get("node") or {}).get("labels") or {}
+            if labels.get("tony-managed") == "true":
+                return True
+        return False
+
+    # Queued resources FIRST: a coordinator that died while its request
+    # was WAITING leaked something with no node yet — and a granted QR's
+    # node can only be deleted through its QR (the API rejects
+    # nodes.delete on queued-resource-created nodes).
+    all_qrs = api.list_queued_resources()
+    managed_qrs = [q for q in all_qrs
+                   if _qr_is_managed(q) and _rid(q).startswith(args.prefix)]
+    qr_ids = {_rid(q) for q in managed_qrs}
+    live_qr_ids = {_rid(q) for q in all_qrs}
+    qr_node_names = {
+        spec.get("nodeId", "")
+        for q in managed_qrs
+        for spec in (q.get("tpu") or {}).get("nodeSpec") or []}
+    candidates = [
+        n for n in api.list_nodes()
+        if (n.get("labels", {}).get("tony-managed") == "true"
+            and _rid(n).startswith(args.prefix)
+            # nodes a managed QR will reap (or that name their QR) are
+            # handled on the QR side
+            and _rid(n) not in qr_node_names)]
+    managed_nodes = [n for n in candidates if not n.get("queuedResource")]
+    # Leak shape the two lists above miss: a QR-created node whose QR no
+    # longer exists (externally deleted QR, partial force-delete). It has
+    # a queuedResource reference, so the node path skipped it; its QR is
+    # not in the live set, so the QR path never reaps it. These can only
+    # be deleted via their (stale) QR name — and when that 404s, via a
+    # last-resort nodes.delete.
+    stale_qr_nodes = [
+        (n, n["queuedResource"].rsplit("/", 1)[-1]) for n in candidates
+        if n.get("queuedResource")
+        and n["queuedResource"].rsplit("/", 1)[-1] not in live_qr_ids]
+    if not managed_qrs and not managed_nodes and not stale_qr_nodes:
+        print("no tony-managed nodes or queued resources found")
+        return 0
+    for q in managed_qrs:
+        print(f"{_rid(q)}\tqueued-resource "
+              f"{(q.get('state') or {}).get('state', '?')}")
+    for n in managed_nodes:
+        print(f"{_rid(n)}\tnode {n.get('state', '?')}\t"
+              f"{n.get('acceleratorType', '?')}")
+    for n, stale_qr in stale_qr_nodes:
+        print(f"{_rid(n)}\tnode {n.get('state', '?')}\t"
+              f"{n.get('acceleratorType', '?')}\t"
+              f"(stale queued-resource {stale_qr})")
+    if not args.delete:
+        print(f"{len(managed_qrs)} queued resource(s) + "
+              f"{len(managed_nodes) + len(stale_qr_nodes)} node(s); "
+              f"re-run with --delete to "
+              f"remove them (make sure no tony-tpu job is running "
+              f"against them!)")
+        return 0
+    # The filter cannot tell a LEAKED resource from one a live
+    # coordinator holds — repeat the warning where it matters, on the
+    # destructive path.
+    print("deleting — make sure no tony-tpu job is running against "
+          "these resources!", file=sys.stderr)
+    # Deletes are independent long-running ops: issue them ALL first,
+    # then poll — N stranded resources cost one op latency, not N.
+    failures = 0
+    pending = []
+    for qr_id in sorted(qr_ids):
+        try:
+            pending.append((qr_id,
+                            api.delete_queued_resource(qr_id, force=True)))
+        except FileNotFoundError:
+            print(f"{qr_id} already gone")
+        except Exception as e:  # noqa: BLE001
+            failures += 1
+            print(f"failed to delete {qr_id}: {e}", file=sys.stderr)
+    for n in managed_nodes:
+        node_id = _rid(n)
+        try:
+            pending.append((node_id, api.delete_node(node_id)))
+        except FileNotFoundError:
+            print(f"{node_id} already gone")
+        except Exception as e:  # noqa: BLE001
+            failures += 1
+            print(f"failed to delete {node_id}: {e}", file=sys.stderr)
+    for n, stale_qr in stale_qr_nodes:
+        node_id = _rid(n)
+        try:
+            # QR-created nodes must be deleted through their QR; the stale
+            # name may still resolve server-side (partial force-delete).
+            pending.append((node_id,
+                            api.delete_queued_resource(stale_qr,
+                                                       force=True)))
+        except FileNotFoundError:
+            # The QR really is gone — last resort, try the node directly
+            # (some API surfaces allow it once the QR record vanished).
+            try:
+                pending.append((node_id, api.delete_node(node_id)))
+            except FileNotFoundError:
+                print(f"{node_id} already gone")
+            except Exception as e:  # noqa: BLE001
+                failures += 1
+                print(f"failed to delete {node_id} (stale qr {stale_qr}):"
+                      f" {e}", file=sys.stderr)
+        except Exception as e:  # noqa: BLE001
+            failures += 1
+            print(f"failed to delete {node_id} via stale qr {stale_qr}: "
+                  f"{e}", file=sys.stderr)
+    for rid, op in pending:
+        try:
+            api.wait_operation(op, timeout_s=300,
+                               interval_s=args.poll_interval)
+            print(f"deleted {rid}")
+        except Exception as e:  # noqa: BLE001
+            failures += 1
+            print(f"failed to delete {rid}: {e}", file=sys.stderr)
+    return 1 if failures else 0
 
 
 def _pool_dir(args: argparse.Namespace) -> str:
@@ -655,6 +883,415 @@ def _cmd_check(args: argparse.Namespace) -> int:
     return 0 if report.ok else 1
 
 
+def _fleet_dir(args: argparse.Namespace) -> str:
+    return os.path.abspath(os.path.expanduser(
+        args.dir or str(args.conf_obj.get(K.FLEET_DIR, "") or "")
+        or os.path.join(_default_workdir(getattr(args, "workdir", None)),
+                        "fleet")))
+
+
+def _fleet_conf(args: argparse.Namespace):
+    from tony_tpu_torch.conf.config import TonyTpuConfig
+
+    return TonyTpuConfig.from_layers(
+        config_file=getattr(args, "conf_file", None),
+        overrides=tuple(getattr(args, "conf", None) or []))
+
+
+def _render_fleet_top(snap: dict) -> str:
+    """One frame of `tony-tpu fleet top`: pool occupancy, per-tenant
+    usage vs quota WITH ledger goodput%, the fleet goodput headline,
+    queue depth + wait quantiles, and one row per job — queued jobs
+    show their live wait and a `held:` column (the explainer's
+    top-line answer; `fleet explain <job>` has the full timeline)."""
+    pool = snap.get("pool") or {}
+    qw = snap.get("queue_wait") or {}
+    lines = [
+        f"{snap.get('fleet_dir', '?')}  generation="
+        f"{snap.get('generation', '?')}  hosts: {pool.get('used', '?')}/"
+        f"{pool.get('total', '?')} used ({pool.get('free', '?')} free, "
+        f"{pool.get('slices', '?')}x{pool.get('hosts_per_slice', '?')})"
+        f"  queue={snap.get('queue_depth', '?')}"
+        f"  wait p50={qw.get('p50_s', 0)}s p99={qw.get('p99_s', 0)}s"]
+    ledger = snap.get("ledger") or {}
+    fleet_led = ledger.get("fleet") or {}
+    if fleet_led.get("goodput_fraction") is not None:
+        warm = fleet_led.get("warm_start_fraction")
+        lines.append(
+            f"goodput: {float(fleet_led['goodput_fraction']):.1%} of "
+            f"{fleet_led.get('held_chip_s', 0)} chip-seconds held"
+            + (f"  warm starts: {float(warm):.0%}"
+               if warm is not None else "")
+            + (f"  preempt-lost: "
+               f"{fleet_led.get('lost_preempted_chip_s', 0)} chip-s"
+               if fleet_led.get("lost_preempted_chip_s") else ""))
+    health = snap.get("health") or {}
+    if health.get("cordoned") or health.get("sick_slices"):
+        lines.append(
+            "health: cordoned "
+            + (", ".join(health["cordoned"]) or "-")
+            + (f"  sick slices: {health['sick_slices']}"
+               if health.get("sick_slices") else ""))
+    fal = snap.get("alerts") or {}
+    if fal.get("degraded"):
+        lines.append("alerts: DEGRADED — evaluation disabled after a "
+                     "fault")
+    for r in fal.get("firing") or []:
+        lines.append(f"ALERT [{r.get('severity', '?')}] "
+                     f"{r.get('rule', '?')} value={r.get('value')}"
+                     + (f" — {r['summary']}" if r.get("summary")
+                        else ""))
+    tenants = snap.get("tenants") or {}
+    if tenants:
+        def _tenant_cell(t, row):
+            cell = f"{t}={row.get('used', 0)}/{row.get('quota') or '∞'}"
+            if row.get("goodput") is not None:
+                cell += f" gp={float(row['goodput']):.0%}"
+            return cell
+        lines.append("tenants: " + "  ".join(
+            _tenant_cell(t, row) for t, row in sorted(tenants.items())))
+    lines.append(f"{'JOB':<10}{'TENANT':<10}{'PRI':>4} {'STATE':<11}"
+                 f"{'HOSTS':>7}  {'WAIT':>7}  {'APP / HELD'}")
+    for row in snap.get("jobs", []):
+        wait = row.get("wait_s")
+        note = row.get("app_id") or ""
+        if row.get("state") == "QUEUED":
+            note = row.get("held") or row.get("denial") or note
+        hosts = f"{row.get('hosts', 0)}/{row.get('hosts_requested', '?')}"
+        lines.append(
+            f"{row.get('job', '?'):<10}{row.get('tenant', '?'):<10}"
+            f"{row.get('priority', 0):>4} {row.get('state', '?'):<11}"
+            f"{hosts:>7}  "
+            f"{(f'{wait:.1f}s' if wait is not None else '-'):>7}  "
+            f"{note}")
+    return "\n".join(lines)
+
+
+def _cmd_fleet(args: argparse.Namespace) -> int:
+    """Fleet operations (tony_tpu_torch/fleet/): the persistent multi-job
+    gang scheduler. `start` spawns the daemon detached (use --recover
+    after a daemon crash to resume the journaled queue), `submit`
+    queues a job through it, `top` watches the scheduler live — see
+    the Multi-tenancy runbook in docs/operations.md."""
+    import subprocess
+
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.fleet.client import FleetClient, FleetClientError
+    from tony_tpu_torch.utils import proc as procutil
+
+    args.conf_obj = _fleet_conf(args)
+    fleet_dir = _fleet_dir(args)
+    addr_path = os.path.join(fleet_dir, constants.FLEET_ADDR_FILE)
+    if args.fleet_cmd == "start":
+        conf = args.conf_obj
+        if os.path.exists(addr_path):
+            client = FleetClient(fleet_dir)
+            try:
+                st = client.status()
+                print(f"fleet already running under {fleet_dir} "
+                      f"(generation {st.get('generation', '?')}, "
+                      f"{st.get('queue_depth', '?')} queued)")
+                return 0
+            except FleetClientError:
+                os.unlink(addr_path)   # stale addr from a dead daemon
+            finally:
+                client.close()
+        os.makedirs(fleet_dir, exist_ok=True)
+        slices = args.slices if args.slices is not None \
+            else conf.get_int(K.FLEET_SLICES, 1)
+        hps = args.hosts_per_slice if args.hosts_per_slice is not None \
+            else conf.get_int(K.FLEET_HOSTS_PER_SLICE, 8)
+        quotas = args.quotas if args.quotas is not None \
+            else str(conf.get(K.FLEET_QUOTAS, "") or "")
+        pool_dir = args.pool_dir if args.pool_dir is not None \
+            else str(conf.get(K.FLEET_POOL_DIR, "") or "")
+        tick_s = float(conf.get(K.FLEET_TICK_INTERVAL_S, 0.5) or 0.5)
+        ring = conf.get_int(K.FLEET_DECISION_RING, 64)
+        ledger_s = float(conf.get(K.FLEET_LEDGER_INTERVAL_S, 5.0)
+                         or 5.0)
+        cmd = [sys.executable, "-m", "tony_tpu_torch.fleet", "serve",
+               "--dir", fleet_dir, "--slices", str(slices),
+               "--hosts-per-slice", str(hps), "--tick-s", str(tick_s),
+               "--decision-ring", str(ring),
+               "--ledger-interval-s", str(ledger_s),
+               "--health-enabled",
+               str(int(conf.get_bool(K.HEALTH_ENABLED, True))),
+               "--health-half-life-s",
+               str(float(conf.get(K.HEALTH_HALF_LIFE_S, 300.0) or 300.0)),
+               "--health-suspect-threshold",
+               str(float(conf.get(K.HEALTH_SUSPECT_THRESHOLD, 1.0)
+                         or 1.0)),
+               "--health-quarantine-threshold",
+               str(float(conf.get(K.HEALTH_QUARANTINE_THRESHOLD, 3.0)
+                         or 3.0)),
+               "--health-quarantine-s",
+               str(float(conf.get(K.HEALTH_QUARANTINE_S, 120.0)
+                         or 120.0)),
+               "--health-probation-priority",
+               str(conf.get_int(K.HEALTH_PROBATION_PRIORITY, 0)),
+               "--health-blast-n",
+               str(conf.get_int(K.HEALTH_BLAST_N, 2)),
+               "--health-blast-window-s",
+               str(float(conf.get(K.HEALTH_BLAST_WINDOW_S, 120.0)
+                         or 120.0))]
+        if quotas:
+            cmd += ["--quotas", quotas]
+        if pool_dir:
+            cmd += ["--pool-dir", pool_dir]
+        if args.recover:
+            cmd.append("--recover")
+        flog = open(os.path.join(fleet_dir, "fleet.log"), "ab")
+        proc = subprocess.Popen(cmd, stdout=flog,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        flog.close()
+
+        def read_addr():
+            if proc.poll() is not None:
+                raise RuntimeError(
+                    f"fleet daemon exited with {proc.returncode}; see "
+                    f"{os.path.join(fleet_dir, 'fleet.log')}")
+            return os.path.exists(addr_path) or None
+
+        if procutil.poll_till_non_null(read_addr, interval_s=0.1,
+                                       timeout_s=60) is None:
+            print(f"fleet daemon never published its endpoint under "
+                  f"{fleet_dir}", file=sys.stderr)
+            return 1
+        print(f"fleet running under {fleet_dir} ({slices} slice(s) x "
+              f"{hps} hosts"
+              + (f", quotas {quotas}" if quotas else "")
+              + (", recovered" if args.recover else "") + ")")
+        print(f"submit with `tony-tpu fleet submit --dir {fleet_dir} "
+              f"--tenant <t> --hosts <n> --conf ...`")
+        return 0
+    if args.fleet_cmd == "diagnose":
+        # Offline by design: the verdict must survive the daemon (a
+        # dead scheduler is exactly when you want to diagnose the
+        # fleet). The daemon's own periodic fleet.incident.json is the
+        # live twin; this recomputes fresh from the fleet dir.
+        from tony_tpu_torch.fleet import diagnose as fdiagnose
+        from tony_tpu_torch.fleet.journal import FleetJournalError
+
+        try:
+            doc = fdiagnose.build_incident(
+                fdiagnose.bundle_from_dir(fleet_dir))
+        except FleetJournalError as e:
+            print(f"{e}", file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(doc, indent=1, sort_keys=True))
+        else:
+            print(fdiagnose.render_text(doc))
+        return 0
+    if args.fleet_cmd == "alerts":
+        # Dual-path like explain: a live daemon answers from its
+        # engine; otherwise the REC_FLEET_ALERT records are replayed.
+        from tony_tpu_torch.fleet import journal as fjournal
+        from tony_tpu_torch.fleet.journal import FleetJournalError
+
+        client = FleetClient(fleet_dir)
+        try:
+            res = client.alerts()
+        except FleetClientError:
+            try:
+                st = fjournal.replay(os.path.join(
+                    fleet_dir, constants.FLEET_JOURNAL_FILE))
+            except FleetJournalError as e:
+                print(f"{e}", file=sys.stderr)
+                return 1
+            res = {"fleet_dir": fleet_dir, "scope": "fleet",
+                   "offline": True,
+                   "alerts": [{"rule": rule, "state": state}
+                              for rule, state
+                              in sorted(st.alerts.items())]}
+        finally:
+            client.close()
+        if args.json:
+            print(json.dumps(res, indent=1, sort_keys=True))
+        elif res.get("offline"):
+            if not res["alerts"]:
+                print("no fleet alert transitions journaled")
+            else:
+                print("journal replay (final state per rule):")
+                for row in res["alerts"]:
+                    print(f"  {row['rule']:<22}{row['state']}")
+        else:
+            print(_render_alert_rows(res))
+        return 0
+    if args.fleet_cmd == "whatif":
+        # Offline by design, like diagnose: the time machine replays a
+        # RECORDED journal — it never needs (or touches) a live daemon.
+        from tony_tpu_torch.fleet import simulator as fsim
+        from tony_tpu_torch.fleet.journal import FleetJournalError
+
+        try:
+            report = fsim.whatif_from_dir(
+                fleet_dir, sets=args.set, quotas=args.quota,
+                pool=args.pool or None, priorities=args.priority,
+                sweeps=args.sweep)
+        except FleetJournalError as e:
+            print(f"{e}", file=sys.stderr)
+            return 1
+        except ValueError as e:
+            print(f"whatif: {e}", file=sys.stderr)
+            return 2
+        if args.json:
+            print(json.dumps(report, indent=1, sort_keys=True))
+        else:
+            print(fsim.render_report(report))
+        par = report.get("parity") or {}
+        if args.expect_parity and not par.get("ok"):
+            return 1
+        return 0
+    if args.fleet_cmd == "explain":
+        from tony_tpu_torch.fleet import diagnose as fdiagnose
+        from tony_tpu_torch.fleet.journal import FleetJournalError
+
+        client = FleetClient(fleet_dir)
+        try:
+            res = client.explain(args.job)
+        except FleetClientError:
+            # No live daemon: replay the journal's decision records —
+            # the ring is bounded, the journal is the full history.
+            try:
+                res = fdiagnose.offline_explain(fleet_dir, args.job)
+            except FleetJournalError as e:
+                print(f"{e}", file=sys.stderr)
+                return 1
+        finally:
+            client.close()
+        if not res.get("ok"):
+            print(f"explain refused: {res.get('message', '?')}",
+                  file=sys.stderr)
+            return 1
+        if args.json:
+            print(json.dumps(res, indent=1, sort_keys=True))
+        else:
+            print(fdiagnose.render_explain(res))
+        return 0
+    client = FleetClient(fleet_dir)
+    try:
+        if args.fleet_cmd == "stop":
+            client.stop()
+            print(f"fleet under {fleet_dir} stopping (running jobs are "
+                  f"left to their tenants)")
+            return 0
+        if args.fleet_cmd == "status":
+            print(_render_fleet_top(client.status()))
+            return 0
+        if args.fleet_cmd == "top":
+            while True:
+                frame = _render_fleet_top(client.status())
+                if args.once:
+                    print(frame)
+                    return 0
+                print("\x1b[2J\x1b[H" + frame
+                      if sys.stdout.isatty() else frame, flush=True)
+                time.sleep(args.interval)
+        if args.fleet_cmd == "cancel":
+            res = client.cancel(args.job)
+            if not res.get("ok"):
+                print(f"cancel refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            print(f"{args.job}: {res.get('state', '?')}")
+            return 0
+        if args.fleet_cmd == "migrate":
+            res = client.migrate(args.job, args.target)
+            if not res.get("ok"):
+                print(f"migrate refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            print(f"{args.job}: migrating slice {res.get('source')} -> "
+                  f"{res.get('target')} (placement {res.get('placement')})")
+            print(f"watch it land with `tony-tpu fleet status` or the "
+                  f"job's own `tony-tpu events` stream (GANG_MIGRATED)")
+            return 0
+        if args.fleet_cmd == "cordon":
+            res = client.cordon(args.host, reason=args.reason)
+            if not res.get("ok"):
+                print(f"cordon refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            print(f"{args.host}: {res.get('state', '?')}"
+                  + ("" if res.get("was_free")
+                     else " (leased — placements stop now, the slot "
+                          "leaves the pool when its job releases)"))
+            return 0
+        if args.fleet_cmd == "uncordon":
+            res = client.uncordon(args.host)
+            if not res.get("ok"):
+                print(f"uncordon refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            print(f"{args.host}: {res.get('state', '?')}")
+            return 0
+        if args.fleet_cmd == "health":
+            res = client.health()
+            if not res.get("ok"):
+                print(f"health refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            if args.json:
+                print(json.dumps(res, indent=1, sort_keys=True))
+                return 0
+            if not res.get("enabled"):
+                print("host health: DISABLED (tony.health.enabled)")
+                return 0
+            print("cordoned: "
+                  + (", ".join(res.get("cordoned") or []) or "-"))
+            if res.get("sick_slices"):
+                print(f"sick slices: {res['sick_slices']}")
+            for row in res.get("hosts", []):
+                ev = "; ".join(
+                    str(e.get("kind", "?"))
+                    + (f" in {e['job']}" if e.get("job") else "")
+                    for e in row.get("evidence", []))
+                print(f"  {row.get('host'):<8} {row.get('state'):<12} "
+                      f"score {row.get('score', 0):<6} {ev}")
+            return 0
+        if args.fleet_cmd == "submit":
+            # Ship only the EXPLICIT conf entries: registry defaults
+            # would shadow the fleet's own grant-time injections
+            # (pool dir, elastic knobs are setdefault'd
+            # on the daemon side).
+            reg = K.registry()
+            explicit = {
+                k: v for k, v in args.conf_obj.as_dict().items()
+                if k not in reg or v != reg[k].default}
+            res = client.submit(
+                args.tenant, args.hosts, priority=args.priority,
+                min_hosts=args.min_hosts, model=args.model,
+                conf=explicit)
+            if not res.get("ok"):
+                print(f"submit refused: {res.get('message', '?')}",
+                      file=sys.stderr)
+                return 1
+            job = res["job"]
+            print(f"queued {job} (tenant {args.tenant}, "
+                  f"{args.hosts} host(s), priority {args.priority})")
+            if not args.follow:
+                return 0
+            while True:
+                row = next((r for r in client.status().get("jobs", [])
+                            if r.get("job") == job), None)
+                if row and row.get("state") in ("FINISHED", "FAILED",
+                                                "CANCELLED"):
+                    print(f"{job}: {row['state']}"
+                          + (f" (app {row.get('app_id')})"
+                             if row.get("app_id") else ""))
+                    return 0 if row["state"] == "FINISHED" else 1
+                time.sleep(1.0)
+    except FleetClientError as e:
+        print(f"{e}", file=sys.stderr)
+        return 1
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        client.close()
+    return 1
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tony-tpu")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -738,8 +1375,15 @@ def build_parser() -> argparse.ArgumentParser:
         "trace",
         help="export a job's control-plane trace as Chrome/Perfetto "
              "trace_events JSON (submit → rendezvous → first step → "
-             "teardown, one stitched tree)")
-    tr.add_argument("app_id")
+             "teardown, one stitched tree); --fleet <fleet_dir> "
+             "exports the WHOLE pool — queue spans, grants, every "
+             "job's lifecycle, preempt/grow-back resizes — on one "
+             "timeline under the shared fleet trace id")
+    tr.add_argument("app_id", nargs="?", default="",
+                    help="application id (omit with --fleet)")
+    tr.add_argument("--fleet", metavar="FLEET_DIR", default="",
+                    help="export a fleet dir's stitched pool-wide "
+                         "trace instead of one job's")
     tr.add_argument("--history-root")
     tr.add_argument("--out", help="write JSON here instead of stdout")
     tr.add_argument("--cold-start", action="store_true",
@@ -779,6 +1423,23 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--history-root")
     lg.set_defaults(fn=_cmd_logs)
 
+    gc = sub.add_parser(
+        "gcloud-gc",
+        help="list/delete leaked tony-managed TPU nodes (the RM-reaper "
+             "role for hard-crashed coordinators)")
+    gc.add_argument("--project", required=True)
+    gc.add_argument("--zone", required=True)
+    gc.add_argument("--prefix", default="tony",
+                    help="only nodes whose id starts with this "
+                         "(tony.gcloud.node-prefix)")
+    gc.add_argument("--delete", action="store_true",
+                    help="actually delete (default: list only)")
+    gc.add_argument("--api-endpoint", default="",
+                    help="Cloud TPU API endpoint override (tests)")
+    gc.add_argument("--poll-interval", type=float, default=5.0,
+                    help="delete-operation poll cadence in seconds")
+    gc.set_defaults(fn=_cmd_gcloud_gc)
+
     pl = sub.add_parser(
         "pool",
         help="warm executor pool: keep pre-spawned executors (python + "
@@ -797,6 +1458,211 @@ def build_parser() -> argparse.ArgumentParser:
     pl.add_argument("--conf-file")
     pl.add_argument("--conf", action="append", metavar="K=V")
     pl.set_defaults(fn=_cmd_pool)
+
+    fl = sub.add_parser(
+        "fleet",
+        help="persistent multi-job gang scheduler over a shared slice "
+             "pool: priorities, per-tenant quotas, bin-packing, "
+             "preempt-to-reclaim via elastic shrink (tony.fleet.* keys; "
+             "docs/operations.md Multi-tenancy)")
+    fl_sub = fl.add_subparsers(dest="fleet_cmd", required=True)
+    fs = fl_sub.add_parser("start", help="spawn the fleet daemon "
+                                         "detached and wait for its "
+                                         "endpoint")
+    fs.add_argument("--dir", help="fleet state dir (default: "
+                                  "<workdir>/fleet)")
+    fs.add_argument("--workdir")
+    fs.add_argument("--slices", type=int, default=None,
+                    help="pool slices (default: tony.fleet.slices)")
+    fs.add_argument("--hosts-per-slice", type=int, default=None,
+                    help="hosts per slice (default: "
+                         "tony.fleet.hosts-per-slice)")
+    fs.add_argument("--quotas", default=None,
+                    help="tenant=hosts,... (default: tony.fleet.quotas)")
+    fs.add_argument("--pool-dir", default=None,
+                    help="warm executor pool for every grant "
+                         "(default: tony.fleet.pool-dir)")
+    fs.add_argument("--recover", action="store_true",
+                    help="replay the fleet journal and resume the same "
+                         "queue state (after a daemon crash)")
+    fs.add_argument("--conf-file")
+    fs.add_argument("--conf", action="append", metavar="K=V")
+    fs.set_defaults(fn=_cmd_fleet)
+    for name, hlp in (("stop", "stop the daemon (running jobs keep "
+                               "running)"),
+                      ("status", "one scheduler snapshot"),
+                      ("top", "live scheduler view (pool occupancy, "
+                              "tenants, queue waits)")):
+        fx = fl_sub.add_parser(name, help=hlp)
+        fx.add_argument("--dir")
+        fx.add_argument("--workdir")
+        fx.add_argument("--conf-file")
+        fx.add_argument("--conf", action="append", metavar="K=V")
+        if name == "top":
+            fx.add_argument("--interval", type=float, default=2.0)
+            fx.add_argument("--once", action="store_true")
+        fx.set_defaults(fn=_cmd_fleet)
+    fb = fl_sub.add_parser(
+        "submit",
+        help="queue a job through the fleet: the policy engine grants "
+             "it hosts (or queues it behind priorities/quotas) and the "
+             "daemon runs it through the ordinary submit stack")
+    fb.add_argument("--dir")
+    fb.add_argument("--workdir")
+    fb.add_argument("--tenant", required=True)
+    fb.add_argument("--hosts", type=int, required=True,
+                    help="gang size in pool hosts "
+                         "(becomes tony.worker.instances)")
+    fb.add_argument("--priority", type=int, default=0,
+                    help="higher preempts lower (default 0)")
+    fb.add_argument("--min-hosts", type=int, default=0,
+                    help="elastic shrink floor; >0 marks the job "
+                         "preemptible via elastic resize (never killed)")
+    fb.add_argument("--model", default="",
+                    help="model key recorded with the submission (the "
+                         "reference's compile-cache mount has no "
+                         "counterpart in the port)")
+    fb.add_argument("--follow", action="store_true",
+                    help="poll until the job reaches a terminal state")
+    fb.add_argument("--conf-file", help="job config (json/yaml)")
+    fb.add_argument("--conf", action="append", metavar="K=V",
+                    help="job config override (repeatable)")
+    fb.set_defaults(fn=_cmd_fleet)
+    fc = fl_sub.add_parser("cancel", help="cancel a queued or running "
+                                          "fleet job")
+    fc.add_argument("job")
+    fc.add_argument("--dir")
+    fc.add_argument("--workdir")
+    fc.add_argument("--conf-file")
+    fc.add_argument("--conf", action="append", metavar="K=V")
+    fc.set_defaults(fn=_cmd_fleet)
+    fm = fl_sub.add_parser(
+        "migrate",
+        help="live-migrate a RUNNING fleet job to another slice by "
+             "hand (defrag, pre-maintenance evacuation): the daemon "
+             "drives the job's own drain→move→reshard migration and "
+             "re-books the pool — the policy engine also plans these "
+             "itself on fragmentation and reclaim notices")
+    fm.add_argument("job")
+    fm.add_argument("target", type=int, help="destination slice index")
+    fm.add_argument("--dir")
+    fm.add_argument("--workdir")
+    fm.add_argument("--conf-file")
+    fm.add_argument("--conf", action="append", metavar="K=V")
+    fm.set_defaults(fn=_cmd_fleet)
+    fe = fl_sub.add_parser(
+        "explain",
+        help="why is my job queued: the causal hold timeline — every "
+             "scheduler decision transition (quota / capacity / "
+             "fragmentation / priority-held / preempt-wait) with the "
+             "blocking jobs/tenants named; falls back to journal "
+             "replay when the daemon is down")
+    fe.add_argument("job")
+    fe.add_argument("--dir")
+    fe.add_argument("--workdir")
+    fe.add_argument("--json", action="store_true",
+                    help="print the raw decision/milestone document")
+    fe.add_argument("--conf-file")
+    fe.add_argument("--conf", action="append", metavar="K=V")
+    fe.set_defaults(fn=_cmd_fleet)
+    fd = fl_sub.add_parser(
+        "diagnose",
+        help="fleet-level rule engine over the goodput ledger + "
+             "decision records: STARVATION / QUOTA_SATURATED / "
+             "FRAGMENTATION / PREEMPT_STORM / POOL_COLD / "
+             "FLEET_HEALTHY, evidence-backed (works offline from the "
+             "fleet dir; docs/operations.md 'Fleet triage')")
+    fd.add_argument("--dir")
+    fd.add_argument("--workdir")
+    fd.add_argument("--json", action="store_true",
+                    help="print the raw fleet.incident.json document")
+    fd.add_argument("--conf-file")
+    fd.add_argument("--conf", action="append", metavar="K=V")
+    fd.set_defaults(fn=_cmd_fleet)
+    fw = fl_sub.add_parser(
+        "whatif",
+        help="fleet time machine: replay the recorded journal through "
+             "the real policy engine under counterfactual quotas / "
+             "priorities / pool shape and diff goodput, queue waits "
+             "and per-tenant hold seconds against the recorded run — "
+             "parity-gated, fully offline (docs/operations.md "
+             "'Capacity planning and what-if')")
+    fw.add_argument("--set", action="append", default=[],
+                    metavar="K=V",
+                    help="override a tony.fleet.* knob in the replay "
+                         "(quotas, slices, hosts-per-slice, "
+                         "sim-preemption/defrag/restore; also the "
+                         "quota.<tenant> / priority.<job> / pool "
+                         "shorthands)")
+    fw.add_argument("--quota", action="append", default=[],
+                    metavar="TENANT=N",
+                    help="counterfactual host quota for one tenant")
+    fw.add_argument("--pool", default="",
+                    metavar="SxH", help="counterfactual pool shape, "
+                    "e.g. 4x8 = 4 slices of 8 hosts")
+    fw.add_argument("--priority", action="append", default=[],
+                    metavar="JOB=P",
+                    help="counterfactual priority for one recorded job")
+    fw.add_argument("--sweep", action="append", default=[],
+                    metavar="K=a,b,c",
+                    help="sweep one key over a value grid (repeat for "
+                         "a cartesian product; max 64 combinations)")
+    fw.add_argument("--expect-parity", action="store_true",
+                    help="exit 1 unless the parity gate reproduces the "
+                         "recorded sequence bit-for-bit")
+    fw.add_argument("--dir")
+    fw.add_argument("--workdir")
+    fw.add_argument("--json", action="store_true",
+                    help="print the raw whatif report document")
+    fw.add_argument("--conf-file")
+    fw.add_argument("--conf", action="append", metavar="K=V")
+    fw.set_defaults(fn=_cmd_fleet)
+    fco = fl_sub.add_parser(
+        "cordon",
+        help="pull one pool host out of placement by hand "
+             "(pre-maintenance, suspected hardware); manual cordons "
+             "never auto-expire — close with uncordon "
+             "(docs/operations.md 'Host health')")
+    fco.add_argument("host", help="pool host id, e.g. s0h3")
+    fco.add_argument("--reason", default="", help="recorded in the "
+                     "health journal and `fleet health` evidence")
+    fco.add_argument("--dir")
+    fco.add_argument("--workdir")
+    fco.add_argument("--conf-file")
+    fco.add_argument("--conf", action="append", metavar="K=V")
+    fco.set_defaults(fn=_cmd_fleet)
+    fun = fl_sub.add_parser(
+        "uncordon", help="return a cordoned host to the placement pool")
+    fun.add_argument("host")
+    fun.add_argument("--dir")
+    fun.add_argument("--workdir")
+    fun.add_argument("--conf-file")
+    fun.add_argument("--conf", action="append", metavar="K=V")
+    fun.set_defaults(fn=_cmd_fleet)
+    fh = fl_sub.add_parser(
+        "health",
+        help="the host-health ledger: per-host state/score/evidence, "
+             "the current cordon set and any sick slices "
+             "(tony.health.* keys)")
+    fh.add_argument("--dir")
+    fh.add_argument("--workdir")
+    fh.add_argument("--json", action="store_true",
+                    help="print the raw ledger document")
+    fh.add_argument("--conf-file")
+    fh.add_argument("--conf", action="append", metavar="K=V")
+    fh.set_defaults(fn=_cmd_fleet)
+    fa = fl_sub.add_parser(
+        "alerts",
+        help="fleet-scope SLO/alert state: live rule-engine rows from "
+             "a running daemon, or the journaled REC_FLEET_ALERT "
+             "transitions replayed for a dead one")
+    fa.add_argument("--dir")
+    fa.add_argument("--workdir")
+    fa.add_argument("--json", action="store_true",
+                    help="print the raw alerts document")
+    fa.add_argument("--conf-file")
+    fa.add_argument("--conf", action="append", metavar="K=V")
+    fa.set_defaults(fn=_cmd_fleet)
 
     ln = sub.add_parser(
         "lint",

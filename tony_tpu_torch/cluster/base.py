@@ -7,11 +7,11 @@ lease-style interface the coordinator drives directly:
 
 - ``LocalProcessBackend`` (``local.py``) — subprocesses on this host; the
   MiniCluster analogue (``tony-mini/.../MiniCluster.java:43-63``) and also
-  the real single-TPU-VM path (one process per local chip group).
-- ``TpuSliceBackend`` (``tpu.py``) — gang launch over an atomically leased
-  multi-host slice via a ``SliceProvisioner`` (ssh inventory for real TPU
-  VMs, ``FakeSliceProvisioner`` for hardware-free e2e, incl. host-loss and
-  capacity-denial fault injection).
+  the real single-host path.
+- ``GpuHostBackend`` (``gpu.py``) — gang launch over an atomically leased
+  slice of GPU hosts via a ``SliceProvisioner`` (ssh inventory for real
+  hosts, ``FakeSliceProvisioner`` for hardware-free e2e, incl. host-loss
+  and capacity-denial fault injection).
 
 A backend launches whole tasks-with-environments and reports exits; it knows
 nothing about rendezvous, heartbeats or failure policy — those live in the
@@ -158,7 +158,7 @@ class Backend(abc.ABC):
         resources (slice leases) override this so the coordinator's
         epoch reset can wait for the old gang to be FULLY down before
         relaunching — re-leasing under a live gang would split it across
-        slices (cluster/tpu.py lease invariant)."""
+        slices (cluster/gpu.py lease invariant)."""
         return False
 
     def set_tracer(self, tracer) -> None:

@@ -75,90 +75,92 @@ APPLICATION_RETRY_USER_ERRORS = _key(
 APPLICATION_BACKEND = _key(
     "tony.application.backend", "local", str,
     "Cluster substrate: local (subprocesses on this host, the MiniCluster "
-    "analogue) | tpu-slice (gang over a leased multi-host slice, "
-    "cluster/tpu.py — the analogue of YARN container allocation, "
-    "ApplicationMaster.java:1051-1175).")
+    "analogue) | gpu-host (gang over a leased slice of GPU hosts, "
+    "cluster/gpu.py — the analogue of YARN container allocation, "
+    "ApplicationMaster.java:1051-1175). The reference's tpu-slice is "
+    "refused with a pointer to gpu-host.")
 SLICE_PROVISIONER = _key(
     "tony.slice.provisioner", "fake", str,
-    "tpu-slice backend only: fake (LocalSimHostChannel inventory for "
+    "gpu-host backend only: fake (LocalSimHostChannel inventory for "
     "tests/CI) | ssh (StaticSshProvisioner over tony.slice.hosts) | "
     "gcloud (GcloudTpuProvisioner — the framework creates/deletes TPU "
     "nodes itself via the Cloud TPU API; see tony.gcloud.*).")
 SLICE_NUM_HOSTS = _key(
     "tony.slice.num-hosts", 1, int,
-    "tpu-slice backend only: hosts per slice lease (all-or-nothing grant; "
+    "gpu-host backend only: hosts per slice lease (all-or-nothing grant; "
     "SURVEY.md §7(a) slice-lease atomicity).")
 SLICE_HOSTS = _key(
     "tony.slice.hosts", "", str,
-    "tpu-slice+ssh only: comma-separated ssh targets (TPU VM inventory).")
+    "gpu-host+ssh only: comma-separated ssh targets (GPU host "
+    "inventory).")
 SLICE_REMOTE_PYTHON = _key(
     "tony.slice.remote-python", "python3", str,
-    "tpu-slice+ssh only: the interpreter that runs executors ON the TPU "
-    "VMs (the coordinator's sys.executable is a path on the wrong "
+    "gpu-host+ssh only: the interpreter that runs executors ON the GPU "
+    "hosts (the coordinator's sys.executable is a path on the wrong "
     "machine).")
 SLICE_FAKE_INVENTORY = _key(
     "tony.slice.fake-inventory", 0, int,
-    "tpu-slice+fake only: total fake hosts in the provisioner inventory; "
+    "gpu-host+fake only: total fake hosts in the provisioner inventory; "
     "0 means same as tony.slice.num-hosts (deny-capacity tests set it "
     "lower).")
 GCLOUD_PROJECT = _key(
     "tony.gcloud.project", "", str,
-    "tpu-slice+gcloud only: GCP project the provisioner creates TPU nodes "
+    "gpu-host+gcloud only: GCP project the provisioner creates TPU nodes "
     "in (cluster/gcloud.py — the YARN-RM role, "
     "ApplicationMaster.java:1051-1070, re-designed as the Cloud TPU API).")
 GCLOUD_ZONE = _key(
     "tony.gcloud.zone", "", str,
-    "tpu-slice+gcloud only: zone for TPU nodes (e.g. us-central2-b).")
+    "gpu-host+gcloud only: zone for TPU nodes (e.g. us-central2-b).")
 GCLOUD_ACCELERATOR_TYPE = _key(
     "tony.gcloud.accelerator-type", "", str,
-    "tpu-slice+gcloud only: TPU accelerator type to create (e.g. "
+    "gpu-host+gcloud only: TPU accelerator type to create (e.g. "
     "v5litepod-16); its host count must equal tony.slice.num-hosts.")
 GCLOUD_RUNTIME_VERSION = _key(
     "tony.gcloud.runtime-version", "tpu-ubuntu2204-base", str,
-    "tpu-slice+gcloud only: TPU VM runtime image version.")
+    "gpu-host+gcloud only: TPU VM runtime image version.")
 GCLOUD_NODE_PREFIX = _key(
     "tony.gcloud.node-prefix", "tony", str,
-    "tpu-slice+gcloud only: created node names are "
+    "gpu-host+gcloud only: created node names are "
     "<prefix>-<random>; the random suffix avoids collisions across "
     "concurrent jobs (409s retry with a fresh name).")
 GCLOUD_SSH_USER = _key(
     "tony.gcloud.ssh-user", "", str,
-    "tpu-slice+gcloud only: login user for ssh channels onto the node's "
+    "gpu-host+gcloud only: login user for ssh channels onto the node's "
     "VMs; empty = the coordinator's current user.")
 GCLOUD_SPOT = _key(
     "tony.gcloud.spot", False, bool,
-    "tpu-slice+gcloud only: create preemptible (spot) nodes. Preemption "
+    "gpu-host+gcloud only: create preemptible (spot) nodes. Preemption "
     "is detected via the node state and recovers through the normal "
     "re-lease + retry-epoch machinery (plus the in-VM advance-notice "
     "watcher, executor/preemption.py).")
 GCLOUD_NETWORK = _key(
     "tony.gcloud.network", "", str,
-    "tpu-slice+gcloud only: VPC network for the node; empty = project "
+    "gpu-host+gcloud only: VPC network for the node; empty = project "
     "default.")
 GCLOUD_CREATE_TIMEOUT_S = _key(
     "tony.gcloud.create-timeout-s", 900, int,
-    "tpu-slice+gcloud only: bound on create-operation + READY polling "
+    "gpu-host+gcloud only: bound on create-operation + READY polling "
     "before the acquire fails (and deletes the half-created node).")
 GCLOUD_POLL_INTERVAL_S = _key(
     "tony.gcloud.poll-interval-s", 5.0, float,
-    "tpu-slice+gcloud only: cadence for operation/READY polling and for "
+    "gpu-host+gcloud only: cadence for operation/READY polling and for "
     "the lease's node-state health checks.")
 GCLOUD_QUEUED_RESOURCE = _key(
     "tony.gcloud.queued-resource", False, bool,
-    "tpu-slice+gcloud only: acquire capacity via the queued-resources "
+    "gpu-host+gcloud only: acquire capacity via the queued-resources "
     "API (request waits in the provider's queue until granted — the "
     "path reservations and spot capacity commonly require) instead of "
     "a direct node create. tony.gcloud.create-timeout-s bounds the "
     "whole wait.")
 GCLOUD_CHANNEL = _key(
     "tony.gcloud.channel", "ssh", str,
-    "tpu-slice+gcloud only: how to reach the node's VMs: ssh (production) "
+    "gpu-host+gcloud only: how to reach the node's VMs: ssh (production) "
     "| localsim (test substrate: each API-reported endpoint becomes a "
     "local process host, so the full create/preempt/delete lifecycle is "
     "e2e-testable against the fake API server).")
 GCLOUD_API_ENDPOINT = _key(
     "tony.gcloud.api-endpoint", "", str,
-    "tpu-slice+gcloud only: Cloud TPU API endpoint override (tests point "
+    "gpu-host+gcloud only: Cloud TPU API endpoint override (tests point "
     "this at tests/tpu_api_fake_server.py; empty = "
     "https://tpu.googleapis.com, or the TONY_TPU_API_ENDPOINT env var).")
 APPLICATION_PROFILER_ENABLED = _key(
@@ -1159,9 +1161,9 @@ MEMORY_FORMAT = "tony.{job}.memory"
 MAX_INSTANCES_FORMAT = "tony.{job}.max-instances"
 DEPENDS_ON_FORMAT = "tony.{job}.depends-on"
 ENV_FORMAT = "tony.{job}.env"
-# Replaces tony.X.node-label. On the tpu-slice backend the reserved pool
+# Replaces tony.X.node-label. On the gpu-host backend the reserved pool
 # "coordinator" places the jobtype on the coordinator's machine (CPU
-# ps/db-style tasks in a TPU gang — heterogeneous DAGs, SURVEY.md §7(d)).
+# ps/db-style tasks in a GPU gang — heterogeneous DAGs, SURVEY.md §7(d)).
 NODE_POOL_FORMAT = "tony.{job}.node-pool"
 # Container image for the jobtype's executors (reference per-job docker
 # support, TonyConfigurationKeys.java:178-239 + Utils docker env :729-776).

@@ -251,7 +251,7 @@ TEST_COMPLETION_DELAY = "TONY_TEST_COMPLETION_DELAY"
 # the coordinator-side registration timeout is exercisable E2E; reference
 # registration timeout, ApplicationMaster.java:791-888).
 TEST_SKIP_REGISTRATION = "TONY_TEST_SKIP_REGISTRATION"
-# "<host_id>" or "<host_id>#<path-glob>" — the TpuSliceBackend simulates
+# "<host_id>" or "<host_id>#<path-glob>" — the GpuHostBackend simulates
 # sudden loss of that host (preemption/hardware death), once per job (fake
 # provisioner only; exercises slice-lease invalidation → retry). The bare
 # form fires on a short post-launch delay; the "#<glob>" form fires only

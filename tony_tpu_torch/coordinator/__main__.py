@@ -23,16 +23,11 @@ from tony_tpu_torch.coordinator.session import SessionStatus
 from tony_tpu_torch.utils.durable import atomic_write
 
 
-#: The ROADMAP item that brings the backends other than ``local``.
-GPU_HOST_BACKEND_ITEM = (
-    "ROADMAP A11b, the GPU host backend (the counterpart of "
-    "cluster/tpu.py's TpuSliceBackend and of cluster/gcloud.py)")
-
-
 def _make_backend(conf, workdir):
-    """Backend selection (tony.application.backend): local subprocesses.
-    The reference's ``tpu-slice`` (with its fake, ssh and gcloud
-    provisioners) has no GPU counterpart yet, so any other value raises."""
+    """Backend selection (tony.application.backend): local subprocesses or
+    a leased slice of GPU hosts (cluster/gpu.py), the counterpart of the
+    reference's ``tpu-slice``. The reference's value raises: a job conf
+    written for TPU slices must not quietly land on GPU hosts."""
     from tony_tpu_torch.conf import keys as K
 
     kind = str(conf.get(K.APPLICATION_BACKEND, "local"))
@@ -49,9 +44,62 @@ def _make_backend(conf, workdir):
         pool_dir = os.path.expanduser(
             str(conf.get(K.POOL_DIR, "") or ""))
         return LocalProcessBackend(workdir, pool_dir=pool_dir)
-    raise ValueError(
-        f"tony.application.backend {kind!r} is not in the port: 'local' "
-        f"is its only backend; {GPU_HOST_BACKEND_ITEM} comes next")
+    if kind == "tpu-slice":
+        raise ValueError(
+            "tony.application.backend 'tpu-slice' is the reference's TPU "
+            "backend; the port's counterpart is 'gpu-host' (cluster/gpu.py)")
+    if kind == "gpu-host":
+        from tony_tpu_torch.cluster.gpu import (FakeSliceProvisioner,
+                                                GpuHostBackend,
+                                                StaticSshProvisioner)
+
+        n_hosts = int(conf.get(K.SLICE_NUM_HOSTS, 1))
+        prov_kind = str(conf.get(K.SLICE_PROVISIONER, "fake"))
+        if prov_kind == "ssh":
+            targets = [t.strip()
+                       for t in str(conf.get(K.SLICE_HOSTS, "")).split(",")
+                       if t.strip()]
+            prov = StaticSshProvisioner(
+                targets,
+                python=str(conf.get(K.SLICE_REMOTE_PYTHON, "python3")))
+        elif prov_kind == "fake":
+            inv = int(conf.get(K.SLICE_FAKE_INVENTORY, 0)) or n_hosts
+            prov = FakeSliceProvisioner(inv, os.path.join(workdir, "hosts"))
+        elif prov_kind == "gcloud":
+            # The framework acquires its own compute via the Cloud TPU API
+            # (cluster/gcloud.py), as the reference does.
+            from tony_tpu_torch.cluster.gcloud import (
+                GcloudTpuProvisioner, TpuApiClient, localsim_channel_factory)
+
+            api = TpuApiClient(
+                project=str(conf.get(K.GCLOUD_PROJECT, "")),
+                zone=str(conf.get(K.GCLOUD_ZONE, "")),
+                endpoint=str(conf.get(K.GCLOUD_API_ENDPOINT, "")) or None)
+            factory = None
+            if str(conf.get(K.GCLOUD_CHANNEL, "ssh")) == "localsim":
+                factory = localsim_channel_factory(
+                    os.path.join(workdir, "hosts"))
+            prov = GcloudTpuProvisioner(
+                api,
+                accelerator_type=str(
+                    conf.get(K.GCLOUD_ACCELERATOR_TYPE, "")),
+                runtime_version=str(conf.get(K.GCLOUD_RUNTIME_VERSION, "")),
+                node_prefix=str(conf.get(K.GCLOUD_NODE_PREFIX, "tony")),
+                ssh_user=str(conf.get(K.GCLOUD_SSH_USER, "")),
+                remote_python=str(
+                    conf.get(K.SLICE_REMOTE_PYTHON, "python3")),
+                create_timeout_s=float(
+                    conf.get(K.GCLOUD_CREATE_TIMEOUT_S, 900)),
+                poll_interval_s=float(
+                    conf.get(K.GCLOUD_POLL_INTERVAL_S, 5.0)),
+                spot=bool(conf.get(K.GCLOUD_SPOT, False)),
+                network=str(conf.get(K.GCLOUD_NETWORK, "")),
+                queued=bool(conf.get(K.GCLOUD_QUEUED_RESOURCE, False)),
+                channel_factory=factory)
+        else:
+            raise ValueError(f"unknown tony.slice.provisioner {prov_kind!r}")
+        return GpuHostBackend(prov, n_hosts, workdir)
+    raise ValueError(f"unknown tony.application.backend {kind!r}")
 
 
 def main(argv=None) -> int:

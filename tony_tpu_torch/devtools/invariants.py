@@ -94,9 +94,7 @@ alert-journal            REC_ALERT / REC_FLEET_ALERT transitions carry
 Surfaces: ``python -m tony_tpu_torch.cli check <app|job_dir>`` (and the
 no-deps module CLI ``python -m tony_tpu_torch.devtools.invariants
 <job_dir>``); every ``tests/test_torch_e2e*`` drill runs ``check_tree``
-over its own tree. The fleet rules need ``tony_tpu_torch.fleet``, which
-is not ported (ROADMAP queue A): a tree holding a fleet journal raises
-``NotImplementedError``.
+over its own tree, fleet dirs included.
 
 Stdlib only (the journal/tracing readers it leans on are stdlib too), so
 CI runs it without installing anything. Torn tails are tolerated exactly
@@ -107,7 +105,6 @@ the truth) and reported as notes, never violations.
 from __future__ import annotations
 
 import dataclasses
-import importlib
 import json
 import os
 import sys
@@ -495,31 +492,15 @@ def _check_spans(path: str, rel: str, rep: Report,
 
 
 # ---------------------------------------------------------------------------
-# fleet-journal invariants (tony_tpu/fleet/journal.py in the reference)
+# fleet-journal invariants (tony_tpu_torch/fleet/journal.py)
 # ---------------------------------------------------------------------------
-def _fleet(name: str) -> Any:
-    """The port's ``fleet.<name>``, which does not exist yet (ROADMAP
-    queue A, ``fleet/``). A tree that holds a fleet artifact raises
-    here, loudly, instead of passing its fleet rules unchecked."""
-    try:
-        return importlib.import_module(f"tony_tpu_torch.fleet.{name}")
-    except ModuleNotFoundError as e:
-        if not (e.name or "").startswith("tony_tpu_torch.fleet"):
-            raise
-        raise NotImplementedError(
-            f"this tree holds a fleet artifact "
-            f"({constants.FLEET_JOURNAL_FILE}), but tony_tpu_torch has "
-            f"no fleet/ to check it with (fleet/ is not ported yet: "
-            f"ROADMAP queue A)") from e
-
-
 def _check_fleet_journal(path: str, rel: str, rep: Report) -> None:
     """The fleet scheduler's write-ahead journal holds the multi-job
     half of the protocol: monotonic daemon generations, every grant for
     a known submission, at most one live grant per job per daemon life,
     terminal job states that stay terminal, and host accounting that
     never exceeds the journaled pool."""
-    fj = _fleet("journal")
+    from tony_tpu_torch.fleet import journal as fj
 
     records, torn = _iter_journal_records(path)
     rep.checked[rel] = len(records)
@@ -705,7 +686,7 @@ def _check_fleet_ledger(fleet_dir: str, rep: Report) -> None:
     its own invariant: every terminal job's phases are non-negative and
     sum to its wall within 1% — the acceptance discipline that makes
     the per-tenant goodput numbers trustworthy."""
-    fledger = _fleet("ledger")
+    from tony_tpu_torch.fleet import ledger as fledger
 
     try:
         folded = fledger.fold_fleet_dir(fleet_dir)
@@ -751,8 +732,8 @@ def _check_fleet_parity(fleet_dir: str, rep: Report) -> None:
     REASON WORDING may drift across daemon versions (and operator
     migrations are exogenous), so only grant/preempt divergence is a
     violation; everything else is a note."""
-    fsim = _fleet("simulator")
-    ftimeline = _fleet("timeline")
+    from tony_tpu_torch.fleet import simulator as fsim
+    from tony_tpu_torch.fleet import timeline as ftimeline
 
     try:
         tl = ftimeline.load(fleet_dir)
@@ -794,9 +775,8 @@ def _check_fleet_trace(fleet_dir: str, rep: Report) -> None:
     job's span tree must carry the FLEET's trace id — the proof the
     grant's injected trace context reached the client."""
     from tony_tpu_torch import tracing
-
-    fj = _fleet("journal")
-    fledger = _fleet("ledger")
+    from tony_tpu_torch.fleet import journal as fj
+    from tony_tpu_torch.fleet import ledger as fledger
 
     trace_path = os.path.join(fleet_dir, constants.TRACE_FILE)
     if not os.path.exists(trace_path):

@@ -16,10 +16,7 @@ port changes:
 - no compile cache is mounted (the reference's ``--jax-cache-dir``): the
   port's kernels are built once per source into
   ``tony_tpu_torch/_build/<source hash>`` (``ops/_build.py``), which every
-  process of the checkout already shares;
-- the fleet's health-cordon file is read here (``_read_cordoned``, a copy
-  of the reference's ``fleet/health.py:read_cordoned``), since the fleet is
-  not ported.
+  process of the checkout already shares.
 
 The reference's account follows.
 
@@ -120,20 +117,6 @@ def _read_json(path: str) -> Optional[dict]:
         return data if isinstance(data, dict) else None
     except (OSError, ValueError):
         return None
-
-
-def _read_cordoned(path: str) -> Dict[str, str]:
-    """Tolerant read of a cordon file: absent/torn -> empty (an absent
-    fleet means nothing is cordoned)."""
-    try:
-        with open(path, "r", encoding="utf-8") as f:
-            doc = json.load(f)
-    except (OSError, ValueError):
-        return {}
-    hosts = doc.get("hosts") if isinstance(doc, dict) else None
-    if not isinstance(hosts, dict):
-        return {}
-    return {str(k): str(v) for k, v in hosts.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -422,8 +405,10 @@ class PoolDaemon:
         replaces health.cordon.json in this pool dir on every export
         (fleet/health.py write_cordon_file). Absent/garbled = no fleet
         or health off — nothing cordoned."""
-        return _read_cordoned(os.path.join(self.pool_dir,
-                                           constants.FLEET_CORDON_FILE))
+        from tony_tpu_torch.fleet.health import read_cordoned
+
+        return read_cordoned(os.path.join(self.pool_dir,
+                                          constants.FLEET_CORDON_FILE))
 
     # -- RPC behaviour ---------------------------------------------------
     def lease(self, task_id: str, env: dict, workdir: str,
