@@ -8,8 +8,8 @@ result line. Phases 7-11 run the flagship's earlier paths (and bench's
 0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
 = 4 layers: their launch counts are per layer of that depth, their rates
 and peak memory are not those of the whole model, and their labels say
-"4 of 16 layers" (24 for the 0.95B point). Phases 4, 12, 13, 14 and 15
-run all 16:
+"4 of 16 layers" (24 for the 0.95B point). Phases 4 and 12-16 run all
+16:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -242,7 +242,30 @@ run all 16:
    bytes and seconds, the ledger's goodput and chip-seconds for the job
    and one ``fleet top`` frame printed. The two "slices" share the one
    card: the move measures drain, save, relaunch and restore;
-16. prints the whole run's seconds, the kernels' JSON line (each flash
+16. a live flagship job observed: ``python -m tony_tpu_torch.cli submit``
+   of the trainer (16 layers, 4 x 2048, ``OBS_STEPS`` steps) as a
+   one-worker job on the local backend, and ``cli portal`` serving its
+   history root from a subprocess on a free port. While it runs: ``cli top
+   <app> --once`` exits 0 and its task row's MFU is within ``TOL_OBS_MFU``
+   (relative) of phase 4's in-process MFU (against 989 TFLOP/s), its
+   device memory in use above 0 and at most the card's; ``cli profile
+   <app> --steps 3`` exits 0 and prints ``captured:``, the capture lies
+   under ``<history>/intermediate/<app>/profile/ondemand-*``, and its
+   Chrome trace holds 16 CUDA kernel events of each flash kernel per
+   captured step (by the kernels' function names, ``flagship_kind``); the
+   worker's user process is the same, alive, after it; ``cli alerts
+   <app>`` exits 0 and prints the live rows (a rule firing on this healthy
+   job is printed, not hidden); the portal answers 200 on ``/``,
+   ``/jobs/<app>``, ``/profile/<app>`` (which lists the capture) and
+   ``/metrics`` (Prometheus text with the job's series). After it: the
+   job SUCCEEDED in one epoch with ``TASK_PROFILED`` (captured) in its
+   history, the trainer's counters say 16 launches of each flash kernel
+   per step, ``/trace/<app>?format=json`` answers 200, ``cli check`` is
+   clean on the job dir, and the portal's process is gone once stopped.
+   Printed: the capture's wall time (request to ``captured:``), the
+   steps' host seconds inside the capture against outside it, the trace's
+   size and the ``top`` frame;
+17. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -2722,7 +2745,7 @@ def coordinator_rpc(job_dir, timeout=120):
                      retry_sleep_s=0.1)
 
 
-def poll(fn, what, timeout=300):
+def poll(fn, what, timeout=300, interval=0.2):
     """``fn()`` once it is true; an RPC error while the coordinator
     (re)starts counts as false."""
     deadline = time.monotonic() + timeout
@@ -2733,7 +2756,7 @@ def poll(fn, what, timeout=300):
             got = None
         if got:
             return got
-        time.sleep(0.2)
+        time.sleep(interval)
     check(False, f"timed out waiting for {what}")
 
 
@@ -3300,6 +3323,269 @@ def phase_host_and_fleet(in_process, cold, want, card):
     log(f"host backend and fleet: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 16: a live flagship job observed through the CLI and the portal.
+# top's MFU is the job's mean since its first step, start-up included, so
+# top reads after 450 steps (~38 s at phase 4's ~84 ms); the capture and
+# its export take ~40 steps (3.4 s, NVIDIA H100 80GB HBM3 at 700 W), and
+# over 100 steps remain while alerts and the portal are read.
+OBS_STEPS = 650
+OBS_TOP_AFTER = 450
+OBS_PROFILE_STEPS = 3
+TOL_OBS_MFU = 0.10        # top's MFU against phase 4's, relative
+OBS_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def http_get(url, timeout=30):
+    """(status, body) of a GET; an HTTP error's status, not a raise."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def gpu_clocks():
+    """The card's SM clock, power draw and temperature now, as
+    ``nvidia-smi`` reads them."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
+                        "temperature.gpu", "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return r.stdout.strip()
+
+
+def top_task_row(frame):
+    """The worker's row of a ``cli top`` frame: (MFU, device bytes in
+    use), from its MFU and HBM columns."""
+    lines = frame.splitlines()
+    head = next(i for i, ln in enumerate(lines) if ln.startswith("TASK"))
+    cols = lines[head + 1].split() + [""] * 6
+    units = {"B": 1, "KiB": 2**10, "MiB": 2**20, "GiB": 2**30, "TiB": 2**40}
+    m = re.fullmatch(r"([0-9.]+)([KMGT]?i?B)", cols[5])
+    check(cols[0] == "worker:0" and m is not None
+          and re.fullmatch(r"[0-9.]+", cols[4]) is not None,
+          f"observers: no worker row with MFU and device memory in "
+          f"{frame!r}")
+    return float(cols[4]), float(m.group(1)) * units[m.group(2)]
+
+
+def trace_kernel_counts(path):
+    """CUDA kernel events of a Chrome trace by ``flagship_kind``, and the
+    number of kernel events in all."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    counts = collections.Counter(flagship_kind(str(e.get("name", "")).lower())
+                                 for e in kernels)
+    return counts, len(kernels)
+
+
+def observed_job(tmp, in_process, card):
+    """Phase 16's job: submitted, watched by top, profiled, its alerts and
+    portal read while it runs; checked after it."""
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.conf import keys as K
+    from tony_tpu_torch.ops import _flash_cuda
+
+    hist, work = os.path.join(tmp, "history"), os.path.join(tmp, "work")
+    jobs = os.path.join(work, "jobs")
+    argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
+            "--workdir", work]
+    for kv in ((K.APPLICATION_FRAMEWORK, "pytorch"),
+               (K.APPLICATION_BACKEND, "local"),
+               ("tony.worker.instances", 1),
+               ("tony.worker.command",
+                f"exec {TRAINER} --model flagship --steps {OBS_STEPS}"),
+               (K.HISTORY_LOCATION, hist),
+               (K.APPLICATION_TIMEOUT_S, OBS_TIMEOUT_S)):
+        argv += ["--conf", f"{kv[0]}={kv[1]}"]
+    port = free_port()
+    portal_argv = [sys.executable, "-m", "tony_tpu_torch.cli", "portal",
+                   "--history-root", hist, "--port", str(port)]
+    base = f"http://127.0.0.1:{port}"
+    os.makedirs(hist)
+    procs = {}
+    figures = {}
+    try:
+        with open(os.path.join(tmp, "submit.out"), "w") as out:
+            procs["submit"] = subprocess.Popen(
+                argv, cwd=REPO, env=repo_env(), stdout=out,
+                stderr=subprocess.STDOUT)
+        with open(os.path.join(tmp, "portal.out"), "w") as out:
+            procs["portal"] = subprocess.Popen(
+                portal_argv, cwd=REPO, env=repo_env(), stdout=out,
+                stderr=subprocess.STDOUT)
+        app = poll(lambda: (os.listdir(jobs)[:1] or [None])[0]
+                   if os.path.isdir(jobs) else None, "the job's dir", 120)
+        job_dir = os.path.join(hist, constants.HISTORY_INTERMEDIATE, app)
+        rpc = coordinator_rpc(os.path.join(jobs, app))
+        try:
+            poll(lambda: job_steps(rpc) >= OBS_TOP_AFTER,
+                 f"{OBS_TOP_AFTER} steps", OBS_TIMEOUT_S, interval=1.0)
+        finally:
+            rpc.close()
+        pgid = os.path.join(jobs, app, "tasks", "worker_0",
+                            constants.USER_PGID_FILE)
+        with open(pgid) as f:
+            pid = int(f.read().strip())
+
+        rc, frame = cli("top", app, "--once", "--workdir", work)
+        figures["clocks"] = gpu_clocks()
+        check(rc == 0, f"observers: cli top exited {rc}: {frame[-2000:]}")
+        mfu, hbm = top_task_row(frame)
+        total = torch.cuda.get_device_properties(0).total_memory
+        want = in_process["mfu_vs_peak_bf16"]
+        figures["top"] = frame
+        check(abs(mfu - want) <= TOL_OBS_MFU * want,
+              f"observers: top's MFU {mfu} against phase 4's {want:.4f}, "
+              f"limit {TOL_OBS_MFU} relative\n{frame}")
+        check(0 < hbm <= total, f"observers: top's device memory {hbm} "
+              f"bytes, the card holds {total}")
+
+        t0 = time.perf_counter()
+        rc, text = cli("profile", app, "--steps", str(OBS_PROFILE_STEPS),
+                       "--workdir", work, "--timeout", "120",
+                       "--interval", "0.1")
+        capture_s = time.perf_counter() - t0
+        check(rc == 0 and "captured:" in text,
+              f"observers: cli profile exited {rc}: {text[-2000:]}")
+        captured = text.split("captured: ", 1)[1].splitlines()[0].strip()
+        check(os.path.dirname(captured) == os.path.join(job_dir, "profile")
+              and os.path.basename(captured).startswith("ondemand-"),
+              f"observers: the capture landed at {captured}, not under "
+              f"{job_dir}/profile/ondemand-*")
+        trace = os.path.join(captured, "trace.json")
+        counts, n_kernels = trace_kernel_counts(trace)
+        for name in _flash_cuda.KERNELS:
+            check(counts[name] == 16 * OBS_PROFILE_STEPS,
+                  f"observers: the trace holds {counts[name]} {name} "
+                  f"kernels, expected {16 * OBS_PROFILE_STEPS} "
+                  f"({n_kernels} CUDA kernel events in all: "
+                  f"{dict(counts)})")
+        with open(pgid) as f:
+            same = int(f.read().strip()) == pid and alive(pid)
+        check(same, f"observers: the worker's process {pid} did not "
+              "survive the capture")
+
+        rc, rows = cli("alerts", app, "--workdir", work)
+        check(rc == 0 and "RULE" in rows,
+              f"observers: cli alerts exited {rc}: {rows[-2000:]}")
+        figures["alerts"] = rows
+
+        for path in ("/", f"/jobs/{app}"):
+            code, body = http_get(base + path)
+            check(code == 200 and app.encode() in body,
+                  f"observers: portal {path} answered {code}")
+        code, body = http_get(f"{base}/profile/{app}?format=json")
+        listed = [t["name"] for t in json.loads(body)] if code == 200 else []
+        check(listed == [os.path.basename(captured)],
+              f"observers: portal /profile/{app} answered {code} listing "
+              f"{listed}")
+        code, body = http_get(base + "/metrics")
+        check(code == 200 and f'app="{app}"'.encode() in body
+              and b"tony_task_steps_per_sec{" in body,
+              f"observers: portal /metrics answered {code} without the "
+              f"job's series: {body[:2000]!r}")
+        check(procs["submit"].poll() is None,
+              "observers: the job ended before the portal was read")
+
+        rc_submit = procs["submit"].wait(timeout=OBS_TIMEOUT_S)
+        with open(os.path.join(tmp, "submit.out")) as f:
+            submit_text = f.read()
+        check(rc_submit == 0, f"observers: the job's CLI exited "
+              f"{rc_submit}: {submit_text[-3000:]}\n"
+              f"{job_task_log(work, app, 'stderr.log')[-3000:]}")
+        code, body = http_get(f"{base}/trace/{app}?format=json")
+        check(code == 200 and json.loads(body).get("traceEvents"),
+              f"observers: portal /trace/{app} answered {code}")
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=60)
+    check(not alive(procs["portal"].pid),
+          "observers: the portal's process outlived its stop")
+
+    status, job_dir, events = job_history(hist, app)
+    check(status == "SUCCEEDED", f"observers: history says {status}")
+    with open(os.path.join(job_dir, constants.JOURNAL_FILE)) as f:
+        epochs = [r["session"] for r in map(json.loads, f)
+                  if r.get("t") == "epoch"]
+    check(epochs == [0], f"observers: epochs {epochs}, expected [0]")
+    profiled = [e for e in events if e.type == "TASK_PROFILED"]
+    check(len(profiled) == 1 and profiled[0].payload.get("status")
+          == "captured", f"observers: TASK_PROFILED events {profiled}")
+    run, _ = worker_run(work, app)
+    check(len(run["losses"]) == OBS_STEPS
+          and all(math.isfinite(x) for x in run["losses"]),
+          f"observers: {len(run['losses'])} losses, finite "
+          f"{all(math.isfinite(x) for x in run['losses'])}")
+    for name in _flash_cuda.KERNELS:
+        check(run["launches_per_step"][name] == 16,
+              f"observers: {name} {run['launches_per_step'][name]} "
+              "launches per step, expected 16")
+    inside = run["profiled_steps"]
+    check(len(inside) == OBS_PROFILE_STEPS,
+          f"observers: the trainer saw steps {inside} under the capture")
+    step_s = run["step_s"]
+    outside = [t for i, t in enumerate(step_s[run["warmup"]:],
+                                       run["warmup"])
+               if i not in inside and i - 1 not in inside]
+    before_top = step_s[run["warmup"]:OBS_TOP_AFTER]
+    rc, out = cli("check", job_dir)
+    check(rc == 0, f"observers: cli check exited {rc}: {out[-3000:]}")
+    log("observers: top frame while the job ran:\n" + figures["top"])
+    log("observers: alerts while the job ran:\n" + figures["alerts"])
+    log(f"observers: the job's first {run['warmup']} steps "
+        f"{sum(step_s[:run['warmup']]):.4f} s, then median "
+        f"{statistics.median(before_top):.4f} s/step until top read; the "
+        f"trainer's own MFU over its timed steps "
+        f"{run['mfu_vs_peak_bf16']}; clocks.sm, power.draw, "
+        f"temperature.gpu at the top read: {figures['clocks']}")
+    log(f"observers: {app} SUCCEEDED in one epoch, worker pid {pid} "
+        f"unchanged; top MFU {mfu} against phase 4's "
+        f"{in_process['mfu_vs_peak_bf16']:.4f}, device memory "
+        f"{hbm / 2**30:.3f} GiB of {total / 2**30:.3f}; capture of "
+        f"{OBS_PROFILE_STEPS} steps {capture_s:.4f} s from the request to "
+        f"captured, trace {os.path.getsize(trace) / 1e6:.3f} MB with "
+        f"{n_kernels} CUDA kernel events ({json.dumps(dict(counts))}); "
+        f"host s/step inside the capture "
+        f"{json.dumps([round(step_s[i], 4) for i in inside])}, the step "
+        f"after it {step_s[inside[-1] + 1]:.4f}, outside it median "
+        f"{statistics.median(outside):.4f} (min {min(outside):.4f}, max "
+        f"{max(outside):.4f}, {len(outside)} steps); {OBS_STEPS} steps at "
+        f"{run['tokens_per_sec']:.1f} tokens/s, {run['step_ms']:.3f} "
+        f"ms/step; launches per step "
+        f"{json.dumps(run['launches_per_step'])}; cli check clean; {card}")
+
+
+def phase_observers(in_process, card):
+    """Phase 16: a live flagship job observed on the card."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()   # the job needs the card's memory
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
+    try:
+        observed_job(tmp, in_process, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"observers: {time.perf_counter() - t0:.1f} s")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -3330,6 +3616,7 @@ def main():
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
     want = phase_failures(card)
     phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
+    phase_observers(main_run, card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

@@ -27,6 +27,7 @@ from tony_tpu.client import TonyTpuClient as JClient
 from tony_tpu.conf.config import TonyTpuConfig as JConfig
 from tony_tpu.events import history as jhistory
 from tony_tpu_torch import constants, tracing
+from tony_tpu_torch.alerts import rules as alert_rules
 from tony_tpu_torch.cli.main import main as cli_main
 from tony_tpu_torch.client import TaskUpdateListener, TonyTpuClient
 from tony_tpu_torch.conf import keys as K
@@ -198,7 +199,22 @@ def test_e2e_gang_rendezvous_events_and_command_lines(tmp_path):
     assert jcode == 0, _dump(jclient)
     jtypes = [e.type.value for e in jhistory.read_job_events(
         str(tmp_path / "ref" / "history"), jrec.app_id)]
-    assert collections.Counter(types) == collections.Counter(jtypes)
+    # The alert engine's transitions follow the wall clock (a heartbeat
+    # that ages past its threshold on a loaded host goes pending, then
+    # resolves): they are the host's, not the job's, so each stack's are
+    # held to the job pack's rules and the rest of the stream must match.
+    rules = {r.name for r in alert_rules.default_job_pack()}
+    for root_dir, app in ((root, rec.app_id),
+                          (str(tmp_path / "ref" / "history"), jrec.app_id)):
+        for e in history.read_job_events(root_dir, app):
+            if e.type.value.startswith("ALERT_"):
+                assert e.payload.get("rule") in rules, e.payload
+
+    def steady(ts):
+        return collections.Counter(t for t in ts
+                                   if not t.startswith("ALERT_"))
+
+    assert steady(types) == steady(jtypes)
     check_artifacts(tmp_path)
 
 

@@ -219,9 +219,15 @@ def test_adoption_failure_falls_back_to_cold_spawn(tmp_path, warm_pool):
     lease = by_name["pool.lease"][0]
     assert "dead on adoption" in lease["args"]["error"]
     assert lease["args"]["worker"]      # the span names the dirty worker
-    # the executor that actually ran was a cold spawn
-    assert "adopted" not in by_name["executor.register"][0]["args"]
-    assert "pooled" not in by_name["executor.run"][0]["args"]
+    # the executor that actually ran was a cold spawn, and the discarded
+    # worker never started one: its lease is fenced (the worker waits for
+    # the backend's confirmation), so no span of the job is the pooled
+    # worker's, whichever order the trace lists them in
+    runs = by_name["executor.run"]
+    assert len(runs) == 1 and "pooled" not in runs[0]["args"]
+    regs = by_name["executor.register"]
+    assert len(regs) == 1 and "adopted" not in regs[0]["args"]
+    assert regs[0]["args"]["parent"] == runs[0]["args"]["span"]
     # the granted-then-discarded worker is gone from the fleet (a dirty
     # lease is never re-pooled; the daemon replenishes with fresh spawns)
     discarded = lease["args"]["worker"]

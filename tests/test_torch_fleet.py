@@ -785,8 +785,14 @@ def test_render_fleet_top_frame(tmp_path):
 
 def test_fleet_status_and_prom_files_are_the_portal_sources(tmp_path):
     """The portal's /fleet view reads the daemon's fleet.status.json and
-    fleet.prom (the portal is not ported): both are written, the status
-    file is the snapshot ``fleet status`` renders."""
+    fleet.prom: both are written, the status file is the snapshot ``fleet
+    status`` renders, and the port's portal (the fleet dir discovered from
+    the history root inside it) serves them at /fleet, linked from the
+    jobs index."""
+    import urllib.request
+
+    from tony_tpu_torch.portal.server import PortalServer
+
     d = _daemon(tmp_path)
     d.submit("t1", 2, conf={})
     d.tick()
@@ -799,6 +805,21 @@ def test_fleet_status_and_prom_files_are_the_portal_sources(tmp_path):
     with open(os.path.join(d.fleet_dir, constants.FLEET_PROM_FILE)) as f:
         prom = f.read()
     assert "tony_fleet_hosts" in prom
+
+    os.makedirs(d.history_root, exist_ok=True)
+    srv = PortalServer(d.history_root, port=0)
+    assert srv.fleet_dir == d.fleet_dir
+    srv.start()
+    try:
+        with urllib.request.urlopen(f"{srv.url}/fleet?format=json") as r:
+            assert json.load(r) == snap
+        with urllib.request.urlopen(f"{srv.url}/fleet") as r:
+            body = r.read().decode()
+        assert "tony_fleet_hosts" in body and "t1" in body
+        with urllib.request.urlopen(srv.url) as r:
+            assert "/fleet" in r.read().decode()
+    finally:
+        srv.stop()
 
 
 def test_policy_self_check_runs_clean():

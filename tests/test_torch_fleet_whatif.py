@@ -388,15 +388,37 @@ def test_render_report_cites_holds_and_marks_directions(mix_tl):
 
 
 def test_whatif_report_and_bogus_key(tmp_path):
-    """What the portal's /whatif serves (the portal is not ported): the
-    report renders parity and the counterfactual, and a bogus --set key
-    is refused (the portal's 400)."""
+    """What the portal's /whatif serves: the report renders parity and the
+    counterfactual, and a bogus --set key is refused; then the same
+    through the port's portal (HTML, ``format=json``, and the 400)."""
+    import urllib.error
+    import urllib.request
+
+    from tony_tpu_torch.portal.server import PortalServer
+
     report = fsim.whatif_from_dir(MIX, quotas=["capped=4"])
     assert report["parity"]["ok"]
     body = fsim.render_report(report)
     assert "parity: OK" in body and "quota.capped=4" in body
     with pytest.raises(ValueError):
         fsim.whatif_from_dir(MIX, sets=["bogus=1"])
+
+    hist = tmp_path / "history"
+    hist.mkdir()
+    srv = PortalServer(str(hist), port=0, fleet_dir=MIX)
+    srv.start()
+    try:
+        page = urllib.request.urlopen(
+            srv.url + "/whatif?quota=capped=4").read().decode()
+        assert "parity: OK" in page and "quota.capped=4" in page
+        doc = json.load(urllib.request.urlopen(
+            srv.url + "/whatif?quota=capped=4&format=json"))
+        assert doc["parity"]["ok"]
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(srv.url + "/whatif?set=bogus=1")
+        assert e.value.code == 400
+    finally:
+        srv.stop()
 
 
 # ---------------------------------------------------------------------------

@@ -224,3 +224,93 @@ def test_fleet_and_gcloud_verbs_import_nothing_of_the_reference(tmp_path):
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+OBSERVER_MODULES = sorted(
+    ["notebook.py", "proxy.py", "workflow.py"]
+    + [f"{pkg}/{f}" for pkg in ("portal", "chaos")
+       for f in os.listdir(os.path.join(REPO, "tony_tpu", pkg))
+       if f.endswith(".py")])
+
+#: Modules of the reference with no counterpart, each on purpose: JAX
+#: version shims (PyTorch has nothing to shim), and the TPU slice backend,
+#: whose counterpart is ``cluster/gpu.py``.
+NO_COUNTERPART = {"compat.py", "cluster/tpu.py"}
+
+
+def _modules(pkg):
+    root = os.path.join(REPO, pkg)
+    out = set()
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = [d for d in dirnames if d not in ("__pycache__",
+                                                        "_build", "csrc")]
+        out |= {os.path.relpath(os.path.join(dirpath, f), root)
+                for f in files if f.endswith(".py")}
+    return out
+
+
+def test_every_reference_module_has_its_counterpart():
+    missing = _modules("tony_tpu") - _modules("tony_tpu_torch")
+    assert missing == NO_COUNTERPART
+
+
+@pytest.mark.parametrize("module", OBSERVER_MODULES)
+def test_observer_modules_are_scanned(module):
+    """The AST and string scans above cover the portal, the chaos engine,
+    the notebook, the proxy and the workflow adapter."""
+    assert len(OBSERVER_MODULES) == 12
+    assert os.path.join(REPO, "tony_tpu_torch", module) in _port_files()
+
+
+def _verbs(parser):
+    """{verb: nested verbs} of an argparse parser, recursively."""
+    import argparse
+
+    out = {}
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            for name, sub in action.choices.items():
+                out[name] = _verbs(sub)
+    return out
+
+
+def test_cli_has_every_reference_verb():
+    from tony_tpu.cli.main import build_parser as j_build_parser
+    from tony_tpu_torch.cli.main import build_parser
+
+    ours, ref = _verbs(build_parser()), _verbs(j_build_parser())
+    assert ours == ref
+    for verb in ("notebook", "top", "profile", "bench", "alerts",
+                 "portal", "chaos"):
+        assert verb in ours
+
+
+def test_observer_verbs_import_nothing_of_the_reference(tmp_path):
+    """The portal, the chaos engine, the notebook, proxy and workflow
+    modules and the observer verbs (``top``, ``profile``, ``alerts``,
+    ``bench diff``, ``chaos``), in a fresh process, load nothing of jax or
+    the reference, and not torch either."""
+    fixtures = os.path.join(REPO, "benchmarks", "fixtures")
+    code = (
+        "import sys\n"
+        "from tony_tpu_torch.cli.main import main\n"
+        "import tony_tpu_torch.portal.server, tony_tpu_torch.portal.__main__\n"
+        "import tony_tpu_torch.chaos.runner, tony_tpu_torch.chaos.oracle\n"
+        "import tony_tpu_torch.notebook, tony_tpu_torch.proxy\n"
+        "import tony_tpu_torch.workflow\n"
+        "w = %r\n"
+        "assert main(['top', 'app-x', '--once', '--workdir', w]) == 1\n"
+        "assert main(['profile', 'app-x', '--workdir', w]) == 1\n"
+        "assert main(['alerts', 'app-x', '--workdir', w,\n"
+        "             '--history-root', w]) == 1\n"
+        "assert main(['bench', 'diff', %r, %r]) == 0\n"
+        "from tony_tpu_torch.chaos import plan\n"
+        "assert plan(17, 0, 'e2e').injections\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+        % (str(tmp_path), os.path.join(fixtures, "bench_base.json"),
+           os.path.join(fixtures, "bench_ok.json"), FORBIDDEN + ("torch",)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr

@@ -5,9 +5,8 @@
    repo's package, imports and paths renamed to ``tony_tpu_torch`` and
    the port's ``Linter`` in place of the reference's: every rule flags
    and clears the same lines as the reference's linter does.
-2. **The port's tree.** ``tony_tpu_torch/`` reports exactly the known
-   findings of modules it has not ported yet, each named below beside its
-   ROADMAP queue A item; any other finding fails.
+2. **The port's tree.** ``tony_tpu_torch/`` reports no finding: any
+   finding fails.
 """
 
 from __future__ import annotations
@@ -51,12 +50,11 @@ FIXTURES = (
     "test_metrics_registry_dead_entry_detected",
 )
 
-_OBSERVERS = "portal/ and the observer verbs profile, alerts (ROADMAP queue A)"
-#: (rule, file, the name the finding quotes) -> the unported module that
-#: references it in the reference (where its call site or exporter is).
-KNOWN_FINDINGS = {
-    ("rpc-parity", "tony_tpu_torch/coordinator/coordinator.py", m):
-    _OBSERVERS for m in ("profile.start", "profile.status", "alerts")}
+#: (rule, file, the name the finding quotes) -> why the port keeps it.
+#: Empty: every module of the reference has its counterpart, so the
+#: observer verbs call the coordinator's profile.start, profile.status and
+#: alerts handlers, which were the last findings.
+KNOWN_FINDINGS: dict = {}
 
 
 def _port(text: str) -> str:
@@ -107,7 +105,7 @@ def test_port_tree_reports_exactly_the_known_findings():
     gone = sorted(set(KNOWN_FINDINGS) - set(got))
     assert not gone, f"known findings that no longer fire (prune them " \
                      f"here and in ROADMAP.md): {gone}"
-    assert len(findings) == len(KNOWN_FINDINGS) == 3
+    assert len(findings) == len(KNOWN_FINDINGS) == 0
     assert suppressed == []
 
 

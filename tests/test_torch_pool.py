@@ -250,12 +250,18 @@ class _StubPool:
         self.lease_exc = lease_exc
         self.leases = []
         self.discards = []
+        self.confirms = []
 
     def lease(self, task_id, env, workdir, app_id="", generation=0):
         self.leases.append((task_id, app_id, generation))
+        # the port's backend fences every lease it asks for
+        assert env[constants.POOL_CONFIRM] == "1"
         if self.lease_exc is not None:
             raise self.lease_exc
         return dict(self.lease_result)
+
+    def confirm(self, worker_id):
+        self.confirms.append(worker_id)
 
     def discard(self, worker_id, reason=""):
         self.discards.append((worker_id, reason))
@@ -302,6 +308,7 @@ def test_adoption_fault_site_pool_adopt_discards_and_falls_back(tmp_path):
     assert b._try_pool_lease(_spec(), str(tmp_path / "t"), {}) is None
     assert stub.discards and stub.discards[0][0] == "w2"
     assert "dead on adoption" in stub.discards[0][1]
+    assert stub.confirms == []          # a discarded lease is never confirmed
 
 
 def test_adoption_forwards_generation_and_emits_span(tmp_path):
@@ -323,6 +330,7 @@ def test_adoption_forwards_generation_and_emits_span(tmp_path):
     assert lease_spans[0]["parent"] == "deadbeef"
     assert lease_spans[0]["args"]["worker"] == "w3"
     assert "error" not in lease_spans[0]["args"]
+    assert stub.confirms == ["w3"]
 
 
 def test_adoption_failure_span_carries_error(tmp_path):
@@ -413,6 +421,69 @@ def test_daemon_worker_lease_round_trip(tmp_path):
     assert not t.is_alive()
     assert not os.path.exists(os.path.join(pool_dir,
                                            constants.POOL_ADDR_FILE))
+
+
+def _wait_ready(client, n=1, timeout_s=60):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        try:
+            if client.call("pool.status")["ready"] >= n:
+                return
+        except PoolError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError("no warm worker became ready")
+
+
+@pytest.mark.timeout_s(120)
+def test_fenced_lease_runs_its_executor_only_once_confirmed(tmp_path):
+    """The port's lease fence (``TONY_POOL_CONFIRM``): a leased worker
+    acknowledges the lease, then waits for the adopter. Discarded, it
+    exits having started no executor and writes no exit report into the
+    task dir (where the cold spawn that replaces it runs); confirmed, it
+    runs the executor as an unfenced lease does."""
+    pool_dir = str(tmp_path / "pool")
+    daemon = PoolDaemon(pool_dir, size=1, preload="", max_lease_age_s=600)
+    t = threading.Thread(target=daemon.run, daemon=True)
+    t.start()
+    fenced = {"TONY_TASK_ID": "worker:0", constants.POOL_CONFIRM: "1"}
+    try:
+        client = PoolClient(pool_dir)
+        _wait_ready(client)
+        dropped_dir = str(tmp_path / "dropped")
+        lease = client.lease("worker:0", fenced, dropped_dir,
+                             app_id="appF", generation=1)
+        # acknowledged but waiting: alive, and no executor has run
+        time.sleep(0.5)
+        os.kill(lease["pid"], 0)
+        with daemon._lock:
+            popen = daemon._workers[lease["worker_id"]].popen
+        client.discard(lease["worker_id"], reason="adoption check failed")
+        popen.wait(timeout=30)        # this process is the daemon: reap it
+        assert not os.path.exists(os.path.join(dropped_dir,
+                                               constants.POOL_EXIT_FILE))
+        with open(os.path.join(dropped_dir, "stderr.log")) as f:
+            assert "TaskExecutor" not in f.read()
+
+        _wait_ready(client)           # the replenished worker
+        task_dir = str(tmp_path / "task")
+        lease = client.lease("worker:0", fenced, task_dir,
+                             app_id="appF", generation=1)
+        client.confirm(lease["worker_id"])
+        leased = _LeasedProc(lease["pid"], task_dir, lease["worker_id"])
+        deadline = time.monotonic() + 60
+        while leased.poll() is None and time.monotonic() < deadline:
+            time.sleep(0.1)
+        rc = leased.poll()
+        assert rc is not None and rc != 0   # no coordinator: fails fast
+        with open(os.path.join(task_dir, constants.POOL_EXIT_FILE)) as f:
+            assert json.load(f)["pid"] == lease["pid"]
+        assert client.call("pool.stop") is True
+        client.close()
+    finally:
+        daemon.request_stop()
+        t.join(timeout=30)
+    assert not t.is_alive()
 
 
 @pytest.mark.timeout_s(120)

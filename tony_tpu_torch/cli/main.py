@@ -5,17 +5,18 @@ client with a kill-on-exit hook, :49-74), ``LocalSubmitter`` (zero-install
 demo against an in-process cluster, :47-68). The history subcommand covers
 the portal's jobs-index view for terminals (``tony-portal/conf/routes:1``).
 
-The port's CLI has the subcommands of the job path: ``submit``, ``kill``,
-``status``, ``recover``, ``history``, ``events``, ``logs``, ``trace`` and
-``diagnose``; ``resize`` and ``migrate`` (a running elastic job's gang);
-``pool`` (``start``, ``status``, ``stop``: the warm executor pool,
-``tony_tpu_torch/pool.py``); ``fleet`` (the multi-job scheduler,
-``tony_tpu_torch/fleet/``) with all its verbs; ``gcloud-gc`` (the reaper
-of leaked tony-managed Cloud TPU nodes); and the gates ``check`` (a
-finished job's or a fleet dir's artifacts against the protocol
-invariants) and ``lint`` (tonylint over ``tony_tpu_torch/``). The
-reference's others (notebook, profile, bench, top, alerts, portal, chaos)
-are ROADMAP queue A.
+The port's CLI has every verb of the reference's: the job path
+(``submit``, ``kill``, ``status``, ``recover``, ``history``, ``events``,
+``logs``, ``trace``, ``diagnose``), ``resize`` and ``migrate`` (a running
+elastic job's gang), the observers of a live job (``top``, ``profile``
+with ``torch.profiler`` writing a Chrome trace, ``alerts``), ``portal``,
+``notebook``, ``bench diff``, ``pool`` (the warm executor pool,
+``tony_tpu_torch/pool.py``), ``fleet`` (the multi-job scheduler,
+``tony_tpu_torch/fleet/``) with all its verbs, ``gcloud-gc`` (the reaper of
+leaked tony-managed Cloud TPU nodes), ``chaos`` (``tony_tpu_torch/chaos/``)
+and the gates ``check`` (a finished job's or a fleet dir's artifacts
+against the protocol invariants) and ``lint`` (tonylint over
+``tony_tpu_torch/``).
 
 Usage:
     python -m tony_tpu_torch.cli submit --conf-file job.yaml [--conf k=v ...]
@@ -28,6 +29,12 @@ Usage:
     python -m tony_tpu_torch.cli migrate <app_id> slice-1
     python -m tony_tpu_torch.cli check <app_id|job_dir> [--json]
     python -m tony_tpu_torch.cli lint [--json] [--rule RULE]
+    python -m tony_tpu_torch.cli top <app_id> --once
+    python -m tony_tpu_torch.cli profile <app_id> --steps 3
+    python -m tony_tpu_torch.cli alerts <app_id>
+    python -m tony_tpu_torch.cli portal [--history-root DIR] [--port N]
+    python -m tony_tpu_torch.cli chaos run --seed 17 --schedules 4 --suite e2e
+    python -m tony_tpu_torch.cli notebook [--command CMD]
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import sys
 import time
 from typing import List, Optional
 
+from tony_tpu_torch import faults as _faults
 from tony_tpu_torch.client import TaskUpdateListener, TonyTpuClient
 from tony_tpu_torch.conf import keys as K
 
@@ -89,6 +97,17 @@ def _cmd_submit(args: argparse.Namespace) -> int:
     signal.signal(signal.SIGINT, on_signal)
     signal.signal(signal.SIGTERM, on_signal)
     return client.start()
+
+
+def _cmd_notebook(args: argparse.Namespace) -> int:
+    from tony_tpu_torch.conf.config import TonyTpuConfig
+    from tony_tpu_torch.notebook import submit_notebook
+
+    conf = TonyTpuConfig.from_layers(config_file=args.conf_file,
+                                     overrides=tuple(args.conf or []))
+    return submit_notebook(conf, workdir=args.workdir,
+                           command=args.command or "",
+                           local_port=args.port)
 
 
 def _default_workdir(arg):
@@ -215,8 +234,9 @@ def _cmd_resize(args: argparse.Namespace) -> int:
         return 1
     print(res.get("message", "resize accepted"))
     print(f"members: {res.get('members')}")
-    print(f"watch it land with `python -m tony_tpu_torch.cli events "
-          f"{args.app_id}` (GANG_RESIZED)")
+    print(f"watch it land with `python -m tony_tpu_torch.cli top "
+          f"{args.app_id}` (gang=/mgen= columns) or `python -m "
+          f"tony_tpu_torch.cli events {args.app_id}` (GANG_RESIZED)")
     return 0
 
 
@@ -251,7 +271,8 @@ def _cmd_migrate(args: argparse.Namespace) -> int:
     print(f"route:   {res.get('source') or '(default pool)'} -> "
           f"{res.get('target')}")
     print(f"watch it land with `python -m tony_tpu_torch.cli events "
-          f"{args.app_id}` (GANG_MIGRATED)")
+          f"{args.app_id}` (GANG_MIGRATED) or `python -m "
+          f"tony_tpu_torch.cli top {args.app_id}` (mgen= column)")
     return 0
 
 
@@ -357,6 +378,245 @@ def _fmt_progress(task: dict) -> str:
     if state in ("hung", "straggler"):
         out += f" {state.upper()}"
     return out
+
+
+def _cmd_profile(args: argparse.Namespace) -> int:
+    """On-demand device capture from a RUNNING job: sends a PROFILE
+    directive (riding the heartbeat response) to the chosen task, which
+    arms torch.profiler at its next step boundary for N steps; polls
+    until the Chrome trace (trace.json) lands in the job dir (portal /profile/<app> lists it).
+    A failed/unsupported capture reports PROFILE_FAILED and the job
+    keeps training — this command can never hurt a live job."""
+    rpc = _coordinator_rpc(args.app_id, args.workdir)
+    if rpc is None:
+        print(f"no coordinator address for {args.app_id} under "
+              f"{_default_workdir(args.workdir)} (job finished? wrong "
+              f"--workdir?) — on-demand profiling needs a live job",
+              file=sys.stderr)
+        return 1
+    try:
+        res = rpc.call("profile.start", steps=args.steps,
+                       task=args.task or "")
+        if not isinstance(res, dict) or not res.get("ok"):
+            msg = res.get("message", "refused") \
+                if isinstance(res, dict) else str(res)
+            print(f"profile refused: {msg}", file=sys.stderr)
+            return 1
+        req_id = res["id"]
+        print(f"profiling {res['task']} for {res['steps']} step(s) "
+              f"(request {req_id}) — waiting for the capture...")
+        deadline = time.monotonic() + args.timeout
+        while time.monotonic() < deadline:
+            st = rpc.call("profile.status")
+            req = next((r for r in st.get("requests", [])
+                        if r.get("id") == req_id), None)
+            if req and req.get("status") == "captured":
+                print(f"captured: {req['dir']}")
+                print("open its trace.json in Perfetto or "
+                      "chrome://tracing; the portal lists it at "
+                      f"/profile/{args.app_id}")
+                return 0
+            if req and req.get("status") == "failed":
+                print(f"capture FAILED: {req.get('error', '?')} "
+                      f"(the job keeps training)", file=sys.stderr)
+                return 1
+            time.sleep(args.interval)
+        print(f"capture still pending after {args.timeout:.0f}s (is the "
+              f"task stepping? check `python -m tony_tpu_torch.cli top "
+              f"{args.app_id}`)",
+              file=sys.stderr)
+        return 1
+    except Exception as e:  # noqa: BLE001
+        print(f"profile failed (coordinator gone?): {e}", file=sys.stderr)
+        return 1
+    finally:
+        rpc.close()
+
+
+def _cmd_bench(args: argparse.Namespace) -> int:
+    """`tony-tpu bench diff <base.json> <candidate.json>` — the bench
+    regression gate (tony_tpu_torch/profiling/benchdiff.py): nonzero exit when
+    the candidate regresses any comparable metric (headline throughput,
+    cold-start phases, step phases) past the tolerance."""
+    from tony_tpu_torch.profiling import benchdiff
+
+    argv = [args.base, args.candidate, "--tolerance",
+            str(args.tolerance)]
+    if args.json:
+        argv.append("--json")
+    return benchdiff.main(argv)
+
+
+_SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
+
+
+def _sparkline(values) -> str:
+    vals = [max(0.0, float(v)) for v in values][-24:]
+    if not vals:
+        return ""
+    hi = max(vals) or 1.0
+    return "".join(_SPARK_BLOCKS[min(7, int(7 * v / hi))] for v in vals)
+
+
+def _fmt_bytes(n) -> str:
+    if n is None:
+        return "-"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{n:.0f}{unit}" if unit == "B" else f"{n:.1f}{unit}"
+        n /= 1024
+    return "?"
+
+
+#: phase → bar glyph, in canonical draw order (tony_tpu_torch/profiling/):
+#: d=data_wait h=h2d C=step_compute m=comms k=ckpt_stall e=eval ·=other
+_PHASE_GLYPHS = (("data_wait", "d"), ("h2d", "h"), ("step_compute", "C"),
+                 ("comms", "m"), ("ckpt_stall", "k"), ("eval", "e"),
+                 ("other", "·"))
+
+
+def _phase_bar(fractions: dict, width: int = 12) -> str:
+    """Proportional per-phase bar for a top row: 'dddCCCCCCCC·' means
+    ~25% input wait, ~67% compute, ~8% unattributed."""
+    if not fractions:
+        return ""
+    out = []
+    for name, glyph in _PHASE_GLYPHS:
+        try:
+            n = int(round(float(fractions.get(name, 0.0)) * width))
+        except (TypeError, ValueError):
+            n = 0
+        out.append(glyph * n)
+    return "".join(out)[:width + 2]
+
+
+#: coordinator phase → bar glyph (coordinator/coordphases.py order):
+#: J=journal_fsync b=beacon_fold h=hb_scan r=rpc_serve z=rendezvous
+#: p=prom_export ·=idle/other
+_COORD_PHASE_GLYPHS = (("journal_fsync", "J"), ("beacon_fold", "b"),
+                       ("hb_scan", "h"), ("rpc_serve", "r"),
+                       ("rendezvous_barrier", "z"), ("prom_export", "p"),
+                       ("idle", "·"), ("other", "·"))
+
+
+def _coord_phase_bar(fractions: dict, width: int = 16) -> str:
+    """Proportional control-plane phase bar for the top coord row:
+    'JJJr············' means ~19% journal fsync, ~6% rpc, rest idle."""
+    if not fractions:
+        return ""
+    out = []
+    for name, glyph in _COORD_PHASE_GLYPHS:
+        try:
+            n = int(round(float(fractions.get(name, 0.0)) * width))
+        except (TypeError, ValueError):
+            n = 0
+        out.append(glyph * n)
+    return "".join(out)[:width + 2]
+
+
+def _render_top(snap: dict) -> str:
+    """One frame of the `tony-tpu top` live view from a metrics.live
+    snapshot: per-task utilization + heartbeat age + a steps/s sparkline
+    (the coordinator's ring-buffer series) + the per-phase step-time
+    attribution bar and the live bottleneck verdict."""
+    gang = snap.get("gang_size") or {}
+    gang_col = "  gang=" + ",".join(
+        f"{j}×{n}" for j, n in sorted(gang.items())) if gang else ""
+    el = snap.get("elastic") or {}
+    mgen_col = f"  mgen={el.get('mgen')}" if el else ""
+    if el.get("resizing"):
+        mgen_col += f" (resizing->{el.get('target_size', '?')})"
+    lines = [f"{snap.get('app_id', '?')}  status={snap.get('status', '?')}"
+             f"  epoch={snap.get('session_id', '?')}"
+             f"  generation={snap.get('generation', '?')}"
+             f"{gang_col}{mgen_col}"]
+    perf = snap.get("perf") or {}
+    if perf.get("verdict"):
+        lines.append(f"perf: {perf['verdict']} — {perf.get('summary', '')}")
+    al = snap.get("alerts") or {}
+    if al.get("degraded"):
+        lines.append("alerts: DEGRADED — evaluation disabled after a "
+                     "fault")
+    for r in al.get("firing") or []:
+        lines.append(f"ALERT [{r.get('severity', '?')}] "
+                     f"{r.get('rule', '?')} value={r.get('value')}"
+                     + (f" — {r['summary']}" if r.get("summary")
+                        else ""))
+    coord = snap.get("coord") or {}
+    if coord:
+        # Control-plane self row: is the COORDINATOR keeping up — tick
+        # duration, beat/journal throughput, fsync p99 — visible during
+        # an incident, not just in post-hoc metrics.
+        tick = coord.get("tick_s")
+        p99 = coord.get("journal_fsync_p99_s")
+        line = (f"coord: tick="
+                f"{(f'{tick * 1e3:.1f}ms' if tick is not None else '-')}"
+                f"  beats/s={coord.get('beats_per_s', '-')}"
+                f"  journal/s={coord.get('journal_records_per_s', '-')}"
+                f"  fsync p99="
+                f"{(f'{p99 * 1e3:.1f}ms' if p99 is not None else '-')}"
+                f"  reg={coord.get('registered_tasks', '-')}")
+        bar = _coord_phase_bar(coord.get("phases") or {})
+        if bar:
+            line += f"  [{bar}]"
+        lines.append(line)
+        if coord.get("verdict") and coord["verdict"] != "COORD_HEALTHY":
+            lines.append(f"coord verdict: {coord['verdict']} — "
+                         f"{coord.get('summary', '')}")
+    lines.append(
+        f"{'TASK':<14}{'STATUS':<11}{'STEPS':>8}{'STEPS/S':>9}"
+        f"{'MFU':>7}{'HBM':>10}{'RSS':>10}{'HB AGE':>8}  "
+        f"{'STATE':<11}{'PHASES':<14}TREND")
+    for t in snap.get("tasks", []):
+        steps = t.get("steps")
+        rate = t.get("steps_per_sec")
+        mfu = t.get("mfu")
+        hb = t.get("heartbeat_age_s")
+        lines.append(
+            f"{t.get('task', '?'):<14}{t.get('status', '?'):<11}"
+            f"{(f'{steps:g}' if steps is not None else '-'):>8}"
+            f"{(f'{rate:.2f}' if rate is not None else '-'):>9}"
+            f"{(f'{mfu:.3f}' if mfu is not None else '-'):>7}"
+            f"{_fmt_bytes(t.get('hbm_bytes')):>10}"
+            f"{_fmt_bytes(t.get('rss_bytes')):>10}"
+            f"{(f'{hb:.1f}s' if hb is not None else '-'):>8}  "
+            f"{t.get('state', '') or '-':<11}"
+            f"{_phase_bar(t.get('phases') or {}) or '-':<14}"
+            f"{_sparkline(t.get('steps_per_sec_history', []))}")
+    return "\n".join(lines)
+
+
+def _cmd_top(args: argparse.Namespace) -> int:
+    """Live utilization view for a RUNNING job (the `top` for a gang):
+    polls the coordinator's metrics.live RPC — the same registry behind
+    the portal's /metrics exposition — and redraws in place. --once
+    prints a single snapshot (scripts, tests)."""
+    rpc = _coordinator_rpc(args.app_id, args.workdir)
+    if rpc is None:
+        print(f"no coordinator address for {args.app_id} under "
+              f"{_default_workdir(args.workdir)} (job finished? wrong "
+              f"--workdir?) — `tony-tpu metrics` views need a live job",
+              file=sys.stderr)
+        return 1
+    try:
+        while True:
+            try:
+                snap = rpc.call("metrics.live")
+            except Exception as e:  # noqa: BLE001
+                print(f"coordinator unreachable: {e}", file=sys.stderr)
+                return 1
+            frame = _render_top(snap)
+            if args.once:
+                print(frame)
+                return 0
+            # Clear + home, then one frame: flicker-free enough without
+            # curses, and plain pipes just see frames separated by FF.
+            print("\x1b[2J\x1b[H" + frame
+                  if sys.stdout.isatty() else frame, flush=True)
+            time.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
 
 
 def _cmd_trace(args: argparse.Namespace) -> int:
@@ -614,6 +874,69 @@ def _render_alert_rows(res: dict) -> str:
             lines.append(f"  {r['rule']}: {r['summary']}")
     return "\n".join(lines)
 
+
+def _cmd_alerts(args: argparse.Namespace) -> int:
+    """SLO/alert state for one job: a RUNNING job answers live from its
+    coordinator's alert engine (the alerts RPC); otherwise the
+    write-ahead REC_ALERT records in the session journal are replayed —
+    the firing set survives the coordinator, by design."""
+    rpc = _coordinator_rpc(args.app_id, args.workdir)
+    if rpc is not None:
+        try:
+            res = rpc.call("alerts")
+            if args.json:
+                print(json.dumps(res, indent=1, sort_keys=True))
+            else:
+                print(_render_alert_rows(res))
+            return 0
+        except Exception as e:  # noqa: BLE001
+            print(f"(coordinator unreachable: {e}; replaying the "
+                  f"journal)", file=sys.stderr)
+    from tony_tpu_torch import constants
+    from tony_tpu_torch.coordinator import journal as cjournal
+    from tony_tpu_torch.events import history
+
+    root = _history_root(args)
+    job_dir = history.list_job_dirs(root).get(args.app_id)
+    if job_dir is None:
+        print(f"unknown application {args.app_id} under {root}",
+              file=sys.stderr)
+        return 1
+    path = os.path.join(job_dir, constants.JOURNAL_FILE)
+    if not os.path.exists(path):
+        print(f"no session journal at {path} — the job ran without "
+              f"tony.coordinator.journal-enabled, so no alert "
+              f"transitions were recorded", file=sys.stderr)
+        return 1
+    st = cjournal.replay(path)
+    doc = {"app_id": args.app_id, "scope": "job", "offline": True,
+           "alerts": [{"rule": rule, "state": state}
+                      for rule, state in sorted(st.alerts.items())]}
+    if args.json:
+        print(json.dumps(doc, indent=1, sort_keys=True))
+        return 0
+    if not st.alerts:
+        print("no alert transitions journaled")
+        return 0
+    print("journal replay (final state per rule):")
+    for rule, state in sorted(st.alerts.items()):
+        print(f"  {rule:<22}{state}")
+    return 0
+
+
+def _cmd_portal(args: argparse.Namespace) -> int:
+    """Serve the history portal (shortcut for python -m tony_tpu_torch.portal).
+    The CLI defaults to binding localhost: serving job history + raw task
+    logs to every interface is an explicit choice (--host 0.0.0.0), and
+    without a token it should stay local."""
+    from tony_tpu_torch.portal.server import main as portal_main
+
+    argv = ["--history-root", _history_root(args), "--host", args.host]
+    if args.port is not None:
+        argv += ["--port", str(args.port)]
+    if args.token:
+        argv += ["--token", args.token]
+    return portal_main(argv)
 
 
 def _cmd_gcloud_gc(args: argparse.Namespace) -> int:
@@ -881,6 +1204,147 @@ def _cmd_check(args: argparse.Namespace) -> int:
     else:
         print(invariants.render_text([report]))
     return 0 if report.ok else 1
+
+
+def _chaos_workdir(base: str, schedule) -> str:
+    return os.path.join(base, "runs", schedule.name)
+
+
+def _chaos_run_one(schedule, outdir: str, runs_root: str):
+    """Execute one schedule, save its artifact, return the outcome."""
+    import shutil
+
+    from tony_tpu_torch.chaos import artifact as chaos_artifact
+    from tony_tpu_torch.chaos import runner as chaos_runner
+
+    workdir = _chaos_workdir(runs_root, schedule)
+    if os.path.isdir(workdir):
+        shutil.rmtree(workdir)
+    outcome = chaos_runner.run_schedule(schedule, workdir)
+    chaos_artifact.save_artifact(outdir, schedule, outcome)
+    # a clean run's scratch tree is noise; a failing run's is evidence
+    if outcome.ok:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return outcome
+
+
+def _cmd_chaos_run(args: argparse.Namespace) -> int:
+    """`tony-tpu chaos run` — seeded multi-fault sweep."""
+    from tony_tpu_torch.chaos import schedule as chaos_schedule
+
+    seed = int(args.seed)
+    outdir = os.path.abspath(args.out)
+    runs_root = os.path.join(outdir, "scratch")
+    os.environ[_faults.FAULT_SEED_ENV] = str(seed)
+    suites = [args.suite] if args.suite else list(chaos_schedule.SUITES)
+    failed = 0
+    total = 0
+    t0 = time.monotonic()
+    for index in range(int(args.schedules)):
+        suite = suites[index % len(suites)]
+        sched = chaos_schedule.plan(seed, index, suite)
+        total += 1
+        outcome = _chaos_run_one(sched, outdir, runs_root)
+        tag = "ok" if outcome.ok else "FAIL"
+        sites = ", ".join(i.site for i in sched.injections)
+        print(f"{sched.name} [{suite:8s}] {outcome.status:9s} "
+              f"{outcome.failure_domain or '-':16s} {tag}  "
+              f"({sites or 'no injections'})")
+        if not outcome.ok:
+            failed += 1
+            for v in outcome.violations:
+                print(f"    {v.rung}: {v.detail}")
+            if args.fail_fast:
+                break
+    dt = time.monotonic() - t0
+    print(f"chaos: {total} schedule(s), {failed} failing, "
+          f"{dt:.1f}s (seed {seed})")
+    if failed:
+        print(f"artifacts + scratch trees under {outdir}; shrink with "
+              f"`tony-tpu chaos shrink <artifact>`")
+    return 1 if failed else 0
+
+
+def _cmd_chaos_replay(args: argparse.Namespace) -> int:
+    """`tony-tpu chaos replay` — re-run an artifact's schedule and
+    prove the planner regenerates it bit-identically."""
+    from tony_tpu_torch.chaos import artifact as chaos_artifact
+    from tony_tpu_torch.chaos import schedule as chaos_schedule
+
+    doc = chaos_artifact.load_artifact(args.artifact)
+    sched = chaos_artifact.schedule_from_doc(doc)
+    os.environ[_faults.FAULT_SEED_ENV] = str(sched.seed)
+    if not doc.get("shrunk_from"):
+        # full schedules must replan bit-identically — THE determinism
+        # contract; shrunk ones are subsets the planner never emits
+        replanned = chaos_schedule.plan(sched.seed, sched.index,
+                                        sched.suite)
+        if replanned.as_dict() != sched.as_dict():
+            print("REPLAY MISMATCH: the planner no longer regenerates "
+                  "this artifact's schedule — planner drift:",
+                  file=sys.stderr)
+            print(f"  recorded:  {sched.as_dict()}", file=sys.stderr)
+            print(f"  replanned: {replanned.as_dict()}", file=sys.stderr)
+            return 2
+    outdir = os.path.abspath(args.out)
+    outcome = _chaos_run_one(sched, outdir, os.path.join(outdir,
+                                                         "scratch"))
+    recorded = chaos_artifact.outcome_from_doc(doc)
+    print(f"{sched.name}: recorded {recorded.status}"
+          f"{'/' + recorded.failure_domain if recorded.failure_domain else ''}"
+          f" ({'ok' if recorded.ok else 'FAIL'}), replay "
+          f"{outcome.status}"
+          f"{'/' + outcome.failure_domain if outcome.failure_domain else ''}"
+          f" ({'ok' if outcome.ok else 'FAIL'})")
+    for v in outcome.violations:
+        print(f"    {v.rung}: {v.detail}")
+    return 0 if outcome.ok == recorded.ok else 1
+
+
+def _cmd_chaos_shrink(args: argparse.Namespace) -> int:
+    """`tony-tpu chaos shrink` — ddmin a failing artifact to the
+    minimal injection set that still violates the ladder."""
+    import dataclasses
+
+    from tony_tpu_torch.chaos import artifact as chaos_artifact
+    from tony_tpu_torch.chaos import shrink as chaos_shrink
+
+    doc = chaos_artifact.load_artifact(args.artifact)
+    sched = chaos_artifact.schedule_from_doc(doc)
+    os.environ[_faults.FAULT_SEED_ENV] = str(sched.seed)
+    outdir = os.path.abspath(args.out)
+    runs_root = os.path.join(outdir, "scratch")
+    attempts = [0]
+
+    def _fails(injections) -> bool:
+        attempts[0] += 1
+        candidate = dataclasses.replace(sched, injections=list(injections))
+        outcome = _chaos_run_one(candidate, outdir, runs_root)
+        print(f"  shrink run #{attempts[0]}: "
+              f"{len(injections)} injection(s) -> "
+              f"{'FAIL' if not outcome.ok else 'ok'}")
+        return not outcome.ok
+
+    try:
+        minimal = chaos_shrink.ddmin(sched.injections, _fails,
+                                     max_runs=int(args.max_runs))
+    except ValueError as e:
+        print(f"error: {e} — is {args.artifact} a FAILING artifact?",
+              file=sys.stderr)
+        return 2
+    shrunk = dataclasses.replace(sched, injections=minimal)
+    final = _chaos_run_one(shrunk, outdir, runs_root)
+    path = chaos_artifact.save_artifact(
+        outdir, shrunk, final,
+        shrunk_from={"injections": len(sched.injections),
+                     "artifact": os.path.abspath(args.artifact)},
+        note=args.note or "")
+    print(f"shrunk {len(sched.injections)} -> {len(minimal)} "
+          f"injection(s) in {attempts[0]} run(s):")
+    for inj in minimal:
+        print(f"  {inj.site} = {inj.spec}")
+    print(f"minimal repro saved to {path}")
+    return 0
 
 
 def _fleet_dir(args: argparse.Namespace) -> str:
@@ -1311,6 +1775,21 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--workdir", help="client workdir (default ~/.tony-tpu)")
     s.set_defaults(fn=_cmd_submit)
 
+    n = sub.add_parser(
+        "notebook",
+        help="run a notebook server as a single-node job and tunnel a "
+             "local port to it (reference NotebookSubmitter)")
+    n.add_argument("--conf-file", help="job config (json/yaml)")
+    n.add_argument("--conf", action="append", metavar="K=V",
+                   help="config override (repeatable)")
+    n.add_argument("--command",
+                   help="server command; $TB_PORT is the port to bind "
+                        "(default: jupyter notebook)")
+    n.add_argument("--port", type=int, default=0,
+                   help="local proxy port (default: auto)")
+    n.add_argument("--workdir", help="client workdir (default ~/.tony-tpu)")
+    n.set_defaults(fn=_cmd_notebook)
+
     k = sub.add_parser("kill", help="force-kill a running application")
     k.add_argument("app_id")
     k.add_argument("--workdir", help="client workdir the job was "
@@ -1371,6 +1850,53 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--history-root")
     st.set_defaults(fn=_cmd_status)
 
+    tp = sub.add_parser(
+        "top",
+        help="live per-task utilization view for a running job "
+             "(steps/s, MFU, HBM, RSS, heartbeat age — the gang's `top`)")
+    tp.add_argument("app_id")
+    tp.add_argument("--workdir", help="client workdir the job was "
+                                      "submitted from (default ~/.tony-tpu)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh cadence in seconds (default 2)")
+    tp.add_argument("--once", action="store_true",
+                    help="print one snapshot and exit (scripts/tests)")
+    tp.set_defaults(fn=_cmd_top)
+
+    pf = sub.add_parser(
+        "profile",
+        help="capture a device trace from a RUNNING job without "
+             "restarting it: the target task arms torch.profiler at its "
+             "next step boundary for N steps; a Chrome trace (Perfetto) "
+             "lands under the job dir (portal /profile/<app>)")
+    pf.add_argument("app_id")
+    pf.add_argument("--steps", type=int, default=0,
+                    help="steps to capture (default: "
+                         "tony.profile.default-steps)")
+    pf.add_argument("--task", default="",
+                    help="task to profile, e.g. worker:1 (default: the "
+                         "chief)")
+    pf.add_argument("--workdir", help="client workdir the job was "
+                                      "submitted from (default ~/.tony-tpu)")
+    pf.add_argument("--timeout", type=float, default=120.0,
+                    help="seconds to wait for the capture (default 120)")
+    pf.add_argument("--interval", type=float, default=1.0,
+                    help="status poll cadence in seconds")
+    pf.set_defaults(fn=_cmd_profile)
+
+    bn = sub.add_parser(
+        "bench",
+        help="bench utilities: `bench diff <base.json> <candidate.json>` "
+             "compares headline + per-phase numbers with a tolerance and "
+             "exits nonzero on regression (the BENCH_r* gate)")
+    bn_sub = bn.add_subparsers(dest="bench_cmd", required=True)
+    bd = bn_sub.add_parser("diff", help="compare two bench jsons")
+    bd.add_argument("base")
+    bd.add_argument("candidate")
+    bd.add_argument("--tolerance", type=float, default=0.10)
+    bd.add_argument("--json", action="store_true")
+    bd.set_defaults(fn=_cmd_bench)
+
     tr = sub.add_parser(
         "trace",
         help="export a job's control-plane trace as Chrome/Perfetto "
@@ -1406,6 +1932,18 @@ def build_parser() -> argparse.ArgumentParser:
                          "coordinator already wrote incident.json")
     dg.set_defaults(fn=_cmd_diagnose)
 
+    al = sub.add_parser(
+        "alerts",
+        help="SLO/alert state for a job: live rule-engine rows from a "
+             "running coordinator, or the journaled REC_ALERT "
+             "transitions replayed for a finished/dead one")
+    al.add_argument("app_id")
+    al.add_argument("--workdir", help="client workdir the job was "
+                                      "submitted from (default ~/.tony-tpu)")
+    al.add_argument("--history-root")
+    al.add_argument("--json", action="store_true")
+    al.set_defaults(fn=_cmd_alerts)
+
     h = sub.add_parser("history", help="list finished jobs")
     h.add_argument("--history-root")
     h.set_defaults(fn=_cmd_history)
@@ -1422,6 +1960,16 @@ def build_parser() -> argparse.ArgumentParser:
     lg.add_argument("--task", help="only this task, e.g. worker:0")
     lg.add_argument("--history-root")
     lg.set_defaults(fn=_cmd_logs)
+
+    po = sub.add_parser("portal", help="serve the history web portal")
+    po.add_argument("--history-root")
+    po.add_argument("--port", type=int, default=None)
+    po.add_argument("--host", default="127.0.0.1",
+                    help="bind address (default localhost; widen only "
+                         "with --token set)")
+    po.add_argument("--token", default=os.environ.get(
+        "TONY_PORTAL_TOKEN", ""))
+    po.set_defaults(fn=_cmd_portal)
 
     gc = sub.add_parser(
         "gcloud-gc",
@@ -1696,6 +2244,54 @@ def build_parser() -> argparse.ArgumentParser:
     ck.add_argument("--json", action="store_true",
                     help="emit the report as JSON")
     ck.set_defaults(fn=_cmd_check)
+
+    ch = sub.add_parser(
+        "chaos",
+        help="the seeded multi-fault chaos engine (tony_tpu_torch/chaos/): "
+             "plan correlated-failure schedules from one seed, run "
+             "them against the in-process control plane under the "
+             "invariant ladder, replay any artifact bit-identically, "
+             "and delta-debug a failing schedule to its minimal repro "
+             "(docs/operations.md \u00a7 Chaos drills).")
+    ch_sub = ch.add_subparsers(dest="chaos_cmd", required=True)
+    cr = ch_sub.add_parser(
+        "run", help="sweep N seeded schedules; exit nonzero if any "
+                    "run violates the invariant ladder")
+    cr.add_argument("--seed", type=int, default=0,
+                    help="sweep seed: same seed, same schedules, "
+                         "same per-call fault decisions (default 0)")
+    cr.add_argument("--schedules", type=int, default=20,
+                    help="how many schedules to plan and run")
+    cr.add_argument("--suite",
+                    choices=["e2e", "fleet", "migrate", "health"],
+                    default=None,
+                    help="restrict to one suite (default: round-robin "
+                         "across all of them)")
+    cr.add_argument("--out", default="chaos-artifacts",
+                    help="artifact directory (one JSON per schedule)")
+    cr.add_argument("--fail-fast", action="store_true",
+                    help="stop at the first ladder violation")
+    cr.set_defaults(fn=_cmd_chaos_run)
+    cp = ch_sub.add_parser(
+        "replay", help="re-plan + re-run one artifact's schedule; "
+                       "proves planner determinism, then compares the "
+                       "ladder verdict against the recording")
+    cp.add_argument("artifact", help="a chaos artifact JSON path")
+    cp.add_argument("--out", default="chaos-artifacts",
+                    help="artifact directory for the re-run")
+    cp.set_defaults(fn=_cmd_chaos_replay)
+    cs = ch_sub.add_parser(
+        "shrink", help="ddmin a FAILING artifact's schedule to the "
+                       "1-minimal injection set that still fails; "
+                       "saves the minimal repro as a new artifact")
+    cs.add_argument("artifact", help="a failing chaos artifact JSON")
+    cs.add_argument("--out", default="chaos-artifacts",
+                    help="artifact directory for shrink runs")
+    cs.add_argument("--max-runs", type=int, default=60,
+                    help="shrink budget: predicate re-runs (default 60)")
+    cs.add_argument("--note", default="",
+                    help="provenance note stored in the shrunk artifact")
+    cs.set_defaults(fn=_cmd_chaos_shrink)
 
     return p
 

@@ -147,8 +147,10 @@ class LocalProcessBackend(Backend):
         try:
             faults.check("pool.lease")
             faults.check("pool.stale")
+            # Fenced lease: the worker waits for confirm() below, so a
+            # lease discarded here never starts an executor.
             lease = self._pool.lease(
-                spec.task_id, env, task_dir,
+                spec.task_id, {**env, constants.POOL_CONFIRM: "1"}, task_dir,
                 app_id=env.get(constants.APP_ID, ""),
                 generation=int(
                     env.get(constants.COORDINATOR_GENERATION, "0") or 0))
@@ -168,6 +170,12 @@ class LocalProcessBackend(Backend):
                 raise PoolError(
                     f"leased executor pid {lease.get('pid')} dead on "
                     f"adoption: {dead}") from dead
+            try:
+                self._pool.confirm(str(lease["worker_id"]))
+            except PoolError:
+                self._pool.discard(str(lease["worker_id"]),
+                                   reason="lease confirmation failed")
+                raise
         except Exception as e:  # noqa: BLE001 — every shape cold-spawns
             # A granted-then-unusable lease names its worker in the span:
             # the trace is how an operator finds the discarded worker.

@@ -70,6 +70,11 @@ EXECUTOR_CONF = "TONY_EXECUTOR_CONF"  # path to the frozen final config
 # adopted=true, run span pooled=<worker id>) — the trace-visible proof a
 # submit skipped the cold spawn. Absent on cold-spawned executors.
 POOL_WORKER_ID = "TONY_POOL_WORKER_ID"
+# Set to "1" in the lease env by the port's backend: the adopted worker
+# starts its executor only once the adopter confirms the lease
+# (pool.CONFIRM_FILE), so a lease the adopter discards never registers.
+# Absent (a reference client's lease): the worker runs at once.
+POOL_CONFIRM = "TONY_POOL_CONFIRM"
 
 # Global-rank contract for the JAX runtime (computed over the whole gang).
 GLOBAL_RANK = "TONY_GLOBAL_RANK"

@@ -176,6 +176,7 @@ class Coordinator:
         "_progress_journal_t": "_hb_lock",
         "_profile_reqs": "_profile_lock",
         "_profile_seq": "_profile_lock",
+        "_completing": "_completing_lock",
         # -- audited, not lock-enforced (atomic/single-writer) ---------
         "tb_url": None,
         "final_status": None,
@@ -296,6 +297,17 @@ class Coordinator:
         faults.install_from_conf(conf)
         self._last_hb: Dict[str, float] = {}
         self._hb_lock = threading.Lock()
+        # A task's completion (the executor's register_execution_result
+        # RPC, or the monitor's poll of the backend) turns the session
+        # terminal BEFORE it emits the task's TASK_FINISHED; the monitor
+        # may see the session done and reach APPLICATION_FINISHED
+        # meanwhile. Completions in flight are counted, and the finish
+        # event waits for them, so the job's event stream never has a
+        # task's last event after the application's (a deviation: the
+        # reference's coordinator keeps that race). No lock is held across
+        # a completion's journal fsync.
+        self._completing = 0
+        self._completing_lock = threading.Lock()
         # Step-time attribution (tony_tpu_torch/profiling/): the latest phase
         # beacon per task — cumulative per-phase seconds + attributed
         # wall. Values are replaced whole (never mutated), so readers
@@ -1494,6 +1506,29 @@ class Coordinator:
             hosts.append(host)
 
     def _process_completion(self, task_id: str, exit_code: int) -> None:
+        """One task's completion, counted in flight until its event is
+        out (``_await_completions``)."""
+        with self._completing_lock:
+            self._completing += 1
+        try:
+            self._complete_task(task_id, exit_code)
+        finally:
+            with self._completing_lock:
+                self._completing -= 1
+
+    def _await_completions(self, timeout_s: float = 30.0) -> None:
+        """Wait (no lock held) until no completion is between its session
+        change and its TASK_FINISHED event."""
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with self._completing_lock:
+                if not self._completing:
+                    return
+            time.sleep(0.01)
+        log.warning("a task completion still in flight after %.0fs; "
+                    "finishing the application anyway", timeout_s)
+
+    def _complete_task(self, task_id: str, exit_code: int) -> None:
         """Reference ``processFinishedContainer`` :1187-1220: apply failure
         policy, notify scheduler, emit TASK_FINISHED with last metrics."""
         delay = float(os.environ.get(constants.TEST_COMPLETION_DELAY, "0") or 0)
@@ -2758,6 +2793,7 @@ class Coordinator:
         # Step-time attribution report BEFORE diagnosis: the incident
         # bundle attaches perf.json as its perf advisory section.
         self._write_perf_report()
+        self._await_completions()
         self.events.emit(Event(EventType.APPLICATION_FINISHED, {
             "app_id": self.app_id, "status": self.final_status.value,
             "failure_reason": self.session.failure_reason or "",

@@ -16,7 +16,16 @@ port changes:
 - no compile cache is mounted (the reference's ``--jax-cache-dir``): the
   port's kernels are built once per source into
   ``tony_tpu_torch/_build/<source hash>`` (``ops/_build.py``), which every
-  process of the checkout already shares.
+  process of the checkout already shares;
+- a lease whose env carries ``TONY_POOL_CONFIRM=1`` (the port's backend
+  sets it) is fenced: the adopted worker acknowledges it, then waits for
+  the adopter's ``confirmed.json`` (``PoolClient.confirm``) before it
+  starts the executor, and exits without one if the adopter discards the
+  lease instead. In the reference the worker runs its executor at once,
+  so a worker the backend discards after its adoption check may already
+  have registered with the coordinator beside the cold spawn that
+  replaces it. A lease without the variable (the reference's client)
+  keeps the reference's behaviour.
 
 The reference's account follows.
 
@@ -88,6 +97,12 @@ READY_FILE = "ready.json"        # worker → daemon: warm and leasable
 LEASE_FILE = "lease.json"        # daemon → worker: adopt this task
 ADOPTED_FILE = "adopted.json"    # worker → daemon: env applied, running
 SHUTDOWN_FILE = "shutdown"       # daemon → worker: exit quietly
+CONFIRM_FILE = "confirmed.json"  # adopter → worker: run the executor
+
+#: how long an adopted worker of a fenced lease waits for the adopter's
+#: confirmation; the adopter confirms or discards right after the grant,
+#: so only a dead adopter lets this run out.
+_CONFIRM_TIMEOUT_S = 30.0
 
 #: how often a warm worker polls for its lease — the adoption latency
 #: floor (50 ms keeps a warm resubmit well under the 2 s budget while
@@ -195,6 +210,13 @@ def _worker_main(worker_dir: str, preload: str) -> int:
     _atomic_json(os.path.join(worker_dir, ADOPTED_FILE), {
         "pid": os.getpid(), "task_id": env.get(constants.TASK_ID, ""),
         "adopted_ts": time.time()})
+    if env.get(constants.POOL_CONFIRM) == "1" \
+            and not _await_confirm(worker_dir):
+        # Discarded (the daemon's shutdown file or its TERM) or never
+        # confirmed: no executor ran, so nothing registered for the task,
+        # and no exit report lands where the task's next executor (a cold
+        # spawn in the same task dir) would be read.
+        return constants.EXIT_FAILURE
     # From here the process IS a task executor: same fault arming, same
     # signal forwarding, same run loop as `python -m tony_tpu_torch.executor`.
     from tony_tpu_torch import faults
@@ -213,6 +235,24 @@ def _worker_main(worker_dir: str, preload: str) -> int:
     _atomic_json(os.path.join(workdir, constants.POOL_EXIT_FILE),
                  {"exit_code": int(code), "pid": os.getpid()})
     return int(code)
+
+
+def _await_confirm(worker_dir: str) -> bool:
+    """Wait for the adopter's confirmation of a fenced lease: True once
+    ``confirmed.json`` lands, False on the daemon's shutdown file or when
+    ``_CONFIRM_TIMEOUT_S`` runs out."""
+    confirm_path = os.path.join(worker_dir, CONFIRM_FILE)
+    shutdown_path = os.path.join(worker_dir, SHUTDOWN_FILE)
+    deadline = time.monotonic() + _CONFIRM_TIMEOUT_S
+    while time.monotonic() < deadline:
+        if os.path.exists(confirm_path):
+            return True
+        if os.path.exists(shutdown_path):
+            return False
+        time.sleep(_WORKER_POLL_S)
+    log.warning("lease never confirmed within %.0fs; exiting without "
+                "running the executor", _CONFIRM_TIMEOUT_S)
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +610,18 @@ class PoolClient:
         if not isinstance(res, dict) or "pid" not in res:
             raise PoolError(f"malformed lease response: {res!r}")
         return res
+
+    def confirm(self, worker_id: str) -> None:
+        """Let a leased worker of a fenced lease (``TONY_POOL_CONFIRM``)
+        start its executor: the adopter's check passed. Raises PoolError
+        when the confirmation cannot be written (the caller discards)."""
+        path = os.path.join(self.pool_dir, "workers", worker_id,
+                            CONFIRM_FILE)
+        try:
+            _atomic_json(path, {"confirmed_ts": time.time()})
+        except OSError as e:
+            raise PoolError(f"cannot confirm lease of {worker_id}: "
+                            f"{e}") from e
 
     def discard(self, worker_id: str, reason: str = "") -> None:
         try:

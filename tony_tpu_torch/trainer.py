@@ -278,20 +278,31 @@ def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
     ``telemetry.step``: the losses as floats, the synchronised seconds of
     the steps from ``warmup`` on and the telemetry ``data_wait`` and
     ``h2d`` seconds they booked, with the device's name and dense bf16
-    peak (None off the card), and the wall time the first step began."""
+    peak (None off the card), the wall time the first step began, and the
+    host's seconds of each step with the steps an on-demand capture
+    (``cli profile``) recorded: ``{"step_s": [...], "profiled_steps":
+    [...]}``. A step's host seconds include the card's wait whenever the
+    launch queue is full, and the capture's stop and export land in the
+    last step it recorded."""
     losses = []
     t0 = time.perf_counter()
     first_ts = time.time()
     phases = ("data_wait", "h2d")
     start = {p: _phase_cum(p) for p in phases}
+    walls = {"step_s": [], "profiled_steps": []}
     for s in range(steps):
         if s == warmup:
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             start = {p: _phase_cum(p) for p in phases}
+        prof = telemetry.profile_state()
+        if prof is not None and prof.get("status") == "active":
+            walls["profiled_steps"].append(s)
+        ts = time.perf_counter()
         with telemetry.step(flops=flops, tokens=tokens):
             losses.append(step(state, batch_of(s))["loss"])
+        walls["step_s"].append(time.perf_counter() - ts)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -299,7 +310,7 @@ def _timed_steps(state: TrainState, batch_of: Callable[[int], Any],
     peak = peak_bf16(name) if dev.type == "cuda" else None
     return ([float(x) for x in losses], dt,
             {p: _phase_cum(p) - start[p] for p in phases}, name, peak,
-            first_ts)
+            first_ts, walls)
 
 
 def _check_steps(steps: int, warmup: int) -> None:
@@ -320,7 +331,7 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
     fpt = flops_per_token(cfg, n_params, seq)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    losses, dt, wait, name, peak, first_ts = _timed_steps(
+    losses, dt, wait, name, peak, first_ts, walls = _timed_steps(
         state, batch_of, steps, warmup, dev, flops=fpt * batch * seq,
         tokens=batch * seq, step=step_fn(mesh))
     tokens_per_sec = batch * seq * (steps - warmup) / dt
@@ -337,6 +348,7 @@ def _measure_lm(state: TrainState, cfg: TransformerConfig, batch: int,
         # The parameters, moments and the steps' peak, on the card.
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
+        **walls,
     }
 
 
@@ -623,7 +635,7 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
     state = build_vision_state(kind, device, seed)
     dev = next(state.model.parameters()).device
     n_params = sum(p.numel() for p in state.model.parameters())
-    losses, dt, _, name, peak, first_ts = _timed_steps(
+    losses, dt, _, name, peak, first_ts, walls = _timed_steps(
         state, lambda s: vision_batch(kind, s, batch, image, dev, seed),
         steps, warmup, dev)
     samples_per_sec = batch * (steps - warmup) / dt
@@ -638,6 +650,7 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
         "params": n_params, "batch": batch,
         "image": image if kind == "resnet50" else 28, "steps": steps,
         "warmup": warmup, "device": name, "first_step_start_ts": first_ts,
+        **walls,
     }
 
 
