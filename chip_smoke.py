@@ -8,7 +8,7 @@ result line. Phases 7-11 run the flagship's earlier paths (and bench's
 0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
 = 4 layers: their launch counts are per layer of that depth, their rates
 and peak memory are not those of the whole model, and their labels say
-"4 of 16 layers" (24 for the 0.95B point). Phases 4 and 12-16 run all
+"4 of 16 layers" (24 for the 0.95B point). Phases 4 and 12-17 run all
 16:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
@@ -265,7 +265,31 @@ and peak memory are not those of the whole model, and their labels say
    Printed: the capture's wall time (request to ``captured:``), the
    steps' host seconds inside the capture against outside it, the trace's
    size and the ``top`` frame;
-17. prints the whole run's seconds, the kernels' JSON line (each flash
+17. the decoders' mesh layouts at world 1, over a one-rank NCCL group and
+   ``build_mesh(MeshSpec())`` (the tensor-parallel plan at tp = 1, FSDP2
+   at 1): (a) the int8 and the fp8 flagship (16 layers, dim 1024, 4 x
+   2048) trained by ``trainer.measure(..., mesh="fsdp=1")`` in alternating
+   turns with the same mode unsharded (unsharded, sharded, unsharded,
+   sharded; ``QMESH_STEPS`` steps after 2 warm ones each): every sharded
+   turn's losses within ``TOL_QMESH_REL`` of the first unsharded turn's
+   (the largest difference printed, with whether they are bit for bit),
+   7 x 16 quantized products and 16 launches of each flash kernel per step
+   in every turn, no entry in ``quant.fallback_events()``; tokens/s, step
+   ms and peak memory of each turn and the sharded / unsharded ratio of
+   tokens/s; then ``python -m tony_tpu_torch.trainer --matmul-dtype int8
+   --mesh fsdp=1 --steps 3`` as a subprocess: exit 0, finite losses, 7 x
+   16 quantized products and 16 launches of each flash kernel per step,
+   no fallback; (b) the flagship with ``tie_embeddings=True`` on the same
+   mesh against the tied flagship unsharded, with the same checks (no
+   quantized product); (c) the MoE decoder at the flagship's widths
+   (``moe_flagship_config``: 8 experts, top-2, remat on) at all 16 layers
+   from ``init_sharded_state`` with its stacked experts DTensors on the
+   mesh's ``(ep, tp)``, 3 AdamW steps against 3 unsharded steps of the
+   same weights and batches within ``TOL_MESH_REL``, the flash launches of
+   a remat step (32 forward, 16 dq, 16 dk/dv) per step, its ms per step
+   beside phase 11 (c)'s world-1 run of 4 layers. Each line carries the
+   card's name and power limit;
+18. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -347,6 +371,16 @@ TOL_SIGN_SHARE = 1e-3
 # ``TOL_ACCUM_REL``, phase 7's limit for the same split of one batch (a
 # microbatch dropped or repeated moves them by tens of percent).
 TOL_PIPE_M_REL = 1e-3
+# Phase 17 (a), (b): the quantized and the tied flagship on the world-1
+# mesh against the same mode unsharded, relative per loss. The plan at
+# tp = 1 runs the same products on the same local tensors (the quantized
+# ones through the same library calls, the amax reductions over one rank
+# copies), so the losses should agree bit for bit, as phase 10's do; the
+# limit is phase 7's for reruns of a bf16 run, so that a library kernel
+# choosing another reduction order for a view of the same tensor (or a
+# quantization level that such a change moves) fails nothing that is right.
+TOL_QMESH_REL = 1e-3
+QMESH_STEPS = 8
 # Published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core
 # FLOP/s, HBM3 bytes/s and f32 FLOP/s outside the tensor cores.
 PEAK_BF16 = 989e12
@@ -1691,13 +1725,14 @@ def phase_seq_expert(mesh_run, long_timing, card):
         log(f"seq/expert (b): {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         small_moe()
-        moe_flagship(card)
+        moe = moe_flagship(card)
         log(f"seq/expert (c): {time.perf_counter() - t1:.1f} s")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     check(not dist.is_initialized(), "the NCCL group was not torn down")
     log(f"seq/expert: {time.perf_counter() - t0:.1f} s for parts (a)-(c)")
+    return moe
 
 
 OFF_MESH_STEPS = 3
@@ -2020,13 +2055,16 @@ def moe_flagship(card):
                                             batches[s])[1]["loss"]))
     torch.cuda.synchronize()
     rel = max_rel(got, losses[:3])
-    log(f"seq/expert (c) MoE on the world-1 mesh (experts on ep): losses "
-        f"{got} against unsharded {losses[:3]}: max rel {rel:.3e}, bit for "
-        f"bit {got == losses[:3]}; {(time.perf_counter() - t1) / 3 * 1e3:.1f}"
-        f" ms/step (first step included)")
+    mesh_ms = (time.perf_counter() - t1) / 3 * 1e3
+    log(f"seq/expert (c) MoE on the world-1 mesh (experts on (ep, tp)): "
+        f"losses {got} against unsharded {losses[:3]}: max rel {rel:.3e}, "
+        f"bit for bit {got == losses[:3]}; {mesh_ms:.1f} ms/step (first "
+        f"step included)")
     check(rel <= TOL_MESH_REL, f"MoE on the mesh differs by {rel}")
     del sharded
     gc.collect()
+    return {"layers": cfg.n_layers, "mesh_ms": mesh_ms,
+            "unsharded_ms": dt * 1e3}
 
 
 # Phase 12: the orchestrator's job path on the card.
@@ -3586,6 +3624,209 @@ def phase_observers(in_process, card):
     log(f"observers: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 17: the decoders' mesh layouts on the card.
+def mesh_turns(label, cfg, card, mode=None):
+    """(a), (b): ``cfg`` trained unsharded and on the world-1 mesh in
+    alternating turns, each turn's launches checked; returns the medians
+    of tokens/s."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda, quant
+
+    want = None
+    rates = {"unsharded": [], "sharded": []}
+    steps = QMESH_STEPS + 2
+    for kind in ("unsharded", "sharded", "unsharded", "sharded"):
+        _flash_cuda.reset_launch_counts()
+        quant.reset_launch_counts()
+        gc.collect()
+        torch.cuda.empty_cache()
+        r = trainer.measure(cfg, batch=4, seq=2048, steps=steps, warmup=2,
+                            device="cuda", seed=0,
+                            mesh="fsdp=1" if kind == "sharded" else "")
+        counts = dict(_flash_cuda.launch_counts)
+        qcounts = dict(quant.launch_counts)
+        rates[kind].append(r["tokens_per_sec"])
+        log(f"mesh layouts {label} {kind}: {r['tokens_per_sec']:.1f} "
+            f"tokens/s, {r['step_ms']:.3f} ms/step, peak memory "
+            f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches "
+            f"{json.dumps(counts)}, quantized products {json.dumps(qcounts)}"
+            f"; {card}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"{label} {kind}: non-finite loss")
+        check_flash_counts(f"{label} {kind}", counts, cfg.n_layers * steps)
+        nq = 7 * cfg.n_layers * steps if mode else 0
+        check(qcounts.get(mode, 0) == nq and sum(qcounts.values()) == nq,
+              f"{label} {kind}: quantized products {qcounts}, expected {nq}")
+        check(quant.fallback_events() == {},
+              f"{label}: degraded {quant.fallback_events()}")
+        if want is None:
+            want = r["losses"]
+            continue
+        got = r["losses"]
+        rel = max_rel(got, want)
+        log(f"mesh layouts {label} {kind} losses {got}; against the first "
+            f"unsharded turn: largest difference "
+            f"{max(abs(a - b) for a, b in zip(got, want)):.3e} (relative "
+            f"{rel:.3e}), bit for bit {got == want}")
+        check(rel <= TOL_QMESH_REL,
+              f"{label} {kind} losses differ from the unsharded by {rel}")
+    medians = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"mesh layouts {label}: sharded / unsharded tokens/s "
+        f"{medians['sharded'] / medians['unsharded']:.4f} (medians of 2 "
+        f"alternating turns each; unsharded {medians['unsharded']:.1f}, "
+        f"sharded {medians['sharded']:.1f}); {card}")
+    return medians
+
+
+def quant_mesh_cli(card):
+    """(a): the trainer's command line with ``--matmul-dtype int8 --mesh
+    fsdp=1`` on the card."""
+    steps = 3
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.trainer", "--matmul-dtype",
+         "int8", "--mesh", "fsdp=1", "--steps", str(steps)],
+        env=repo_env(), cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    check(proc.returncode == 0,
+          f"trainer --matmul-dtype int8 --mesh fsdp=1 exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"mesh layouts (a) python -m tony_tpu_torch.trainer --matmul-dtype "
+        f"int8 --mesh fsdp=1 --steps {steps}: {time.perf_counter() - t0:.1f}"
+        f" s, mesh {json.dumps(out['mesh'])}, losses {out['losses']}, "
+        f"launches per step {json.dumps(out['launches_per_step'])}, "
+        f"quantized products per step {out['quantized_products_per_step']},"
+        f" fallback {out['quant_fallback']}; {card}")
+    check(all(math.isfinite(x) for x in out["losses"]),
+          "the int8 trainer on the mesh: non-finite loss")
+    check(out["mesh"] is not None, "the int8 trainer ran off the mesh")
+    check(out["quantized_products_per_step"] == 7 * 16,
+          f"the int8 trainer on the mesh ran "
+          f"{out['quantized_products_per_step']} quantized products per "
+          "step, expected 112")
+    check(out["quant_fallback"] == {},
+          f"the int8 trainer degraded: {out['quant_fallback']}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(out["launches_per_step"][name] == 16,
+              f"the int8 trainer on the mesh: {name} "
+              f"{out['launches_per_step'][name]} per step, expected 16")
+
+
+def moe_mesh_layouts(card, earlier_run):
+    """(c): the MoE decoder at the flagship's widths and all 16 layers on
+    the world-1 mesh, its experts on ``(ep, tp)``, against unsharded."""
+    from tony_tpu_torch.data import synthetic_lm_batch
+    from tony_tpu_torch.models.moe import MoETransformer
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import (MeshSpec, TrainState, adamw,
+                                         build_mesh, init_sharded_state,
+                                         sharded_train_step, train_step)
+    from tony_tpu_torch.trainer import moe_loss
+
+    cfg = moe_flagship_config()
+    steps = 3
+    batches = [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size,
+                                  device="cuda") for s in range(steps)]
+    runs = {}
+    for kind in ("unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if kind == "sharded":
+            mesh = build_mesh(MeshSpec(), "cuda")
+            state, _ = init_sharded_state(
+                lambda d: MoETransformer(cfg, device=d),
+                lambda g: adamw(g, 3e-4), mesh, seed=0)
+            gate = state.model.layers[0].moe.gate
+            check(type(gate).__name__ == "DTensor"
+                  and gate.device_mesh.mesh_dim_names[-2:] == ("ep", "tp"),
+                  "MoE experts are not DTensors on (ep, tp)")
+
+            def step(b):
+                return sharded_train_step(moe_loss, mesh, state, b)[1]
+        else:
+            model = MoETransformer(
+                cfg, device="cuda",
+                generator=torch.Generator("cuda").manual_seed(0))
+            state = TrainState(model, adamw(model.parameters(), 3e-4),
+                               moe_loss)
+
+            def step(b):
+                return train_step(state, b)
+        _flash_cuda.reset_launch_counts()
+        losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s in range(steps):
+            losses.append(float(step(batches[s])["loss"]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        counts = dict(_flash_cuda.launch_counts)
+        runs[kind] = losses
+        log(f"mesh layouts (c) MoE at the flagship's widths, "
+            f"{cfg.n_layers} layers, {kind}: losses {losses}, {ms:.1f} "
+            f"ms/step (first step included), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, flash "
+            f"launches per step "
+            f"{json.dumps({k: v / steps for k, v in counts.items()})}; "
+            f"{card}")
+        check(all(math.isfinite(x) for x in losses),
+              f"MoE {kind}: non-finite loss")
+        for name, n in flash_launches_per_step(cfg).items():
+            check(counts[name] == n * steps, f"MoE {kind}: {name} launched "
+                  f"{counts[name]} times, expected {n} per step")
+        del state, step
+    rel = max_rel(runs["sharded"], runs["unsharded"])
+    log(f"mesh layouts (c) MoE on the world-1 mesh against unsharded: max "
+        f"rel {rel:.3e}, bit for bit {runs['sharded'] == runs['unsharded']};"
+        f" phase 11 (c) at {earlier_run['layers']} layers: "
+        f"{earlier_run['mesh_ms']:.1f} ms/step on the mesh, "
+        f"{earlier_run['unsharded_ms']:.1f} unsharded")
+    check(rel <= TOL_MESH_REL, f"MoE on the mesh differs by {rel}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_mesh_layouts(card, moe_run):
+    """Phase 17: the quantized, the tied and the MoE decoder on the
+    world-1 mesh."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import quant
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-layouts-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        rates = {}
+        for mode in quant.MODES:
+            rates[mode] = mesh_turns(f"(a) flagship {mode}",
+                                     trainer.flagship_config(2048, mode),
+                                     card, mode)
+        log(f"mesh layouts (a): {time.perf_counter() - t0:.1f} s")
+        quant_mesh_cli(card)
+        t1 = time.perf_counter()
+        tied = dataclasses.replace(trainer.flagship_config(2048),
+                                   tie_embeddings=True)
+        mesh_turns("(b) flagship tied", tied, card)
+        log(f"mesh layouts (b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        moe_mesh_layouts(card, moe_run)
+        log(f"mesh layouts (c): {time.perf_counter() - t1:.1f} s")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"mesh layouts: {time.perf_counter() - t0:.1f} s for parts (a)-(c)"
+        f"; {card}")
+    return rates
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -3611,12 +3852,13 @@ def main():
             for shape, r in long_timing.items()}
     phase_quant()
     mesh_run = phase_mesh(card)
-    phase_seq_expert(mesh_run, long_timing, card)
+    moe_run = phase_seq_expert(mesh_run, long_timing, card)
     cold = phase_orchestrator(main_run["tokens_per_sec"])
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
     want = phase_failures(card)
     phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
     phase_observers(main_run, card)
+    phase_mesh_layouts(card, moe_run)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

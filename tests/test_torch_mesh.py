@@ -193,12 +193,25 @@ def test_tp_plan_follows_the_rules():
     (dict(n_heads=4, n_kv_heads=1), 2, ValueError, "n_kv_heads"),
     (dict(mlp_dim=129), 2, ValueError, "mlp_dim"),
     (dict(vocab_size=255), 2, ValueError, "vocab_size"),
-    (dict(tie_embeddings=True), 1, NotImplementedError, "tie_embeddings"),
-    (dict(matmul_dtype="int8"), 2, NotImplementedError, "matmul_dtype"),
+    (dict(tie_embeddings=True), 1, None, "tie_embeddings"),
+    (dict(matmul_dtype="int8"), 2, None, "matmul_dtype"),
 ])
 def test_tp_knob_checks_name_the_knob(kw, tp, err, match):
-    with pytest.raises(err, match=match):
-        tsh.tp_plan(ttf.TransformerConfig.tiny(**kw), tp)
+    """Widths that tp does not divide raise, naming the knob; a tied head
+    and quantized projections take the plan (``err`` None): the tied one
+    without an ``lm_head`` entry (it reads the vocab-sharded table), the
+    quantized one with the bf16 plan's styles."""
+    cfg = ttf.TransformerConfig.tiny(**kw)
+    if err is not None:
+        with pytest.raises(err, match=match):
+            tsh.tp_plan(cfg, tp)
+        return
+    plan = tsh.tp_plan(cfg, tp)
+    want = tsh.tp_plan(ttf.TransformerConfig.tiny(), tp)
+    if cfg.tie_embeddings:
+        del want["lm_head"]
+    assert {k: type(v) for k, v in plan.items()} == \
+        {k: type(v) for k, v in want.items()}
 
 
 def test_build_mesh_refuses_without_group_or_card():
@@ -219,8 +232,11 @@ def test_build_mesh_refuses_without_group_or_card():
 
 
 def test_sharding_later_axes_refused():
-    """pp > 1 (the pipeline slice) and the MoE decoder under tp > 1 (no plan
-    for the stacked experts) raise, naming the knob."""
+    """pp > 1 (the pipeline slice) raises, naming the knob; the MoE decoder
+    under tp > 1 takes the attention's styles and its stacked experts'
+    ``mlp`` dim over tp."""
+    from torch.distributed.tensor import Shard
+
     from tony_tpu_torch.models.moe import MoEConfig, MoETransformer
 
     dist.init_process_group("fake", store=FakeStore(), rank=0,
@@ -231,9 +247,16 @@ def test_sharding_later_axes_refused():
             tsh.shard_model(ttf.Transformer(ttf.TransformerConfig.tiny(),
                                             device="meta"), m)
         m = tmesh.build_mesh(tmesh.MeshSpec(tp=2, dp=1), "cpu")
-        with pytest.raises(NotImplementedError, match="tp"):
-            tsh.shard_model(MoETransformer(MoEConfig.tiny_moe(),
-                                           device="meta"), m)
+        cfg = MoEConfig.tiny_moe()
+        moe = MoETransformer(cfg, device="meta")
+        placed = tsh.shard_model(moe, m)
+        block = moe.layers[0]
+        assert block.attn.wq.weight.to_local().shape[0] == cfg.dim // 2
+        assert block.moe.gate.placements[-1] == Shard(2)
+        assert block.moe.down.placements[-1] == Shard(1)
+        assert placed["layers.0.moe.up"].local_shape == (
+            cfg.n_experts, cfg.dim, cfg.mlp_dim // 2)
+        assert block.moe.tp_group is not None
     finally:
         dist.destroy_process_group()
 
@@ -246,14 +269,22 @@ def _measure(cfg, **kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {}, dict(chunked=True, loss_chunk=8), dict(mu_dtype=torch.bfloat16)],
-    ids=["adamw", "chunked", "bf16_mu"])
+    {}, dict(chunked=True, loss_chunk=8), dict(mu_dtype=torch.bfloat16),
+    dict(cfg=dict(matmul_dtype="int8")),
+    dict(cfg=dict(matmul_dtype="fp8_e4m3")),
+    dict(cfg=dict(tie_embeddings=True)),
+    dict(cfg=dict(tie_embeddings=True), chunked=True, loss_chunk=8)],
+    ids=["adamw", "chunked", "bf16_mu", "int8", "fp8", "tied",
+         "tied_chunked"])
 def test_world1_mesh_trains_as_unsharded(kw):
     """``measure(mesh="fsdp=1")`` with no group up: a one-rank gloo group
     for the call, the tensor-parallel plan and FSDP2 on a mesh of ones, and
     the same losses as the unsharded run, bit for bit (AdamW, the chunked
-    loss inside the forward, AdamW with a bf16 first moment)."""
-    cfg = ttf.TransformerConfig.tiny(max_seq_len=32)
+    loss inside the forward, AdamW with a bf16 first moment; the int8 and
+    fp8 projections and the tied head, its chunked loss too, under the
+    plan)."""
+    kw = dict(kw)
+    cfg = ttf.TransformerConfig.tiny(max_seq_len=32, **kw.pop("cfg", {}))
     plain = _measure(cfg, **kw)
     sharded = _measure(cfg, mesh="fsdp=1", **kw)
     assert not dist.is_initialized()

@@ -454,14 +454,29 @@ def _rules_init(cfg, key):
     (dict(tp=2, dp=1), "tp"), (dict(sp=2, dp=1), "sp"),
     (dict(pp=2, dp=1), "pp")])
 def test_moe_mesh_refusals_name_the_knob(spec, knob):
+    """pp > 1 is refused, naming the knob. tp and sp take the MoE decoder:
+    at tp = 2 its experts are DTensors on ``(ep, tp)``, at sp = 2 (ring
+    attention) every block and the root hold the sp group (sp with ep > 1,
+    refused, is ``tests/test_torch_moe_layouts.py``'s)."""
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=2)
     try:
         mesh = tmesh.build_mesh(tmesh.MeshSpec(**spec), "cpu")
-        model = tmoe.MoETransformer(tmoe.MoEConfig.tiny_moe(),
-                                    device="meta")
-        with pytest.raises(NotImplementedError, match=f"{knob}=2"):
-            tsh.shard_model(model, mesh)
+        model = tmoe.MoETransformer(
+            tmoe.MoEConfig.tiny_moe(attn_impl="ring" if knob == "sp"
+                                    else "flash"), device="meta")
+        if knob == "pp":
+            with pytest.raises(NotImplementedError, match=f"{knob}=2"):
+                tsh.shard_model(model, mesh)
+            return
+        tsh.shard_model(model, mesh)
+        moe = model.layers[0].moe
+        assert moe.gate.device_mesh.mesh_dim_names[-2:] == ("ep", "tp")
+        group = moe.tp_group if knob == "tp" else moe.sp_group
+        assert dist.get_world_size(group) == 2
+        if knob == "sp":
+            assert model.sp_group is moe.sp_group
+            assert model.layers[0].attn.sp_group is moe.sp_group
     finally:
         dist.destroy_process_group()
 

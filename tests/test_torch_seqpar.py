@@ -4,7 +4,7 @@ sharded step on an ``sp`` mesh) against ``tony_tpu``'s ring and Ulysses.
 
 In this process:
 
-- ``_comm``'s four functions on a one-rank fake group (identities, forward
+- ``_comm``'s five functions on a one-rank fake group (identities, forward
   and backward);
 - the ring's ``_hop``/``_merge`` driven through n virtual shards (each
   shard's Q against the K/V chunks in the order the ring delivers them,
@@ -379,9 +379,10 @@ def fake_world1():
     lambda x, g: _comm.ppermute(x, g),
     lambda x, g: _comm.all_to_all_tiled(x, g, 1, 0),
     lambda x, g: _comm.split_to_group(x, g, 0),
-    lambda x, g: _comm.gather_from_group(x, g, 1)],
+    lambda x, g: _comm.gather_from_group(x, g, 1),
+    lambda x, g: _comm.reduce_from_group(x, g)],
     ids=["ppermute", "all_to_all_tiled", "split_to_group",
-         "gather_from_group"])
+         "gather_from_group", "reduce_from_group"])
 def test_comm_world1_is_identity(fake_world1, fn):
     x = torch.randn(4, 6, generator=torch.Generator().manual_seed(0),
                     requires_grad=True)

@@ -42,9 +42,40 @@ Counterpart of ``tony_tpu/models/moe.py``: the GShard/Switch dense dispatch.
   global batch's: the two fractions are averaged over the batch axes before
   the product, through an all-reduce whose backward sums, so that the
   gradient FSDP averages over the batch is the reference's.
+- **tp > 1.** The experts' ``mlp`` dim is split over tp (``gate``/``up``
+  ``[E/ep, D, F/tp]``, ``down`` ``[E/ep, F/tp, D]``, DTensors on the mesh's
+  ``(ep, tp)``): each tp rank runs the FFN on its F/tp slice of every
+  resident expert, and its ``down`` product, a partial sum over tp, is
+  all-reduced before the ep return trip and the combine
+  (``_comm.reduce_from_group``). The slots going in are the same on every
+  tp rank and their gradient a partial sum, which
+  ``_comm.sum_grad_over_group`` all-reduces. Routing is tp's business
+  nowhere: every tp rank routes the same tokens alike. The attention takes
+  the dense decoder's tensor-parallel styles.
+- **sp > 1 (ep = 1).** The reference runs this layout as the dense
+  decoder's: the whole model inside a full-manual ``shard_map`` over
+  ``P(batch, "sp")``, so every (batch shard, sp shard) routes **its own
+  tokens as one group**, its capacity ``C = ceil(k·T_local/E·cf)`` from
+  that local count, and its aux loss is the shard's own. That is not the
+  grouping above, where GSPMD routes the global batch as one group; the
+  port takes the local one whenever the layer has an sp group of more than
+  one rank (``_local_groups``). The train loss then adds ``aux_weight``
+  times **the mean of the shards' aux values** (over the batch shards and
+  the sp shards alike) to the cross-entropy of the gathered logits: the
+  reference's ``shard_map`` returns each shard's aux, and the mean is what
+  one loss over the global batch makes of them. Each rank computes that
+  mean from every shard's value (gathered over sp, whose backward hands
+  each rank its own slice; averaged over the batch axes by an all-reduce
+  whose backward sums), so that after the train step sums the gradients
+  over sp and FSDP averages them over the batch, each shard's aux has
+  weight ``aux_weight / (shards)``, as in the mean.
+  (sp together with ep > 1 is a layout the reference fails to lower:
+  ``parallel/sharding.py`` refuses it.)
 
 ``MoETransformer`` returns ``(logits f32, aux averaged over layers)``;
-``moe_lm_loss`` adds ``aux_weight · aux`` to the cross-entropy.
+``moe_lm_loss`` adds ``aux_weight · aux`` to the cross-entropy. It builds
+its untied ``lm_head`` whatever ``tie_embeddings`` says, as the reference's
+``MoETransformer`` does (it never reads the flag).
 """
 
 from __future__ import annotations
@@ -188,10 +219,11 @@ def _batch_mean(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
 
 class MoEMLP(nn.Module):
     """Top-k routed expert FFN (gated-silu experts, like the dense MLP).
-    ``forward(x [B, S, D]) → (out [B, S, D], aux)``. ``ep_group`` and
-    ``batch_groups`` (the batch axes' groups of size > 1, major first) are
-    set by ``parallel/sharding.py:shard_model``; off a mesh they are None
-    and ()."""
+    ``forward(x [B, S, D]) → (out [B, S, D], aux)``. ``ep_group``,
+    ``tp_group``, ``sp_group`` and ``batch_groups`` (the batch axes' groups
+    of size > 1, major first) are set by
+    ``parallel/sharding.py:shard_model``; off a mesh they are None and
+    ()."""
 
     def __init__(self, cfg: MoEConfig, device: torch.device):
         super().__init__()
@@ -206,7 +238,14 @@ class MoEMLP(nn.Module):
         self.up = stacked(e, d, f)
         self.down = stacked(e, f, d)
         self.ep_group = None
+        self.tp_group = None
+        self.sp_group = None
         self.batch_groups: Tuple[Any, ...] = ()
+
+    def _local_groups(self) -> bool:
+        """Whether each rank routes its own tokens as one group (an sp
+        group of more than one rank: module docstring)."""
+        return _comm.group_size(self.sp_group) > 1
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
@@ -218,7 +257,8 @@ class MoEMLP(nn.Module):
         return out.reshape(b, s, d), self._aux(probs)
 
     def _routed(self, xt: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
-        cfg, ep, groups = self.cfg, self.ep_group, self.batch_groups
+        cfg, ep, tp = self.cfg, self.ep_group, self.tp_group
+        groups = () if self._local_groups() else self.batch_groups
         e, k = cfg.n_experts, cfg.top_k
         n_ep, j = _comm.group_size(ep), _comm.group_rank(ep)
         t = xt.shape[0]
@@ -247,10 +287,13 @@ class MoEMLP(nn.Module):
         expert_in = (dispatch.T @ xt.to(cfg.dtype)).view(e, cap, -1)
         # Each expert's slots to its owner: [E, C, D] → [E/ep, ep·C, D].
         expert_in = _comm.all_to_all_tiled(expert_in, ep, 0, 1)
+        # This rank's F/tp slice of its experts: the slots' gradient is a
+        # partial sum over tp, the down product's output too.
+        expert_in = _comm.sum_grad_over_group(expert_in, tp)
         w_gate, w_up, w_down = (_local(w).to(cfg.dtype)
                                 for w in (self.gate, self.up, self.down))
         h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
-        expert_out = torch.bmm(h, w_down)
+        expert_out = _comm.reduce_from_group(torch.bmm(h, w_down), tp)
         # The results back, slot-major: [E/ep, ep·C, D] → [E, C, D].
         expert_out = _comm.all_to_all_tiled(expert_out, ep, 1, 0)
         out = combine @ expert_out.reshape(e * cap, -1)
@@ -258,9 +301,14 @@ class MoEMLP(nn.Module):
 
     def _aux(self, probs: torch.Tensor) -> torch.Tensor:
         """Switch's E · Σ_e (token fraction to e) · (mean router prob), over
-        the global batch."""
+        the global batch; with local groups, the mean of every shard's own
+        (module docstring)."""
         e = self.cfg.n_experts
         token_frac = F.one_hot(probs.argmax(-1), e).float().mean(0)
+        if self._local_groups():
+            aux = e * (token_frac * probs.mean(0)).sum()
+            aux = _comm.gather_from_group(aux[None], self.sp_group, 0).mean()
+            return _batch_mean(aux, self.batch_groups)
         token_frac = _batch_mean(token_frac, self.batch_groups)
         prob_frac = _batch_mean(probs.mean(0), self.batch_groups)
         return e * (token_frac * prob_frac).sum()
@@ -286,7 +334,11 @@ class MoETransformer(nn.Module):
     """Causal LM with routed-expert FFNs: tokens [B, S] → (logits [B, S,
     vocab] f32, aux loss). Made on ``device`` from ``generator`` as
     ``Transformer`` is (``"meta"`` draws nothing); the LM head runs in
-    f32, as the reference's."""
+    f32, as the reference's, and is untied whatever ``tie_embeddings``
+    says (the reference's never reads the flag). On a mesh with an ``sp``
+    axis (``sp_group``, set by ``shard_model``) each rank runs its sequence
+    chunk at its global positions and the logits are gathered over the
+    group, as ``Transformer`` does."""
 
     # The table is a plain ("vocab", "embed") parameter here
     # (tony_tpu/models/moe.py:204), not the dense decoder's embedding table.
@@ -297,8 +349,6 @@ class MoETransformer(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         _check_supported(cfg)
-        if cfg.tie_embeddings:
-            raise NotImplementedError("tie_embeddings in the MoE decoder")
         meta = torch.device(device).type == "meta"
         dev = torch.device("meta") if meta else resolve_device(device)
         self.cfg = cfg
@@ -310,6 +360,7 @@ class MoETransformer(nn.Module):
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.param_dtype, dev)
         self.lm_head = Dense(cfg.dim, cfg.vocab_size, torch.float32,
                              cfg.param_dtype, dev)
+        self.sp_group = None        # the mesh's sp group (shard_model)
         if not meta:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
@@ -339,6 +390,10 @@ class MoETransformer(nn.Module):
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device).expand(
                                          tokens.shape)
+        sp = self.sp_group
+        # This rank's sequence chunk, at its global positions.
+        tokens = _comm.split_to_group(tokens, sp, 1)
+        positions = _comm.split_to_group(positions, sp, 1)
         x = self.lookup(tokens, self.embedding).to(cfg.dtype)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
@@ -348,8 +403,9 @@ class MoETransformer(nn.Module):
                 x, aux = blk(x, positions)
             aux_total = aux_total + aux
         x = self.final_norm(x)
-        logits = self.lm_head(x.float())
-        return logits.float(), aux_total / cfg.n_layers
+        logits = self.lm_head(x.float()).float()
+        return _comm.gather_from_group(logits, sp, 1), \
+            aux_total / cfg.n_layers
 
 
 def moe_lm_loss(model_out: Tuple[torch.Tensor, torch.Tensor],

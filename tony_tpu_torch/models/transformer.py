@@ -21,6 +21,10 @@ the same places:
 - ``matmul_dtype`` ("int8" | "fp8_e4m3") sends the seven attention and MLP
   projections through ``ops/quant.py``'s quantized product (the embedding
   and the LM head stay unquantized); None is the bf16 path, bit for bit.
+  Under a tensor-parallel plan the product takes the plan's local shards,
+  with its scales over the whole contraction dim (``Dense``);
+- ``tie_embeddings`` reads the embedding table as the head
+  (``tied_logits``), under a tensor-parallel plan too.
 
 Module names follow the flax tree (``embedding``, ``layers.{i}.attn.wq``,
 ``layers.{i}.mlp.gate``, ``*_norm.scale``, ``lm_head``) so weights convert
@@ -54,6 +58,7 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
@@ -140,7 +145,11 @@ class Dense(nn.Linear):
 
     An ``nn.Linear`` (``bias`` None) so that torch's ``ColwiseParallel`` and
     ``RowwiseParallel`` take it; ``nn.Linear.__init__`` is skipped because
-    its ``reset_parameters`` would draw from the global generator."""
+    its ``reset_parameters`` would draw from the global generator. Under
+    such a style the input and the weight are the plan's DTensors; the
+    quantized product then runs on their local shards
+    (``quant.quantized_matmul``), the layer's style read from the
+    weight's placement (``Shard(0)``: colwise, ``Shard(1)``: rowwise)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, param_dtype: torch.dtype,
@@ -161,9 +170,38 @@ class Dense(nn.Linear):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         mode = self.matmul_dtype and quant.resolve_mode(self.matmul_dtype,
                                                         x.device)
-        if mode:
-            return quant.quantized_matmul(x, w, mode)
-        return F.linear(x, w)
+        if not mode:
+            return F.linear(x, w)
+        if isinstance(w, DTensor):
+            return _quantized_on_plan(x, w, mode)
+        return quant.quantized_matmul(x, w, mode)
+
+
+def _quantized_on_plan(x: DTensor, w: DTensor, mode: str) -> DTensor:
+    """A ``Dense``'s quantized product under a tensor-parallel style: the
+    local shards through ``quant.quantized_matmul``, the result handed
+    back as the DTensor the style's output hook expects. Colwise (the
+    weight ``Shard(0)``, the input ``Replicate``): this rank's output
+    columns, ``Shard(-1)``; the input's gradient is a partial sum over tp,
+    so its local view is taken with ``grad_placements=[Partial()]`` and the
+    style's input hook all-reduces it (``to_local()`` would call the
+    gradient replicated and drop the other ranks' parts). Rowwise (the
+    weight ``Shard(1)``, the input ``Shard(-1)``): the whole output,
+    reduced inside the product, ``Replicate``."""
+    mesh = w.device_mesh
+    (placement,) = w.placements
+    if placement == Shard(1):
+        out = quant.quantized_matmul(x.to_local(), w.to_local(), mode,
+                                     mesh.get_group())
+        return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+    if placement != Shard(0):
+        raise NotImplementedError(
+            f"a quantized projection with its weight laid out as "
+            f"{w.placements}: the plan splits it on one of its two dims")
+    out = quant.quantized_matmul(x.to_local(grad_placements=[Partial()]),
+                                 w.to_local(), mode)
+    return DTensor.from_local(out, mesh, [Shard(out.ndim - 1)],
+                              run_check=False)
 
 
 class TableLookup(nn.Module):
@@ -372,38 +410,58 @@ class Transformer(nn.Module):
         head_dtype = cfg.lm_head_dtype or cfg.dtype
         if loss_chunk is not None:
             if cfg.tie_embeddings:
-                return chunked_causal_lm_loss(x, self.embedding.T, tokens,
-                                              loss_chunk,
-                                              head_dtype=head_dtype)
+                # The table read at each chunk's call, also in the
+                # recompute: the chunked loss of chunked_causal_lm_loss.
+                return _chunked_nll(
+                    x, lambda xc: tied_logits(xc, self.embedding,
+                                              head_dtype, f32=False),
+                    tokens, loss_chunk, None)
             return _chunked_nll(x, self.lm_head, tokens, loss_chunk, None)
         if cfg.tie_embeddings:
-            # The reference accumulates this product in f32.
-            logits = torch.matmul(x.to(head_dtype).float(),
-                                  self.embedding.to(head_dtype).float().T)
+            logits = tied_logits(x, self.embedding, head_dtype)
         else:
             logits = self.lm_head(x.to(head_dtype))
         return logits.float()
 
 
+def tied_logits(x: torch.Tensor, table: torch.Tensor, head_dtype: torch.dtype,
+                f32: bool = True) -> torch.Tensor:
+    """The tied head ``x · tableᵀ``, both cast to ``head_dtype``; with
+    ``f32`` the product is taken in f32, as the reference accumulates it
+    (``preferred_element_type=f32``), else in ``head_dtype`` (the chunked
+    loss's product). Under a tensor-parallel plan the table is the
+    DTensor ``VocabParallelTable`` made (its vocab rows ``Shard(0)`` over
+    tp): ``x`` joins it as a replicated DTensor, each rank takes the
+    logits of its own rows, and they are gathered over tp as the untied
+    head's ``ColwiseParallel(output_layouts=Replicate())`` gathers them.
+    The table's gradient stays ``Shard(0)``, beside its lookup's; ``x``'s,
+    a partial sum over tp, is all-reduced by ``from_local``'s backward."""
+    if isinstance(table, DTensor):
+        mesh = table.device_mesh
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    x, table = x.to(head_dtype), table.to(head_dtype)
+    if f32:
+        x, table = x.float(), table.float()
+    logits = torch.matmul(x, table.T)
+    if isinstance(logits, DTensor):
+        logits = logits.redistribute(
+            logits.device_mesh, [Replicate()] * logits.device_mesh.ndim
+        ).to_local()
+    return logits
+
+
 def check_tensor_parallel(cfg: TransformerConfig, tp: int) -> None:
     """Raise unless ``cfg`` runs under a tensor-parallel plan over ``tp``
     ranks: every split width a multiple of tp (each rank keeps whole
-    heads, and the GQA groups stay whole with n_kv_heads % tp == 0), an
-    untied head, bf16/f32 projections."""
+    heads, and the GQA groups stay whole with n_kv_heads % tp == 0). A tied
+    head and quantized projections run under any tp (``tied_logits``,
+    ``Dense``)."""
     for knob in ("n_heads", "n_kv_heads", "mlp_dim", "vocab_size"):
         if getattr(cfg, knob) % tp:
             raise ValueError(
                 f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
                 f"mesh's tp ({tp})")
-    if cfg.tie_embeddings:
-        raise NotImplementedError(
-            "tie_embeddings under a tensor-parallel plan: the tied head "
-            "reads the vocab-sharded table outside the plan's styles")
-    if cfg.matmul_dtype:
-        raise NotImplementedError(
-            f"matmul_dtype={cfg.matmul_dtype!r} under a tensor-parallel "
-            "plan: the quantized projections take plain tensors, not the "
-            "plan's DTensors")
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,

@@ -33,6 +33,30 @@ MLP projections; the embedding and the LM head stay unquantized.
 The weight layout is the port's ``[out, in]`` (``Linear``), so the
 reference's per-output-channel ``axis=0`` over its ``[in, out]`` kernel is
 ``axis=-1`` here.
+
+**On a tensor-parallel shard** (``quantized_matmul`` with the tp group,
+which ``models/transformer.py``'s ``Dense`` calls under the plan of
+``parallel/sharding.py``) the operands are this rank's local shards, and
+the result is the one GSPMD gives the reference on the same mesh: scales
+over the whole contraction dim, wherever tp splits it.
+
+- **Colwise** (``wq``, ``wk``, ``wv``, ``gate``, ``up``): the weight is
+  split on its output dim, so each rank holds whole rows of the
+  contraction: the local product is the unsharded one, column by column.
+  Its dx is a partial sum over tp (each rank contracts its own output
+  columns); the caller marks it so (``to_local(grad_placements=
+  [Partial()])``) and the plan's input hook all-reduces it.
+- **Rowwise** (``wo``, ``down``): the activation and the weight are both
+  split on the contraction dim. The activation's per-row amax and the
+  weight's per-output-channel amax are all-reduced (MAX) over tp before the
+  scales are formed: a shard that took its own amax would quantize with
+  another scale and miss the reference. The accumulator (int32 for int8,
+  f32 for fp8) is summed over tp FIRST, and only then multiplied by the
+  row scales and the channel scales, in the reference's order. An int32
+  sum is exact, so the int8 output is the unsharded one bit for bit;
+  scaling each shard before the sum would round each partial product on
+  its own and lose that. dx and dw are the local shards of the
+  straight-through gradients, with no collective.
 """
 
 from __future__ import annotations
@@ -43,6 +67,7 @@ import threading
 from typing import Dict, Optional, Union
 
 import torch
+import torch.distributed as dist
 
 log = logging.getLogger(__name__)
 
@@ -142,13 +167,22 @@ def quantize_symmetric(x: torch.Tensor, mode: str, axis: int):
     """Per-channel symmetric quantization along ``axis`` (the contraction
     dim): ``(q, scale)`` with ``q * scale ~= x`` and ``scale`` f32 keeping
     dims."""
+    return _quantize(x, _amax(x, axis), mode)
+
+
+def _amax(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """The f32 absolute maximum along ``axis``, dims kept."""
+    return x.float().abs().amax(dim=axis, keepdim=True)
+
+
+def _quantize(x: torch.Tensor, amax: torch.Tensor, mode: str):
+    """``(q, scale)`` of ``x`` against ``amax`` (``quantize_symmetric``'s
+    rounding; the amax may come from a larger tensor than ``x``)."""
     qmax = _INT8_MAX if mode == INT8 else _FP8_E4M3_MAX
-    xf = x.float()
-    amax = xf.abs().amax(dim=axis, keepdim=True)
     # A tensor divisor: CUDA divides by a Python scalar as a multiply by
     # its reciprocal, one ulp away from the reference's division.
     scale = amax.clamp_min(_EPS) / amax.new_full((), qmax)
-    y = xf / scale
+    y = x.float() / scale
     if mode == INT8:
         q = torch.clamp(torch.round(y), -_INT8_MAX, _INT8_MAX).to(torch.int8)
     else:
@@ -187,15 +221,32 @@ def _product(qx: torch.Tensor, qw: torch.Tensor, mode: str) -> torch.Tensor:
     return product_library(qx, qw, mode)
 
 
-def _qmm_forward(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+def _split(group: Optional[object]) -> bool:
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def _qmm_forward(x: torch.Tensor, w: torch.Tensor, mode: str,
+                 group: Optional[object] = None) -> torch.Tensor:
     """The quantized contraction ``x [..., K] @ w [N, K]ᵀ`` with per-row /
-    per-output-channel scales."""
-    qx, sx = quantize_symmetric(x, mode, axis=-1)       # sx [..., 1]
-    qw, sw = quantize_symmetric(w, mode, axis=-1)       # sw [N, 1]
+    per-output-channel scales. With ``group``, K is split over its ranks
+    and ``x``, ``w`` are this rank's shards of it: the amaxes are
+    all-reduced (MAX) and the accumulator summed over the group before the
+    scales apply (module docstring)."""
     n, k = w.shape
+    ax, aw = _amax(x, -1), _amax(w, -1)                 # [..., 1], [N, 1]
+    split = _split(group)
+    if split:
+        both = torch.cat([ax.reshape(-1), aw.reshape(-1)])
+        dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
+        ax = both[:ax.numel()].view_as(ax)
+        aw = both[ax.numel():].view_as(aw)
+    qx, sx = _quantize(x, ax, mode)
+    qw, sw = _quantize(w, aw, mode)
     acc = _product(qx.reshape(-1, k), qw, mode)
     if x.is_cuda:
         launch_counts[mode] += 1
+    if split:
+        dist.all_reduce(acc, group=group)
     acc = acc.float().reshape(*x.shape[:-1], n)
     out = acc * sx * sw.reshape(n)
     return out.to(x.dtype)
@@ -204,9 +255,9 @@ def _qmm_forward(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
 class _QuantizedMatmul(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, w, mode):
+    def forward(ctx, x, w, mode, group):
         ctx.save_for_backward(x, w)
-        return _qmm_forward(x, w, mode)
+        return _qmm_forward(x, w, mode, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -214,11 +265,19 @@ class _QuantizedMatmul(torch.autograd.Function):
         g = g.to(x.dtype)
         dx = g @ w                                       # [..., K]
         dw = g.reshape(-1, g.shape[-1]).t() @ x.reshape(-1, x.shape[-1])
-        return dx.to(x.dtype), dw.to(w.dtype), None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
 
 
-def quantized_matmul(x: torch.Tensor, w: torch.Tensor,
-                     mode: str) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, w: torch.Tensor, mode: str,
+                     group: Optional[object] = None) -> torch.Tensor:
     """``x @ w.T`` (``w`` is ``[out, in]``) through the quantized path;
-    gradients are the exact full-precision ones (straight-through)."""
-    return _QuantizedMatmul.apply(x, w, mode)
+    gradients are the exact full-precision ones (straight-through).
+
+    On a tensor-parallel shard ``x`` and ``w`` are this rank's local
+    operands. ``group`` is the tp group of a rowwise layer (``w`` split on
+    its input dim, ``x`` on its last): the amaxes and the accumulator are
+    reduced over it and every rank returns the whole output. A colwise
+    layer (``w`` split on its output dim, ``x`` whole) passes none: its
+    local product is this rank's output columns, and its dx a partial sum
+    over tp, which the caller reduces (module docstring)."""
+    return _QuantizedMatmul.apply(x, w, mode, group)

@@ -28,6 +28,10 @@ collectives have no autograd, so each one the port needs is a
   of every rank of the group summed (what JAX's transpose gives a value
   every rank holds alike but only some use: the pipeline's embedded
   tokens, which only stage 0 injects);
+- ``reduce_from_group(x, group)``: the sum of every rank's ``x``;
+  backward: the identity (each rank holds a partial sum of a value that
+  every rank then uses alike, as a tensor-parallel product's output split
+  on its contraction dim: each rank's cotangent is already the whole one);
 - ``broadcast_from_group(x, group, src)``: every rank leaves with group
   rank ``src``'s ``x``; backward: ``src`` keeps its gradient, the others
   get zeros (every rank takes the same loss from the broadcast value, so
@@ -200,6 +204,26 @@ def sum_grad_over_group(x: torch.Tensor,
     if group_size(group) == 1:
         return x
     return _SumGrad.apply(x, group)
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_group(x: torch.Tensor,
+                      group: Optional[Any]) -> torch.Tensor:
+    """The sum of the ranks' ``x``; the gradient passes to each unchanged."""
+    if group_size(group) == 1:
+        return x
+    return _Reduce.apply(x, group)
 
 
 class _Broadcast(torch.autograd.Function):

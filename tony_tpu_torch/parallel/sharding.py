@@ -20,9 +20,12 @@ into what torch runs:
   the reference's multislice design. The FSDP2 mesh is then a plain slice
   of the mesh (``("dp", "fsdp")``), so no private ``DeviceMesh._flatten`` is
   needed;
-- ``ep`` on the MoE decoder's stacked experts (``expert`` → ep) → the
-  weights become DTensors ``Shard(0)`` on the mesh's ep axis, which FSDP2
-  then shards over fsdp on their ``embed`` dim like every other weight;
+- ``ep`` and ``tp`` on the MoE decoder's stacked experts (``expert`` → ep,
+  ``mlp`` → tp) → the weights become DTensors on the mesh's ``(ep, tp)``
+  axes (``gate``/``up`` ``[Shard(0), Shard(2)]``, ``down`` ``[Shard(0),
+  Shard(1)]``), which FSDP2 then shards over fsdp on their ``embed`` dim
+  like every other weight; its attention takes the dense decoder's styles,
+  its router stays replicated;
 - ``sp``: no parameter names it (parameters stay replicated over sp, as in
   the reference); the model gets the sp group, over which its attention
   runs (ring or Ulysses) and the train step sums the gradients.
@@ -206,13 +209,19 @@ def tp_plan(cfg, tp: int = 1,
             rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
             ) -> Dict[str, ParallelStyle]:
     """The tensor-parallel plan that ``rules`` imply for a ``Transformer``
-    of ``cfg`` over ``tp`` ranks: module name ("" is the root) → style.
-    With the default rules: ``wq``/``wk``/``wv``/``gate``/``up`` colwise,
-    ``wo``/``down`` rowwise, ``lm_head`` colwise over the vocab with its
-    logits gathered, and the table's rows over tp."""
+    (or, for a ``MoEConfig``, an ``MoETransformer``) of ``cfg`` over ``tp``
+    ranks: module name ("" is the root) → style. With the default rules:
+    ``wq``/``wk``/``wv``/``gate``/``up`` colwise, ``wo``/``down`` rowwise,
+    ``lm_head`` colwise over the vocab with its logits gathered, and the
+    table's rows over tp. A tied head has no ``lm_head``: it reads the
+    table. The MoE decoder's blocks take the attention's styles only (its
+    stacked experts are laid out by ``shard_model``), and it always has its
+    ``lm_head``, tied flag or not, as the reference's."""
+    from tony_tpu_torch.models.moe import MoEConfig
     from tony_tpu_torch.models.transformer import check_tensor_parallel
 
     check_tensor_parallel(cfg, tp)
+    moe = isinstance(cfg, MoEConfig)
 
     def tp_dim(logical):
         dims = mesh_axes(logical, rules)
@@ -227,12 +236,16 @@ def tp_plan(cfg, tp: int = 1,
                                   "its embed dim")
     for i in range(cfg.n_layers):
         for sub, names in _MODULE_OF.items():
+            if moe and sub != "attn":
+                continue
             for n in names:
                 d = tp_dim(PARAM_AXES[f"{sub}.{n}.weight"])
                 if d is not None:
                     plan[f"layers.{i}.{sub}.{n}"] = (
                         ColwiseParallel() if d == 0 else RowwiseParallel())
     d = tp_dim(PARAM_AXES["lm_head.weight"])
+    if cfg.tie_embeddings and not moe:
+        d = None
     if d == 0:
         plan["lm_head"] = ColwiseParallel(output_layouts=Replicate())
     elif d is not None:
@@ -261,20 +274,23 @@ def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
 
 def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
                         placements: Mapping[str, Placement]) -> None:
-    """Each stacked expert weight of the MoE decoder becomes a DTensor
-    sharded over ``ep`` on the dim its rules give it (``expert``: dim 0).
-    On the meta device nothing is allocated."""
+    """Each stacked expert weight of the MoE decoder becomes a DTensor on
+    the mesh's ``(ep, tp)`` axes, sharded on the dims its rules give each
+    axis (``expert``: dim 0 over ep; ``mlp``: gate/up dim 2, down dim 1,
+    over tp). On the meta device nothing is allocated."""
     from tony_tpu_torch.models.moe import MoEMLP
 
+    axes = ("ep", "tp")
     for prefix, mod in model.named_modules():
         if not isinstance(mod, MoEMLP):
             continue
         for name in ("gate", "up", "down"):
             p = getattr(mod, name)
             dims = placements[f"{prefix}.{name}"].dims
-            d = next(i for i, axes in enumerate(dims) if "ep" in axes)
+            where = [next((Shard(d) for d, on in enumerate(dims)
+                           if axis in on), Replicate()) for axis in axes]
             mod.register_parameter(name, nn.Parameter(
-                distribute_tensor(p.data, mesh["ep"], [Shard(d)],
+                distribute_tensor(p.data, mesh[axes], where,
                                   src_data_rank=None),
                 requires_grad=p.requires_grad))
 
@@ -283,20 +299,21 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
                 rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
                 ) -> Dict[str, Placement]:
     """Lay ``model`` (best on the meta device) out on ``mesh``: a
-    ``Transformer``'s tensor-parallel plan over ``tp`` (an ``MoETransformer``'s
-    experts over ``ep``), then FSDP2 on each ``Block`` / ``MoEBlock`` (each
-    ResNet bottleneck holding a sharded parameter) and on the root, the
-    replicated parameters left out; the model's attention gets the ``sp``
-    group, each ``MoEMLP`` the ``ep`` group and the batch axes' groups.
-    Parameters stay f32 (no mixed-precision policy: the projections cast as
-    the reference's do). Returns ``param_placements``.
+    decoder's tensor-parallel plan over ``tp`` (an ``MoETransformer``'s
+    stacked experts over ``(ep, tp)``), then FSDP2 on each ``Block`` /
+    ``MoEBlock`` (each ResNet bottleneck holding a sharded parameter) and
+    on the root, the replicated parameters left out; the model's attention
+    gets the ``sp`` group, each ``MoEMLP`` the ``ep``, ``tp`` and ``sp``
+    groups and the batch axes' groups. Parameters stay f32 (no
+    mixed-precision policy: the projections cast as the reference's do).
+    Returns ``param_placements``.
 
     Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
     pipelined decoder is ``parallel/pipeline.py``'s, laid out by its
-    ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer``
-    with ring or Ulysses attention, ``sp`` or ``tp`` > 1 for the MoE
-    decoder (the reference leaves its tp to XLA; the port has no plan for
-    the stacked experts), ``tp`` > 1 for ResNet."""
+    ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer`` or an
+    ``MoETransformer`` with ring or Ulysses attention, ``sp`` > 1 with
+    ``ep`` > 1 for the MoE decoder (a layout the reference fails to
+    lower), ``tp`` > 1 for ResNet."""
     from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
     from tony_tpu_torch.models.resnet import _Bottleneck
     from tony_tpu_torch.models.transformer import (SEQUENCE_PARALLEL,
@@ -311,21 +328,23 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             "does not pipeline; the GPipe schedule over pp is "
             "PipelineTransformer's (tony_tpu_torch/parallel/pipeline.py, "
             "laid out by pipeline_shard)")
-    if isinstance(model, MoETransformer):
-        for knob in ("sp", "tp"):
-            if shape[knob] > 1:
-                raise NotImplementedError(
-                    f"mesh axis {knob}={shape[knob]} > 1 for {kind}: the "
-                    "MoE decoder runs on the batch axes and ep only")
-    elif shape["sp"] > 1 and not (
-            isinstance(model, Transformer)
-            and model.cfg.attn_impl in SEQUENCE_PARALLEL):
+    decoder = isinstance(model, (Transformer, MoETransformer))
+    if shape["sp"] > 1 and not (
+            decoder and model.cfg.attn_impl in SEQUENCE_PARALLEL):
         raise NotImplementedError(
             f"mesh axis sp={shape['sp']} > 1 for {kind} with attn_impl="
             f"{getattr(getattr(model, 'cfg', None), 'attn_impl', None)!r}: "
-            f"sequence parallelism takes a Transformer with attn_impl in "
-            f"{SEQUENCE_PARALLEL}")
-    if isinstance(model, Transformer):
+            f"sequence parallelism takes a Transformer or an MoETransformer "
+            f"with attn_impl in {SEQUENCE_PARALLEL}")
+    if isinstance(model, MoETransformer) and shape["sp"] > 1 \
+            and shape["ep"] > 1:
+        raise NotImplementedError(
+            f"mesh axes sp={shape['sp']} and ep={shape['ep']} together for "
+            f"{kind}: the reference fails to lower this layout (ValueError: "
+            "Cannot lower jaxpr with verifier errors: 'chlo.top_k' ... "
+            "incompatible with return type(s), at "
+            "MoETransformer/layer_0/moe/top_k); take sp or ep, not both")
+    if decoder:
         for key, style in tp_plan(model.cfg, shape["tp"], rules).items():
             parallelize_module(model.get_submodule(key), mesh["tp"], style)
     elif shape["tp"] > 1:
@@ -338,10 +357,12 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     batch_groups = tuple(mesh[a].get_group() for a in BATCH_AXES
                          if shape[a] > 1)
     for unit in model.modules():
-        if isinstance(unit, (Transformer, Attention)):
+        if isinstance(unit, (Transformer, MoETransformer, Attention)):
             unit.sp_group = sp_group
         elif isinstance(unit, MoEMLP):
             unit.ep_group = mesh["ep"].get_group()
+            unit.tp_group = mesh["tp"].get_group()
+            unit.sp_group = sp_group
             unit.batch_groups = batch_groups
     replicated = {p for name, p in model.named_parameters()
                   if not any("fsdp" in a for a in placements[name].dims)}

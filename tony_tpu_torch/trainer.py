@@ -65,6 +65,7 @@ ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
         --ckpt-dir ckpt --save-every 50 --steps 200        # the job's loop
     python -m tony_tpu_torch.trainer --mesh "fsdp=1"       # on a mesh
     python -m tony_tpu_torch.trainer --mesh "fsdp=1" --attn-impl ring
+    python -m tony_tpu_torch.trainer --mesh "fsdp=1" --matmul-dtype int8
 
 prints one JSON object with the throughput and MFU (with ``--data``: the
 losses, the resume point and the checkpoint costs), each kernel's launches
@@ -103,10 +104,11 @@ from tony_tpu_torch.checkpoint import CheckpointManager
 from tony_tpu_torch.data import (synthetic_lm_batch, token_file_batches,
                                  write_token_file)
 from tony_tpu_torch.models.mlp import MnistMLP, classification_loss
+from tony_tpu_torch.models.moe import MoEConfig, MoETransformer, moe_lm_loss
 from tony_tpu_torch.models.resnet import ResNet, ResNetConfig
 from tony_tpu_torch.models.transformer import (Transformer, TransformerConfig,
                                                causal_lm_loss)
-from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
+from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda, quant
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
 from tony_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mesh_shape
@@ -155,6 +157,13 @@ def lm_loss(model, batch):
     return causal_lm_loss(model(tokens), tokens), {}
 
 
+def moe_loss(model, batch):
+    """``moe_lm_loss``: the cross-entropy plus the model's aux-loss weight
+    times its aux loss."""
+    tokens = batch["tokens"]
+    return moe_lm_loss(model(tokens), tokens, model.cfg.aux_loss_weight), {}
+
+
 def chunked_lm_loss(model, batch, loss_chunk: int = 2048):
     """``bench.py:255-263``: the final-norm hidden states through
     ``chunked_causal_lm_loss`` over the LM head in ``loss_chunk`` chunks,
@@ -169,20 +178,28 @@ def build_state(cfg: TransformerConfig,
                 loss_chunk: int = 2048,
                 mu_dtype: Optional[torch.dtype] = None,
                 mesh: Any = None,
-                model: Callable[..., nn.Module] = Transformer) -> TrainState:
+                model: Optional[Callable[..., nn.Module]] = None
+                ) -> TrainState:
     """The model made from ``seed`` on ``device``, AdamW (first moment in
     ``mu_dtype``, None: the parameter's) and the LM loss (chunked over
     ``loss_chunk`` positions with ``chunked``). ``model`` builds the
     decoder as ``model(cfg, device=, generator=)``: the sequential
-    ``Transformer``, or the pipelined decoder of ``parallel/pipeline.py``
+    ``Transformer`` (the default), ``MoETransformer`` (the default for a
+    ``MoEConfig``, trained on ``moe_loss``; not chunked), or the pipelined
+    decoder of ``parallel/pipeline.py``
     (``functools.partial(PipelineTransformer, num_microbatches=M)``: the
     GPipe schedule over the mesh's pp, its f32 head, the whole loss only).
     With ``mesh`` (a ``DeviceMesh`` on ``device``'s kind) the state is
     ``init_sharded_state``'s, with the same values, laid out by
     ``shard_model`` or, for the pipelined decoder, ``pipeline_shard``."""
     dev = resolve_device(device)
+    moe = isinstance(cfg, MoEConfig)
+    model = model or (MoETransformer if moe else Transformer)
+    if moe and chunked:
+        raise ValueError("the MoE decoder takes the whole loss, not the "
+                         "chunked one")
     loss = (functools.partial(chunked_lm_loss, loss_chunk=loss_chunk)
-            if chunked else lm_loss)
+            if chunked else moe_loss if moe else lm_loss)
 
     def build(device, generator=None):
         built = model(cfg, device=device, generator=generator)
@@ -358,7 +375,8 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
             seed: int = 0, chunked: bool = False, loss_chunk: int = 2048,
             mu_dtype: Optional[torch.dtype] = None,
             mesh: str = "",
-            model: Callable[..., nn.Module] = Transformer) -> Dict[str, Any]:
+            model: Optional[Callable[..., nn.Module]] = None
+            ) -> Dict[str, Any]:
     """Train ``steps`` steps (the first ``warmup`` of them untimed) and
     return losses, tokens/s over the timed steps, MFU and, on the card, the
     peak of allocated memory (``peak_memory_bytes``). Each step draws fresh
@@ -368,8 +386,10 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
     ``mesh_scope``) trains the sharded state with ``sharded_train_step``:
     ``batch`` is then the global batch, each rank's rows its batch
     coordinate's, and the losses the global batch's. ``model`` builds the
-    decoder (see ``build_state``: the pipelined one runs over the mesh's
-    pp, ``mesh="pp=..."``)."""
+    decoder (see ``build_state``: the MoE decoder for a ``MoEConfig``; the
+    pipelined one runs over the mesh's pp, ``mesh="pp=..."``). Any of them
+    takes a mesh, the quantized (``matmul_dtype``) and tied
+    (``tie_embeddings``) decoders under its tensor-parallel plan too."""
     _check_steps(steps, warmup)
     dev = resolve_device(device)
     with mesh_scope(mesh, dev) as m:
@@ -722,6 +742,7 @@ def main(argv=None) -> int:
                  f"and --attn-impl are for the decoders, not {a.model}")
     _flash_cuda.reset_launch_counts()
     _convfuse_cuda.reset_launch_counts()
+    quant.reset_launch_counts()
     if a.data:
         if a.model != "flagship" or chunk is not None:
             ap.error("--data trains the flagship decoder, unchunked")
@@ -747,6 +768,10 @@ def main(argv=None) -> int:
         name: n / a.steps for name, n in {**_flash_cuda.launch_counts,
                                           **_convfuse_cuda.launch_counts}
         .items()}
+    if a.matmul_dtype:
+        out["quantized_products_per_step"] = \
+            quant.launch_counts[a.matmul_dtype] / a.steps
+        out["quant_fallback"] = quant.fallback_events()
     metrics_file = os.environ.get(constants.METRICS_FILE, "")
     if metrics_file:
         # Inside a job: publish the final step count and device memory now.
