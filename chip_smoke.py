@@ -9,7 +9,7 @@ result line. Phases 7-11 run the flagship's earlier paths (and bench's
 = 4 layers: their launch counts are per layer of that depth, their rates
 and peak memory are not those of the whole model, and their labels say
 "4 of 16 layers" (24 for the 0.95B point). Phases 4 and 12-17 run all
-16:
+16; phase 18 runs ResNet-50 and the MNIST MLP whole:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -111,9 +111,10 @@ and peak memory are not those of the whole model, and their labels say
    the sharded state whose manifest notes the mesh's shape, and a restore
    into a fresh sharded state: parameters and Adam moments bitwise equal,
    no reshard reported; (c) ResNet-50 (batch 256) sharded on the same mesh
-   (the head's kernel over fsdp, the rest replicated) against the unsharded
-   model, 3 SGD steps each: losses within ``TOL_MESH_REL``, 53 convfuse
-   launches per sharded step;
+   (the tp plan at tp = 1: each conv a DTensor over tp; the head's kernel
+   over fsdp; the norms replicated) against the unsharded model, 3 SGD
+   steps each: losses within ``TOL_MESH_REL``, 53 convfuse launches per
+   sharded step;
 11. sequence and expert parallelism at world 1, over a one-rank NCCL group:
    (a) ``trainer.measure`` trains the flagship with ``attn_impl="ring"``
    off any mesh (a ring of one rank), 3 steps against phase 10's first 3
@@ -289,7 +290,26 @@ and peak memory are not those of the whole model, and their labels say
    a remat step (32 forward, 16 dq, 16 dk/dv) per step, its ms per step
    beside phase 11 (c)'s world-1 run of 4 layers. Each line carries the
    card's name and power limit;
-18. prints the whole run's seconds, the kernels' JSON line (each flash
+18. the vision models' mesh layouts at world 1, over a one-rank NCCL group
+   and ``build_mesh(MeshSpec())``: (a) ResNet-50 (batch 256, 224²) from
+   ``trainer.build_vision_state(..., mesh=)`` under the tp plan at tp = 1
+   (each conv's weight a DTensor ``Shard(0)`` on tp, its input gathered
+   over a group of one, each norm on its channel shard) in alternating
+   turns with the unsharded model (unsharded, sharded, unsharded, sharded;
+   3 SGD steps each on the same batches): every sharded turn's losses
+   within ``TOL_MESH_REL`` of the first unsharded turn's (the largest
+   difference printed, with whether they are bit for bit), 53 convfuse
+   launches per step in every turn; samples/s and ms per step (steps 2-3)
+   and peak memory of each turn and the sharded / unsharded ratio; (b) the MNIST MLP (hidden 128, batch 4096) the same
+   way, colwise, rowwise, colwise at tp = 1 with no kernel launched; then
+   ``python -m tony_tpu_torch.trainer --model resnet50 --mesh fsdp=1
+   --steps 3`` as a subprocess: exit 0, finite losses, 53 convfuse
+   launches per step; (c) the convfuse kernel against its plain version
+   at one tp rank's channel shard of ResNet-50's stem, stage-1 and
+   stage-3 norms at tp = 2, 4 and 8 (``[256, 12544, 32]`` down to ``[256,
+   49, 256]``, bf16, relu) and of the stem at tp = 16 (C = 4: the scalar
+   path), each within phase 6's tolerance;
+19. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -3827,6 +3847,162 @@ def phase_mesh_layouts(card, moe_run):
     return rates
 
 
+# Phase 18: the vision models' mesh layouts on the card.
+# ResNet-50's norm widths [B, H·W, C] (the stem, stage 1's 3x3 and stage
+# 3's projection) cut to one tp rank's channel shard at tp = 2, 4 and 8,
+# and the stem at tp = 16: C = 4, the kernel's scalar path.
+SHARD_WIDTHS = ((112 * 112, 64), (56 * 56, 256), (7 * 7, 2048))
+SHARD_TPS = (2, 4, 8)
+SCALAR_SHARD = (112 * 112, 64 // 16)
+VISION_MESH_STEPS = 3
+
+
+def vision_mesh_turns(kind, batch, card):
+    """(a), (b): ``kind`` ("resnet50" or "mnist") trained unsharded and on
+    the world-1 mesh under the tp plan in alternating turns, 3 SGD steps
+    each from the same seed and batches; every sharded turn's losses
+    against the first unsharded turn's within ``TOL_MESH_REL``, ResNet's
+    convs DTensors on tp with 53 convfuse launches per step, the MLP with
+    none. Returns the medians of samples/s."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _convfuse_cuda
+    from tony_tpu_torch.parallel import (MeshSpec, build_mesh,
+                                         sharded_train_step, train_step)
+
+    batches = [trainer.vision_batch(kind, s, batch, device="cuda")
+               for s in range(VISION_MESH_STEPS)]
+    mesh = build_mesh(MeshSpec(), "cuda")
+    want, rates = None, {"unsharded": [], "sharded": []}
+    for turn in ("unsharded", "sharded", "unsharded", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sharded = turn == "sharded"
+        state = trainer.build_vision_state(kind, "cuda", seed=0,
+                                           mesh=mesh if sharded else None)
+        if sharded:
+            first = (state.model.stem_conv if kind == "resnet50"
+                     else state.model.dense[0]).weight
+            check(type(first).__name__ == "DTensor"
+                  and "tp" in first.device_mesh.mesh_dim_names,
+                  f"{kind}: the tp plan left its first layer whole")
+
+            def step(b):
+                return sharded_train_step(state.loss_fn, mesh, state, b)[1]
+        else:
+            def step(b):
+                return train_step(state, b)
+        _convfuse_cuda.reset_launch_counts()
+        # The first step warms the turn (cuDNN's plans, the allocator);
+        # the rest are timed.
+        losses = [float(step(batches[0])["loss"])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [float(step(b)["loss"]) for b in batches[1:]]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / (VISION_MESH_STEPS - 1) * 1e3
+        launched = _convfuse_cuda.launch_counts["convfuse_apply"]
+        rates[turn].append(batch / ms * 1e3)
+        log(f"vision layouts {kind} {turn}: batch {batch}, losses "
+            f"{losses}, {batch / ms * 1e3:.1f} samples/s, {ms:.3f} ms/step "
+            f"(steps 2-{VISION_MESH_STEPS}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, convfuse "
+            f"launches per step {launched / VISION_MESH_STEPS}; {card}")
+        check(all(math.isfinite(x) for x in losses),
+              f"{kind} {turn}: non-finite loss")
+        per_step = RESNET_LAUNCHES_PER_STEP if kind == "resnet50" else 0
+        check(launched == per_step * VISION_MESH_STEPS,
+              f"{kind} {turn}: convfuse_apply launched {launched} times in "
+              f"{VISION_MESH_STEPS} steps, expected {per_step} per step")
+        del state, step
+        if want is None:
+            want = losses
+            continue
+        rel = max_rel(losses, want)
+        log(f"vision layouts {kind} {turn} against the first unsharded "
+            f"turn: largest difference "
+            f"{max(abs(a - b) for a, b in zip(losses, want)):.3e} "
+            f"(relative {rel:.3e}), bit for bit {losses == want}")
+        check(rel <= TOL_MESH_REL,
+              f"{kind} {turn} losses differ from the unsharded by {rel}")
+    medians = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"vision layouts {kind}: sharded / unsharded samples/s "
+        f"{medians['sharded'] / medians['unsharded']:.4f} (medians of 2 "
+        f"alternating turns each); {card}")
+    return medians
+
+
+def vision_mesh_cli(card):
+    """(b): ``python -m tony_tpu_torch.trainer --model resnet50 --mesh
+    fsdp=1 --steps 3`` on the card."""
+    steps = 3
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "tony_tpu_torch.trainer", "--model",
+         "resnet50", "--mesh", "fsdp=1", "--steps", str(steps)],
+        env=repo_env(), cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    check(proc.returncode == 0,
+          f"trainer --model resnet50 --mesh fsdp=1 exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"vision layouts (b) python -m tony_tpu_torch.trainer --model "
+        f"resnet50 --mesh fsdp=1 --steps {steps}: "
+        f"{time.perf_counter() - t0:.1f} s, mesh {json.dumps(out['mesh'])}, "
+        f"losses {out['losses']}, launches per step "
+        f"{json.dumps(out['launches_per_step'])}; {card}")
+    check(all(math.isfinite(x) for x in out["losses"]),
+          "the ResNet-50 trainer on the mesh: non-finite loss")
+    check(out["mesh"] is not None, "the ResNet-50 trainer ran off the mesh")
+    check(out["launches_per_step"].get("convfuse_apply")
+          == RESNET_LAUNCHES_PER_STEP,
+          f"the ResNet-50 trainer on the mesh: convfuse "
+          f"{out['launches_per_step']} per step, expected "
+          f"{RESNET_LAUNCHES_PER_STEP}")
+
+
+def phase_vision_layouts(card):
+    """Phase 18: ResNet-50 and the MNIST MLP on the world-1 mesh under the
+    tensor-parallel plan, and the convfuse kernel at tp shard widths."""
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-vision-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        rates = {"resnet50": vision_mesh_turns("resnet50", RESNET_BATCH,
+                                               card)}
+        log(f"vision layouts (a): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        rates["mnist"] = vision_mesh_turns("mnist", MNIST_BATCH, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    vision_mesh_cli(card)
+    log(f"vision layouts (b): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    seed = 180
+    for rows, c in SHARD_WIDTHS:
+        for tp in SHARD_TPS:
+            seed += 1
+            check_convfuse_case(
+                f"shard tp={tp} bf16 [{RESNET_BATCH}, {rows}, {c // tp}]",
+                (RESNET_BATCH, rows, c // tp), torch.bfloat16, True, seed)
+    rows, c = SCALAR_SHARD
+    check_convfuse_case(f"scalar shard tp=16 bf16 [{RESNET_BATCH}, {rows}, "
+                        f"{c}]", (RESNET_BATCH, rows, c), torch.bfloat16,
+                        True, seed + 1)
+    log(f"vision layouts (c): {time.perf_counter() - t1:.1f} s")
+    log(f"vision layouts: {time.perf_counter() - t0:.1f} s for parts "
+        f"(a)-(c); {card}")
+    return rates
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -3859,6 +4035,7 @@ def main():
     phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
     phase_observers(main_run, card)
     phase_mesh_layouts(card, moe_run)
+    phase_vision_layouts(card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

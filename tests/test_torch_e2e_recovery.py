@@ -342,6 +342,14 @@ def test_e2e_task_finishing_during_outage_still_counts(tmp_path):
         _poll_report(rpc, lambda r: any(t["status"] == "RUNNING"
                                         for t in r.get("tasks", [])),
                      what="task running", timeout=60)
+        # RUNNING means registered, not training: the cluster spec may
+        # still be on its way to the executor, and a kill then leaves it
+        # at the barrier with no user process. Kill once a step is done.
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline \
+                and not _steps_progressed(tmp_path, at_least=1):
+            time.sleep(0.05)
+        assert _steps_progressed(tmp_path, at_least=1), _dump_logs(job_dir)
         rpc.close()
         proc1.send_signal(signal.SIGKILL)
         proc1.wait(timeout=10)

@@ -378,16 +378,25 @@ def test_train_on_a_mesh_saves_and_resumes(tmp_path):
 def test_cli_mesh_flag(monkeypatch):
     from tony_tpu_torch import trainer
 
-    seen = {}
+    seen, vision = {}, {}
 
     def fake_measure(cfg, **kw):
         seen.update(kw)
         return {}
+
+    def fake_vision(kind, **kw):
+        vision.update(kw, kind=kind)
+        return {}
     monkeypatch.setattr(trainer, "measure", fake_measure)
+    monkeypatch.setattr(trainer, "measure_vision", fake_vision)
     assert trainer.main(["--mesh", "fsdp=2,tp=2", "--device", "cpu"]) == 0
     assert seen["mesh"] == "fsdp=2,tp=2"
+    # The vision models take a mesh too; the decoders' knobs stay theirs.
+    assert trainer.main(["--model", "mnist", "--mesh", "fsdp=1",
+                         "--device", "cpu"]) == 0
+    assert vision["kind"] == "mnist" and vision["mesh"] == "fsdp=1"
     with pytest.raises(SystemExit):
-        trainer.main(["--model", "mnist", "--mesh", "fsdp=1"])
+        trainer.main(["--model", "mnist", "--attn-impl", "ring"])
 
 
 def test_mesh_shape_key_is_the_references():

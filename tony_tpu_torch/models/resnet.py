@@ -23,6 +23,16 @@ same places:
   mean sums in f32, divides, and rounds to ``cfg.dtype`` once, as
   ``jnp.mean`` does; the head is an f32 ``Dense`` with bias.
 
+Under the tensor-parallel plan (``parallel/sharding.py``: the reference's
+conv kernels carry ``mlp`` on their out-channel dim, which maps to tp) each
+conv's weight is a DTensor ``Shard(0)`` over tp: the conv gathers its input
+to whole channels and computes the rank's slice of its out channels, so
+the activations between convs are channel shards. Each norm applies its
+slice of the replicated scale and bias (statistics as
+``ops/convfuse.py:groupnorm_affine`` takes them), the residual add, the
+ReLUs, the max pool and the global mean run on the shard, and the head
+(classes over tp) gathers the pooled features.
+
 Module names map one to one onto the flax tree (``convert.py``). The
 parameters are drawn in ``named_parameters()`` order
 (``ResNet.init_parameter_``, which a sharded init replays one tensor at a
@@ -41,7 +51,9 @@ from torch import nn
 
 from tony_tpu_torch._device import resolve_device
 from tony_tpu_torch.models.mlp import DenseBias, variance_scaling_
-from tony_tpu_torch.ops.convfuse import fused_groupnorm_relu
+from tony_tpu_torch.ops.convfuse import (apply_plain, fused_groupnorm_relu,
+                                         groupnorm_affine)
+from tony_tpu_torch.parallel import _comm
 
 _CL = torch.channels_last
 
@@ -87,7 +99,11 @@ def _pad_same(x: torch.Tensor, k: int, s: int,
 
 class _Conv(nn.Module):
     """Bias-free ``k``×``k`` conv, stride ``s``, SAME padding; weight
-    ``[out, in, k, k]`` f32 in channels_last memory."""
+    ``[out, in, k, k]`` f32 in channels_last memory. Under the tp plan
+    (``tp_group`` set, the weight a DTensor ``Shard(0)``) a channel-shard
+    input is gathered to whole channels (its gradient then sums the ranks'
+    parts: each rank's slice of the out channels reads all of them) and the
+    output is this rank's out-channel slice."""
 
     def __init__(self, in_ch: int, out_ch: int, k: int, s: int,
                  cfg: ResNetConfig, device: torch.device):
@@ -96,16 +112,26 @@ class _Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(
             (out_ch, in_ch, k, k), dtype=cfg.param_dtype,
             device=device).contiguous(memory_format=_CL))
+        self.tp_group = None        # the mesh's tp group (the tp plan)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if self.tp_group is not None:
+            if x.shape[1] != w.shape[1]:
+                x = _comm.gather_from_group(x, self.tp_group, 1)
+            x = _comm.sum_grad_over_group(x, self.tp_group)
+            w = w.to_local()
         x = _pad_same(x.to(self.dtype), self.k, self.s)
-        return F.conv2d(x, self.weight.to(self.dtype), stride=self.s)
+        return F.conv2d(x, w.to(self.dtype), stride=self.s)
 
 
 class _Norm(nn.Module):
     """GroupNorm over ``min(norm_groups, C)`` groups, then ReLU when
     ``relu``: fused (``fused_groupnorm_relu`` on the NHWC view) or the
-    unfused ``F.group_norm`` twin, with the same ``scale``/``bias``."""
+    unfused ``F.group_norm`` twin, with the same ``scale``/``bias``. Under
+    the tp plan (``tp_group`` set) the input is this rank's channel slice,
+    normalised with its slice of the replicated scale and bias; the
+    unfused twin then applies ``groupnorm_affine``'s a/b in plain ops."""
 
     def __init__(self, channels: int, cfg: ResNetConfig,
                  device: torch.device, relu: bool = True):
@@ -116,15 +142,27 @@ class _Norm(nn.Module):
                                              device=device))
         self.bias = nn.Parameter(torch.zeros(channels, dtype=cfg.param_dtype,
                                              device=device))
+        self.tp_group = None        # the mesh's tp group (the tp plan)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        g, scale, bias = self.tp_group, self.scale, self.bias
+        if g is not None:
+            scale = _comm.split_to_group(scale, g, 0)
+            bias = _comm.split_to_group(bias, g, 0)
         if self.fused:
-            y = fused_groupnorm_relu(x.permute(0, 2, 3, 1), self.scale,
-                                     self.bias, groups=self.groups,
-                                     relu=self.relu)
+            y = fused_groupnorm_relu(x.permute(0, 2, 3, 1), scale, bias,
+                                     groups=self.groups, relu=self.relu,
+                                     tp_group=g)
             return y.permute(0, 3, 1, 2)
-        y = F.group_norm(x.float(), self.groups, self.scale.float(),
-                         self.bias.float(), eps=1e-6).to(self.dtype)
+        if g is not None:
+            xh = x.permute(0, 2, 3, 1)
+            a, b = groupnorm_affine(xh, scale, bias, self.groups,
+                                    tp_group=g)
+            y = apply_plain(xh.reshape(x.shape[0], -1, x.shape[1]), a, b,
+                            self.relu)
+            return y.view(xh.shape).permute(0, 3, 1, 2)
+        y = F.group_norm(x.float(), self.groups, scale.float(),
+                         bias.float(), eps=1e-6).to(self.dtype)
         return torch.relu(y) if self.relu else y
 
 

@@ -31,11 +31,15 @@ On a mesh (``train_step_accum(..., mesh=)``, the step
 ``parallel/train.py:sharded_train_step`` runs), as the reference's
 ``_build_accum_fn`` with ``sync_axes=("dcn_dp",)``: FSDP2 reduces the
 DTensor gradients over ``(dp, fsdp)`` once per step, on the last
-microbatch (``set_requires_gradient_sync``); the replicated parameters'
-gradients (those FSDP2 leaves alone) are averaged over ``fsdp`` and ``dp``
-here; on a sequence-parallel mesh every gradient's local shard is then
-SUMMED over ``sp`` by the same bucketed all-reduce (each sp rank's gradient is its sequence chunk's share
-of one loss, the whole sequence's); then every gradient's local shard is
+microbatch (``set_requires_gradient_sync``); the gradients FSDP2 leaves
+alone (the replicated parameters', and the local shards of a DTensor over
+tp alone, as ResNet's convs are under the tp plan) are averaged over
+``fsdp`` and ``dp`` here; on a sequence-parallel mesh every gradient's
+local shard is then SUMMED over ``sp`` by the same bucketed all-reduce
+(each sp rank's gradient is its sequence chunk's share of one loss, the
+whole sequence's), unless the model does not split the sequence (the
+pipelined decoder, whose sp ranks are replicas); then every gradient's
+local shard is
 averaged over ``dcn_dp`` by the bucketed all-reduce on that axis's group.
 The loss and aux are averaged over the batch axes.
 
@@ -241,18 +245,30 @@ def _sync_into(grads: Dict[str, torch.Tensor], bucket_mb: int,
         grads[k].copy_(g)
 
 
+def _fsdp_managed(g: torch.Tensor) -> bool:
+    """Whether FSDP2 reduces this gradient: a DTensor on a mesh with the
+    ``fsdp`` axis (FSDP2's own, alone or with tp, ep)."""
+    return isinstance(g, DTensor) and "fsdp" in (
+        g.device_mesh.mesh_dim_names or ())
+
+
 def _mesh_sync(grads: Mapping[str, torch.Tensor], bucket_mb: int,
-               mesh: Any) -> None:
-    """The gradient reductions FSDP2 does not do, in place: replicated
-    parameters averaged over ``fsdp`` then ``dp``, every local shard summed
-    over ``sp``, then averaged over ``dcn_dp``."""
+               mesh: Any, split_sp: bool = True) -> None:
+    """The gradient reductions FSDP2 does not do, in place: the parameters
+    FSDP2 leaves alone (the replicated ones, and a DTensor over tp alone,
+    such as a ResNet conv's out-channel shard: its local shard) averaged
+    over ``fsdp`` then ``dp``; with ``split_sp`` (a model that splits the
+    sequence over sp) every local shard summed over ``sp``, each rank's
+    being its chunk's share of one loss (the pipelined decoder's sp ranks
+    are replicas of one another, and sum nothing); then every local shard
+    averaged over ``dcn_dp``."""
     shape = mesh_shape(mesh)
-    replicated = {k: g for k, g in grads.items()
-                  if not isinstance(g, DTensor)}
+    unmanaged = {k: _local(g) for k, g in grads.items()
+                 if not _fsdp_managed(g)}
     for axis in ("fsdp", "dp"):
-        if shape[axis] > 1 and replicated:
-            _sync_into(replicated, bucket_mb, mesh.get_group(axis))
-    if shape["sp"] > 1:
+        if shape[axis] > 1 and unmanaged:
+            _sync_into(unmanaged, bucket_mb, mesh.get_group(axis))
+    if shape["sp"] > 1 and split_sp:
         _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
                    mesh.get_group("sp"), mean=False)
     if shape["dcn_dp"] > 1:
@@ -296,13 +312,16 @@ def train_step_accum(state: TrainState, batch: Mapping[str, Any],
     grads, loss, aux = accumulate_grads(state, batch, accum_steps)
     if mesh is not None:
         shape = mesh_shape(mesh)
+        # Only a model that shard_model gave the sp group splits the
+        # sequence over it.
+        split_sp = getattr(state.model, "sp_group", None) is not None
         if comms_phase and any(shape[a] > 1 for a in BATCH_AXES + ("sp",)):
             telemetry.block_until_ready(grads)
             with telemetry.phase("comms") as p:
-                _mesh_sync(grads, bucket_mb, mesh)
+                _mesh_sync(grads, bucket_mb, mesh, split_sp)
                 p.block_until_ready(grads)
         else:
-            _mesh_sync(grads, bucket_mb, mesh)
+            _mesh_sync(grads, bucket_mb, mesh, split_sp)
         state.apply_gradients()
         return {"loss": batch_mean(loss, mesh), "step": state.step,
                 **{k: batch_mean(v, mesh) for k, v in aux.items()}}

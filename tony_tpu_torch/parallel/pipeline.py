@@ -46,6 +46,9 @@ and written in PyTorch's idiom:
   cast to ``cfg.dtype``; the final norm in f32, not cast back; the logits
   ``xf @ lm_head.float()`` in f32 (unlike the sequential ``Transformer``,
   whose norm returns the activation dtype and whose head is bf16).
+- **Replica axes**: ``sp`` and ``ep`` name no dim of the pipeline's
+  parameters or data, so their ranks each run the whole stage on the same
+  rows, and the step sums nothing over them.
 - **Remat**: with ``cfg.remat`` each layer runs under a full
   ``torch.utils.checkpoint``; ``remat_policy`` and ``remat_skip_every`` are
   not read here, as the reference does not read them.
@@ -300,15 +303,14 @@ def pipeline_shard(model: PipelineTransformer, mesh: DeviceMesh,
     pp rank's layers, give the model its pp group and stage, the head's
     vocab over tp (a DTensor, when tp > 1), then FSDP2 on each block and
     on the root over ``(dp, fsdp)``, the norm scales left replicated.
-    Raises ``ValueError`` ("divisible") unless pp divides the layers, and
-    ``NotImplementedError`` for sp or ep > 1. Returns
-    ``pipeline_param_placements`` of the parameters this rank holds."""
+    The ranks of an ``sp`` or ``ep`` axis are replicas: each computes the
+    whole stage on the same rows, as the reference's ``shard_map`` (whose
+    specs name only pp and the batch axes) has them do, and their
+    gradients are not summed (the model has no ``sp_group``, which is what
+    ``grad_sync`` reads). Raises ``ValueError`` ("divisible") unless pp
+    divides the layers. Returns ``pipeline_param_placements`` of the
+    parameters this rank holds."""
     shape = mesh_shape(mesh)
-    for knob in ("sp", "ep"):
-        if shape[knob] > 1:
-            raise NotImplementedError(
-                f"mesh axis {knob}={shape[knob]} > 1 with pipeline "
-                "parallelism")
     n_stages = shape[PP_AXIS]
     stage = mesh.get_local_rank(PP_AXIS)
     keep = stage_layers(model.cfg.n_layers, n_stages, stage)

@@ -11,10 +11,20 @@ into what torch runs:
   dim → ``RowwiseParallel``; the LM head's vocab over tp → a colwise head
   whose logits are gathered; the embedding table's rows over tp →
   ``VocabParallelTable`` (masked lookup, then an all-reduce);
+- ``tp`` on a ResNet conv's out-channel dim → ``ConvOutParallel`` (torch's
+  styles take only ``nn.Linear`` and ``nn.Embedding``): the weight a DTensor
+  ``Shard(0)``, the input gathered to whole channels, the output this
+  rank's channel shard, on which every norm (``NormShardParallel``: its
+  slice of the replicated scale and bias), the residual add and the pool
+  run; a ``DenseBias`` (the MNIST MLP's layers, ResNet's head) →
+  ``DenseBiasParallel``, colwise or rowwise with its bias replicated, the
+  head's logits gathered (``vision_tp_plan``). A dim that tp (or fsdp)
+  does not divide is refused, as the reference refuses it;
 - ``fsdp`` on a dim → FSDP2's shard on that dim (``fsdp_placement_fn``);
   a parameter whose layout names no ``fsdp`` (the norm scales, ResNet's
-  convolutions and norms) stays replicated, as in the reference: FSDP2 leaves it
-  alone and the train step averages its gradient by hand;
+  convolutions and norms, the biases) stays whole over fsdp, as in the
+  reference: FSDP2 leaves it alone and the train step averages its
+  gradient by hand (a conv weight over tp: its local shard);
 - ``dp`` → FSDP2's replicate dim (HSDP); ``dcn_dp`` stays out of FSDP2 and
   is synced by the explicit bucketed all-reduce (``parallel/grad_sync.py``),
   the reference's multislice design. The FSDP2 mesh is then a plain slice
@@ -254,6 +264,117 @@ def tp_plan(cfg, tp: int = 1,
     return plan
 
 
+def _distribute(module: nn.Module, name: str, mesh: DeviceMesh,
+                dim: int) -> None:
+    """``module.<name>`` becomes a DTensor ``Shard(dim)`` on ``mesh`` (on
+    the meta device nothing is allocated)."""
+    p = getattr(module, name)
+    module.register_parameter(name, nn.Parameter(
+        distribute_tensor(p.data, mesh, [Shard(dim)], src_data_rank=None),
+        requires_grad=p.requires_grad))
+
+
+class ConvOutParallel(ParallelStyle):
+    """Tensor parallelism for a ResNet conv (``models/resnet.py:_Conv``)
+    over its out channels: the weight ``[out, in, k, k]`` becomes a DTensor
+    ``Shard(0)`` on the tp mesh and the module gets the tp group, with
+    which it gathers a channel-shard input to whole channels (the in-channel
+    dim stays whole, as the reference keeps it) and returns this rank's
+    slice of the out channels."""
+
+    def _apply(self, module: nn.Module, device_mesh: DeviceMesh
+               ) -> nn.Module:
+        _distribute(module, "weight", device_mesh, 0)
+        module.tp_group = device_mesh.get_group()
+        return module
+
+
+class NormShardParallel(ParallelStyle):
+    """A ResNet norm (``models/resnet.py:_Norm``) on a channel shard: its
+    scale and bias stay replicated (the reference leaves them
+    unpartitioned); the module gets the tp group, normalises this rank's
+    channels with its slice of them and takes the GroupNorm statistics
+    over the tp ranks where a group straddles them."""
+
+    def _apply(self, module: nn.Module, device_mesh: DeviceMesh
+               ) -> nn.Module:
+        module.tp_group = device_mesh.get_group()
+        return module
+
+
+class DenseBiasParallel(ParallelStyle):
+    """Tensor parallelism for ``models/mlp.py:DenseBias`` with its bias
+    replicated (torch's ``ColwiseParallel`` would shard it):
+    ``"colwise"`` / ``"colwise_gather"`` (weight ``Shard(0)``; the second
+    gathers the outputs) or ``"rowwise"`` (weight ``Shard(1)``)."""
+
+    def __init__(self, style: str):
+        super().__init__()
+        self.style = style
+
+    def _apply(self, module: nn.Module, device_mesh: DeviceMesh
+               ) -> nn.Module:
+        _distribute(module, "weight", device_mesh,
+                    1 if self.style == "rowwise" else 0)
+        module.tp_group, module.tp_style = device_mesh.get_group(), self.style
+        return module
+
+
+def vision_tp_plan(model: nn.Module,
+                   rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
+                   ) -> Dict[str, ParallelStyle]:
+    """The tensor-parallel plan that ``rules`` imply for a ``ResNet`` or an
+    ``MnistMLP``: module name → style. With the default rules every conv
+    over its out channels (``mlp``) with every norm on the channel shard,
+    the MLP's layers colwise, rowwise, colwise, and the head (``vocab``
+    over tp) colwise with its logits gathered."""
+    from tony_tpu_torch.models.mlp import DenseBias
+    from tony_tpu_torch.models.resnet import _Conv, _Norm
+
+    own = getattr(model, "PARAM_AXES", {})
+    plan: Dict[str, ParallelStyle] = {}
+    convs = False
+    for name, mod in model.named_modules():
+        if not isinstance(mod, (_Conv, DenseBias)):
+            continue
+        logical = own.get(f"{name}.weight") or logical_axes(f"{name}.weight")
+        dims = mesh_axes(logical, rules)
+        d = next((d for d, axes in enumerate(dims) if "tp" in axes), None)
+        if d is None:
+            continue
+        if isinstance(mod, _Conv):
+            if d != 0:
+                raise NotImplementedError(
+                    f"{name}: a conv sharded over tp on its dim {d}")
+            plan[name], convs = ConvOutParallel(), True
+        elif d == 0:
+            plan[name] = DenseBiasParallel(
+                "colwise_gather" if logical[0] == "vocab" else "colwise")
+        else:
+            plan[name] = DenseBiasParallel("rowwise")
+    if convs:
+        plan.update((name, NormShardParallel())
+                    for name, mod in model.named_modules()
+                    if isinstance(mod, _Norm))
+    return plan
+
+
+def check_divisible(model: nn.Module,
+                    placements: Mapping[str, Placement],
+                    sizes: Mapping[str, int]) -> None:
+    """``ValueError`` for a parameter dim that its mesh axes do not
+    divide, as the reference's sharded init refuses one ("... should be
+    divisible by 4, but it is equal to 10")."""
+    for name, p in model.named_parameters():
+        for d, (n, axes) in enumerate(zip(p.shape, placements[name].dims)):
+            k = math.prod(sizes[a] for a in axes)
+            if n % k:
+                raise ValueError(
+                    f"{name} sharded over {'×'.join(axes)}: the global size "
+                    f"of its dimension {d} should be divisible by {k}, but "
+                    f"it is equal to {n} (full shape: {tuple(p.shape)})")
+
+
 def fsdp_placement_fn(model: nn.Module,
                       placements: Mapping[str, Placement]):
     """FSDP2's ``shard_placement_fn``: each parameter's shard on the dim
@@ -304,18 +425,22 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     ``MoEBlock`` (each ResNet bottleneck holding a sharded parameter) and
     on the root, the replicated parameters left out; the model's attention
     gets the ``sp`` group, each ``MoEMLP`` the ``ep``, ``tp`` and ``sp``
-    groups and the batch axes' groups. Parameters stay f32 (no
-    mixed-precision policy: the projections cast as the reference's do).
-    Returns ``param_placements``.
+    groups and the batch axes' groups. A ``ResNet`` or an ``MnistMLP``
+    takes ``vision_tp_plan`` over ``tp`` (its convs over their out
+    channels, its ``DenseBias`` layers colwise or rowwise), then FSDP2 the
+    same way. Parameters stay f32 (no mixed-precision policy: the
+    projections cast as the reference's do). Returns ``param_placements``.
 
     Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
     pipelined decoder is ``parallel/pipeline.py``'s, laid out by its
     ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer`` or an
     ``MoETransformer`` with ring or Ulysses attention, ``sp`` > 1 with
     ``ep`` > 1 for the MoE decoder (a layout the reference fails to
-    lower), ``tp`` > 1 for ResNet."""
+    lower). ``ValueError`` for a ResNet or MLP dim that its mesh axes do
+    not divide (a class count tp does not divide), as the reference's."""
+    from tony_tpu_torch.models.mlp import MnistMLP
     from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
-    from tony_tpu_torch.models.resnet import _Bottleneck
+    from tony_tpu_torch.models.resnet import ResNet, _Bottleneck
     from tony_tpu_torch.models.transformer import (SEQUENCE_PARALLEL,
                                                    Attention, Block,
                                                    Transformer)
@@ -344,13 +469,19 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             "Cannot lower jaxpr with verifier errors: 'chlo.top_k' ... "
             "incompatible with return type(s), at "
             "MoETransformer/layer_0/moe/top_k); take sp or ep, not both")
+    # Names and global shapes: the plan below changes neither.
+    placements = param_placements(model, mesh, rules)
+    plan: Dict[str, ParallelStyle] = {}
     if decoder:
-        for key, style in tp_plan(model.cfg, shape["tp"], rules).items():
-            parallelize_module(model.get_submodule(key), mesh["tp"], style)
+        plan = tp_plan(model.cfg, shape["tp"], rules)
+    elif isinstance(model, (ResNet, MnistMLP)):
+        check_divisible(model, placements, shape)
+        plan = vision_tp_plan(model, rules)
     elif shape["tp"] > 1:
         raise NotImplementedError(
             f"tensor parallelism for {kind}")
-    placements = param_placements(model, mesh, rules)
+    for key, style in plan.items():
+        parallelize_module(model.get_submodule(key), mesh["tp"], style)
     if isinstance(model, MoETransformer):
         _distribute_experts(model, mesh, placements)
     sp_group = mesh["sp"].get_group()

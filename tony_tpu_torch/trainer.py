@@ -56,7 +56,11 @@ classes, batch 256 in bench) or ``MnistMLP(hidden=128)`` (f32
 ``[B, 28, 28, 1]``, 10 classes, batch 4096 in bench), trained with
 SGD(0.1, momentum 0.9) on ``classification_loss``; every GroupNorm apply of
 ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
-3 · 4.089 GFLOPs · (image/224)² per sample.
+3 · 4.089 GFLOPs · (image/224)² per sample. ``measure_vision(...,
+mesh="fsdp=1")`` trains either on a mesh, the counterpart of
+``examples/resnet/resnet_fsdp.py`` and ``examples/mnist-jax/mnist_dp.py``
+(ResNet's convs over tp on their out channels, the MLP colwise, rowwise,
+colwise; ``parallel/sharding.py``).
 
     python -m tony_tpu_torch.trainer --steps 10                 # flagship
     python -m tony_tpu_torch.trainer --model resnet50 --steps 10
@@ -66,6 +70,7 @@ ResNet runs through the CUDA convfuse kernel. ResNet's MFU counts bench's
     python -m tony_tpu_torch.trainer --mesh "fsdp=1"       # on a mesh
     python -m tony_tpu_torch.trainer --mesh "fsdp=1" --attn-impl ring
     python -m tony_tpu_torch.trainer --mesh "fsdp=1" --matmul-dtype int8
+    python -m tony_tpu_torch.trainer --model resnet50 --mesh "fsdp=1"
 
 prints one JSON object with the throughput and MFU (with ``--data``: the
 losses, the resume point and the checkpoint costs), each kernel's launches
@@ -101,7 +106,8 @@ import tony_tpu_torch
 from tony_tpu_torch import constants, telemetry
 from tony_tpu_torch._device import peak_bf16, resolve_device
 from tony_tpu_torch.checkpoint import CheckpointManager
-from tony_tpu_torch.data import (synthetic_lm_batch, token_file_batches,
+from tony_tpu_torch.data import (process_batch_slice, synthetic_lm_batch,
+                                 token_file_batches,
                                  write_token_file)
 from tony_tpu_torch.models.mlp import MnistMLP, classification_loss
 from tony_tpu_torch.models.moe import MoEConfig, MoETransformer, moe_lm_loss
@@ -617,9 +623,13 @@ def build_vision_state(kind: str, device: Union[str, torch.device] = "cuda",
                        seed: int = 0, mesh: Any = None) -> TrainState:
     """ResNet-50 or ``MnistMLP(hidden=128)`` made from ``seed`` on
     ``device``, SGD(0.1, 0.9) and the classification loss. With ``mesh``,
-    ResNet-50's ``init_sharded_state`` with the same values (the head's
-    kernel sharded over fsdp, the rest replicated, as
-    ``examples/resnet/resnet_fsdp.py`` lays it out)."""
+    ``init_sharded_state`` with the same values, laid out by the
+    reference's logical axes (``shard_model``): ResNet's convs over tp on
+    their out channels, the MLP's layers colwise, rowwise and colwise over
+    tp, each head's kernel over fsdp on its in-dim and over tp on its
+    classes, the norms and biases replicated (at tp = 1 the layout of
+    ``examples/resnet/resnet_fsdp.py`` and ``examples/mnist-jax/
+    mnist_dp.py``)."""
     if kind not in VISION:
         raise ValueError(f"unknown vision model {kind!r}: one of "
                          f"{sorted(VISION)}")
@@ -627,37 +637,49 @@ def build_vision_state(kind: str, device: Union[str, torch.device] = "cuda",
     def optimizer(params):
         return sgd(params, VISION_LR, momentum=VISION_MOMENTUM)
 
+    def build(device, generator=None):
+        if kind == "resnet50":
+            return ResNet(ResNetConfig.resnet50(), device=device,
+                          generator=generator)
+        return MnistMLP(hidden=128, device=device, generator=generator)
+
     if mesh is not None:
-        if kind != "resnet50":
-            raise NotImplementedError(f"{kind} on a mesh")
-        state, _ = init_sharded_state(
-            lambda d: ResNet(ResNetConfig.resnet50(), device=d), optimizer,
-            mesh, seed=seed)
+        state, _ = init_sharded_state(build, optimizer, mesh, seed=seed)
         state.loss_fn = vision_loss
         return state
     dev = resolve_device(device)
-    gen = torch.Generator(dev).manual_seed(seed)
-    model = (ResNet(ResNetConfig.resnet50(), device=dev, generator=gen)
-             if kind == "resnet50" else
-             MnistMLP(hidden=128, device=dev, generator=gen))
+    model = build(dev, torch.Generator(dev).manual_seed(seed))
     return TrainState(model, optimizer(model.parameters()), vision_loss)
 
 
 def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
                    image: int = 224,
                    device: Union[str, torch.device] = "cuda",
-                   seed: int = 0) -> Dict[str, Any]:
+                   seed: int = 0, mesh: str = "") -> Dict[str, Any]:
     """Train ``steps`` steps of ``kind`` ("resnet50" or "mnist"), the
     first ``warmup`` untimed, and return losses, samples/s and step ms over
-    the timed steps, and ResNet's MFU. Each step draws its own batch on the
-    device inside the timed loop, as bench's scan does."""
+    the timed steps, ResNet's MFU and, on the card, the peak of allocated
+    memory (``peak_memory_bytes``). Each step draws its own batch on the
+    device inside the timed loop, as bench's scan does. ``mesh``
+    (``"fsdp=1"``, see ``mesh_scope``) trains the sharded state
+    (``build_vision_state``) with ``sharded_train_step``: ``batch`` is the
+    global batch, each rank's rows its batch coordinate's, and the losses
+    the global batch's."""
     _check_steps(steps, warmup)
-    state = build_vision_state(kind, device, seed)
-    dev = next(state.model.parameters()).device
-    n_params = sum(p.numel() for p in state.model.parameters())
-    losses, dt, _, name, peak, first_ts, walls = _timed_steps(
-        state, lambda s: vision_batch(kind, s, batch, image, dev, seed),
-        steps, warmup, dev)
+    dev = resolve_device(device)
+    with mesh_scope(mesh, dev) as m:
+        state = build_vision_state(kind, dev, seed, mesh=m)
+        n_params = sum(p.numel() for p in state.model.parameters())
+        rows = process_batch_slice(batch, mesh=m) if m is not None \
+            else slice(None)
+
+        def batch_of(s):
+            return {k: v[rows] for k, v in vision_batch(
+                kind, s, batch, image, dev, seed).items()}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses, dt, _, name, peak, first_ts, walls = _timed_steps(
+            state, batch_of, steps, warmup, dev, step=step_fn(m))
     samples_per_sec = batch * (steps - warmup) / dt
     flops = 3 * RESNET50_FWD_FLOPS_224 * (image / 224) ** 2
     return {
@@ -670,6 +692,9 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
         "params": n_params, "batch": batch,
         "image": image if kind == "resnet50" else 28, "steps": steps,
         "warmup": warmup, "device": name, "first_step_start_ts": first_ts,
+        "mesh": mesh_shape(m) if m is not None else None,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
         **walls,
     }
 
@@ -717,7 +742,7 @@ def main(argv=None) -> int:
     ap.add_argument("--matmul-dtype", choices=["int8", "fp8_e4m3"],
                     help="quantized attention and MLP projections")
     ap.add_argument("--mesh", default="",
-                    help="train a decoder sharded on this mesh, e.g. "
+                    help="train the model sharded on this mesh, e.g. "
                     "'fsdp=1' on one card or 'fsdp=2,tp=2' under a "
                     "four-rank group (axes: dcn_dp dp fsdp pp ep sp tp)")
     ap.add_argument("--attn-impl", default="flash",
@@ -736,10 +761,10 @@ def main(argv=None) -> int:
         chunk = a.loss_chunk or chunk or (2048 if a.chunked else None)
         cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype,
                                   attn_impl=a.attn_impl)
-    elif (a.seq or a.chunked or a.loss_chunk or a.matmul_dtype or a.mesh
+    elif (a.seq or a.chunked or a.loss_chunk or a.matmul_dtype
           or a.attn_impl != "flash"):
-        ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype, --mesh "
-                 f"and --attn-impl are for the decoders, not {a.model}")
+        ap.error(f"--seq, --chunked, --loss-chunk, --matmul-dtype and "
+                 f"--attn-impl are for the decoders, not {a.model}")
     _flash_cuda.reset_launch_counts()
     _convfuse_cuda.reset_launch_counts()
     quant.reset_launch_counts()
@@ -758,7 +783,7 @@ def main(argv=None) -> int:
                       mesh=a.mesh)
     else:
         out = measure_vision(a.model, batch=batch, steps=a.steps,
-                             device=a.device)
+                             device=a.device, mesh=a.mesh)
     # Wall times of the start-up: the package's import began (before
     # torch), main began, and (in out) the first step began.
     out["startup_ts"] = {"package": tony_tpu_torch.IMPORT_TS,
