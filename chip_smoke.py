@@ -4,12 +4,13 @@
     python3 chip_smoke.py          # from the root of the repository
 
 Phases, in order; any failure ends the run with a non-zero exit and no
-result line. Phases 7-11 run the flagship's earlier paths (and bench's
-0.95B point and the MoE decoder) at their full width and ``EARLIER_DEPTH``
-= 4 layers: their launch counts are per layer of that depth, their rates
-and peak memory are not those of the whole model, and their labels say
-"4 of 16 layers" (24 for the 0.95B point). Phases 4 and 12-17 run all
-16; phase 18 runs ResNet-50 and the MNIST MLP whole:
+result line. Phases 7-11, 13 (b) and 17 (a)-(b) run the flagship's
+earlier paths (and bench's 0.95B point and the MoE decoder) at their full
+width and ``EARLIER_DEPTH`` = 4 layers: their launch counts are per layer
+of that depth, their rates and peak memory are not those of the whole
+model, and their labels say "4 of 16 layers" (24 for the 0.95B point).
+Phases 4, 12, 14-16, 17 (c) and 19 run all 16; phase 18 runs ResNet-50
+and the MNIST MLP whole:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -178,12 +179,12 @@ and peak memory are not those of the whole model, and their labels say
    card and CPU at some step counted (at most ``TOL_SIGN_SHARE`` of them:
    AdamW parts such an element by about 2·lr) and every parameter within
    ``TOL_MODEL_REL`` outside them, 8 launches of each flash kernel per
-   step; (b) the pipelined flagship at full width and depth (16 layers,
-   dim 1024, 4 x 2048, its f32 final norm and f32 head) on a world-1 NCCL
+   step; (b) the pipelined flagship at full width and ``EARLIER_DEPTH``
+   (dim 1024, 4 x 2048, its f32 final norm and f32 head) on a world-1 NCCL
    mesh (pp=1), ``trainer.measure(..., mesh="pp=1",
    model=partial(PipelineTransformer, num_microbatches=M))`` at M=1 and
    M=4, 10 AdamW steps each: finite losses, the first within 0.5 of
-   ln(32000) + 0.5, 16·M launches of each flash kernel per step, M=1 and
+   ln(32000) + 0.5, 4·M launches of each flash kernel per step, M=1 and
    M=4 within ``TOL_PIPE_M_REL``, tokens/s, step ms, MFU and peak memory,
    the head's f32 FLOPs printed; then one state for both M: the first
    step's gradients at M=4 against M=1 within ``TOL_ACCUM_REL``, and where
@@ -200,9 +201,10 @@ and peak memory are not those of the whole model, and their labels say
    against an uninterrupted in-process ``trainer.train`` of 300 steps on
    the same corpus and seed: (a) the job's coordinator (``python -m
    tony_tpu_torch.coordinator``) is SIGKILLed after the first step and
-   ``python -m tony_tpu_torch.cli recover`` brings it home: recover exits
-   0, the job SUCCEEDED in one journal epoch, the worker's process the
-   same across the outage, 300 finite losses with 16 launches of each
+   ``python -m tony_tpu_torch.cli recover`` brings it home (a job of 150
+   steps): recover exits 0, the job SUCCEEDED in one journal epoch, the
+   worker's process the same across the outage, 150 finite losses with
+   16 launches of each
    flash kernel per step (no step ran twice), the first 20 within
    ``TOL_RESUME_REL`` of the uninterrupted run's; the outage (SIGKILL to
    the worker's re-registration) and recover's wall time printed; (b) a
@@ -268,13 +270,14 @@ and peak memory are not those of the whole model, and their labels say
    size and the ``top`` frame;
 17. the decoders' mesh layouts at world 1, over a one-rank NCCL group and
    ``build_mesh(MeshSpec())`` (the tensor-parallel plan at tp = 1, FSDP2
-   at 1): (a) the int8 and the fp8 flagship (16 layers, dim 1024, 4 x
-   2048) trained by ``trainer.measure(..., mesh="fsdp=1")`` in alternating
+   at 1): (a) the int8 and the fp8 flagship (``EARLIER_DEPTH`` layers,
+   dim 1024, 4 x 2048) trained by ``trainer.measure(..., mesh="fsdp=1")``
+   in alternating
    turns with the same mode unsharded (unsharded, sharded, unsharded,
    sharded; ``QMESH_STEPS`` steps after 2 warm ones each): every sharded
    turn's losses within ``TOL_QMESH_REL`` of the first unsharded turn's
    (the largest difference printed, with whether they are bit for bit),
-   7 x 16 quantized products and 16 launches of each flash kernel per step
+   7 x 4 quantized products and 4 launches of each flash kernel per step
    in every turn, no entry in ``quant.fallback_events()``; tokens/s, step
    ms and peak memory of each turn and the sharded / unsharded ratio of
    tokens/s; then ``python -m tony_tpu_torch.trainer --matmul-dtype int8
@@ -309,7 +312,26 @@ and peak memory are not those of the whole model, and their labels say
    stage-3 norms at tp = 2, 4 and 8 (``[256, 12544, 32]`` down to ``[256,
    49, 256]``, bf16, relu) and of the stem at tp = 16 (C = 4: the scalar
    path), each within phase 6's tolerance;
-19. prints the whole run's seconds, the kernels' JSON line (each flash
+19. checkpoints through the port's object store, ``gs://`` on
+   ``FakeGcsStore`` (``TONY_FAKE_GCS_ROOT`` a temporary root, set only in
+   this process's environment): (a) ``trainer.train`` of the flagship at
+   full width and depth (16 layers, 4 x 2048), one step (saved,
+   ``max_to_keep`` 1) with ``ckpt_dir="gs://tony-ckpt/flagship"``, then
+   the same with a local directory: no async error, 16 launches of each
+   flash kernel per step, nothing written under the
+   working directory; each newest step restored into a fresh state bit for
+   bit with the trained one (parameters and Adam moments), and the store's
+   step bit for bit with the local one; the writer's seconds per step, the
+   restore's seconds and the step's bytes printed for both; (b) phase 14
+   (b)'s migration drill once more, the job 50 steps longer (the
+   store's first save is slower), with
+   ``tony.application.checkpoint-dir=gs://tony-ckpt/migrate`` and no
+   ``--ckpt-dir`` in the command (the trainer reads
+   ``$TONY_CHECKPOINT_DIR``; the store's root reaches it from the
+   submitting CLI's environment through the client, the coordinator and
+   the executor): the same gates, the steps in the store, and the drain
+   save's seconds printed beside phase 14 (b)'s local ones;
+20. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -411,9 +433,10 @@ STEPS = 10
 PROFILE_STEPS = 3
 # Phases 7-11 drive their paths at the flagship's full width and this
 # depth (its layers; the 0.95B point's too), so that the script stays near
-# 400 s with phases 12 (d) and 13 in it. Phase 4 (the main path), the
-# submitted jobs of phase 12 and the pipelined flagship of phase 13 keep
-# all 16 layers.
+# 400 s with phases 12 (d) and 13 in it; phase 13 (b)'s pipelined flagship
+# and phase 17 (a)-(b)'s turns too since phase 19, which keeps the script
+# inside its time limit. Phase 4 (the main path) and the submitted jobs
+# keep all 16 layers.
 EARLIER_DEPTH = 4
 RESNET_BATCH = 256
 # The stem, three norms in each of 16 bottlenecks, four projections.
@@ -2579,7 +2602,9 @@ def pipelined_flagship(card, in_process):
                                                   pipeline_loss,
                                                   pipeline_train_step)
 
-    cfg = trainer.flagship_config(seq=2048)
+    full = trainer.flagship_config(seq=2048)
+    cfg = earlier(full)
+    log(cut_label("pipeline (b): the pipelined flagship", full))
     b, seq = 4, 2048
     head_flop = 3 * 2 * b * seq * cfg.dim * cfg.vocab_size
     log(f"pipeline (b): the f32 head's products (forward, and the two of "
@@ -2749,6 +2774,8 @@ def phase_pipeline(in_process, card):
 # and (b) still runs when the migration lands, after the first step's
 # save (~12 s of the writer) is durable.
 FAIL_STEPS = 300
+# (a)'s job: it outlives the outage (~1 s) by ~12 s of steps.
+RECOVER_STEPS = 150
 FAIL_MIGRATE_AT = 5       # migrate once the job reports this many steps
 # Above FAIL_STEPS: the interval policy saves the first step only, so the
 # drain's save is the one that carries the state across the move.
@@ -2910,7 +2937,7 @@ def recover_drill(tmp, corpus, want, card):
     conf = TonyTpuConfig()
     # No client: the coordinator must not wait for one.
     for k, v in failure_conf(
-            hist, f"exec {TRAINER} --data {corpus} --steps {FAIL_STEPS}",
+            hist, f"exec {TRAINER} --data {corpus} --steps {RECOVER_STEPS}",
             extra=[(K.APPLICATION_NUM_CLIENTS_TO_WAIT, False)]):
         conf.set(k, v)
     frozen = conf.freeze(os.path.join(job_dir, constants.FINAL_CONFIG_FILE))
@@ -2977,37 +3004,49 @@ def recover_drill(tmp, corpus, want, card):
               if r.get("t") == "epoch"]
     check(epochs == [0], f"recovered job: epochs {epochs}, expected [0]")
     run, _ = worker_run(work, app)
-    check(len(run["losses"]) == FAIL_STEPS and run["start_step"] == 0,
+    check(len(run["losses"]) == RECOVER_STEPS and run["start_step"] == 0,
           f"recovered job: {len(run['losses'])} losses from step "
           f"{run['start_step']}")
-    check_job_launches("recovered job", run, FAIL_STEPS)
+    check_job_launches("recovered job", run, RECOVER_STEPS,
+                       total=RECOVER_STEPS)
     err = held_to("recovered job", run["losses"][:20], want, 0)
     log(f"failures (a) coordinator SIGKILL + cli recover: {app} SUCCEEDED "
         f"in one epoch, worker pid {pid} unchanged, outage (SIGKILL to the "
         f"worker's re-registration) {outage:.4f} s, recover's wall "
-        f"{recover_s:.4f} s, {FAIL_STEPS} steps with 16 launches of each "
+        f"{recover_s:.4f} s, {RECOVER_STEPS} steps with 16 launches of each "
         f"flash kernel per step, first 20 losses {err:.3e} from the "
         f"uninterrupted run's; {card}")
     return job_dir_hist
 
 
-def migrate_drill(tmp, corpus, want, card):
-    """(b) ``cli migrate`` of a one-worker elastic flagship job: the drain
-    TERMs the trainer, its handler saves the state of the last whole step,
-    and the relaunched trainer resumes from it with no step re-run."""
+def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
+                  steps=FAIL_STEPS):
+    """(b) ``cli migrate`` of a one-worker elastic flagship job of
+    ``steps`` steps: the drain TERMs the trainer, its handler saves the
+    state of the last whole step, and the relaunched trainer resumes from
+    it with no step re-run; its losses are held to ``want``'s same steps
+    (as far as ``want`` goes). With ``ckpt_url`` (phase 19 b) the
+    checkpoints go there, named by the job's
+    ``tony.application.checkpoint-dir`` and not in the command. Returns the
+    job dir and the drain save's seconds."""
     from tony_tpu_torch.checkpoint import CheckpointManager
     from tony_tpu_torch.conf import keys as K
 
     base = os.path.join(tmp, "migrate")
     hist, work = os.path.join(base, "history"), os.path.join(base, "work")
-    ckpt = os.path.join(base, "ckpt")
-    command = (f"exec {TRAINER} --data {corpus} --steps {FAIL_STEPS} "
-               f"--ckpt-dir {ckpt} --save-every {FAIL_SAVE_EVERY}")
+    command = (f"exec {TRAINER} --data {corpus} --steps {steps} "
+               f"--save-every {FAIL_SAVE_EVERY}")
+    extra = [(K.ELASTIC_ENABLED, True),
+             (K.ELASTIC_DRAIN_GRACE_S, FAIL_DRAIN_GRACE_S)]
+    if ckpt_url is None:
+        ckpt = os.path.join(base, "ckpt")
+        command += f" --ckpt-dir {ckpt}"
+    else:
+        ckpt = ckpt_url
+        extra.append((K.APPLICATION_CHECKPOINT_DIR, ckpt))
     argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
             "--workdir", work]
-    for k, v in failure_conf(hist, command, extra=[
-            (K.ELASTIC_ENABLED, True),
-            (K.ELASTIC_DRAIN_GRACE_S, FAIL_DRAIN_GRACE_S)]):
+    for k, v in failure_conf(hist, command, extra=extra):
         argv += ["--conf", f"{k}={v}"]
     os.makedirs(base)
     out_path = os.path.join(base, "submit.log")
@@ -3027,8 +3066,10 @@ def migrate_drill(tmp, corpus, want, card):
             time.sleep(0.1)
         rpc = coordinator_rpc(os.path.join(work, "jobs", app))
         mgr = CheckpointManager(ckpt)
+        # A store lists only steps whose manifest object exists.
         poll(lambda: job_steps(rpc) >= FAIL_MIGRATE_AT
-             and os.path.exists(mgr.manifest_path(0)),
+             and (0 in mgr.all_steps() if ckpt_url
+                  else os.path.exists(mgr.manifest_path(0))),
              f"step {FAIL_MIGRATE_AT} and the first step's save")
         requested = time.time()
         r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
@@ -3082,23 +3123,40 @@ def migrate_drill(tmp, corpus, want, card):
           f"migrated job: the drain saved step {k}, the relaunch restored "
           f"{run['restored_step']} and started at {start}: "
           f"{k + 1 - start} steps re-run")
-    check(len(run["losses"]) == FAIL_STEPS - start,
+    check(len(run["losses"]) == steps - start,
           f"migrated job: {len(run['losses'])} losses from step {start}")
-    check_job_launches("migrated job", run, FAIL_STEPS - start)
-    err = held_to("migrated job", run["losses"], want, start)
+    check_job_launches("migrated job", run, steps - start, total=steps)
+    check(start < len(want), f"migrated job: the drain landed at step {k}, "
+          f"after the uninterrupted run's {len(want)} steps")
+    err = held_to("migrated job", run["losses"][:len(want) - start], want,
+                  start)
     mgr = CheckpointManager(ckpt)
     size = mgr.step_bytes(k)
-    log(f"failures (b) cli migrate {app} slice-1: SUCCEEDED, one epoch, "
+    if ckpt_url is not None:
+        kept = mgr.all_steps()
+        check(kept == [0, k, steps - 1] and mgr.verify_step(k),
+              f"migrated job: the store holds steps {kept}, expected "
+              f"the first, the drain's and the last: [0, {k}, "
+              f"{steps - 1}]")
+        stray = [os.path.join(r, d) for r, ds, _ in os.walk(work)
+                 for d in ds if d == "gs:"]
+        check(not stray, f"migrated job: {stray} on local disk")
+    mgr.close()
+    drain_s = float(durable.group(1))
+    where = f" ({ckpt})" if ckpt_url else ""
+    log(f"failures (b) cli migrate {app} slice-1{where}: SUCCEEDED, one "
+        f"epoch, "
         f"REC_MIGRATE start and applied; the drain's save of step {k} "
-        f"{size / 2**30:.3f} GiB in {float(durable.group(1)):.3f} s "
+        f"{size / 2**30:.3f} GiB in {drain_s:.3f} s "
         f"(tony.elastic.drain-grace-s default 15 s; this job's "
         f"{FAIL_DRAIN_GRACE_S} s), the relaunch's restore "
         f"{run['restore_s']:.3f} s and start at step {start}: "
         f"{k + 1 - start} steps re-run; migration wall (request to the "
         f"relaunched worker's re-registration) {wall:.4f} s; "
-        f"{FAIL_STEPS - start} steps with 16 launches of each flash kernel "
-        f"per step, losses {err:.3e} from the uninterrupted run's; {card}")
-    return job_dir
+        f"{steps - start} steps with 16 launches of each flash kernel "
+        f"per step, losses {err:.3e} from the uninterrupted run's (to step "
+        f"{len(want) - 1}); {card}")
+    return job_dir, drain_s
 
 
 def phase_failures(card):
@@ -3119,9 +3177,9 @@ def phase_failures(card):
         del ref
         gc.collect()
         torch.cuda.empty_cache()   # the jobs need the card's memory
-        dirs = [recover_drill(tmp, corpus, want, card),
-                migrate_drill(tmp, corpus, want, card)]
-        for job_dir in dirs:
+        recovered = recover_drill(tmp, corpus, want, card)
+        moved, drain_s = migrate_drill(tmp, corpus, want, card)
+        for job_dir in (recovered, moved):
             r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
                                 "check", job_dir], cwd=REPO, env=repo_env(),
                                capture_output=True, text=True, timeout=300)
@@ -3131,7 +3189,7 @@ def phase_failures(card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"failures: {time.perf_counter() - t0:.1f} s")
-    return want
+    return want, drain_s
 
 
 # Phase 15: the GPU host backend and the fleet on the card.
@@ -3825,15 +3883,16 @@ def phase_mesh_layouts(card, moe_run):
     try:
         rates = {}
         for mode in quant.MODES:
-            rates[mode] = mesh_turns(f"(a) flagship {mode}",
-                                     trainer.flagship_config(2048, mode),
-                                     card, mode)
+            full = trainer.flagship_config(2048, mode)
+            rates[mode] = mesh_turns(
+                cut_label(f"(a) flagship {mode}", full), earlier(full),
+                card, mode)
         log(f"mesh layouts (a): {time.perf_counter() - t0:.1f} s")
         quant_mesh_cli(card)
         t1 = time.perf_counter()
         tied = dataclasses.replace(trainer.flagship_config(2048),
                                    tie_embeddings=True)
-        mesh_turns("(b) flagship tied", tied, card)
+        mesh_turns(cut_label("(b) flagship tied", tied), earlier(tied), card)
         log(f"mesh layouts (b): {time.perf_counter() - t1:.1f} s")
         t1 = time.perf_counter()
         moe_mesh_layouts(card, moe_run)
@@ -4003,6 +4062,138 @@ def phase_vision_layouts(card):
     return rates
 
 
+# Phase 19: checkpoints through the port's object store on the card.
+STORE_CKPT_URL = "gs://tony-ckpt/flagship"
+STORE_MIGRATE_URL = "gs://tony-ckpt/migrate"
+# One step per turn: one save each (a turn of more steps saves its first
+# and its last, ~35 s of the store's writer), so that the script stays
+# inside its time limit.
+STORE_STEPS = 1
+# The store's first save takes ~12-20 s (phase 14 b's local one ~10-13)
+# while the job trains on, and the move waits for it: 50 steps more than
+# phase 14's job, so that the drain lands well before the end (it landed
+# at steps 187-258 on an H100 80GB HBM3 at 700 W). Phase 14's
+# uninterrupted losses hold its first 300.
+STORE_MIGRATE_STEPS = FAIL_STEPS + 50
+
+
+def state_tensors(state):
+    """The training state's parameters and Adam moments, in order."""
+    moments = state.optimizer.state_dict()["state"]
+    return ([p.detach() for p in state.model.parameters()]
+            + [moments[k][n] for k in sorted(moments)
+               for n in sorted(moments[k]) if torch.is_tensor(moments[k][n])])
+
+
+def bitwise(a, b):
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def store_turns(tmp, card):
+    """(a) The flagship's checkpoints in the store and on local disk, in
+    turns: the writer's seconds, the restores and the bitwise gates."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.checkpoint import CheckpointManager
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import checkpoint_tree, load_checkpoint_tree
+
+    cfg = trainer.flagship_config(seq=2048)
+    corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                  cfg.vocab_size)
+    log(f"store (a): {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free "
+        f"under {tmp}")
+    cwd = os.getcwd()
+    before = sorted(os.listdir(cwd))
+    dirs = {"store": STORE_CKPT_URL, "local": os.path.join(tmp, "local")}
+    restored = {}
+    for label in ("store", "local"):
+        _flash_cuda.reset_launch_counts()
+        run = trainer.train(cfg, corpus, batch=4, seq=2048,
+                            steps=STORE_STEPS, ckpt_dir=dirs[label],
+                            save_interval=10_000, max_to_keep=1,
+                            device="cuda", seed=0)
+        check(run["async_errors"] == [],
+              f"store (a) {label}: async errors {run['async_errors']}")
+        check(all(math.isfinite(x) for x in run["losses"]),
+              f"store (a) {label}: losses {run['losses']}")
+        check_flash_counts(f"store (a) {label}",
+                           dict(_flash_cuda.launch_counts), 16 * STORE_STEPS)
+        saved = state_tensors(run.pop("state"))
+        fresh = trainer.build_state(cfg, "cuda", seed=1)
+        mgr = CheckpointManager(dirs[label])
+        try:
+            steps = mgr.all_steps()
+            t0 = time.perf_counter()
+            load_checkpoint_tree(fresh, mgr.restore(None,
+                                                    checkpoint_tree(fresh)))
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            size = mgr.step_bytes(STORE_STEPS - 1)
+        finally:
+            mgr.close()
+        check(steps == [STORE_STEPS - 1] and fresh.step == STORE_STEPS,
+              f"store (a) {label}: steps {steps}, restored step count "
+              f"{fresh.step}")
+        restored[label] = state_tensors(fresh)
+        same = bitwise(saved, restored[label])
+        log(f"store (a) {label} ({dirs[label]}): {STORE_STEPS} steps, "
+            f"losses {run['losses']}, writer {json.dumps(run['write_s'])} s "
+            f"per saved step, ckpt_stall {ms_by_step(run['save_stall_s'])} "
+            f"ms, restore {restore_s:.3f} s, {size} bytes "
+            f"({size / 2**30:.3f} GiB) per step; restored bitwise equal to "
+            f"the trained state {same}; {card}")
+        check(same, f"store (a) {label}: the restored state differs from "
+              "the trained one")
+        del saved, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = bitwise(restored["store"], restored["local"])
+    stray = sorted(set(os.listdir(cwd)) - set(before))
+    log(f"store (a): the store's step bitwise equal to the local one's "
+        f"{same}; new entries under the working directory {stray}")
+    check(same, "store (a): the store's step differs from the local one's")
+    check(not stray and not os.path.exists(os.path.join(cwd, "gs:")),
+          f"store (a): {stray} written under {cwd}")
+    return corpus
+
+
+def phase_store_checkpoints(want, local_drain_s, card):
+    """Phase 19: checkpoints on ``gs://`` through the port's store
+    (``FakeGcsStore`` under a temporary ``TONY_FAKE_GCS_ROOT``, set in this
+    process's environment only)."""
+    from tony_tpu_torch.storage.store import FAKE_GCS_ROOT_ENV
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-store-")
+    previous = os.environ.get(FAKE_GCS_ROOT_ENV)
+    os.environ[FAKE_GCS_ROOT_ENV] = os.path.join(tmp, "gcs")
+    try:
+        corpus = store_turns(tmp, card)
+        log(f"store (a): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        shutil.rmtree(os.path.join(tmp, "gcs"), ignore_errors=True)
+        shutil.rmtree(os.path.join(tmp, "local"), ignore_errors=True)
+        _, drain_s = migrate_drill(tmp, corpus, want, card,
+                                   ckpt_url=STORE_MIGRATE_URL,
+                                   steps=STORE_MIGRATE_STEPS)
+        log(f"store (b): the drain save to {STORE_MIGRATE_URL} took "
+            f"{drain_s:.3f} s against phase 14 (b)'s {local_drain_s:.3f} s "
+            f"to local disk (tony.elastic.drain-grace-s default 15 s; this "
+            f"job's {FAIL_DRAIN_GRACE_S} s, as phase 14's); "
+            f"{time.perf_counter() - t1:.1f} s; {card}")
+    finally:
+        if previous is None:
+            os.environ.pop(FAKE_GCS_ROOT_ENV, None)
+        else:
+            os.environ[FAKE_GCS_ROOT_ENV] = previous
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"store: {time.perf_counter() - t0:.1f} s for parts (a)-(b); "
+        f"{card}")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -4031,11 +4222,12 @@ def main():
     moe_run = phase_seq_expert(mesh_run, long_timing, card)
     cold = phase_orchestrator(main_run["tokens_per_sec"])
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
-    want = phase_failures(card)
+    want, drain_s = phase_failures(card)
     phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
     phase_observers(main_run, card)
     phase_mesh_layouts(card, moe_run)
     phase_vision_layouts(card)
+    phase_store_checkpoints(want, drain_s, card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

@@ -16,6 +16,11 @@ step with the uninterrupted run's losses. A TERM sent from inside the
 periodic save of a step (before the save's busy scope, or inside its host
 snapshot) must leave that step's checkpoint too.
 
+A job of two gloo ranks, replicated and on an ``fsdp=2`` mesh, is TERMed
+on rank 1 only, from inside a step: the ranks agree on the TERM at that
+step's boundary, both save that step together and exit 143, and a resume
+continues at the next step with the uninterrupted run's losses.
+
 Also the exit codes and ``--json`` output of ``cli check`` and
 ``cli lint``, as ``tests/test_invariants.py`` and ``tests/test_lint.py``
 cover the reference's.
@@ -24,6 +29,7 @@ cover the reference's.
 import json
 import os
 import socket
+import statistics
 import subprocess
 import sys
 
@@ -37,6 +43,10 @@ from tony_tpu_torch.devtools import invariants
 from tony_tpu_torch.models.transformer import TransformerConfig
 from tony_tpu_torch.parallel.train import checkpoint_tree
 from tony_tpu_torch import trainer
+
+#: The resumed losses against the uninterrupted run's, relative
+#: (chip_smoke.py's limit for a resume).
+TOL_RESUME_REL = 1e-3
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -276,10 +286,11 @@ if world > 1:
 
 @pytest.mark.parametrize("world", [1, 2])
 def test_handler_only_in_a_job_of_one_process(tmp_path, world):
-    """A job of one process installs the handler once its first step is
-    done and puts the default back after the loop. The ranks of a larger
-    group would each take the TERM at their own step and meet in
-    different collectives, so they keep the default TERM throughout."""
+    """Every job that checkpoints, whatever its world size, installs the
+    handler once its first step is done and puts the default back after
+    the loop. (The name is older than the contract: a job of several
+    ranks now installs it too, and agrees on the TERM at each step's
+    boundary; the drills below hold that.)"""
     (tmp_path / "handler.py").write_text(HANDLER_SCRIPT)
     corpus = trainer.write_corpus(str(tmp_path / "corpus.bin"),
                                   TransformerConfig.tiny().vocab_size)
@@ -296,8 +307,151 @@ def test_handler_only_in_a_job_of_one_process(tmp_path, world):
         rc, out, err = _finish(proc)
         assert rc == 0, err[-4000:]
         got = json.loads(out.strip().splitlines()[-1])
-        want = [True, False, False] if world == 1 else [True] * 3
-        assert got == {"steps": want, "after": True}
+        assert got == {"steps": [True, False, False], "after": True}
+
+
+# Trains the tiny decoder for STEPS steps as rank RANK of a gloo group of
+# two processes (FileStore rendezvous in TMP), on MESH ("" replicated),
+# saving into CKPT every 1000 steps (the first and last steps, and a
+# drain's). Mode "term": rank 1 sends itself a TERM from inside optimizer
+# step TERM_AT (its pre-hook: inside the step's busy scope). Mode "plain":
+# no TERM. Prints the trainer's result with the seconds of each step
+# boundary's agreement (CheckpointManager.preemption_point).
+DRAIN_SCRIPT = r"""
+import json, os, signal, sys, time
+import torch
+import torch.distributed as dist
+from torch.optim.optimizer import register_optimizer_step_pre_hook
+from tony_tpu_torch import trainer
+from tony_tpu_torch.checkpoint import manager as ckpt_manager
+from tony_tpu_torch.models.transformer import TransformerConfig
+
+mode, corpus, ckpt, mesh, tmp = sys.argv[1:6]
+rank, steps, term_at = (int(x) for x in sys.argv[6:9])
+torch.set_num_threads(1)
+dist.init_process_group("gloo", store=dist.FileStore(
+    os.path.join(tmp, "rdzv"), 2), rank=rank, world_size=2)
+seen = {"steps": 0}
+
+
+def pre_hook(opt, args, kwargs):
+    if opt.param_groups[0]["lr"] == 0:
+        return          # checkpoint_tree's moment-creating zero step
+    if mode == "term" and rank == 1 and seen["steps"] == term_at:
+        os.kill(os.getpid(), signal.SIGTERM)
+    seen["steps"] += 1
+
+
+register_optimizer_step_pre_hook(pre_hook)
+agree_s = []
+point = ckpt_manager.CheckpointManager.preemption_point
+
+
+def timed_point(self):
+    t0 = time.perf_counter()
+    point(self)
+    agree_s.append(time.perf_counter() - t0)
+
+
+ckpt_manager.CheckpointManager.preemption_point = timed_point
+out = trainer.train(TransformerConfig.tiny(max_seq_len=32), corpus,
+                    batch=4, seq=32, steps=steps, ckpt_dir=ckpt,
+                    save_interval=1000, device="cpu", seed=0, mesh=mesh)
+del out["state"]
+out["agree_s"] = agree_s
+print(json.dumps(out))
+dist.destroy_process_group()
+sys.exit(0 if mode == "plain" else 3)
+"""
+
+DRAIN_LAYOUTS = {"replicated": "", "fsdp": "fsdp=2"}
+#: A rank that stopped by agreement waits this long for its own TERM.
+DRAIN_GRACE_S = 2
+
+
+def _drain_pair(tmp, label, mode, ckpt, mesh):
+    run = tmp / label
+    run.mkdir()
+    env = dict(os.environ, PYTHONPATH=REPO,
+               TONY_TASK_KILL_GRACE_S=str(DRAIN_GRACE_S))
+    return [subprocess.Popen(
+        [sys.executable, str(tmp / "drain_train.py"), mode,
+         str(tmp / "corpus.bin"), str(ckpt), mesh, str(run), str(rank),
+         str(STEPS), str(TERM_AT)],
+        env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for rank in range(2)]
+
+
+@pytest.fixture(scope="module")
+def drains(tmp_path_factory):
+    """Per layout: the job TERMed on rank 1 inside step TERM_AT, an
+    uninterrupted job of as many steps, then the TERMed job resumed."""
+    tmp = tmp_path_factory.mktemp("drain")
+    (tmp / "drain_train.py").write_text(DRAIN_SCRIPT)
+    trainer.write_corpus(str(tmp / "corpus.bin"),
+                         TransformerConfig.tiny().vocab_size)
+    procs = {}
+    for layout, mesh in DRAIN_LAYOUTS.items():
+        procs[layout, "term"] = _drain_pair(
+            tmp, f"{layout}-term", "term", tmp / f"{layout}-ckpt", mesh)
+        procs[layout, "full"] = _drain_pair(
+            tmp, f"{layout}-full", "plain", tmp / f"{layout}-full-ckpt",
+            mesh)
+    out = {k: [_finish(p) for p in pair] for k, pair in procs.items()}
+    for layout in DRAIN_LAYOUTS:
+        # What the drain left, before the resume adds its own steps.
+        mgr = CheckpointManager(str(tmp / f"{layout}-ckpt"))
+        try:
+            out[layout, "left"] = (mgr.all_steps(), mgr.verify_step(TERM_AT),
+                                   mgr.saved_world_size(TERM_AT))
+        finally:
+            mgr.close()
+    procs = {(layout, "resume"): _drain_pair(
+        tmp, f"{layout}-resume", "plain", tmp / f"{layout}-ckpt", mesh)
+        for layout, mesh in DRAIN_LAYOUTS.items()}
+    out.update({k: [_finish(p) for p in pair] for k, pair in procs.items()})
+    return {"tmp": tmp, **out}
+
+
+@pytest.mark.parametrize("layout", sorted(DRAIN_LAYOUTS))
+def test_term_on_one_rank_saves_the_boundary_step_on_both(drains, layout):
+    """Rank 1 alone takes the TERM, inside step TERM_AT. At that step's
+    boundary both ranks see it, save step TERM_AT together (a sharded
+    state: each its shards; a replicated one: rank 0, rank 1 at the
+    barrier) and exit 143; rank 0, which took no TERM, first waits the
+    grace for its own."""
+    for rank, (rc, out, err) in enumerate(drains[layout, "term"]):
+        assert rc == 143, (rank, out, err[-4000:])
+        saved = f"saving preemption checkpoint at step {TERM_AT}" in err
+        assert saved == (layout == "fsdp" or rank == 0), (rank, err[-4000:])
+        assert ("stopped by the ranks' agreement" in err) == (rank == 0), \
+            (rank, err[-4000:])
+    # save_interval 1000: the policy saves the first step, and only the
+    # drain can hold step TERM_AT; it verifies, saved at world 2.
+    assert drains[layout, "left"] == ([0, TERM_AT], True, 2)
+
+
+@pytest.mark.parametrize("layout", sorted(DRAIN_LAYOUTS))
+def test_resume_after_the_agreed_save_reruns_no_step(drains, layout):
+    for rank in range(2):
+        rc, out, err = drains[layout, "full"][rank]
+        assert rc == 0, err[-4000:]
+        full = json.loads(out.strip().splitlines()[-1])
+        rc, out, err = drains[layout, "resume"][rank]
+        assert rc == 0, err[-4000:]
+        resumed = json.loads(out.strip().splitlines()[-1])
+        assert resumed["restored_step"] == TERM_AT
+        assert resumed["start_step"] == TERM_AT + 1
+        want = full["losses"][TERM_AT + 1:]
+        assert len(resumed["losses"]) == len(want) == STEPS - TERM_AT - 1
+        for got, ref in zip(resumed["losses"], want):
+            assert abs(got - ref) <= TOL_RESUME_REL * abs(ref), (got, ref)
+        # The boundary's agreement: one host round trip on the gloo group.
+        agree = full["agree_s"]
+        assert len(agree) == STEPS
+        print(f"{layout} rank {rank}: flag all-reduce per step on the CPU "
+              f"(gloo, 2 ranks): median {statistics.median(agree):.6f} s, "
+              f"max {max(agree):.6f} s over {len(agree)} steps")
 
 
 # ---------------------------------------------------------------------------

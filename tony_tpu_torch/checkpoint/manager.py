@@ -49,6 +49,34 @@ and with ``save(..., mesh=)`` the mesh's ``{axis: size}`` too. A restore
 given the current ``mesh`` compares mesh shapes, one without it world
 sizes; a difference is logged as a reshard and recorded in
 ``last_restore_resharded``.
+
+The directory is a local path (bare or ``file://``, the prefix stripped) or
+a ``gs://`` URL, served by ``storage.get_store`` (``FakeGcsStore`` under
+``TONY_FAKE_GCS_ROOT``, else ``GcsStore``); any other scheme raises
+``ValueError``. For a URL each step is written by DCP into a staging
+directory private to the manager (a ``tempfile.mkdtemp``, removed by
+``close()``; no fsync there, the store's objects are the durable copy),
+hashed there, and uploaded object by object, the manifest
+LAST: an object store has no rename, so the manifest object is the commit
+point, and a step prefix without one (a torn upload) is never listed. A
+sharded step is uploaded by every rank, each its own files, hashed where
+they were written; rank 0 gathers the hashes and writes the manifest. A
+restore downloads the whole step into the staging area (every rank of a
+sharded restore its own copy), verifies it there and loads it from there.
+The reference turns its manifest off for a URL, because orbax commits on
+GCS by itself (``tony_tpu/checkpoint/manager.py:266-268``); here the
+manifest is the commit marker, so it stays. Retention and the deletion of
+a corrupt step remove the manifest object first, so that a half-deleted
+step is never listed.
+
+A job of several ranks agrees on the drain's save
+(``install_preemption_handler(..., group=)``): a TERM only marks the rank,
+and at each step's boundary ``preemption_point()`` all-reduces the marks
+(MAX) over a host (gloo) group, so every rank sees the same answer after
+the same step and the ranks save together. A rank that stops by agreement
+before its own TERM arrives waits for it, at most the kill grace
+(``TONY_TASK_KILL_GRACE_S``), before it exits: an exit reported before its
+executor holds the drain directive would be classed as a preemption.
 """
 
 from __future__ import annotations
@@ -60,14 +88,19 @@ import json
 import logging
 import os
 import shutil
+import tempfile
 import threading
 import time
+import weakref
 from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from urllib.parse import urlparse
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from tony_tpu_torch import faults, telemetry
+from tony_tpu_torch import constants, faults, telemetry
+from tony_tpu_torch.storage.store import get_store, is_url
+from tony_tpu_torch.storage.store import join as url_join
 from tony_tpu_torch.utils.durable import atomic_write, fsync_dir
 
 log = logging.getLogger(__name__)
@@ -98,6 +131,23 @@ def _mesh_shape(mesh: Any) -> Optional[Dict[str, int]]:
     if isinstance(mesh, Mapping):
         return {str(k): int(v) for k, v in mesh.items()}
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def _files_under(root: str) -> List[str]:
+    """Root-relative paths of every file under ``root``, the manifest at
+    its top excluded."""
+    out: List[str] = []
+    for base, _, files in os.walk(root):
+        for f in files:
+            if f == MANIFEST_NAME and base == root:
+                continue
+            rel = os.path.relpath(os.path.join(base, f), root)
+            out.append(rel.replace(os.sep, "/"))
+    return sorted(out)
+
+
+def _file_entry(path: str) -> Dict[str, Any]:
+    return {"sha256": _hash_file(path), "size": os.path.getsize(path)}
 
 
 def _sharded(tree: Any) -> bool:
@@ -141,8 +191,26 @@ class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  save_interval_steps: int = 1, async_save: bool = True):
-        self._directory = os.path.abspath(str(directory))
-        os.makedirs(self._directory, exist_ok=True)
+        directory = str(directory)
+        #: the object store of a URL directory (None: a local directory)
+        self._store = None
+        if is_url(directory):
+            parsed = urlparse(directory)
+            if parsed.scheme == "file":
+                directory = (parsed.netloc or "") + parsed.path
+            else:
+                # gs:// → the store; any other scheme raises ValueError.
+                self._store = get_store(directory)
+        if self._store is None:
+            self._directory = os.path.abspath(directory)
+            os.makedirs(self._directory, exist_ok=True)
+        else:
+            self._directory = directory.rstrip("/")
+        # The staging area of a URL directory: made on first use, removed
+        # by close() (or when the manager is collected).
+        self._stage_lock = threading.Lock()
+        self._stage_root: Optional[str] = None
+        self._unstage: Optional[weakref.finalize] = None
         # Depth of the main thread's busy scopes: inside save()/wait(), or
         # inside a step that updates the checkpoint tree in place.
         self._busy = 0
@@ -169,7 +237,8 @@ class CheckpointManager:
         #: step → seconds save() stalled the caller (the snapshot; the
         #: write too when synchronous)
         self.stall_s: Dict[int, float] = {}
-        #: step → seconds its write took (serialise, fsync, manifest)
+        #: step → seconds its write took (serialise, fsync, manifest; for
+        #: a store the hashing and the upload too)
         self.write_s: Dict[int, float] = {}
 
     def save(self, step: int, state: Any, force: bool = False,
@@ -208,6 +277,10 @@ class CheckpointManager:
                     if not self._overlap:
                         self._write(step, snap, note)
                 self.stall_s[step] = time.perf_counter() - t0
+            if sharded or not self._overlap:
+                # Committed: the interval policy need not list the
+                # directory (a store's listing is a request per step).
+                self._last_queued = step
             # Inside the busy scope: a TERM deferred from the snapshot
             # runs its final save after this step is queued.
             if self._overlap and not sharded:
@@ -288,6 +361,8 @@ class CheckpointManager:
         between barriers."""
         import torch.distributed.checkpoint as dcp
 
+        if self._store is not None:
+            return self._write_to_store(step, snap, note, sharded)
         dist = torch.distributed
         lead = not sharded or dist.get_rank() == 0
         final = self._step_dir(step)
@@ -312,6 +387,72 @@ class CheckpointManager:
         if sharded:
             dist.barrier()
 
+    def _write_to_store(self, step: int, snap: Any, note: Dict[str, Any],
+                        sharded: bool) -> None:
+        """``_write`` for a URL directory: DCP-save into the staging area,
+        upload each file with its hash, the manifest last (the commit
+        point), then drop steps beyond ``max_to_keep``. A sharded tree:
+        every rank uploads and hashes its own files, rank 0 gathers the
+        hashes and writes the manifest, between barriers."""
+        import torch.distributed.checkpoint as dcp
+
+        dist = torch.distributed
+        lead = not sharded or dist.get_rank() == 0
+        url = self._step_url(step)
+        if self._has_manifest(step):
+            raise FileExistsError(f"checkpoint step {step} already exists "
+                                  f"({url})")
+        if lead:
+            self._store.delete_tree(url)    # a torn upload's objects
+        if sharded:
+            dist.barrier()
+        t0 = time.perf_counter()
+        stage = self._stage(f"save-{step}")
+        try:
+            # No fsync: the staged copy is scratch, read back at once and
+            # removed; the store's objects are the durable copy.
+            dcp.save(snap, storage_writer=dcp.FileSystemWriter(
+                stage, sync_files=False), no_dist=not sharded)
+            files: Dict[str, Dict[str, Any]] = {}
+            for rel in _files_under(stage):
+                path = os.path.join(stage, rel.replace("/", os.sep))
+                files[rel] = _file_entry(path)
+                self._store.put_file(path, url_join(url, rel))
+            if sharded:
+                # Rank 0 cannot hash files that are on another host's disk.
+                gathered: List[Any] = [None] * dist.get_world_size()
+                dist.all_gather_object(gathered, files)
+                files = {k: v for part in gathered for k, v in part.items()}
+            if lead:
+                doc = {"step": int(step), "files": files, **note}
+                manifest = os.path.join(stage, MANIFEST_NAME)
+                with open(manifest, "wb") as f:
+                    f.write(json.dumps(doc, sort_keys=True).encode("utf-8"))
+                self._store.put_file(manifest, self.manifest_path(step))
+                self.write_s[step] = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(stage, ignore_errors=True)
+        if lead:
+            for old in self.all_steps()[:-self._max_to_keep]:
+                self.delete(old)
+        if sharded:
+            dist.barrier()
+
+    def _staging(self) -> str:
+        """The manager's private staging directory."""
+        with self._stage_lock:
+            if self._unstage is None or not self._unstage.alive:
+                self._stage_root = tempfile.mkdtemp(prefix="tony-ckpt-")
+                self._unstage = weakref.finalize(
+                    self, shutil.rmtree, self._stage_root, True)
+            return self._stage_root
+
+    def _stage(self, name: str) -> str:
+        """A path ``name`` in the staging area, with nothing there."""
+        path = os.path.join(self._staging(), name)
+        shutil.rmtree(path, ignore_errors=True)
+        return path
+
     def _drain_writer(self) -> None:
         """Block until the writer queue is empty and no write is in
         flight (the durability barrier of overlapped mode)."""
@@ -321,12 +462,19 @@ class CheckpointManager:
             while self._wqueue is not None or self._winflight is not None:
                 self._wcond.wait()
 
-    # -- steps on disk -----------------------------------------------------
+    # -- steps on disk or in the store -------------------------------------
     def _step_dir(self, step: int) -> str:
         return os.path.join(self._directory, str(step))
 
+    def _step_url(self, step: int) -> str:
+        return url_join(self._directory, str(step))
+
     def all_steps(self) -> List[int]:
-        """Committed (renamed-into-place) steps, oldest first."""
+        """Committed steps, oldest first: renamed into place, or in a store
+        holding their manifest object."""
+        if self._store is not None:
+            return sorted(int(n) for n in self._store.list(self._directory)
+                          if n.isdigit() and self._has_manifest(int(n)))
         return sorted(int(n) for n in os.listdir(self._directory)
                       if n.isdigit()
                       and os.path.isdir(os.path.join(self._directory, n)))
@@ -336,34 +484,52 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def delete(self, step: int) -> None:
-        shutil.rmtree(self._step_dir(step))
+        if self._store is None:
+            shutil.rmtree(self._step_dir(step))
+            return
+        # Manifest first: a step deleted halfway is no longer listed.
+        try:
+            self._store.delete(self.manifest_path(step))
+        except FileNotFoundError:
+            pass
+        self._store.delete_tree(self._step_url(step))
 
     def step_bytes(self, step: int) -> int:
         """Bytes of a committed step's files, its manifest included."""
+        if self._store is not None:
+            raw = self._manifest_bytes(step)
+            if raw is None:
+                return 0
+            files = json.loads(raw.decode("utf-8")).get("files") or {}
+            return len(raw) + sum(int(m["size"]) for m in files.values())
         root = self._step_dir(step)
         return sum(os.path.getsize(os.path.join(base, f))
                    for base, _, files in os.walk(root) for f in files)
 
+    @contextlib.contextmanager
+    def _step_root(self, step: int) -> Iterator[str]:
+        """A local directory holding the step's files: its own directory,
+        or for a store a download of it into the staging area, removed
+        afterwards."""
+        if self._store is None:
+            yield self._step_dir(step)
+            return
+        root = self._stage(f"restore-{step}")
+        try:
+            self._store.get_tree(self._step_url(step), root)
+            yield root
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
     # -- integrity -------------------------------------------------------
     def _step_files(self, step: int) -> List[str]:
         """Step-relative paths of every file of a step (manifest excluded)."""
-        root = self._step_dir(step)
-        out: List[str] = []
-        for base, _, files in os.walk(root):
-            for f in files:
-                if f == MANIFEST_NAME and base == root:
-                    continue
-                rel = os.path.relpath(os.path.join(base, f), root)
-                out.append(rel.replace(os.sep, "/"))
-        return sorted(out)
+        return _files_under(self._step_dir(step))
 
     def _write_manifest(self, step: int, note: Dict[str, Any]) -> None:
         root = self._step_dir(step)
-        files: Dict[str, Dict[str, Any]] = {}
-        for rel in self._step_files(step):
-            p = os.path.join(root, rel.replace("/", os.sep))
-            files[rel] = {"sha256": _hash_file(p),
-                          "size": os.path.getsize(p)}
+        files = {rel: _file_entry(os.path.join(root, rel.replace("/", os.sep)))
+                 for rel in self._step_files(step)}
         doc = {"step": int(step), "files": files, **note}
         # The manifest is the verified-restore contract: it must never be
         # adoptable half-written, and it must survive the host crash that
@@ -372,17 +538,61 @@ class CheckpointManager:
                      json.dumps(doc, sort_keys=True).encode("utf-8"))
 
     def manifest_path(self, step: int) -> str:
+        """The manifest's path, or its object's URL in a store."""
+        if self._store is not None:
+            return url_join(self._step_url(step), MANIFEST_NAME)
         return os.path.join(self._step_dir(step), MANIFEST_NAME)
+
+    def _has_manifest(self, step: int) -> bool:
+        if self._store is not None:
+            return self._store.exists(self.manifest_path(step))
+        return os.path.exists(self.manifest_path(step))
+
+    def _manifest_bytes(self, step: int) -> Optional[bytes]:
+        """The manifest's bytes (None: the step has none)."""
+        if self._store is None:
+            try:
+                with open(self.manifest_path(step), "rb") as f:
+                    return f.read()
+            except OSError:
+                return None
+        fd, tmp = tempfile.mkstemp(dir=self._staging())
+        os.close(fd)
+        try:
+            self._store.get_file(self.manifest_path(step), tmp)
+            with open(tmp, "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+        finally:
+            with contextlib.suppress(OSError):
+                os.unlink(tmp)
+
+    def _manifest(self, step: int) -> Optional[dict]:
+        raw = self._manifest_bytes(step)
+        try:
+            return None if raw is None else json.loads(raw.decode("utf-8"))
+        except ValueError:
+            return None
 
     def verify_step(self, step: int) -> bool:
         """True iff the step has a manifest and every listed file exists
-        with matching size+sha256 (extra files are tolerated)."""
+        with matching size+sha256 (extra files are tolerated). A step in a
+        store is downloaded to be checked."""
         try:
-            with open(self.manifest_path(step), encoding="utf-8") as f:
+            with self._step_root(step) as root:
+                return self._verify(step, root)
+        except FileNotFoundError:
+            return False
+
+    def _verify(self, step: int, root: str) -> bool:
+        """``verify_step`` on the step's files under ``root``."""
+        try:
+            with open(os.path.join(root, MANIFEST_NAME),
+                      encoding="utf-8") as f:
                 manifest = json.load(f)
         except (OSError, ValueError):
             return False
-        root = self._step_dir(step)
         for rel, meta in (manifest.get("files") or {}).items():
             p = os.path.join(root, rel.replace("/", os.sep))
             try:
@@ -412,18 +622,16 @@ class CheckpointManager:
         """The torch.distributed world size noted in a step's manifest at
         save time (None: no manifest)."""
         try:
-            with open(self.manifest_path(step), encoding="utf-8") as f:
-                return int(json.load(f)["world"])
-        except (OSError, ValueError, KeyError, TypeError):
+            return int(self._manifest(step)["world"])
+        except (ValueError, KeyError, TypeError):
             return None
 
     def saved_mesh_shape(self, step: int) -> Optional[Dict[str, int]]:
         """The ``{axis: size}`` mesh shape noted in a step's manifest at
         save time (None: no manifest, or saved without a mesh)."""
         try:
-            with open(self.manifest_path(step), encoding="utf-8") as f:
-                return _mesh_shape(json.load(f).get("mesh"))
-        except (OSError, ValueError, AttributeError, TypeError):
+            return _mesh_shape(self._manifest(step).get("mesh"))
+        except (ValueError, AttributeError, TypeError):
             return None
 
     def _note_reshard(self, step: int, mesh: Any) -> None:
@@ -440,10 +648,9 @@ class CheckpointManager:
             log.warning("checkpoint step %d: resharding on restore — saved "
                         "at %s, restoring onto %s", step, saved, current)
 
-    def _load(self, step: int, like: Any, mesh: Any = None) -> Any:
+    def _load(self, step: int, like: Any, root: str, mesh: Any = None) -> Any:
         import torch.distributed.checkpoint as dcp
 
-        root = self._step_dir(step)
         if not os.path.isdir(root):
             raise FileNotFoundError(f"no checkpoint step {step} in "
                                     f"{self._directory}")
@@ -467,53 +674,60 @@ class CheckpointManager:
         all (the process died before the manifest was written) is attempted
         and skipped only if DCP itself rejects it. An explicit ``step`` is
         restored as requested — failing loudly if its manifest does not
-        verify. A sharded ``like`` is loaded by every rank, each its own
+        verify. A step in a store is downloaded into the staging area,
+        checked and loaded there. A sharded ``like`` is loaded by every rank, each its own
         shards, from whatever layout saved them. ``mesh`` (the current
         ``DeviceMesh``) is compared with the mesh shape the step noted
         (``last_restore_resharded``)."""
         if step is not None:
             step = int(step)
             self._drain_writer()   # an in-flight write of THIS step
-            if verify and os.path.exists(self.manifest_path(step)) \
-                    and not self.verify_step(step):
-                raise IOError(
-                    f"checkpoint step {step} failed integrity "
-                    f"verification ({self.manifest_path(step)})")
-            return self._load(step, like, mesh)
+            with self._step_root(step) as root:
+                if verify and os.path.exists(os.path.join(
+                        root, MANIFEST_NAME)) \
+                        and not self._verify(step, root):
+                    raise IOError(
+                        f"checkpoint step {step} failed integrity "
+                        f"verification ({self.manifest_path(step)})")
+                return self._load(step, like, root, mesh)
         self.wait()
         candidates = list(reversed(self.all_steps()))
         if not candidates:
             raise FileNotFoundError("no checkpoint to restore")
         errors: List[str] = []
         for cand in candidates:
-            has_manifest = os.path.exists(self.manifest_path(cand))
-            if verify and has_manifest and not self.verify_step(cand):
-                log.warning(
-                    "checkpoint step %d is PARTIAL/CORRUPT — falling back "
-                    "to the previous verified step", cand)
-                errors.append(f"step {cand}: integrity check failed")
-                # Quarantine: a rejected step would keep shadowing
-                # latest_step() AND block the resumed run from re-saving
-                # the same step number.
-                try:
-                    self.delete(cand)
-                    log.warning("deleted corrupt checkpoint step %d", cand)
-                except OSError as e:
-                    log.warning("could not delete corrupt step %d: %s",
-                                cand, e)
-                continue
             try:
-                out = self._load(cand, like, mesh)
-                if cand != candidates[0]:
-                    log.warning("restored verified step %d (newest was %d)",
-                                cand, candidates[0])
-                return out
+                with self._step_root(cand) as root:
+                    corrupt = verify and os.path.exists(
+                        os.path.join(root, MANIFEST_NAME)) \
+                        and not self._verify(cand, root)
+                    out = None if corrupt else self._load(cand, like, root,
+                                                          mesh)
             except Exception as e:  # noqa: BLE001 — try the next-older step
                 if not verify:
                     raise
                 log.warning("restore of step %d failed (%s); trying older",
                             cand, e)
                 errors.append(f"step {cand}: {e}")
+                continue
+            if not corrupt:
+                if cand != candidates[0]:
+                    log.warning("restored verified step %d (newest was %d)",
+                                cand, candidates[0])
+                return out
+            log.warning(
+                "checkpoint step %d is PARTIAL/CORRUPT — falling back "
+                "to the previous verified step", cand)
+            errors.append(f"step {cand}: integrity check failed")
+            # Quarantine: a rejected step would keep shadowing
+            # latest_step() AND block the resumed run from re-saving
+            # the same step number.
+            try:
+                self.delete(cand)
+                log.warning("deleted corrupt checkpoint step %d", cand)
+            except OSError as e:
+                log.warning("could not delete corrupt step %d: %s",
+                            cand, e)
         raise FileNotFoundError(
             "no restorable checkpoint: " + "; ".join(errors))
 
@@ -536,7 +750,8 @@ class CheckpointManager:
             self._run_deferred_preemption()
 
     def install_preemption_handler(self, snapshot, exit_code: int = 143,
-                                   mesh: Any = None) -> None:
+                                   mesh: Any = None,
+                                   group: Any = None) -> None:
         """Save-on-SIGTERM: when the job is being torn down, synchronously
         save the state ``snapshot()`` returns, then exit.
 
@@ -549,6 +764,13 @@ class CheckpointManager:
         not saved again. ``mesh`` is passed to ``save``. Wrap in-place
         updates of the tree in ``updating()``.
 
+        ``group``, a gloo process group of every rank of a job of several
+        ranks: a TERM only marks this rank, and the save runs from
+        ``preemption_point()``, which every rank calls at each step's
+        boundary. The ranks save together there: each its own shards of a
+        sharded tree; a replicated tree from rank 0 while the others wait
+        at a barrier of ``group``.
+
         Install from the MAIN thread of the training process. Exits with
         ``exit_code`` (default 143 = 128+SIGTERM).
         ``remove_preemption_handler`` puts the previous handler back.
@@ -557,13 +779,15 @@ class CheckpointManager:
 
         self._preempt = {"fired": False, "deferred": False,
                          "snapshot": snapshot, "exit_code": exit_code,
-                         "mesh": mesh,
+                         "mesh": mesh, "group": group,
                          "previous": signal.getsignal(signal.SIGTERM)}
 
         def _handler(signum, frame):
             st = self._preempt
-            if st["fired"]:
+            st["deferred"] = True
+            if st["fired"] or st["group"] is not None:
                 # Teardown delivers TERM more than once — first one wins.
+                # In a job of several ranks the boundary acts on it.
                 return
             if self._busy:
                 # TERM landed while the main thread is INSIDE a save, a
@@ -571,7 +795,6 @@ class CheckpointManager:
                 # corrupt the in-flight write or snapshot a half-updated
                 # tree. Defer: the end of the outermost busy scope runs
                 # the final save.
-                st["deferred"] = True
                 return
             st["fired"] = True
             self._do_preemption_save()
@@ -591,7 +814,25 @@ class CheckpointManager:
     def _run_deferred_preemption(self) -> None:
         st = self._preempt
         if (st is not None and st["deferred"] and not st["fired"]
-                and not self._busy):
+                and st["group"] is None and not self._busy):
+            st["fired"] = True
+            self._do_preemption_save()
+
+    def preemption_point(self) -> None:
+        """The step's boundary in a job of several ranks (a handler
+        installed with ``group``; otherwise a no-op). A collective over
+        ``group``: every rank calls it after the same step. The ranks
+        all-reduce (MAX) whether any of them has taken a TERM; the
+        all-reduce is itself in lock-step, so all see the same answer
+        after the same step, and on a TERM they all run the final save
+        and exit."""
+        st = self._preempt
+        if st is None or st["group"] is None or st["fired"]:
+            return
+        dist = torch.distributed
+        flag = torch.tensor([int(st["deferred"])], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=st["group"])
+        if flag.item():
             st["fired"] = True
             self._do_preemption_save()
 
@@ -599,23 +840,58 @@ class CheckpointManager:
         import sys
 
         st = self._preempt
+        group = st["group"]
+        dist = torch.distributed
         t0 = time.perf_counter()
         try:
             step, state = st["snapshot"]()
             step = int(step)
             self.wait()
-            if os.path.exists(self.manifest_path(step)):
-                log.warning("SIGTERM: step %d is already saved", step)
+            if group is None:
+                saves, saved = True, self._has_manifest(step)
+            elif _sharded(state):
+                # Every rank takes part in a sharded save: all act on rank
+                # 0's view of whether the step is already committed.
+                flag = torch.tensor([int(dist.get_rank() == 0
+                                         and self._has_manifest(step))],
+                                    dtype=torch.int32)
+                dist.broadcast(flag, src=0, group=group)
+                saves, saved = True, bool(flag.item())
             else:
+                saves = dist.get_rank() == 0
+                saved = saves and self._has_manifest(step)
+            if saves and saved:
+                log.warning("SIGTERM: step %d is already saved", step)
+            elif saves:
                 log.warning("SIGTERM: saving preemption checkpoint at "
                             "step %d", step)
                 self.save(step, state, force=True, mesh=st["mesh"])
                 self.wait()
-            log.warning("preemption checkpoint durable in %.3f s; exiting",
-                        time.perf_counter() - t0)
         except Exception:  # noqa: BLE001 — still exit promptly
             log.exception("preemption save failed")
+        if group is not None:
+            try:
+                dist.barrier(group=group)   # rank 0's save is durable
+            except Exception:  # noqa: BLE001 — still exit promptly
+                log.exception("preemption barrier failed")
+        log.warning("preemption checkpoint durable in %.3f s; exiting",
+                    time.perf_counter() - t0)
+        if group is not None and not st["deferred"]:
+            self._await_term(st)
         sys.exit(st["exit_code"])
+
+    @staticmethod
+    def _await_term(st: dict) -> None:
+        """Wait, at most the kill grace, for this rank's own TERM: a rank
+        that stopped by agreement must not exit before its executor holds
+        the drain directive."""
+        grace = float(os.environ.get(constants.TASK_KILL_GRACE_ENV, "15")
+                      or 15)
+        log.warning("stopped by the ranks' agreement; waiting up to %.0f s "
+                    "for this rank's own SIGTERM", grace)
+        deadline = time.monotonic() + grace
+        while not st["deferred"] and time.monotonic() < deadline:
+            time.sleep(0.05)
 
     def wait(self) -> None:
         """Block until queued async saves are durable (call before exit)."""
@@ -632,6 +908,8 @@ class CheckpointManager:
         if self._wthread is not None:
             self._wthread.join(timeout=30)
             self._wthread = None
+        if self._unstage is not None:
+            self._unstage()
 
     def __enter__(self) -> "CheckpointManager":
         return self

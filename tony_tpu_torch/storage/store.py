@@ -9,8 +9,8 @@ store: the client **puts** the bundle under a job prefix, executors on
 remote TPU VMs **get** it — no shared filesystem is ever assumed once a
 remote store is configured.
 
-- ``Store`` — the minimal interface (put/get file+tree, list, exists),
-  addressed by URL.
+- ``Store`` — the minimal interface (put/get file+tree, list, exists,
+  delete object+tree), addressed by URL.
 - ``LocalFsStore`` — ``file://`` (and bare paths): the single-host and
   NFS-mount path.
 - ``GcsStore`` — ``gs://``: the REAL client, speaking the GCS JSON API
@@ -124,6 +124,22 @@ class Store(abc.ABC):
         """(relative_key, full_url) for every object under the prefix —
         the primitive put_tree/get_tree ride on."""
 
+    @abc.abstractmethod
+    def delete(self, url: str) -> None:
+        """Remove one object; FileNotFoundError when it is absent."""
+
+    def delete_tree(self, url: str) -> None:
+        """Remove every object under the prefix (none there: a no-op)."""
+        try:
+            keys = self._keys_under(url)
+        except FileNotFoundError:
+            return              # an unknown bucket holds nothing
+        for _, full in keys:
+            try:
+                self.delete(full)
+            except FileNotFoundError:
+                pass            # another deleter was first
+
     def put_tree(self, local_dir: str, url: str) -> None:
         for root, _, files in os.walk(local_dir):
             for f in files:
@@ -201,6 +217,13 @@ class RetryingStore(Store):
     def _keys_under(self, url: str):
         return self.inner._keys_under(url)
 
+    def delete(self, url: str) -> None:
+        self._retrying(f"delete {url}", lambda: self.inner.delete(url))
+
+    def delete_tree(self, url: str) -> None:
+        # Idempotent: a retry deletes what the failed attempt left.
+        self._retrying(f"delete {url}", lambda: self.inner.delete_tree(url))
+
     def __getattr__(self, name: str):
         # Store-specific extras (LocalFsStore.open, endpoints, ...)
         return getattr(self.inner, name)
@@ -270,6 +293,14 @@ class LocalFsStore(Store):
                 rel = os.path.relpath(p, src).replace(os.sep, "/")
                 out.append((rel, join(url, rel)))
         return out
+
+    def delete(self, url: str) -> None:
+        os.unlink(self._resolve(url))
+
+    def delete_tree(self, url: str) -> None:
+        path = self._resolve(url)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
 
 
 def _split_gs(url: str) -> Tuple[str, str]:
@@ -563,6 +594,10 @@ class GcsStore(Store):
         return [(n[len(prefix):], f"gs://{bucket}/{n}")
                 for n in names if n != prefix and not n.endswith("/")]
 
+    def delete(self, url: str) -> None:
+        bucket, key = _split_gs(url)
+        self._request("DELETE", self._obj_url(bucket, key), ok=(200, 204))
+
 
 class FakeGcsStore(Store):
     """``gs://`` with real GCS *semantics* on a local root (egress-free CI).
@@ -650,6 +685,13 @@ class FakeGcsStore(Store):
         prefix = _as_prefix(key)
         return [(k[len(prefix):], f"gs://{bucket}/{k}")
                 for k in self._keys(bucket) if k.startswith(prefix)]
+
+    def delete(self, url: str) -> None:
+        _, _, path = self._obj_path(url)
+        try:
+            os.unlink(path)
+        except FileNotFoundError:
+            raise FileNotFoundError(f"{url} not in store") from None
 
     @staticmethod
     def make_bucket(root: str, bucket: str,

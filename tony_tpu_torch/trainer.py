@@ -80,9 +80,11 @@ per step (``launches_per_step``) and the wall times of the start-up
 
 Submitted as a job's command (``python -m tony_tpu_torch.cli submit``),
 the trainer runs under the executor's rendezvous env: ``--mesh`` then
-joins the gang's group through ``env://`` (``mesh_scope``), and the final
-step count and device memory are published to the executor's telemetry
-file before the process exits.
+joins the gang's group through ``env://`` (``mesh_scope``), ``--ckpt-dir``
+defaults to ``$TONY_CHECKPOINT_DIR`` (a job's
+``tony.application.checkpoint-dir``, a path or a ``gs://`` URL), and the
+final step count and device memory are published to the executor's
+telemetry file before the process exits.
 """
 
 from __future__ import annotations
@@ -475,17 +477,21 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     policy, ``max_to_keep`` retention; the last step is always saved; in a
     group, rank 0 saves). The manager is drained at the end.
 
-    With ``ckpt_dir`` the loop also obeys the drain contract it is
-    launched under (an elastic resize or a migration TERMs the process and
-    expects one final save): once its first step is done it installs the
-    manager's SIGTERM handler for the rest of the loop. The step updates
-    the state in place, so it runs inside ``mgr.updating()``: a TERM
-    landing mid-step is deferred to the step's boundary, and the final
-    save holds the state after the last whole step with its step count.
-    The process then exits 143. Only a job of one process installs it:
-    ranks that each took the TERM at their own step would meet in
-    different collectives (a save's barrier, a step's), so a larger group
-    keeps the default TERM and resumes from its last periodic save.
+    ``ckpt_dir`` is a local path or a ``gs://`` URL (``CheckpointManager``).
+    With it the loop also obeys the drain contract it is launched under
+    (an elastic resize or a migration TERMs the process and expects one
+    final save): once its first step is done it installs the manager's
+    SIGTERM handler for the rest of the loop. The step updates the state
+    in place, so it runs inside ``mgr.updating()``: a TERM landing
+    mid-step is deferred to the step's boundary, and the final save holds
+    the state after the last whole step with its step count. The process
+    then exits 143. In a group of several processes, ranks that each acted
+    on the TERM at their own step would meet in different collectives (a
+    save's barrier, a step's). So there a TERM only marks the rank, and
+    at each step's boundary the ranks all-reduce the marks over a gloo
+    group on the host (``CheckpointManager.preemption_point``; it never
+    enters the card's stream): after the same step they all see the TERM
+    and save that step together.
 
     With ``mesh`` (see ``mesh_scope``) the state is sharded: each rank
     reads its batch coordinate's rows, the step is ``train_step_accum`` on
@@ -521,9 +527,10 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
     start, restored, restore_s = 0, None, None
     losses = []
     it = None
-    drain = mgr is not None and not (dist.is_available()
-                                     and dist.is_initialized()
-                                     and dist.get_world_size() > 1)
+    # The drain's agreement of a group: a host round trip per step.
+    flags = dist.new_group(backend="gloo") if (
+        mgr is not None and dist.is_available() and dist.is_initialized()
+        and dist.get_world_size() > 1) else None
 
     def snapshot():
         # The state after the last whole step: iteration step - 1.
@@ -549,13 +556,16 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
                         else contextlib.nullcontext():
                     m = train_step_accum(state, b, accum_steps, bucket_mb,
                                          group, mesh=mesh)
-            if drain and i == start:
+            if mgr is not None and i == start:
                 # From here on a TERM has a whole step to save.
-                mgr.install_preemption_handler(snapshot, mesh=mesh)
+                mgr.install_preemption_handler(snapshot, mesh=mesh,
+                                               group=flags)
             losses.append(m["loss"])
             if mgr is not None and saves and (i == steps - 1
                                               or mgr.should_save(i)):
                 mgr.save(i, checkpoint_tree(state), force=True, mesh=mesh)
+            if flags is not None:
+                mgr.preemption_point()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
@@ -567,6 +577,8 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
         if mgr is not None:
             mgr.remove_preemption_handler()
             mgr.close()
+        if flags is not None:
+            dist.destroy_process_group(flags)
     out: Dict[str, Any] = {
         "losses": [float(x) for x in losses], "start_step": start,
         "steps": steps, "restored_step": restored, "restore_s": restore_s,
@@ -727,8 +739,13 @@ def main(argv=None) -> int:
                     help="microbatches per optimizer step (with --data)")
     ap.add_argument("--bucket-mb", type=int, default=DEFAULT_BUCKET_MB,
                     help="gradient all-reduce bucket size (with --data)")
-    ap.add_argument("--ckpt-dir", help="checkpoint directory: resume from "
-                    "it and save into it (with --data)")
+    ap.add_argument("--ckpt-dir",
+                    default=os.environ.get(constants.CHECKPOINT_DIR) or None,
+                    help="checkpoint directory, a path or a gs:// URL: "
+                    "resume from it and save into it (with --data; "
+                    f"default ${constants.CHECKPOINT_DIR}, which a job "
+                    "configured with tony.application.checkpoint-dir "
+                    "gets)")
     ap.add_argument("--save-every", type=int, default=1,
                     help="save interval in steps (with --ckpt-dir)")
     ap.add_argument("--seq", type=int, help="sequence length of a decoder "
