@@ -331,7 +331,22 @@ and the MNIST MLP whole:
    submitting CLI's environment through the client, the coordinator and
    the executor): the same gates, the steps in the store, and the drain
    save's seconds printed beside phase 14 (b)'s local ones;
-20. prints the whole run's seconds, the kernels' JSON line (each flash
+20. tensor-parallel layouts under other logical rules tables at world 1,
+   over a one-rank NCCL group and ``build_mesh(MeshSpec())``: the flagship
+   at full width and 4 layers (4 x 2048, bf16) under T1 (kv heads whole),
+   T2 (``embed`` over tp first: every projection the other way round),
+   T3 (the table's embed dim over tp) and T4 (the head's embed dim over
+   ``(fsdp, tp)``), the int8 flagship under T2, the tied flagship under
+   T3 and the MNIST MLP (batch 4096) under T2, each from
+   ``init_sharded_state(..., rules=)`` beside its unsharded twin, 5 steps
+   each on the same batches: the table's layout in the placements, losses
+   within ``TOL_MESH_REL`` of the twin's (and whether bit for bit), 4
+   launches of each flash kernel per step, 28 quantized products per
+   step for int8, no fallback, and the sharded / unsharded tokens/s
+   (samples/s for the MLP) with the card's name and power limit. At
+   tp = 1 no collective runs; ``tests/test_torch_rules.py`` meets the
+   tables at tp > 1 on the CPU;
+21. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -4194,6 +4209,178 @@ def phase_store_checkpoints(want, local_drain_s, card):
         f"{card}")
 
 
+# Phase 20: tensor-parallel layouts under other rules tables at world 1.
+RULES_STEPS = 5
+RULES_DEPTH = 4
+
+
+def rules_tables():
+    """The tables of ``tests/test_torch_rules.py`` (test data; the package
+    exports only ``DEFAULT_RULES``): T1 keeps the kv heads whole, T2 puts
+    ``embed`` over tp before any other rule, T3 the embedding table's embed
+    dim over tp (its rows over fsdp), T4 the head's embed dim over
+    ``(fsdp, tp)`` as a MaxText-style fallback list."""
+    from tony_tpu_torch.parallel import DEFAULT_RULES as d
+
+    return {
+        "T1": tuple((n, None) if n == "kv_heads" else (n, a) for n, a in d),
+        "T2": (("embed", "tp"),) + d,
+        "T3": tuple(("vocab_table", "fsdp") if n == "vocab_table" else
+                    ("embed_table", "tp") if n == "embed_table" else (n, a)
+                    for n, a in d),
+        "T4": tuple(r for r in d if r[0] not in ("embed", "vocab")) + (
+            ("vocab", None), ("embed", ("fsdp", "tp")), ("embed", "fsdp")),
+    }
+
+
+# What each table must change, read off ``init_sharded_state``'s
+# placements: (parameter, its mesh axes per dim).
+RULES_LAYOUT = {
+    "T1": ("layers.0.attn.wk.weight", ((), ("fsdp",))),
+    "T2": ("layers.0.attn.wq.weight", ((), ("tp",))),
+    "T3": ("embedding", (("fsdp",), ("tp",))),
+    "T4": ("lm_head.weight", ((), ("fsdp", "tp"))),
+}
+
+
+def rules_turn(label, cfg, table, batches, unit, card):
+    """One turn of ``RULES_STEPS`` steps: ``cfg`` (a ``TransformerConfig``,
+    or None for the MNIST MLP) unsharded (``table`` None) or from
+    ``init_sharded_state(..., rules=table)`` on the world-1 mesh, the
+    first step untimed. Checks the launches; returns (losses, rate per
+    second of ``unit``)."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.models import MnistMLP, Transformer
+    from tony_tpu_torch.ops import _flash_cuda, quant
+    from tony_tpu_torch.parallel import (MeshSpec, TrainState, adamw,
+                                         build_mesh, init_sharded_state, sgd,
+                                         sharded_train_step, train_step)
+
+    if cfg is None:
+        def build(device, generator=None):
+            return MnistMLP(hidden=128, device=device, generator=generator)
+
+        def opt(params):
+            return sgd(params, trainer.VISION_LR,
+                       momentum=trainer.VISION_MOMENTUM)
+        loss = trainer.vision_loss
+    else:
+        def build(device, generator=None):
+            return Transformer(cfg, device=device, generator=generator)
+
+        def opt(params):
+            return adamw(params, trainer.LEARNING_RATE)
+        loss = trainer.lm_loss
+    gc.collect()
+    torch.cuda.empty_cache()
+    if table is None:
+        model = build("cuda", torch.Generator("cuda").manual_seed(0))
+        state = TrainState(model, opt(model.parameters()), loss)
+
+        def step(b):
+            return train_step(state, b)
+    else:
+        mesh = build_mesh(MeshSpec(), "cuda")
+        state, placements = init_sharded_state(build, opt, mesh,
+                                               rules=rules_tables()[table],
+                                               seed=0)
+        if table in RULES_LAYOUT and cfg is not None:
+            name, dims = RULES_LAYOUT[table]
+            check(placements[name].dims == dims,
+                  f"{label}: {name} laid out as {placements[name].dims}, "
+                  f"{table} says {dims}")
+
+        def step(b):
+            return sharded_train_step(loss, mesh, state, b)[1]
+    _flash_cuda.reset_launch_counts()
+    quant.reset_launch_counts()
+    losses = [float(step(batches[0])["loss"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [float(step(b)["loss"]) for b in batches[1:]]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (len(batches) - 1) * 1e3
+    rows = next(iter(batches[0].values())).shape
+    rate = rows[0] * (rows[1] if cfg is not None else 1) / ms * 1e3
+    flash, qcounts = dict(_flash_cuda.launch_counts), dict(quant.launch_counts)
+    log(f"rules {label}: losses {losses}, {rate:.1f} {unit}/s, {ms:.3f} "
+        f"ms/step (steps 2-{len(batches)}), flash launches {json.dumps(flash)}"
+        f", quantized products {json.dumps(qcounts)}; {card}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    want = 0 if cfg is None else cfg.n_layers * len(batches)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(flash.get(name, 0) == want,
+              f"{label}: {name} launched {flash.get(name, 0)} times, "
+              f"expected {want}")
+    mode = cfg is not None and cfg.matmul_dtype
+    nq = 7 * cfg.n_layers * len(batches) if mode else 0
+    check(qcounts.get(mode, 0) == nq and sum(qcounts.values()) == nq,
+          f"{label}: quantized products {qcounts}, expected {nq}")
+    check(quant.fallback_events() == {},
+          f"{label}: degraded {quant.fallback_events()}")
+    del state, step
+    return losses, rate
+
+
+def phase_rules(card):
+    """Phase 20: the flagship (4 layers) under T1-T4, int8 under T2, the
+    tied flagship under T3 and the MNIST MLP under T2 on the world-1 mesh,
+    each beside its unsharded twin."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-rules-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    flagship = trainer.flagship_config(2048)
+    cases = [
+        ("flagship", earlier(flagship), ("T1", "T2", "T3", "T4")),
+        ("flagship int8", earlier(trainer.flagship_config(2048, "int8")),
+         ("T2",)),
+        ("flagship tied", earlier(dataclasses.replace(
+            flagship, tie_embeddings=True)), ("T3",)),
+        ("MNIST MLP", None, ("T2",)),
+    ]
+    try:
+        for name, cfg, tables in cases:
+            if cfg is None:
+                batches = [trainer.vision_batch("mnist", s, MNIST_BATCH,
+                                                device="cuda")
+                           for s in range(RULES_STEPS)]
+                unit, label = "samples", f"{name} (batch {MNIST_BATCH})"
+            else:
+                batches = [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size,
+                                              device="cuda")
+                           for s in range(RULES_STEPS)]
+                unit = "tokens"
+                label = cut_label(name, dataclasses.replace(
+                    cfg, n_layers=flagship.n_layers))
+            want, base = rules_turn(f"{label} unsharded", cfg, None,
+                                    batches, unit, card)
+            for table in tables:
+                got, rate = rules_turn(f"{label} {table}", cfg, table,
+                                       batches, unit, card)
+                rel = max_rel(got, want)
+                diff = max(abs(a - b) for a, b in zip(got, want))
+                log(f"rules {label} {table} against unsharded: largest "
+                    f"difference {diff:.3e} (relative {rel:.3e}), bit for "
+                    f"bit {got == want};"
+                    f" sharded / unsharded {unit}/s {rate / base:.4f} "
+                    f"({rate:.1f} / {base:.1f}); {card}")
+                check(rel <= TOL_MESH_REL,
+                      f"{label} {table} losses differ from the unsharded by "
+                      f"{rel}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"rules: {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -4228,6 +4415,7 @@ def main():
     phase_mesh_layouts(card, moe_run)
     phase_vision_layouts(card)
     phase_store_checkpoints(want, drain_s, card)
+    phase_rules(card)
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []

@@ -9,10 +9,11 @@ follow the flax tree (``Dense_{i}`` → ``dense.{i}``, see ``convert.py``).
 Under the tensor-parallel plan (``parallel/sharding.py``, from the
 reference's logical axes: ``("embed", "mlp")``, ``("mlp", "embed")``,
 ``("embed", "vocab")``) the three layers run colwise, rowwise and colwise
-over tp with their biases replicated, as the reference's are: a colwise
-layer adds its slice of the bias to its slice of the outputs (the head
-gathers its logits), the rowwise one sums the ranks' partial products and
-then adds the whole bias.
+over tp with the default rules (rowwise, colwise, rowwise under a table
+that puts ``embed`` over tp), their biases replicated, as the reference's
+are: a colwise layer adds its slice of the bias to its slice of the
+outputs (gathered where the next layer is not rowwise), a rowwise one sums
+the ranks' partial products and then adds the whole bias.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ class DenseBias(nn.Module):
     outputs, a channel-shard input gathered first), ``"colwise_gather"``
     (the same, the outputs gathered: the head's logits) or ``"rowwise"``
     (weight ``Shard(1)``: the input is this rank's slice of the features,
-    the partial products are summed over tp before the bias). The input's
+    or the whole features, of which it takes its slice; the partial
+    products are summed over tp before the bias). The input's
     gradient of a colwise layer sums the ranks' parts: each rank's outputs
     read the whole input."""
 
@@ -70,6 +72,10 @@ class DenseBias(nn.Module):
             return F.linear(x.float(), self.weight.float(), self.bias.float())
         w = self.weight.to_local().float()
         if self.tp_style == "rowwise":
+            if x.shape[-1] == self.weight.shape[1]:
+                # A whole input (the MLP's image, under a table that puts
+                # the embed dim over tp): this rank's slice of it.
+                x = _comm.split_to_group(x, g, -1)
             y = _comm.reduce_from_group(F.linear(x.float(), w), g)
             return y + self.bias.float()
         if x.shape[-1] != self.weight.shape[1]:

@@ -42,16 +42,22 @@ Counterpart of ``tony_tpu/models/moe.py``: the GShard/Switch dense dispatch.
   global batch's: the two fractions are averaged over the batch axes before
   the product, through an all-reduce whose backward sums, so that the
   gradient FSDP averages over the batch is the reference's.
-- **tp > 1.** The experts' ``mlp`` dim is split over tp (``gate``/``up``
-  ``[E/ep, D, F/tp]``, ``down`` ``[E/ep, F/tp, D]``, DTensors on the mesh's
-  ``(ep, tp)``): each tp rank runs the FFN on its F/tp slice of every
-  resident expert, and its ``down`` product, a partial sum over tp, is
-  all-reduced before the ep return trip and the combine
-  (``_comm.reduce_from_group``). The slots going in are the same on every
-  tp rank and their gradient a partial sum, which
-  ``_comm.sum_grad_over_group`` all-reduces. Routing is tp's business
-  nowhere: every tp rank routes the same tokens alike. The attention takes
-  the dense decoder's tensor-parallel styles.
+- **tp > 1.** With the default rules the experts' ``mlp`` dim is split
+  over tp (``gate``/``up`` ``[E/ep, D, F/tp]``, ``down`` ``[E/ep, F/tp,
+  D]``, DTensors on the mesh's ``(ep, tp)``): each tp rank runs the FFN on
+  its F/tp slice of every resident expert, and its ``down`` product, a
+  partial sum over tp, is all-reduced before the ep return trip and the
+  combine (``_comm.reduce_from_group``). The slots going in are the same
+  on every tp rank and their gradient a partial sum, which
+  ``_comm.sum_grad_over_group`` all-reduces. A table that puts ``embed``
+  over tp splits the experts' D instead (``gate``/``up`` ``[E/ep, D/tp,
+  F]``, ``down`` ``[E/ep, F, D/tp]``): each rank takes its D/tp columns of
+  the slots, the partial pre-activations are summed over tp, and the
+  ``down`` product's D/tp columns are gathered (``_tp_split``: which dim
+  the ``gate`` weight's placement puts over tp). Routing is tp's business
+  nowhere: every tp rank routes the same tokens alike (a router split over
+  tp by the table is a projection of the plan, its logits whole on every
+  rank). The attention takes the dense decoder's tensor-parallel styles.
 - **sp > 1 (ep = 1).** The reference runs this layout as the dense
   decoder's: the whole model inside a full-manual ``shard_map`` over
   ``P(batch, "sp")``, so every (batch shard, sp shard) routes **its own
@@ -89,6 +95,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
@@ -181,6 +188,15 @@ def dispatch_combine(cfg: MoEConfig, gate_idx: torch.Tensor,
 
 def _local(p: torch.Tensor) -> torch.Tensor:
     return p.to_local() if hasattr(p, "to_local") else p
+
+
+def _tp_split(w: torch.Tensor) -> Optional[int]:
+    """The dim of a stacked expert weight that tp splits (its placement
+    on the ``(ep, tp)`` mesh ``shard_model`` lays it on), or None."""
+    if not isinstance(w, DTensor):
+        return None
+    on = w.placements[w.device_mesh.mesh_dim_names.index("tp")]
+    return on.dim if isinstance(on, Shard) else None
 
 
 def _all_gather_rows(x: torch.Tensor, groups: Sequence[Any]) -> torch.Tensor:
@@ -287,13 +303,28 @@ class MoEMLP(nn.Module):
         expert_in = (dispatch.T @ xt.to(cfg.dtype)).view(e, cap, -1)
         # Each expert's slots to its owner: [E, C, D] → [E/ep, ep·C, D].
         expert_in = _comm.all_to_all_tiled(expert_in, ep, 0, 1)
-        # This rank's F/tp slice of its experts: the slots' gradient is a
-        # partial sum over tp, the down product's output too.
-        expert_in = _comm.sum_grad_over_group(expert_in, tp)
         w_gate, w_up, w_down = (_local(w).to(cfg.dtype)
                                 for w in (self.gate, self.up, self.down))
-        h = F.silu(torch.bmm(expert_in, w_gate)) * torch.bmm(expert_in, w_up)
-        expert_out = _comm.reduce_from_group(torch.bmm(h, w_down), tp)
+        split = _tp_split(self.gate)
+        if split == 1:
+            # This rank's D/tp slice of its experts: the slots' D/tp
+            # columns give partial pre-activations, summed over tp; the
+            # hidden state's gradient is a partial sum over tp, and the
+            # down product's output is this rank's D/tp columns.
+            part = _comm.split_to_group(expert_in, tp, 2)
+            h = F.silu(_comm.reduce_from_group(torch.bmm(part, w_gate), tp)) \
+                * _comm.reduce_from_group(torch.bmm(part, w_up), tp)
+            h = _comm.sum_grad_over_group(h, tp)
+            expert_out = _comm.gather_from_group(torch.bmm(h, w_down), tp, 2)
+        else:
+            # With the experts' F over tp, this rank's F/tp slice of them:
+            # the slots' gradient is a partial sum over tp, the down
+            # product's output too (no group: nothing to sum).
+            f_tp = tp if split == 2 else None
+            expert_in = _comm.sum_grad_over_group(expert_in, f_tp)
+            h = F.silu(torch.bmm(expert_in, w_gate)) * \
+                torch.bmm(expert_in, w_up)
+            expert_out = _comm.reduce_from_group(torch.bmm(h, w_down), f_tp)
         # The results back, slot-major: [E/ep, ep·C, D] → [E, C, D].
         expert_out = _comm.all_to_all_tiled(expert_out, ep, 1, 0)
         out = combine @ expert_out.reshape(e * cap, -1)

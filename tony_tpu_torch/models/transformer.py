@@ -34,9 +34,13 @@ an explicit ``torch.Generator`` in parameter order
 (``Transformer.init_parameter_``, which a sharded init replays one tensor at
 a time). ``device="meta"`` builds the skeleton without drawing.
 
-Under a tensor-parallel plan (``parallel/sharding.py:tp_plan``) each rank
-holds ``n_heads / tp`` heads: attention takes its head counts from the
-projections' local widths, never from the config.
+Under a tensor-parallel plan (``parallel/sharding.py:tp_plan``) the
+attention takes its head counts from the widths the projections hand it:
+``n_heads / tp`` q heads and ``n_kv_heads / tp`` kv heads where the rules
+split both on heads (whole GQA groups on each rank), every head where the
+plan gathers q, k and v or never splits them (a table that keeps the kv
+heads whole, or puts the embed dim over tp), and a mix of the two is
+refused.
 
 On a mesh with an ``sp`` axis (``shard_model`` sets ``sp_group`` on the model
 and on each ``Attention``; None off a mesh) the model still takes the whole
@@ -187,9 +191,16 @@ def _quantized_on_plan(x: DTensor, w: DTensor, mode: str) -> DTensor:
     style's input hook all-reduces it (``to_local()`` would call the
     gradient replicated and drop the other ranks' parts). Rowwise (the
     weight ``Shard(1)``, the input ``Shard(-1)``): the whole output,
-    reduced inside the product, ``Replicate``."""
+    reduced inside the product, ``Replicate``; its input is the style's
+    ``Shard(-1)``, whether the previous layer's shard or a whole input the
+    style sliced. A colwise output the plan gathers is gathered by the
+    style's output hook from the ``Shard(-1)`` returned here."""
     mesh = w.device_mesh
     (placement,) = w.placements
+    # The plan distributes a 2-D weight on the one-axis tp mesh as Shard(0)
+    # (colwise) or Shard(1) (rowwise) only (sharding._dense_style), under
+    # any table: the raise below is never reached
+    # (tests/test_torch_rules.py walks the tables).
     if placement == Shard(1):
         out = quant.quantized_matmul(x.to_local(), w.to_local(), mode,
                                      mesh.get_group())
@@ -265,6 +276,12 @@ class Attention(nn.Module):
         q = self.wq(x).view(b, s, -1, hd)
         k = self.wk(x).view(b, s, -1, hd)
         v = self.wv(x).view(b, s, -1, hd)
+        if q.shape[2] * cfg.n_kv_heads != k.shape[2] * cfg.n_heads:
+            raise RuntimeError(
+                f"{q.shape[2]} q heads beside {k.shape[2]} kv heads: not "
+                f"the config's {cfg.n_heads}/{cfg.n_kv_heads} grouping "
+                "(a tensor-parallel plan that splits q on heads and not k "
+                "and v would pair each q head with the wrong kv head)")
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
@@ -435,11 +452,17 @@ def tied_logits(x: torch.Tensor, table: torch.Tensor, head_dtype: torch.dtype,
     logits of its own rows, and they are gathered over tp as the untied
     head's ``ColwiseParallel(output_layouts=Replicate())`` gathers them.
     The table's gradient stays ``Shard(0)``, beside its lookup's; ``x``'s,
-    a partial sum over tp, is all-reduced by ``from_local``'s backward."""
+    a partial sum over tp, is all-reduced by ``from_local``'s backward.
+    On ``EmbedParallelTable``'s table (its embed dim ``Shard(1)``) each
+    rank multiplies its slice of ``x``'s embed dim by its columns and the
+    partial logits are summed over tp; ``x``'s gradient is gathered from
+    the ranks' slices."""
     if isinstance(table, DTensor):
         mesh = table.device_mesh
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
+        if table.placements == (Shard(1),):
+            x = x.redistribute(mesh, [Shard(x.ndim - 1)])
     x, table = x.to(head_dtype), table.to(head_dtype)
     if f32:
         x, table = x.float(), table.float()
@@ -449,19 +472,6 @@ def tied_logits(x: torch.Tensor, table: torch.Tensor, head_dtype: torch.dtype,
             logits.device_mesh, [Replicate()] * logits.device_mesh.ndim
         ).to_local()
     return logits
-
-
-def check_tensor_parallel(cfg: TransformerConfig, tp: int) -> None:
-    """Raise unless ``cfg`` runs under a tensor-parallel plan over ``tp``
-    ranks: every split width a multiple of tp (each rank keeps whole
-    heads, and the GQA groups stay whole with n_kv_heads % tp == 0). A tied
-    head and quantized projections run under any tp (``tied_logits``,
-    ``Dense``)."""
-    for knob in ("n_heads", "n_kv_heads", "mlp_dim", "vocab_size"):
-        if getattr(cfg, knob) % tp:
-            raise ValueError(
-                f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
-                f"mesh's tp ({tp})")
 
 
 def causal_lm_loss(logits: torch.Tensor, tokens: torch.Tensor,

@@ -10,8 +10,8 @@ from tony_tpu_torch.parallel.mesh import (  # noqa: F401
     mesh_shape,
 )
 from tony_tpu_torch.parallel.sharding import (  # noqa: F401
-    DEFAULT_RULES, PARAM_AXES, Placement, VocabParallelTable,
-    param_placements, reshard, shard_model, tp_plan,
+    DEFAULT_RULES, PARAM_AXES, EmbedParallelTable, Placement,
+    VocabParallelTable, param_placements, reshard, shard_model, tp_plan,
 )
 from tony_tpu_torch.parallel.train import (  # noqa: F401
     AdamWLowPrecisionMu, TrainState, adamw, checkpoint_tree,

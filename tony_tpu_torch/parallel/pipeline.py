@@ -70,8 +70,7 @@ schedule with one stage. Its entry points build on the card unless
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence, \
-    Tuple, Union
+from typing import Any, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -271,15 +270,16 @@ def pipeline_loss(model: nn.Module, tokens: torch.Tensor,
 
 def pipeline_param_placements(
         cfg: TransformerConfig,
-        mesh: Union[DeviceMesh, Mapping[str, int]],
-        rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
+        mesh: Union[DeviceMesh, Mapping[str, int]]
 ) -> Dict[str, PipelinePlacement]:
     """Per parameter of the whole pipelined model (by name): its mesh
     axes per dim, one rank's shard shape and its stage. Counterpart of
     ``pipeline_param_shardings``: a block's leaves over pp (the stage
-    holding its layer) and fsdp on the dim ``rules`` map to fsdp (its
-    ``embed`` dim; none for the norm scales), whole over tp; the head's as
-    ``_HEAD_DIMS``."""
+    holding its layer) and fsdp on the dim the default rules map to fsdp
+    (its ``embed`` dim; none for the norm scales), whole over tp; the
+    head's as ``_HEAD_DIMS``. Like the reference's (``_block_fsdp_axes``,
+    tony_tpu/parallel/pipeline.py:95-120) it reads no other rules
+    table."""
     sizes = mesh if isinstance(mesh, Mapping) else mesh_shape(mesh)
     per = len(stage_layers(cfg.n_layers, sizes[PP_AXIS], 0))
     out = {}
@@ -288,7 +288,8 @@ def pipeline_param_placements(
             dims, stage = _HEAD_DIMS[name], None
         else:
             dims = tuple(("fsdp",) if "fsdp" in axes else ()
-                         for axes in mesh_axes(logical_axes(name), rules))
+                         for axes in mesh_axes(logical_axes(name),
+                                               DEFAULT_RULES))
             stage = int(name.split(".")[1]) // per
         local = tuple(-(-n // math.prod(sizes[a] for a in axes))
                       for n, axes in zip(p.shape, dims))
@@ -296,8 +297,7 @@ def pipeline_param_placements(
     return out
 
 
-def pipeline_shard(model: PipelineTransformer, mesh: DeviceMesh,
-                   rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
+def pipeline_shard(model: PipelineTransformer, mesh: DeviceMesh
                    ) -> Dict[str, PipelinePlacement]:
     """Lay ``model`` (best on the meta device) out on ``mesh``: keep this
     pp rank's layers, give the model its pp group and stage, the head's
@@ -326,7 +326,7 @@ def pipeline_shard(model: PipelineTransformer, mesh: DeviceMesh,
             src_data_rank=None)))
     held = dict(model.named_parameters())
     placements = {name: pl for name, pl in pipeline_param_placements(
-        model.cfg, mesh, rules).items() if name in held}
+        model.cfg, mesh).items() if name in held}
     replicated = {p for name, p in model.named_parameters()
                   if not any("fsdp" in a for a in placements[name].dims)}
     kw = dict(mesh=fsdp_mesh(mesh),

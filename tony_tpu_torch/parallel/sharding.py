@@ -3,42 +3,62 @@
 Counterpart of ``tony_tpu/parallel/sharding.py``. The reference names each
 tensor dimension with a logical axis (``embed``, ``mlp``, ``heads``…) and one
 rules table maps those names onto mesh axes. The port keeps the table
-(``DEFAULT_RULES``, a copy) and the names (``PARAM_AXES``, per parameter of
-the port's models, in torch's layout), and turns the mesh axes they give
-into what torch runs:
+(``DEFAULT_RULES``, a copy; any other table is taken where the reference
+takes one: ``init_sharded_state(..., rules=)``, ``shard_model``) and the
+names (``PARAM_AXES``, per parameter of the port's models, in torch's
+layout), resolves them as flax does (``mesh_axes``: rule by rule in table
+order, a rule taking its name's dim only while that dim is unassigned and
+none of its mesh axes is taken, so the result does not depend on the order
+of the dims), and turns the mesh axes they give into what torch runs:
 
-- ``tp`` on a projection's output dim → ``ColwiseParallel``, on its input
-  dim → ``RowwiseParallel``; the LM head's vocab over tp → a colwise head
-  whose logits are gathered; the embedding table's rows over tp →
-  ``VocabParallelTable`` (masked lookup, then an all-reduce);
+- ``tp`` on a projection's output dim → colwise, on its input dim →
+  rowwise, by the pair-or-gather rule (``tp_plan``): a colwise output stays
+  ``Shard(-1)`` only where its consumer takes exactly that shard (q/k/v
+  split on heads → the attention on each rank's heads → rowwise ``wo``;
+  ``gate``/``up`` → rowwise ``down``); every other colwise output is
+  gathered (``output_layouts=Replicate()``), every other rowwise layer
+  slices its whole input (``input_layouts=Replicate()``, no
+  communication). With the default rules that is Megatron's layout; a
+  table that keeps the kv heads whole gathers q to every head, one that
+  puts ``embed`` over tp runs every projection the other way round. The
+  LM head's vocab over tp → colwise with its logits gathered, its embed
+  dim → rowwise with its logits summed; the embedding table's rows over
+  tp → ``VocabParallelTable`` (masked lookup, then an all-reduce), its
+  embed dim → ``EmbedParallelTable`` (each rank's columns, gathered);
 - ``tp`` on a ResNet conv's out-channel dim → ``ConvOutParallel`` (torch's
   styles take only ``nn.Linear`` and ``nn.Embedding``): the weight a DTensor
   ``Shard(0)``, the input gathered to whole channels, the output this
   rank's channel shard, on which every norm (``NormShardParallel``: its
   slice of the replicated scale and bias), the residual add and the pool
   run; a ``DenseBias`` (the MNIST MLP's layers, ResNet's head) →
-  ``DenseBiasParallel``, colwise or rowwise with its bias replicated, the
-  head's logits gathered (``vision_tp_plan``). A dim that tp (or fsdp)
-  does not divide is refused, as the reference refuses it;
+  ``DenseBiasParallel``, colwise or rowwise with its bias replicated, by
+  the same pair-or-gather rule (``vision_tp_plan``). A dim that tp (or
+  fsdp) does not divide is refused, as the reference refuses it;
 - ``fsdp`` on a dim → FSDP2's shard on that dim (``fsdp_placement_fn``);
   a parameter whose layout names no ``fsdp`` (the norm scales, ResNet's
-  convolutions and norms, the biases) stays whole over fsdp, as in the
-  reference: FSDP2 leaves it alone and the train step averages its
-  gradient by hand (a conv weight over tp: its local shard);
+  convolutions and norms, the biases, every projection under a table that
+  gives ``embed`` to tp) stays whole over fsdp, as in the reference: FSDP2
+  leaves it alone and the train step averages its gradient by hand (a
+  DTensor over tp: its local shard);
 - ``dp`` → FSDP2's replicate dim (HSDP); ``dcn_dp`` stays out of FSDP2 and
   is synced by the explicit bucketed all-reduce (``parallel/grad_sync.py``),
   the reference's multislice design. The FSDP2 mesh is then a plain slice
   of the mesh (``("dp", "fsdp")``), so no private ``DeviceMesh._flatten`` is
   needed;
 - ``ep`` and ``tp`` on the MoE decoder's stacked experts (``expert`` → ep,
-  ``mlp`` → tp) → the weights become DTensors on the mesh's ``(ep, tp)``
-  axes (``gate``/``up`` ``[Shard(0), Shard(2)]``, ``down`` ``[Shard(0),
-  Shard(1)]``), which FSDP2 then shards over fsdp on their ``embed`` dim
-  like every other weight; its attention takes the dense decoder's styles,
-  its router stays replicated;
+  ``mlp`` or ``embed`` → tp) → the weights become DTensors on the mesh's
+  ``(ep, tp)`` axes (with the default rules ``gate``/``up`` ``[Shard(0),
+  Shard(2)]``, ``down`` ``[Shard(0), Shard(1)]``), which FSDP2 then shards
+  over fsdp where the rules name it; its attention, router and head take
+  the dense decoder's styles;
 - ``sp``: no parameter names it (parameters stay replicated over sp, as in
   the reference); the model gets the sp group, over which its attention
   runs (ring or Ulysses) and the train step sums the gradients.
+
+A table that lays a parameter's dim on an axis none of these can express
+(``dp``, ``dcn_dp``, ``sp``, ``pp``, ``ep`` off the expert dim, ``tp`` on a
+norm's scale), as GSPMD would, is refused by ``shard_model``
+(``check_layable``).
 """
 
 from __future__ import annotations
@@ -85,7 +105,8 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
 
 # The logical axes of each dim of the port's parameters, keyed by the end of
 # the parameter's name without its layer numbers, in torch's layout: a
-# projection's weight is [out, in] where flax's kernel is [in, out]
+# projection's weight is [out, in] where flax's kernel is [in, out] (the
+# order does not matter to ``mesh_axes``, which resolves a set of names)
 # (tony_tpu/models/transformer.py:95 for the projections, :139 the norm
 # scale, :265 the table, :302 the head; tony_tpu/models/resnet.py:64 the
 # convolutions, whose OIHW weight has flax's HWIO "mlp" on its out dim, and
@@ -102,6 +123,9 @@ PARAM_AXES: Dict[str, Tuple[Any, ...]] = {
     "mlp.down.weight": ("embed", "mlp"),
     "lm_head.weight": ("vocab", "embed"),
     "scale": ("norm",),
+    # ResNet's GroupNorm scales carry no names (tony_tpu/models/resnet.py).
+    "stem_norm.scale": (None,),
+    "norms.scale": (None,),
     "stem_conv.weight": ("mlp", None, None, None),
     "convs.weight": ("mlp", None, None, None),
     "head.weight": ("vocab", "embed"),
@@ -137,23 +161,31 @@ def logical_axes(name: str) -> Tuple[Any, ...]:
 def mesh_axes(logical: Sequence[Any],
               rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
               ) -> Tuple[Tuple[str, ...], ...]:
-    """Logical axes → the mesh axes of each dim, as flax's
-    ``logical_to_mesh_axes`` maps them: the first rule for a name whose mesh
-    axes no earlier dim took (one mesh axis shards at most one dim)."""
-    used, out = set(), []
-    for name in logical:
-        axes: Tuple[str, ...] = ()
-        for rule, target in rules:
-            if name is None or rule != name:
-                continue
-            cand = () if target is None else (
-                (target,) if isinstance(target, str) else tuple(target))
-            if not used & set(cand):
-                axes = cand
-                break
-        used |= set(axes)
-        out.append(axes)
-    return tuple(out)
+    """Logical axes → the mesh axes of each dim, by flax's rule-priority
+    resolution (``flax.linen.logical_to_mesh_axes``): the rules are taken in
+    table order, and a rule assigns its target to its name's dim only when
+    that dim is still unassigned and no dim holds any of the target's mesh
+    axes yet. A ``None`` target assigns "whole" (later rules for that name
+    then find the dim taken); a name no rule assigned is whole. The result
+    depends on the set of names, not on the order of the dims. A name
+    twice in one tensor raises ``ValueError``, as flax does."""
+    names = [n for n in logical if n is not None]
+    dups = tuple(dict.fromkeys(n for n in names if names.count(n) > 1))
+    if dups:
+        raise ValueError(f"Unsupported: Dimensions {dups} occur more than "
+                         "once in array names.")
+    out: list = [None] * len(logical)        # None: not assigned yet
+    used: set = set()
+    for name, target in rules:
+        if name is None or name not in names:
+            continue
+        pos = list(logical).index(name)
+        cand = () if target is None else (
+            (target,) if isinstance(target, str) else tuple(target))
+        if out[pos] is None and not used & set(cand):
+            out[pos] = cand
+            used |= set(cand)
+    return tuple(axes or () for axes in out)
 
 
 def _sizes(mesh: Union[DeviceMesh, Mapping[str, int]]) -> Mapping[str, int]:
@@ -166,10 +198,13 @@ def param_placements(model: nn.Module,
                      ) -> Dict[str, Placement]:
     """Per parameter (by name): which mesh axes shard which tensor dim, and
     its local shard shape on ``mesh`` (a ``DeviceMesh`` or ``{axis:
-    size}``). Counterpart of ``param_shardings``; the shapes are the
-    reference's ``shard_shape`` of the same parameter. A model class may
-    name some of its parameters' axes itself (``PARAM_AXES``, by full
-    name), where they differ from the table's."""
+    size}``). Counterpart of ``param_shardings``: the mesh axes are the
+    reference's ``PartitionSpec`` of the same parameter under the same
+    rules (``mesh_axes`` resolves them as flax does), in torch's layout,
+    and the shapes its ``shard_shape``. A model class may name some of its
+    parameters' axes itself (``PARAM_AXES``, by full name), where they
+    differ from the table's. ``shard_model`` lays the model out as these
+    say, or refuses (``check_layable``)."""
     sizes = _sizes(mesh)
     own = getattr(model, "PARAM_AXES", {})
     out = {}
@@ -190,12 +225,14 @@ class VocabParallelTable(ParallelStyle):
     rank leaves the lookup with the whole [B, S, D] activation as a plain
     tensor."""
 
+    shard_dim = 0
+
     def _apply(self, module: nn.Module, device_mesh: DeviceMesh
                ) -> nn.Module:
         table = module.embedding
         module.register_parameter("embedding", nn.Parameter(
-            distribute_tensor(table.data, device_mesh, [Shard(0)],
-                              src_data_rank=None),
+            distribute_tensor(table.data, device_mesh,
+                              [Shard(self.shard_dim)], src_data_rank=None),
             requires_grad=table.requires_grad))
 
         def tokens_in(_, args):
@@ -211,8 +248,95 @@ class VocabParallelTable(ParallelStyle):
         return module
 
 
+class EmbedParallelTable(VocabParallelTable):
+    """The embedding table's embed dim over tp: the table a DTensor
+    ``Shard(1)``; each rank looks its columns up for every token and the
+    lookup's ``[B, S, D/tp]`` output is gathered on its last dim (backward:
+    each rank keeps its columns' gradient). The tied head on such a table
+    is ``transformer.tied_logits``'s."""
+
+    shard_dim = 1
+
+
 _MODULE_OF = {"attn": ("wq", "wk", "wv", "wo"),
               "mlp": ("gate", "up", "down")}
+
+
+def tp_dim(logical: Sequence[Any],
+           rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
+           ) -> Union[int, None]:
+    """The dim of a tensor with these logical axes that ``rules`` put over
+    tp, or None."""
+    return next((d for d, axes in enumerate(mesh_axes(logical, rules))
+                 if "tp" in axes), None)
+
+
+def _dense_style(dim: Union[int, None], paired: bool
+                 ) -> Union[ParallelStyle, None]:
+    """A projection's style from where tp falls on its ``[out, in]``
+    weight. ``paired``: its neighbour across the activation takes this
+    layer's tp shard as it is (a colwise output read by a rowwise layer);
+    else a colwise output is gathered and a rowwise layer slices its whole
+    input itself (no communication)."""
+    if dim == 0:
+        return ColwiseParallel() if paired else \
+            ColwiseParallel(output_layouts=Replicate())
+    if dim == 1:
+        return RowwiseParallel() if paired else \
+            RowwiseParallel(input_layouts=Replicate())
+    return None
+
+
+def _is_moe(cfg) -> bool:
+    from tony_tpu_torch.models.moe import MoEConfig
+    return isinstance(cfg, MoEConfig)
+
+
+def _decoder_tp_dim(cfg, rules: Sequence[Tuple[str, Any]]):
+    """``key → tp_dim`` for the parameters of a decoder of ``cfg`` (keys
+    as ``PARAM_AXES``'s; the MoE decoder's own names first)."""
+    from tony_tpu_torch.models.moe import MoETransformer
+
+    own = MoETransformer.PARAM_AXES if _is_moe(cfg) else {}
+    return lambda key: tp_dim(own.get(key) or PARAM_AXES[key], rules)
+
+
+def check_tensor_parallel(cfg, tp: int,
+                          rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
+                          ) -> None:
+    """Raise unless ``cfg`` runs under the tensor-parallel plan that
+    ``rules`` imply over ``tp`` ranks, naming the knob: each of the heads,
+    the kv heads, the MLP width and the vocab that the rules split over tp
+    a multiple of tp (as the reference refuses a dim its mesh axes do not
+    divide), and where the attention runs on each rank's heads (q and k/v
+    both split on heads) whole heads and whole GQA groups on each rank. A
+    width the rules leave whole is not checked; the model's ``dim``, where
+    the rules put it over tp, is checked from the placements
+    (``check_divisible`` in ``shard_model``). A tied head and quantized
+    projections run under any tp (``tied_logits``, ``Dense``)."""
+    dim = _decoder_tp_dim(cfg, rules)
+    if dim("attn.wq.weight") == dim("attn.wk.weight") == 0:
+        for knob in ("n_heads", "n_kv_heads"):
+            if getattr(cfg, knob) % tp:
+                raise ValueError(
+                    f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
+                    f"mesh's tp ({tp}): the attention runs on each rank's "
+                    "heads, whole GQA groups of them")
+    hd = cfg.dim // cfg.n_heads
+    # (knob, a parameter that carries it, the dim, that dim's size)
+    mlp = ("moe.gate", 2) if _is_moe(cfg) else ("mlp.gate.weight", 0)
+    for knob, key, d, size in (
+            ("n_heads", "attn.wq.weight", 0, cfg.n_heads * hd),
+            ("n_kv_heads", "attn.wk.weight", 0, cfg.n_kv_heads * hd),
+            ("mlp_dim", *mlp, cfg.mlp_dim),
+            ("vocab_size", "lm_head.weight", 0, cfg.vocab_size),
+            ("vocab_size", "embedding", 0, cfg.vocab_size)):
+        if dim(key) == d and size % tp:
+            raise ValueError(
+                f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
+                f"mesh's tp ({tp}): {key} sharded over tp: the global size "
+                f"of its dimension {d} should be divisible by {tp}, but it "
+                f"is equal to {size}")
 
 
 def tp_plan(cfg, tp: int = 1,
@@ -220,47 +344,45 @@ def tp_plan(cfg, tp: int = 1,
             ) -> Dict[str, ParallelStyle]:
     """The tensor-parallel plan that ``rules`` imply for a ``Transformer``
     (or, for a ``MoEConfig``, an ``MoETransformer``) of ``cfg`` over ``tp``
-    ranks: module name ("" is the root) → style. With the default rules:
-    ``wq``/``wk``/``wv``/``gate``/``up`` colwise, ``wo``/``down`` rowwise,
-    ``lm_head`` colwise over the vocab with its logits gathered, and the
-    table's rows over tp. A tied head has no ``lm_head``: it reads the
-    table. The MoE decoder's blocks take the attention's styles only (its
-    stacked experts are laid out by ``shard_model``), and it always has its
-    ``lm_head``, tied flag or not, as the reference's."""
-    from tony_tpu_torch.models.moe import MoEConfig
-    from tony_tpu_torch.models.transformer import check_tensor_parallel
-
-    check_tensor_parallel(cfg, tp)
-    moe = isinstance(cfg, MoEConfig)
-
-    def tp_dim(logical):
-        dims = mesh_axes(logical, rules)
-        found = [d for d, axes in enumerate(dims) if "tp" in axes]
-        return found[0] if found else None
-
+    ranks: module name ("" is the root) → style, each projection's from
+    where tp falls on its weight (``_dense_style``), by the pair-or-gather
+    rule: ``wq``/``wk``/``wv`` colwise keep their head shards only when all
+    three are split on heads (the attention then runs on each rank's heads,
+    whole GQA groups of them, and ``wo`` is rowwise on that shard); the
+    ``gate``/``up`` → ``down`` pair likewise; every other colwise output is
+    gathered, every other rowwise layer slices its whole input. With the
+    default rules: ``wq``/``wk``/``wv``/``gate``/``up`` colwise, ``wo``/
+    ``down`` rowwise, ``lm_head`` colwise over the vocab with its logits
+    gathered, and the table's rows over tp (``VocabParallelTable``; its
+    embed dim over tp: ``EmbedParallelTable``). A tied head has no
+    ``lm_head``: it reads the table. The MoE decoder's blocks take the
+    attention's styles and the router's (its stacked experts are laid out
+    by ``shard_model``), and it always has its ``lm_head``, tied flag or
+    not, as the reference's."""
+    check_tensor_parallel(cfg, tp, rules)
+    moe = _is_moe(cfg)
+    dim = _decoder_tp_dim(cfg, rules)
     plan: Dict[str, ParallelStyle] = {}
-    if tp_dim(PARAM_AXES["embedding"]) == 0:
-        plan[""] = VocabParallelTable()
-    elif tp_dim(PARAM_AXES["embedding"]) is not None:
-        raise NotImplementedError("the embedding table sharded over tp on "
-                                  "its embed dim")
+    table = dim("embedding")
+    if table is not None:
+        plan[""] = VocabParallelTable() if table == 0 \
+            else EmbedParallelTable()
+    paired = {"attn": dim("attn.wq.weight") == dim("attn.wk.weight") == 0,
+              "mlp": dim("mlp.gate.weight") == 0}
     for i in range(cfg.n_layers):
         for sub, names in _MODULE_OF.items():
             if moe and sub != "attn":
                 continue
             for n in names:
-                d = tp_dim(PARAM_AXES[f"{sub}.{n}.weight"])
-                if d is not None:
-                    plan[f"layers.{i}.{sub}.{n}"] = (
-                        ColwiseParallel() if d == 0 else RowwiseParallel())
-    d = tp_dim(PARAM_AXES["lm_head.weight"])
-    if cfg.tie_embeddings and not moe:
-        d = None
-    if d == 0:
-        plan["lm_head"] = ColwiseParallel(output_layouts=Replicate())
-    elif d is not None:
-        raise NotImplementedError("the LM head sharded over tp on its "
-                                  "embed dim")
+                style = _dense_style(dim(f"{sub}.{n}.weight"), paired[sub])
+                if style is not None:
+                    plan[f"layers.{i}.{sub}.{n}"] = style
+        style = _dense_style(dim("moe.router.weight"), False)
+        if moe and style is not None:
+            plan[f"layers.{i}.moe.router"] = style
+    style = _dense_style(dim("lm_head.weight"), False)
+    if style is not None and (moe or not cfg.tie_embeddings):
+        plan["lm_head"] = style
     return plan
 
 
@@ -324,32 +446,40 @@ def vision_tp_plan(model: nn.Module,
                    rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
                    ) -> Dict[str, ParallelStyle]:
     """The tensor-parallel plan that ``rules`` imply for a ``ResNet`` or an
-    ``MnistMLP``: module name → style. With the default rules every conv
-    over its out channels (``mlp``) with every norm on the channel shard,
-    the MLP's layers colwise, rowwise, colwise, and the head (``vocab``
-    over tp) colwise with its logits gathered."""
+    ``MnistMLP``: module name → style. Each conv over tp goes over its out
+    channels with every norm on the channel shard; each ``DenseBias`` is
+    colwise or rowwise from where tp falls on its weight, by the
+    pair-or-gather rule: a colwise layer keeps its output shard when the
+    next layer is rowwise, else gathers it; a rowwise layer takes a shard
+    as it comes and slices a whole input itself. With the default rules
+    the MLP's layers run colwise, rowwise, colwise (the last gathered) and
+    ResNet's head (``vocab`` over tp) colwise with its logits gathered."""
     from tony_tpu_torch.models.mlp import DenseBias
     from tony_tpu_torch.models.resnet import _Conv, _Norm
 
     own = getattr(model, "PARAM_AXES", {})
+    layers = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (_Conv, DenseBias)):
+            logical = own.get(f"{name}.weight") or \
+                logical_axes(f"{name}.weight")
+            layers.append((name, mod, tp_dim(logical, rules)))
     plan: Dict[str, ParallelStyle] = {}
     convs = False
-    for name, mod in model.named_modules():
-        if not isinstance(mod, (_Conv, DenseBias)):
-            continue
-        logical = own.get(f"{name}.weight") or logical_axes(f"{name}.weight")
-        dims = mesh_axes(logical, rules)
-        d = next((d for d, axes in enumerate(dims) if "tp" in axes), None)
+    for i, (name, mod, d) in enumerate(layers):
         if d is None:
             continue
         if isinstance(mod, _Conv):
-            if d != 0:
-                raise NotImplementedError(
-                    f"{name}: a conv sharded over tp on its dim {d}")
+            # The reference names a conv kernel's out dim alone, (None,
+            # None, None, "mlp") (tony_tpu/models/resnet.py:62-65), and a
+            # None name takes no rule: no table puts tp anywhere else.
+            assert d == 0, f"{name}: a conv over tp on its dim {d}"
             plan[name], convs = ConvOutParallel(), True
         elif d == 0:
+            nxt = next((e for _, m, e in layers[i + 1:]
+                        if isinstance(m, DenseBias)), None)
             plan[name] = DenseBiasParallel(
-                "colwise_gather" if logical[0] == "vocab" else "colwise")
+                "colwise" if nxt == 1 else "colwise_gather")
         else:
             plan[name] = DenseBiasParallel("rowwise")
     if convs:
@@ -397,8 +527,10 @@ def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
                         placements: Mapping[str, Placement]) -> None:
     """Each stacked expert weight of the MoE decoder becomes a DTensor on
     the mesh's ``(ep, tp)`` axes, sharded on the dims its rules give each
-    axis (``expert``: dim 0 over ep; ``mlp``: gate/up dim 2, down dim 1,
-    over tp). On the meta device nothing is allocated."""
+    axis (``expert``: dim 0 over ep; with the default rules ``mlp`` over
+    tp: gate/up dim 2, down dim 1; a table that puts ``embed`` over tp:
+    gate/up dim 1, down dim 2), from which the ``MoEMLP`` reads the dim tp
+    splits. On the meta device nothing is allocated."""
     from tony_tpu_torch.models.moe import MoEMLP
 
     axes = ("ep", "tp")
@@ -414,6 +546,63 @@ def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
                 distribute_tensor(p.data, mesh[axes], where,
                                   src_data_rank=None),
                 requires_grad=p.requires_grad))
+
+
+def _reference_spec(p: torch.Tensor, name: str,
+                    dims: Sequence[Tuple[str, ...]]) -> str:
+    """``dims`` as the reference's ``PartitionSpec`` of the same
+    parameter, in flax's layout (a projection's kernel ``[in, out]``, a
+    conv's ``HWIO``; ``convert.py``)."""
+    if name.endswith("weight") and p.dim() == 2:
+        dims = dims[::-1]
+    elif p.dim() == 4:
+        dims = [dims[i] for i in (2, 3, 1, 0)]
+    return "PartitionSpec%r" % (tuple(
+        None if not a else a[0] if len(a) == 1 else a for a in dims),)
+
+
+def check_layable(model: nn.Module, placements: Mapping[str, Placement],
+                  sizes: Mapping[str, int]) -> None:
+    """``ValueError`` for a parameter dim that the rules lay over a mesh
+    axis (of more than one rank) that FSDP2 and the tensor-parallel plan
+    cannot lay it on, naming the parameter, the axis and the reference's
+    ``PartitionSpec``, so that ``param_placements`` never says what the
+    model does not do. The port lays parameters over ``fsdp`` (any dim),
+    ``tp`` (a projection's weight, the embedding table, a stacked expert's
+    ``embed`` or ``mlp`` dim, a conv's out channels) and ``ep`` (the
+    stacked experts' ``expert`` dim); GSPMD also takes ``dp``, ``dcn_dp``,
+    ``sp``, ``pp``, ``ep`` elsewhere, and ``tp`` on a norm's scale or an
+    expert dim."""
+    from tony_tpu_torch.models.mlp import DenseBias
+    from tony_tpu_torch.models.moe import MoEMLP
+    from tony_tpu_torch.models.resnet import _Conv
+
+    def layable(name, axis, d):
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        if axis == "tp":
+            return (isinstance(mod, (nn.Linear, DenseBias))
+                    and leaf == "weight") or leaf == "embedding" or (
+                isinstance(mod, MoEMLP) and d > 0) or (
+                isinstance(mod, _Conv) and d == 0)
+        return axis == "ep" and isinstance(mod, MoEMLP) and d == 0
+
+    for name, p in model.named_parameters():
+        dims = placements[name].dims
+        for d, axes in enumerate(dims):
+            for axis in axes:
+                if axis == "fsdp" or sizes[axis] == 1 or \
+                        layable(name, axis, d):
+                    continue
+                raise ValueError(
+                    f"{name}: the rules lay its dimension {d} over mesh "
+                    f"axis {axis}={sizes[axis]}, as the reference's "
+                    f"{_reference_spec(p, name, dims)}: FSDP2 and the "
+                    "tensor-parallel plan lay a parameter over fsdp, over "
+                    "tp (a projection's weight, the embedding table, a "
+                    "stacked expert's embed or mlp dim, a conv's out "
+                    "channels) and over ep (the stacked experts' expert "
+                    "dim) only")
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh,
@@ -437,7 +626,9 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     ``MoETransformer`` with ring or Ulysses attention, ``sp`` > 1 with
     ``ep`` > 1 for the MoE decoder (a layout the reference fails to
     lower). ``ValueError`` for a ResNet or MLP dim that its mesh axes do
-    not divide (a class count tp does not divide), as the reference's."""
+    not divide (a class count tp does not divide), as the reference's, and
+    for a parameter dim that ``rules`` lay on an axis the port cannot lay
+    it on (``check_layable``)."""
     from tony_tpu_torch.models.mlp import MnistMLP
     from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
     from tony_tpu_torch.models.resnet import ResNet, _Bottleneck
@@ -471,9 +662,13 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             "MoETransformer/layer_0/moe/top_k); take sp or ep, not both")
     # Names and global shapes: the plan below changes neither.
     placements = param_placements(model, mesh, rules)
+    check_layable(model, placements, shape)
     plan: Dict[str, ParallelStyle] = {}
     if decoder:
         plan = tp_plan(model.cfg, shape["tp"], rules)
+        # The rest of tp's widths (FSDP2 pads a dim fsdp does not divide).
+        check_divisible(model, placements,
+                        {a: n if a == "tp" else 1 for a, n in shape.items()})
     elif isinstance(model, (ResNet, MnistMLP)):
         check_divisible(model, placements, shape)
         plan = vision_tp_plan(model, rules)

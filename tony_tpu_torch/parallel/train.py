@@ -185,20 +185,22 @@ def init_sharded_state(
     mesh: DeviceMesh,
     rules=DEFAULT_RULES,
     seed: int = 0,
-    layout: Callable[..., Dict[str, Any]] = shard_model,
+    layout: Optional[Callable[[nn.Module, DeviceMesh], Dict]] = None,
 ) -> Tuple[TrainState, Dict[str, Placement]]:
     """The training state laid out on ``mesh`` from the start: no rank ever
     holds the whole model. Counterpart of the reference's
     ``init_sharded_state`` (its ``out_shardings`` init).
 
     ``build_model(device)`` is built on ``"meta"``, laid out by
-    ``layout(model, mesh, rules)`` (``sharding.shard_model``: the
-    tensor-parallel plan, FSDP2 on each block and the root;
-    ``pipeline.pipeline_shard`` for a ``PipelineTransformer``, which also
-    drops the other stages' layers), given storage for its shards on the
-    mesh's device (the current CUDA device, or the CPU for a gloo mesh),
-    and each shard filled with the values the one-rank model
-    ``build_model(device)`` made from a generator seeded with ``seed`` has:
+    ``sharding.shard_model(model, mesh, rules)`` (the tensor-parallel
+    plan, FSDP2 on each block and the root) or by ``layout(model, mesh)``
+    where one is given (``pipeline.pipeline_shard`` for a
+    ``PipelineTransformer``, which also drops the other stages' layers and,
+    as the reference's pipelined decoder, reads no rules table), given
+    storage for its shards on the mesh's device (the current CUDA device,
+    or the CPU for a gloo mesh), and each shard filled with the values the
+    one-rank model ``build_model(device)`` made from a generator seeded
+    with ``seed`` has:
     every parameter of the whole model is replayed in order through
     ``model.init_parameter_``, one whole tensor at a time, and each rank
     keeps its own slice of those it holds. ``optimizer_fn(param_groups)``
@@ -209,7 +211,8 @@ def init_sharded_state(
            if mesh.device_type == "cuda" else torch.device("cpu"))
     model = build_model("meta")
     order = [(name, p.shape, p.dtype) for name, p in model.named_parameters()]
-    placements = layout(model, mesh, rules)
+    placements = (shard_model(model, mesh, rules) if layout is None
+                  else layout(model, mesh))
     model.to_empty(device=dev)
     held = dict(model.named_parameters())
     gen = torch.Generator(dev).manual_seed(seed)

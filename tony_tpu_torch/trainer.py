@@ -229,12 +229,12 @@ def build_state(cfg: TransformerConfig,
     return TrainState(built, optimizer(built.parameters()), loss)
 
 
-def _layout(model: nn.Module, mesh: Any, rules: Any) -> Any:
+def _layout(model: nn.Module, mesh: Any) -> Any:
     """``model`` laid out on ``mesh``: the pipelined decoder by
     ``pipeline_shard``, any other by ``shard_model``."""
     if isinstance(model, PipelineTransformer):
-        return pipeline_shard(model, mesh, rules)
-    return shard_model(model, mesh, rules)
+        return pipeline_shard(model, mesh)
+    return shard_model(model, mesh)
 
 
 #: The rendezvous env of a job's task (the pytorch runtime's, and
