@@ -208,15 +208,18 @@ and the MNIST MLP whole:
    flash kernel per step (no step ran twice), the first 20 within
    ``TOL_RESUME_REL`` of the uninterrupted run's; the outage (SIGKILL to
    the worker's re-registration) and recover's wall time printed; (b) a
-   job submitted with ``tony.elastic.enabled=true``, ``--ckpt-dir`` and a
-   save interval above its steps, moved by ``python -m
+   job of 350 steps submitted with ``tony.elastic.enabled=true``, a save
+   interval above its steps and its checkpoints on ``gs://`` (phase 19's
+   store, see there), moved by ``python -m
    tony_tpu_torch.cli migrate <app> slice-1`` after step 5 (and its first
    step's save): the CLI exits 0, the journal holds REC_MIGRATE ``start``
    and ``applied`` in its one epoch, the drained trainer's SIGTERM save
    holds step k and the relaunched one restores it and starts at k + 1 (0
    steps re-run) with 16 launches of each flash kernel per step it runs
    and losses within ``TOL_RESUME_REL`` of the uninterrupted run's same
-   steps; the drain save's bytes and seconds (beside the drain grace),
+   steps, the store holding the first, the drain's and the last step and
+   nothing of it on local disk; the drain save's bytes and seconds
+   (beside the drain grace),
    the restore's seconds and the migration's wall time (the request to
    the relaunched worker's re-registration) printed. On one machine the
    destination is the same card: this measures drain, save, relaunch and
@@ -250,7 +253,9 @@ and the MNIST MLP whole:
    one-worker job on the local backend, and ``cli portal`` serving its
    history root from a subprocess on a free port. While it runs: ``cli top
    <app> --once`` exits 0 and its task row's MFU is within ``TOL_OBS_MFU``
-   (relative) of phase 4's in-process MFU (against 989 TFLOP/s), its
+   (relative) of the MFU (against 989 TFLOP/s) that ``python -m
+   tony_tpu_torch.trainer --model flagship`` reports when run alone just
+   before the job is submitted, its
    device memory in use above 0 and at most the card's; ``cli profile
    <app> --steps 3`` exits 0 and prints ``captured:``, the capture lies
    under ``<history>/intermediate/<app>/profile/ondemand-*``, and its
@@ -323,14 +328,14 @@ and the MNIST MLP whole:
    bit with the trained one (parameters and Adam moments), and the store's
    step bit for bit with the local one; the writer's seconds per step, the
    restore's seconds and the step's bytes printed for both; (b) phase 14
-   (b)'s migration drill once more, the job 50 steps longer (the
-   store's first save is slower), with
+   (b)'s migration is the store's: its job runs 50 steps longer than the
+   uninterrupted run (the store's first save is slower), with
    ``tony.application.checkpoint-dir=gs://tony-ckpt/migrate`` and no
    ``--ckpt-dir`` in the command (the trainer reads
    ``$TONY_CHECKPOINT_DIR``; the store's root reaches it from the
    submitting CLI's environment through the client, the coordinator and
-   the executor): the same gates, the steps in the store, and the drain
-   save's seconds printed beside phase 14 (b)'s local ones;
+   the executor), and its drain save's seconds are printed here beside
+   phase 15 (b)'s drain save of the same state to local disk;
 20. tensor-parallel layouts under other logical rules tables at world 1,
    over a one-rank NCCL group and ``build_mesh(MeshSpec())``: the flagship
    at full width and 4 layers (4 x 2048, bf16) under T1 (kv heads whole),
@@ -338,7 +343,7 @@ and the MNIST MLP whole:
    T3 (the table's embed dim over tp) and T4 (the head's embed dim over
    ``(fsdp, tp)``), the int8 flagship under T2, the tied flagship under
    T3 and the MNIST MLP (batch 4096) under T2, each from
-   ``init_sharded_state(..., rules=)`` beside its unsharded twin, 5 steps
+   ``init_sharded_state(..., rules=)`` beside its unsharded twin, 3 steps
    each on the same batches: the table's layout in the placements, losses
    within ``TOL_MESH_REL`` of the twin's (and whether bit for bit), 4
    launches of each flash kernel per step, 28 quantized products per
@@ -346,7 +351,34 @@ and the MNIST MLP whole:
    (samples/s for the MLP) with the card's name and power limit. At
    tp = 1 no collective runs; ``tests/test_torch_rules.py`` meets the
    tables at tp > 1 on the CPU;
-21. prints the whole run's seconds, the kernels' JSON line (each flash
+21. the Llama-3-8B example (``examples/llama3-8b/train_llama3.py``) at
+   its full width (dim 4096, 32/8 heads, mlp 14336, vocab 128,256) and
+   ``LLAMA_DEPTH`` = 2 of its 32 layers: (a) ``trainer.measure`` at B8
+   S8192 with the chunked loss (chunk 2048) and AdamW(3e-4, weight decay
+   0.1), f32 parameters and bf16 activations, under remat off, full remat
+   and the ``dots_with_no_batch_dims_saveable`` and ``dots_saveable``
+   policies, 2 warm and 3 timed steps each (a setting that does not fit
+   in the card's memory at B8 runs at the largest of B4, B2 that does,
+   the cut printed), and full remat again at B4, so that each setting has
+   a full-remat twin at its own batch: finite losses, the first near
+   ln(vocab) + 1/2, launches per step of the forward 2·L under full
+   remat and both policies and L with remat off, of dq and dk/dv L;
+   tokens/s, ms per step, MFU and ``peak_memory_bytes`` of each, and each
+   against full remat; (b) ``python -m tony_tpu_torch.trainer --model
+   llama3_8b --data <corpus> --steps 3`` (``trainer.main`` in this
+   process, the depth cut
+   through ``LM_POINTS``) on a uint32 token file of Llama-3's vocabulary,
+   no checkpoint: exit 0, the example's chunk, weight decay and policy and
+   uint32 ids in its JSON, finite losses, the same launches; (c) phase 11
+   (c)'s MoE decoder at 4 layers under the no-batch policy against full
+   remat, 2 warm and 3 timed steps each: ms per step and peak memory; (d)
+   a small f32 decoder (head_dim 64) under None and each of the six
+   policy names: on the card, its loss and gradients against full
+   remat's and against the CPU's within ``TOL_MODEL_REL`` (and whether bit
+   for bit); (e) the three flash kernels against their plain versions at
+   the path's head layout, B1 S8192 H32/8 D128 bf16 causal, then timed
+   beside SDPA as in phase 3;
+22. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -2355,14 +2387,17 @@ def orchestrated_flagship(tmp, label, in_process, pool=None):
     return latency, bd, spans, on_card, run
 
 
-def import_seconds(module):
-    """Host seconds a fresh interpreter takes to import ``module``."""
-    code = (f"import time; t = time.time(); import {module}; "
-            f"print(time.time() - t)")
+def import_seconds(*modules):
+    """Host seconds a fresh interpreter takes to import ``modules`` one
+    after the other, each counted from the start (so the second includes
+    the first)."""
+    code = ("import importlib, time; t = time.time()\n"
+            f"for m in {list(modules)!r}:\n"
+            "    importlib.import_module(m); print(time.time() - t)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=300,
                        check=True)
-    return float(r.stdout.strip().splitlines()[-1])
+    return [float(x) for x in r.stdout.split()[-len(modules):]]
 
 
 def alive(pid):
@@ -2489,10 +2524,12 @@ def phase_orchestrator(in_process_tokens_per_sec):
             f"{json.dumps(warm[1]['user_boot_split'])}")
         pooled_flagship(tmp, in_process_tokens_per_sec, cold, warm)
         # What the user process's imports are made of: torch alone, then
-        # the trainer module (torch and the port's modules).
+        # the trainer module (torch and the port's modules), in one
+        # interpreter.
+        torch_s, trainer_s = import_seconds("torch", "tony_tpu_torch.trainer")
         log(f"orchestrator: import seconds in a fresh interpreter: torch "
-            f"{import_seconds('torch'):.4f}, tony_tpu_torch.trainer "
-            f"{import_seconds('tony_tpu_torch.trainer'):.4f}")
+            f"{torch_s:.4f}, tony_tpu_torch.trainer (torch included) "
+            f"{trainer_s:.4f}")
         rc, text, app, hist, _, _, _ = submit_job(
             tmp, "failing", f"{sys.executable} -c 'import sys; sys.exit(1)'")
         check(rc != 0, f"failing job: the CLI exited 0: {text[-2000:]}")
@@ -2799,6 +2836,13 @@ FAIL_SAVE_EVERY = 10_000
 # save of the flagship's ~3.8 GB is printed against it.
 FAIL_DRAIN_GRACE_S = 60
 FAIL_TIMEOUT_S = 600
+# (b)'s checkpoints go to the object store (phase 19). Its first save
+# takes ~12-20 s (a local one ~10-13) while the job trains on, and the move
+# waits for it: 50 steps more than the uninterrupted run, so that the
+# drain lands well before the end (it landed at steps 182-258 on an H100
+# 80GB HBM3 at 700 W). The uninterrupted losses hold its first 300.
+STORE_MIGRATE_URL = "gs://tony-ckpt/migrate"
+MIGRATE_STEPS = FAIL_STEPS + 50
 TRAINER = f"{sys.executable} -m tony_tpu_torch.trainer"
 
 
@@ -3040,8 +3084,8 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
     ``steps`` steps: the drain TERMs the trainer, its handler saves the
     state of the last whole step, and the relaunched trainer resumes from
     it with no step re-run; its losses are held to ``want``'s same steps
-    (as far as ``want`` goes). With ``ckpt_url`` (phase 19 b) the
-    checkpoints go there, named by the job's
+    (as far as ``want`` goes). With ``ckpt_url`` (the store's, as phase
+    14 b runs it) the checkpoints go there, named by the job's
     ``tony.application.checkpoint-dir`` and not in the command. Returns the
     job dir and the drain save's seconds."""
     from tony_tpu_torch.checkpoint import CheckpointManager
@@ -3175,13 +3219,17 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
 
 
 def phase_failures(card):
-    """Phase 14: surviving failures on the card."""
+    """Phase 14: surviving failures on the card. (b)'s store is a
+    ``FakeGcsStore`` under a temporary ``TONY_FAKE_GCS_ROOT``, set in this
+    process's environment only while the phase runs."""
     from tony_tpu_torch import trainer
+    from tony_tpu_torch.storage.store import FAKE_GCS_ROOT_ENV
 
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip-smoke-fail-")
+    previous = os.environ.get(FAKE_GCS_ROOT_ENV)
     try:
         cfg = trainer.flagship_config(seq=2048)
         corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
@@ -3193,7 +3241,10 @@ def phase_failures(card):
         gc.collect()
         torch.cuda.empty_cache()   # the jobs need the card's memory
         recovered = recover_drill(tmp, corpus, want, card)
-        moved, drain_s = migrate_drill(tmp, corpus, want, card)
+        os.environ[FAKE_GCS_ROOT_ENV] = os.path.join(tmp, "gcs")
+        moved, drain_s = migrate_drill(tmp, corpus, want, card,
+                                       ckpt_url=STORE_MIGRATE_URL,
+                                       steps=MIGRATE_STEPS)
         for job_dir in (recovered, moved):
             r = subprocess.run([sys.executable, "-m", "tony_tpu_torch.cli",
                                 "check", job_dir], cwd=REPO, env=repo_env(),
@@ -3202,6 +3253,10 @@ def phase_failures(card):
                   f"{r.returncode}: {r.stdout[-3000:]}{r.stderr[-2000:]}")
         log("failures (c) cli check: both job dirs clean")
     finally:
+        if previous is None:
+            os.environ.pop(FAKE_GCS_ROOT_ENV, None)
+        else:
+            os.environ[FAKE_GCS_ROOT_ENV] = previous
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"failures: {time.perf_counter() - t0:.1f} s")
     return want, drain_s
@@ -3438,6 +3493,7 @@ def fleet_job(tmp, want, card):
         f"{json.dumps(led['chip_seconds'])}; cli check on the fleet dir "
         f"clean; {time.perf_counter() - t0:.1f} s; {card}")
     log("fleet (b) fleet top --once:\n" + top.rstrip())
+    return float(durable.group(1))
 
 
 def phase_host_and_fleet(in_process, cold, want, card):
@@ -3448,21 +3504,29 @@ def phase_host_and_fleet(in_process, cold, want, card):
     tmp = tempfile.mkdtemp(prefix="chip-smoke-fleet-")
     try:
         host_backend_job(tmp, in_process, cold, card)
-        fleet_job(tmp, want, card)
+        drain_s = fleet_job(tmp, want, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"host backend and fleet: {time.perf_counter() - t0:.1f} s")
+    return drain_s
 
 
 # Phase 16: a live flagship job observed through the CLI and the portal.
 # top's MFU is the job's mean since its first step, start-up included, so
 # top reads after 450 steps (~38 s at phase 4's ~84 ms); the capture and
-# its export take ~40 steps (3.4 s, NVIDIA H100 80GB HBM3 at 700 W), and
-# over 100 steps remain while alerts and the portal are read.
-OBS_STEPS = 650
+# its export take 40-60 steps (3.4-5.0 s, NVIDIA H100 80GB HBM3 at 700 W),
+# and 100 steps remain while alerts and the portal are read.
+OBS_STEPS = 610
 OBS_TOP_AFTER = 450
 OBS_PROFILE_STEPS = 3
-TOL_OBS_MFU = 0.10        # top's MFU against phase 4's, relative
+# top's MFU against the trainer's own, run alone as a process of its own
+# just before the job, relative. The reference is taken next to the job it
+# judges and the way the job runs: this script's process, which has run
+# every earlier phase, steps the same flagship anywhere from 82 to 135 ms
+# (phase 4, and again before the job: 89.8, then 93.9 ms, while the jobs
+# of phases 12-16 ran 82.7-85.2 ms; NVIDIA H100 80GB HBM3, 700 W).
+TOL_OBS_MFU = 0.10
+OBS_REFERENCE_STEPS = 30
 OBS_TIMEOUT_S = 300
 
 
@@ -3521,9 +3585,11 @@ def trace_kernel_counts(path):
     return counts, len(kernels)
 
 
-def observed_job(tmp, in_process, card):
+def observed_job(tmp, reference, in_process, card):
     """Phase 16's job: submitted, watched by top, profiled, its alerts and
-    portal read while it runs; checked after it."""
+    portal read while it runs; checked after it. ``reference`` is the
+    trainer's own result, run alone, that top's MFU is held to;
+    ``in_process`` is phase 4's."""
     from tony_tpu_torch import constants
     from tony_tpu_torch.conf import keys as K
     from tony_tpu_torch.ops import _flash_cuda
@@ -3575,11 +3641,13 @@ def observed_job(tmp, in_process, card):
         check(rc == 0, f"observers: cli top exited {rc}: {frame[-2000:]}")
         mfu, hbm = top_task_row(frame)
         total = torch.cuda.get_device_properties(0).total_memory
-        want = in_process["mfu_vs_peak_bf16"]
+        want = reference["mfu_vs_peak_bf16"]
         figures["top"] = frame
         check(abs(mfu - want) <= TOL_OBS_MFU * want,
-              f"observers: top's MFU {mfu} against phase 4's {want:.4f}, "
-              f"limit {TOL_OBS_MFU} relative\n{frame}")
+              f"observers: top's MFU {mfu} against the trainer alone's "
+              f"{want:.4f} just before the job (phase 4's "
+              f"{in_process['mfu_vs_peak_bf16']:.4f}), limit {TOL_OBS_MFU} "
+              f"relative\n{frame}")
         check(0 < hbm <= total, f"observers: top's device memory {hbm} "
               f"bytes, the card holds {total}")
 
@@ -3688,8 +3756,10 @@ def observed_job(tmp, in_process, card):
         f"{run['mfu_vs_peak_bf16']}; clocks.sm, power.draw, "
         f"temperature.gpu at the top read: {figures['clocks']}")
     log(f"observers: {app} SUCCEEDED in one epoch, worker pid {pid} "
-        f"unchanged; top MFU {mfu} against phase 4's "
-        f"{in_process['mfu_vs_peak_bf16']:.4f}, device memory "
+        f"unchanged; top MFU {mfu} against the trainer alone's "
+        f"{reference['mfu_vs_peak_bf16']:.4f} ({reference['step_ms']:.3f} "
+        f"ms/step) just before the job (phase 4's "
+        f"{in_process['mfu_vs_peak_bf16']:.4f}), device memory "
         f"{hbm / 2**30:.3f} GiB of {total / 2**30:.3f}; capture of "
         f"{OBS_PROFILE_STEPS} steps {capture_s:.4f} s from the request to "
         f"captured, trace {os.path.getsize(trace) / 1e6:.3f} MB with "
@@ -3708,10 +3778,23 @@ def phase_observers(in_process, card):
     """Phase 16: a live flagship job observed on the card."""
     t0 = time.perf_counter()
     gc.collect()
-    torch.cuda.empty_cache()   # the job needs the card's memory
+    torch.cuda.empty_cache()   # the reference and the job need the memory
+    r = subprocess.run(f"{TRAINER} --model flagship --steps "
+                       f"{OBS_REFERENCE_STEPS}".split(), cwd=REPO,
+                       env=repo_env(), capture_output=True, text=True,
+                       timeout=OBS_TIMEOUT_S)
+    check(r.returncode == 0, f"observers: the trainer alone exited "
+          f"{r.returncode}: {r.stderr[-3000:]}")
+    reference = json.loads(r.stdout.strip().splitlines()[-1])
+    log(f"observers: the trainer alone before the job: "
+        f"{reference['tokens_per_sec']:.1f} tokens/s, "
+        f"{reference['step_ms']:.3f} ms/step, MFU "
+        f"{reference['mfu_vs_peak_bf16']} (phase 4 in this process: "
+        f"{in_process['step_ms']:.3f} ms/step, MFU "
+        f"{in_process['mfu_vs_peak_bf16']}); {card}")
     tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
     try:
-        observed_job(tmp, in_process, card)
+        observed_job(tmp, reference, in_process, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"observers: {time.perf_counter() - t0:.1f} s")
@@ -4079,17 +4162,10 @@ def phase_vision_layouts(card):
 
 # Phase 19: checkpoints through the port's object store on the card.
 STORE_CKPT_URL = "gs://tony-ckpt/flagship"
-STORE_MIGRATE_URL = "gs://tony-ckpt/migrate"
 # One step per turn: one save each (a turn of more steps saves its first
 # and its last, ~35 s of the store's writer), so that the script stays
 # inside its time limit.
 STORE_STEPS = 1
-# The store's first save takes ~12-20 s (phase 14 b's local one ~10-13)
-# while the job trains on, and the move waits for it: 50 steps more than
-# phase 14's job, so that the drain lands well before the end (it landed
-# at steps 187-258 on an H100 80GB HBM3 at 700 W). Phase 14's
-# uninterrupted losses hold its first 300.
-STORE_MIGRATE_STEPS = FAIL_STEPS + 50
 
 
 def state_tensors(state):
@@ -4170,13 +4246,14 @@ def store_turns(tmp, card):
     check(same, "store (a): the store's step differs from the local one's")
     check(not stray and not os.path.exists(os.path.join(cwd, "gs:")),
           f"store (a): {stray} written under {cwd}")
-    return corpus
 
 
-def phase_store_checkpoints(want, local_drain_s, card):
+def phase_store_checkpoints(store_drain_s, local_drain_s, card):
     """Phase 19: checkpoints on ``gs://`` through the port's store
     (``FakeGcsStore`` under a temporary ``TONY_FAKE_GCS_ROOT``, set in this
-    process's environment only)."""
+    process's environment only). (b), the migration through the store, ran
+    in phase 14: its drain save is printed beside phase 15 (b)'s to local
+    disk."""
     from tony_tpu_torch.storage.store import FAKE_GCS_ROOT_ENV
 
     t0 = time.perf_counter()
@@ -4186,19 +4263,13 @@ def phase_store_checkpoints(want, local_drain_s, card):
     previous = os.environ.get(FAKE_GCS_ROOT_ENV)
     os.environ[FAKE_GCS_ROOT_ENV] = os.path.join(tmp, "gcs")
     try:
-        corpus = store_turns(tmp, card)
+        store_turns(tmp, card)
         log(f"store (a): {time.perf_counter() - t0:.1f} s")
-        t1 = time.perf_counter()
-        shutil.rmtree(os.path.join(tmp, "gcs"), ignore_errors=True)
-        shutil.rmtree(os.path.join(tmp, "local"), ignore_errors=True)
-        _, drain_s = migrate_drill(tmp, corpus, want, card,
-                                   ckpt_url=STORE_MIGRATE_URL,
-                                   steps=STORE_MIGRATE_STEPS)
-        log(f"store (b): the drain save to {STORE_MIGRATE_URL} took "
-            f"{drain_s:.3f} s against phase 14 (b)'s {local_drain_s:.3f} s "
-            f"to local disk (tony.elastic.drain-grace-s default 15 s; this "
-            f"job's {FAIL_DRAIN_GRACE_S} s, as phase 14's); "
-            f"{time.perf_counter() - t1:.1f} s; {card}")
+        log(f"store (b): phase 14 (b)'s drain save to {STORE_MIGRATE_URL} "
+            f"took {store_drain_s:.3f} s against phase 15 (b)'s "
+            f"{local_drain_s:.3f} s to local disk "
+            f"(tony.elastic.drain-grace-s default 15 s; both jobs' "
+            f"{FAIL_DRAIN_GRACE_S} s); {card}")
     finally:
         if previous is None:
             os.environ.pop(FAKE_GCS_ROOT_ENV, None)
@@ -4209,8 +4280,9 @@ def phase_store_checkpoints(want, local_drain_s, card):
         f"{card}")
 
 
-# Phase 20: tensor-parallel layouts under other rules tables at world 1.
-RULES_STEPS = 5
+# Phase 20: tensor-parallel layouts under other rules tables at world 1
+# (3 steps a turn, the first untimed; 5 until phase 21 took their time).
+RULES_STEPS = 3
 RULES_DEPTH = 4
 
 
@@ -4381,6 +4453,279 @@ def phase_rules(card):
     log(f"rules: {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# Phase 21: the Llama-3-8B example (examples/llama3-8b/train_llama3.py) on
+# the card at its full width and LLAMA_DEPTH of its 32 layers.
+LLAMA_DEPTH = 2
+LLAMA_STEPS = 3           # timed, after 2 warm ones
+LLAMA_BATCHES = (8, 4, 2)     # the example's batch, then the cuts tried
+LLAMA_SETTINGS = (        # label, remat, remat_policy, batches tried
+    ("remat off", False, None, LLAMA_BATCHES),
+    ("full remat", True, None, LLAMA_BATCHES),
+    ("dots_with_no_batch_dims_saveable", True,
+     "dots_with_no_batch_dims_saveable", LLAMA_BATCHES),
+    ("dots_saveable", True, "dots_saveable", LLAMA_BATCHES),
+    # Full remat at the batch the others were cut to on the H100 (80 GB),
+    # so that every setting has a twin at its own batch.
+    ("full remat at B4", True, None, (4,)),
+)
+MOE_POLICY_DEPTH = 4
+POLICY_NAMES = (None, "nothing_saveable", "everything_saveable",
+                "dots_saveable", "checkpoint_dots",
+                "dots_with_no_batch_dims_saveable",
+                "checkpoint_dots_with_no_batch_dims")
+
+
+def llama_cut(cfg, depth=LLAMA_DEPTH):
+    return dataclasses.replace(cfg, n_layers=depth)
+
+
+def llama_setting(label, cfg, batches, card):
+    """(a) One remat setting of the example's step at its full width, 2
+    warm and ``LLAMA_STEPS`` timed steps through ``trainer.measure`` at the
+    largest of ``batches`` that fits the card (a cut printed). Returns the
+    result with its batch and the flash launches per step."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda
+
+    for batch in batches:
+        gc.collect()
+        torch.cuda.empty_cache()
+        _flash_cuda.reset_launch_counts()
+        try:
+            r = trainer.measure(
+                cfg, batch=batch, seq=trainer.LLAMA_SEQ,
+                steps=LLAMA_STEPS + 2, warmup=2, device="cuda", seed=0,
+                chunked=True, loss_chunk=trainer.LLAMA_LOSS_CHUNK,
+                weight_decay=trainer.LLAMA_WEIGHT_DECAY)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"llama (a) {label}: batch {batch} does not fit in the "
+                f"card's memory; {card}")
+            r = None
+    check(r is not None, f"llama (a) {label}: no batch of {batches} fits")
+    counts = {k: v / (LLAMA_STEPS + 2)
+              for k, v in _flash_cuda.launch_counts.items()}
+    cut = "" if batch == trainer.LLAMA_BATCH else \
+        f" (batch cut from {trainer.LLAMA_BATCH}: B{trainer.LLAMA_BATCH} " \
+        f"does not fit)"
+    log(f"llama (a) {label}: {r['params']} params, batch {batch}{cut} x "
+        f"seq {trainer.LLAMA_SEQ}, {r['tokens_per_sec']:.1f} tokens/s, "
+        f"{r['step_ms']:.3f} ms/step, MFU {r['mfu_vs_peak_bf16']:.4f}, "
+        f"peak_memory_bytes {r['peak_memory_bytes']} "
+        f"({r['peak_memory_bytes'] / 2**30:.2f} GiB), flash launches per "
+        f"step {json.dumps(counts)}, losses {r['losses']}; {card}")
+    check(all(math.isfinite(x) for x in r["losses"]),
+          f"llama (a) {label}: non-finite loss")
+    expected = math.log(cfg.vocab_size) + 0.5
+    check(abs(r["losses"][0] - expected) <= 0.5,
+          f"llama (a) {label}: first loss {r['losses'][0]} not near "
+          f"ln(vocab) + 1/2")
+    for name, n in flash_launches_per_step(cfg).items():
+        check(counts.get(name) == n, f"llama (a) {label}: {name} launched "
+              f"{counts.get(name)} times a step, expected {n}")
+    return dict(r, batch=batch, launches_per_step=counts)
+
+
+def llama_job(cfg, batch, card):
+    """(b) The job loop with ``--model llama3_8b``'s semantics (the CLI's
+    ``main``, the depth cut through ``LM_POINTS``) on a uint32 token file of
+    Llama-3's vocabulary: 3 steps, no checkpoint, at ``batch`` (the
+    policy's in (a): the example's 8 unless it did not fit)."""
+    import contextlib
+    import io
+
+    from tony_tpu_torch import trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-llama-")
+    point = trainer.LM_POINTS["llama3_8b"]
+    default_batch = trainer.DEFAULT_BATCH["llama3_8b"]
+    try:
+        corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                      cfg.vocab_size)
+        check(os.path.getsize(corpus) == 4 * trainer.CORPUS_TOKENS,
+              "llama (b): the corpus is not uint32")
+        trainer.LM_POINTS["llama3_8b"] = (
+            lambda seq: llama_cut(trainer.llama3_8b_config(seq)),) + point[1:]
+        trainer.DEFAULT_BATCH["llama3_8b"] = batch
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = trainer.main(["--model", "llama3_8b", "--data", corpus,
+                               "--steps", "3"])
+        out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    finally:
+        trainer.LM_POINTS["llama3_8b"] = point
+        trainer.DEFAULT_BATCH["llama3_8b"] = default_batch
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"llama (b) python -m tony_tpu_torch.trainer --model llama3_8b "
+        f"--data <uint32 corpus> --steps 3 ({LLAMA_DEPTH} of 32 layers, "
+        f"batch {batch}): "
+        f"exit {rc}, losses {out['losses']}, {out['tokens_per_sec']:.1f} "
+        f"tokens/s over the loop (first step included), token dtype "
+        f"{out['token_dtype']}, loss chunk {out['loss_chunk']}, weight "
+        f"decay {out['weight_decay']}, remat policy {out['remat_policy']}, "
+        f"launches per step {json.dumps(out['launches_per_step'])}; {card}")
+    check(rc == 0, "llama (b): the trainer's main failed")
+    check(out["token_dtype"] == "uint32" and out["loss_chunk"] == 2048
+          and out["weight_decay"] == 0.1 and out["remat_policy"]
+          == "dots_with_no_batch_dims_saveable",
+          f"llama (b): not the example's job: {out}")
+    check(len(out["losses"]) == 3 and all(math.isfinite(x)
+                                          for x in out["losses"]),
+          f"llama (b): losses {out['losses']}")
+    expected = math.log(cfg.vocab_size) + 0.5
+    check(abs(out["losses"][0] - expected) <= 0.5,
+          f"llama (b): first loss {out['losses'][0]} not near ln(vocab) "
+          "+ 1/2")
+    for name, n in flash_launches_per_step(cfg).items():
+        check(out["launches_per_step"].get(name) == n,
+              f"llama (b): {name} {out['launches_per_step'].get(name)} "
+              f"launches a step, expected {n}")
+    return out
+
+
+def moe_policy(card):
+    """(c) The MoE decoder of phase 11 (c) at 4 layers under the no-batch
+    policy against full remat: ms per step and peak memory."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.ops import _flash_cuda
+
+    base = moe_flagship_config()
+    res = {}
+    for policy in (None, "dots_with_no_batch_dims_saveable"):
+        cfg = dataclasses.replace(base, n_layers=MOE_POLICY_DEPTH,
+                                  remat_policy=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        _flash_cuda.reset_launch_counts()
+        r = trainer.measure(cfg, batch=4, seq=2048, steps=5, warmup=2,
+                            device="cuda")
+        counts = {k: v / 5 for k, v in _flash_cuda.launch_counts.items()}
+        label = policy or "full remat"
+        log(f"llama (c) MoE ({MOE_POLICY_DEPTH} of 16 layers) {label}: "
+            f"{r['step_ms']:.3f} ms/step, {r['tokens_per_sec']:.1f} "
+            f"tokens/s, peak_memory_bytes {r['peak_memory_bytes']} "
+            f"({r['peak_memory_bytes'] / 2**30:.2f} GiB), flash launches per "
+            f"step {json.dumps(counts)}, losses {r['losses']}; {card}")
+        check(all(math.isfinite(x) for x in r["losses"]),
+              f"llama (c) MoE {label}: non-finite loss")
+        for name, n in flash_launches_per_step(cfg).items():
+            check(counts.get(name) == n, f"llama (c) MoE {label}: {name} "
+                  f"{counts.get(name)} launches a step, expected {n}")
+        res[label] = r
+    full, pol = res["full remat"], res["dots_with_no_batch_dims_saveable"]
+    log(f"llama (c) MoE: the policy against full remat: ms/step "
+        f"{pol['step_ms'] / full['step_ms']:.4f}, peak memory "
+        f"{pol['peak_memory_bytes'] / full['peak_memory_bytes']:.4f}; {card}")
+    return res
+
+
+def small_policies(card):
+    """(d) A small f32 decoder (head_dim 64) under None and each policy
+    name on the card against full remat's losses and gradients on the
+    card, and against the same weights on the CPU."""
+    from tony_tpu_torch.models.transformer import (Transformer,
+                                                   TransformerConfig,
+                                                   causal_lm_loss)
+
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 512, (2, 256)))
+    runs = {}
+    for policy in POLICY_NAMES:
+        cfg = TransformerConfig.tiny(vocab_size=512, dim=256, n_heads=4,
+                                     n_kv_heads=2, mlp_dim=512,
+                                     max_seq_len=256, remat=True,
+                                     remat_policy=policy)
+        cpu = Transformer(cfg, device="cpu")
+        gpu = Transformer(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        got = []
+        for model, tok in ((cpu, tokens), (gpu, tokens.cuda())):
+            loss = causal_lm_loss(model(tok), tok)
+            loss.backward()
+            got.append((loss.item(), [p.grad.cpu() for p in
+                                      model.parameters()]))
+        runs[policy] = got
+    (cpu_full, gpu_full) = runs[None]
+    worst = {}
+    for policy, (cpu, gpu) in runs.items():
+        vs_full = max(rel_err(g, f) for g, f in zip(gpu[1], gpu_full[1]))
+        vs_cpu = max(rel_err(g, c) for g, c in zip(gpu[1], cpu[1]))
+        loss_rel = max(abs(gpu[0] - gpu_full[0]), abs(gpu[0] - cpu[0])) \
+            / abs(cpu[0])
+        worst[str(policy)] = (vs_full, vs_cpu)
+        check(loss_rel <= TOL_MODEL_REL, f"llama (d) {policy}: loss "
+              f"{gpu[0]} against full remat {gpu_full[0]} and the CPU "
+              f"{cpu[0]}")
+        check(vs_full <= TOL_MODEL_REL and vs_cpu <= TOL_MODEL_REL,
+              f"llama (d) {policy}: grad rel err {vs_full} against full "
+              f"remat, {vs_cpu} against the CPU")
+    bitwise = {str(p): all(torch.equal(g, f) for g, f in
+                           zip(r[1][1], gpu_full[1])) and r[1][0]
+               == gpu_full[0] for p, r in runs.items()}
+    log(f"llama (d) small f32 decoder under each remat policy, card: worst "
+        f"grad rel err (against full remat, against the CPU) "
+        f"{json.dumps(worst)}; bit for bit full remat's on the card "
+        f"{json.dumps(bitwise)}; loss {gpu_full[0]:.6f} (cpu "
+        f"{cpu_full[0]:.6f}); {card}")
+
+
+def llama_kernels(card):
+    """(e) The flash kernels against their plain versions at the path's
+    own head layout, B1 S8192 H32/8 D128 bf16 causal, then timed beside
+    SDPA as phase 3 times them."""
+    from tony_tpu_torch.models.transformer import TransformerConfig
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    llama = TransformerConfig.llama3_8b()
+    h, hk, d = llama.n_heads, llama.n_kv_heads, llama.dim // llama.n_heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = f"llama3-8b path bf16 B1 S8192 H{h}/{hk} D{d} causal"
+    check_case(name, 1, 8192, h, hk, d, torch.bfloat16, True, 22)
+    q, k, v, do = make_case(1, 8192, h, hk, d, torch.bfloat16, 23)
+    o, lse = K.flash_fwd(q, k, v, d ** -0.5, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    res = time_flash(name, q, k, v, do, lse, delta, True, o)
+    log(f"timing ({name}): {json.dumps(res)}; {card}")
+    return res
+
+
+def phase_llama(card):
+    """Phase 21: the Llama-3-8B example on the card, (a)-(e)."""
+    from tony_tpu_torch import trainer
+
+    t0 = time.perf_counter()
+    full = trainer.llama3_8b_config()
+    cfg = llama_cut(full)
+    log(f"llama: the example's geometry at {LLAMA_DEPTH} of "
+        f"{full.n_layers} layers (dim {cfg.dim}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} heads, mlp {cfg.mlp_dim}, vocab {cfg.vocab_size})")
+    runs = {label: llama_setting(label, dataclasses.replace(
+        cfg, remat=remat, remat_policy=policy), batches, card)
+        for label, remat, policy, batches in LLAMA_SETTINGS}
+    # Each setting against full remat at its own batch.
+    full_at = {r["batch"]: r for label, r in runs.items()
+               if label.startswith("full remat")}
+    for label, r in runs.items():
+        twin = full_at.get(r["batch"])
+        if twin is None or twin is r:
+            continue
+        log(f"llama (a) {label} against full remat, both at batch "
+            f"{r['batch']}: tokens/s "
+            f"{r['tokens_per_sec'] / twin['tokens_per_sec']:.4f}, peak "
+            f"memory {r['peak_memory_bytes'] / twin['peak_memory_bytes']:.4f}"
+            f"; {card}")
+    log(f"llama (a): {time.perf_counter() - t0:.1f} s")
+    llama_job(cfg, runs["dots_with_no_batch_dims_saveable"]["batch"], card)
+    moe_policy(card)
+    small_policies(card)
+    timing = llama_kernels(card)
+    log(f"llama: {time.perf_counter() - t0:.1f} s for parts (a)-(e); {card}")
+    return timing
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -4409,13 +4754,18 @@ def main():
     moe_run = phase_seq_expert(mesh_run, long_timing, card)
     cold = phase_orchestrator(main_run["tokens_per_sec"])
     pipe = phase_pipeline(main_run["tokens_per_sec"], card)
-    want, drain_s = phase_failures(card)
-    phase_host_and_fleet(main_run["tokens_per_sec"], cold, want, card)
+    want, store_drain_s = phase_failures(card)
+    local_drain_s = phase_host_and_fleet(main_run["tokens_per_sec"], cold,
+                                         want, card)
     phase_observers(main_run, card)
     phase_mesh_layouts(card, moe_run)
     phase_vision_layouts(card)
-    phase_store_checkpoints(want, drain_s, card)
+    phase_store_checkpoints(store_drain_s, local_drain_s, card)
     phase_rules(card)
+    llama_timing = phase_llama(card)
+    for name, r in llama_timing.items():
+        timing[name]["llama3_8b_s8192"] = {k: r[k] for k in (
+            "ms", "bound_ms", "bound_by", "library_ms", "tflops")}
     from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda
 
     kernels = []
@@ -4428,8 +4778,8 @@ def main():
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            **{k: t[k] for k in ("tflops", "llama3_8b", "longctx")
-               if k in t},
+            **{k: t[k] for k in ("tflops", "llama3_8b", "longctx",
+                                 "llama3_8b_s8192") if k in t},
             **({"pipelined_launches_per_step": {
                 f"M={m}": counts_m[name] / STEPS
                 for m, counts_m in pipe["launches"].items()}}

@@ -442,4 +442,4 @@ def test_cli_data_trains_the_flagship_only(tmp_path, capsys):
         trainer.main(["--model", "mnist", "--data", str(tmp_path / "c.bin"),
                       "--device", "cpu"])
     assert e.value.code == 2
-    assert "--data trains the flagship" in capsys.readouterr().err
+    assert "--data trains a decoder" in capsys.readouterr().err

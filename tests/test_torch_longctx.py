@@ -284,7 +284,8 @@ def test_cli_runs_bench_points(monkeypatch, capsys, argv, want):
 
 
 @pytest.mark.parametrize("argv", [["--model", "mnist", "--seq", "8192"],
-                                  ["--data", "c.bin", "--chunked"]])
+                                  ["--model", "resnet50", "--data", "c.bin",
+                                   "--chunked"]])
 def test_cli_refuses_decoder_flags_elsewhere(capsys, argv):
     with pytest.raises(SystemExit) as e:
         trainer.main(argv + ["--device", "cpu"])

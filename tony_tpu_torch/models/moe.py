@@ -96,9 +96,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Shard
-from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.models import remat
 from tony_tpu_torch.models.transformer import (_TRUNC_STD, Attention, Dense,
                                                RMSNorm, TableLookup,
                                                TransformerConfig,
@@ -245,7 +245,8 @@ class MoEMLP(nn.Module):
         super().__init__()
         self.cfg = cfg
         e, d, f = cfg.n_experts, cfg.dim, cfg.mlp_dim
-        self.router = Dense(d, e, torch.float32, cfg.param_dtype, device)
+        self.router = Dense(d, e, torch.float32, cfg.param_dtype, device,
+                            site="router")
 
         def stacked(*shape):
             return nn.Parameter(torch.empty(shape, dtype=cfg.param_dtype,
@@ -300,34 +301,41 @@ class MoEMLP(nn.Module):
         vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
         dispatch, combine = dispatch_combine(cfg, idx, vals, pos, kept, cap)
 
-        expert_in = (dispatch.T @ xt.to(cfg.dtype)).view(e, cap, -1)
+        with remat.product_site("dispatch"):
+            expert_in = (dispatch.T @ xt.to(cfg.dtype)).view(e, cap, -1)
         # Each expert's slots to its owner: [E, C, D] → [E/ep, ep·C, D].
         expert_in = _comm.all_to_all_tiled(expert_in, ep, 0, 1)
         w_gate, w_up, w_down = (_local(w).to(cfg.dtype)
                                 for w in (self.gate, self.up, self.down))
         split = _tp_split(self.gate)
-        if split == 1:
-            # This rank's D/tp slice of its experts: the slots' D/tp
-            # columns give partial pre-activations, summed over tp; the
-            # hidden state's gradient is a partial sum over tp, and the
-            # down product's output is this rank's D/tp columns.
-            part = _comm.split_to_group(expert_in, tp, 2)
-            h = F.silu(_comm.reduce_from_group(torch.bmm(part, w_gate), tp)) \
-                * _comm.reduce_from_group(torch.bmm(part, w_up), tp)
-            h = _comm.sum_grad_over_group(h, tp)
-            expert_out = _comm.gather_from_group(torch.bmm(h, w_down), tp, 2)
-        else:
-            # With the experts' F over tp, this rank's F/tp slice of them:
-            # the slots' gradient is a partial sum over tp, the down
-            # product's output too (no group: nothing to sum).
-            f_tp = tp if split == 2 else None
-            expert_in = _comm.sum_grad_over_group(expert_in, f_tp)
-            h = F.silu(torch.bmm(expert_in, w_gate)) * \
-                torch.bmm(expert_in, w_up)
-            expert_out = _comm.reduce_from_group(torch.bmm(h, w_down), f_tp)
+        with remat.product_site("experts"):
+            if split == 1:
+                # This rank's D/tp slice of its experts: the slots' D/tp
+                # columns give partial pre-activations, summed over tp; the
+                # hidden state's gradient is a partial sum over tp, and the
+                # down product's output is this rank's D/tp columns.
+                part = _comm.split_to_group(expert_in, tp, 2)
+                h = F.silu(_comm.reduce_from_group(
+                    torch.bmm(part, w_gate), tp)) \
+                    * _comm.reduce_from_group(torch.bmm(part, w_up), tp)
+                h = _comm.sum_grad_over_group(h, tp)
+                expert_out = _comm.gather_from_group(torch.bmm(h, w_down),
+                                                     tp, 2)
+            else:
+                # With the experts' F over tp, this rank's F/tp slice of
+                # them: the slots' gradient is a partial sum over tp, the
+                # down product's output too (no group: nothing to sum).
+                f_tp = tp if split == 2 else None
+                expert_in = _comm.sum_grad_over_group(expert_in, f_tp)
+                h = F.silu(torch.bmm(expert_in, w_gate)) * \
+                    torch.bmm(expert_in, w_up)
+                expert_out = _comm.reduce_from_group(torch.bmm(h, w_down),
+                                                     f_tp)
         # The results back, slot-major: [E/ep, ep·C, D] → [E, C, D].
         expert_out = _comm.all_to_all_tiled(expert_out, ep, 1, 0)
-        out = combine @ expert_out.reshape(e * cap, -1)
+        # Its output joins the residual stream; no backward reads it.
+        with remat.product_site("combine"):
+            out = combine @ expert_out.reshape(e * cap, -1)
         return _comm.gather_from_group(out, ep, 0)
 
     def _aux(self, probs: torch.Tensor) -> torch.Tensor:
@@ -429,7 +437,7 @@ class MoETransformer(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                x, aux = checkpoint(blk, x, positions, use_reentrant=False)
+                x, aux = remat.run(blk, cfg.remat_policy, x, positions)
             else:
                 x, aux = blk(x, positions)
             aux_total = aux_total + aux

@@ -66,6 +66,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from tony_tpu_torch._device import resolve_device
+from tony_tpu_torch.models import remat
 from tony_tpu_torch.ops import quant
 from tony_tpu_torch.ops.attention import flash_attention, reference_attention
 from tony_tpu_torch.ops.ring import ring_attention
@@ -91,6 +92,11 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
     attn_impl: str = "flash"                 # flash | ring | ulysses | xla
     remat: bool = True
+    # The name of a jax.checkpoint_policies policy for remat, e.g.
+    # "dots_with_no_batch_dims_saveable" (keep the projections' outputs,
+    # recompute the rest); None recomputes each block whole
+    # (models/remat.py).
+    remat_policy: Optional[str] = None
     # With remat on and N >= 2, every Nth block runs without checkpointing.
     remat_skip_every: int = 0
     # Tile sizes of the plain attention version; the CUDA kernels pick
@@ -127,6 +133,7 @@ def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.attn_impl not in ("flash", "xla") + SEQUENCE_PARALLEL:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     quant.check_mode(cfg.matmul_dtype)
+    remat.check_policy(cfg.remat_policy)
 
 
 def init_dense_(w: torch.Tensor,
@@ -153,16 +160,21 @@ class Dense(nn.Linear):
     such a style the input and the weight are the plan's DTensors; the
     quantized product then runs on their local shards
     (``quant.quantized_matmul``), the layer's style read from the
-    weight's placement (``Shard(0)``: colwise, ``Shard(1)``: rowwise)."""
+    weight's placement (``Shard(0)``: colwise, ``Shard(1)``: rowwise).
+
+    The product runs in ``remat.product_site(site)``, which tells a remat
+    policy what it is (``models/remat.py``)."""
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype, param_dtype: torch.dtype,
                  device: torch.device,
                  generator: Optional[torch.Generator] = None,
-                 matmul_dtype: Optional[str] = None):
+                 matmul_dtype: Optional[str] = None,
+                 site: str = "projection"):
         nn.Module.__init__(self)
         self.in_features, self.out_features = in_features, out_features
         self.dtype = dtype
+        self.site = site
         self.matmul_dtype = quant.check_mode(matmul_dtype)
         self.weight = nn.Parameter(torch.empty(
             (out_features, in_features), dtype=param_dtype, device=device))
@@ -174,11 +186,12 @@ class Dense(nn.Linear):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         mode = self.matmul_dtype and quant.resolve_mode(self.matmul_dtype,
                                                         x.device)
-        if not mode:
-            return F.linear(x, w)
-        if isinstance(w, DTensor):
-            return _quantized_on_plan(x, w, mode)
-        return quant.quantized_matmul(x, w, mode)
+        with remat.product_site(self.site):
+            if not mode:
+                return F.linear(x, w)
+            if isinstance(w, DTensor):
+                return _quantized_on_plan(x, w, mode)
+            return quant.quantized_matmul(x, w, mode)
 
 
 def _quantized_on_plan(x: DTensor, w: DTensor, mode: str) -> DTensor:
@@ -285,19 +298,25 @@ class Attention(nn.Module):
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-        if cfg.attn_impl == "flash":
-            o = flash_attention(q, k, v, causal=True, **blocks)
-        elif cfg.attn_impl == "ring":
-            # GQA-native: K/V travel the ring at kv-head width.
-            o = ring_attention(q, k, v, self.sp_group, causal=True, **blocks)
-        elif cfg.attn_impl == "ulysses":
-            o = ulysses_attention(q, k, v, self.sp_group, causal=True,
-                                  **blocks)
-        else:                                            # "xla"
-            g = q.shape[2] // k.shape[2]
-            o = reference_attention(q, k.repeat_interleave(g, dim=2),
-                                    v.repeat_interleave(g, dim=2),
-                                    causal=True)
+        # The flash kernels (and ring and Ulysses over them) are opaque to a
+        # remat policy, as the reference's pallas_call is; the plain
+        # attention's two products are batched (models/remat.py).
+        with remat.product_site("attention" if cfg.attn_impl == "xla"
+                                else "flash"):
+            if cfg.attn_impl == "flash":
+                o = flash_attention(q, k, v, causal=True, **blocks)
+            elif cfg.attn_impl == "ring":
+                # GQA-native: K/V travel the ring at kv-head width.
+                o = ring_attention(q, k, v, self.sp_group, causal=True,
+                                   **blocks)
+            elif cfg.attn_impl == "ulysses":
+                o = ulysses_attention(q, k, v, self.sp_group, causal=True,
+                                      **blocks)
+            else:                                        # "xla"
+                g = q.shape[2] // k.shape[2]
+                o = reference_attention(q, k.repeat_interleave(g, dim=2),
+                                        v.repeat_interleave(g, dim=2),
+                                        causal=True)
         return self.wo(o.reshape(b, s, -1))
 
 
@@ -305,12 +324,13 @@ class MLP(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device):
         super().__init__()
 
-        def dense(i, o):
+        def dense(i, o, site="projection"):
             return Dense(i, o, cfg.dtype, cfg.param_dtype, device,
-                         matmul_dtype=cfg.matmul_dtype)
+                         matmul_dtype=cfg.matmul_dtype, site=site)
         self.gate = dense(cfg.dim, cfg.mlp_dim)
         self.up = dense(cfg.dim, cfg.mlp_dim)
-        self.down = dense(cfg.mlp_dim, cfg.dim)
+        # Its output joins the residual stream; no backward reads it.
+        self.down = dense(cfg.mlp_dim, cfg.dim, site="down")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(F.silu(self.gate(x)) * self.up(x))
@@ -418,7 +438,7 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers):
             skip = cfg.remat_skip_every >= 2 and i % cfg.remat_skip_every == 0
             if cfg.remat and not skip and torch.is_grad_enabled():
-                x = checkpoint(blk, x, positions, use_reentrant=False)
+                x = remat.run(blk, cfg.remat_policy, x, positions)
             else:
                 x = blk(x, positions)
         x = self.final_norm(x)

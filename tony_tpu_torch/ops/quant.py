@@ -128,15 +128,21 @@ def check_mode(mode: Optional[str]) -> Optional[str]:
 def _probe(mode: str, device_type: str) -> str:
     """Empty string when ``device_type`` runs the quantized product; else
     the refusal reason. Cached per (mode, device type)."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     from tony_tpu_torch import faults
 
+    # Outside any dispatch mode: the first forward may run under a remat
+    # policy's caching mode, which numbers each op's calls, and a product
+    # that the recompute does not repeat would shift them.
     try:
         faults.check("quant.probe")
-        a = torch.ones((32, 32), device=device_type)
-        q, _ = quantize_symmetric(a, mode, axis=-1)
-        _product(q, q, mode)
-        if device_type == "cuda":
-            torch.cuda.synchronize()
+        with _disable_current_modes():
+            a = torch.ones((32, 32), device=device_type)
+            q, _ = quantize_symmetric(a, mode, axis=-1)
+            _product(q, q, mode)
+            if device_type == "cuda":
+                torch.cuda.synchronize()
     except Exception as e:  # noqa: BLE001 — any refusal shape degrades
         return f"{type(e).__name__}: {e}"[:200]
     return ""
@@ -217,6 +223,10 @@ def product_library(qx: torch.Tensor, qw: torch.Tensor,
 
 def _product(qx: torch.Tensor, qw: torch.Tensor, mode: str) -> torch.Tensor:
     if qx.device.type == "cpu":
+        if mode == INT8:
+            # The CPU's int32 product: the exact sums of product_plain, in
+            # the accumulator a remat policy keeps (the reference's int32).
+            return torch._int_mm(qx, qw.t())
         return product_plain(qx, qw, mode)
     return product_library(qx, qw, mode)
 
@@ -246,6 +256,8 @@ def _qmm_forward(x: torch.Tensor, w: torch.Tensor, mode: str,
     if x.is_cuda:
         launch_counts[mode] += 1
     if split:
+        # Out of place: a remat policy may hold the local product.
+        acc = acc.clone()
         dist.all_reduce(acc, group=group)
     acc = acc.float().reshape(*x.shape[:-1], n)
     out = acc * sx * sw.reshape(n)

@@ -34,10 +34,26 @@ uint16 ``.bin`` corpus through the prefetching iterator, the host read and
 the copy to the card inside the timed loop.
 
 ``train`` is the loop of ``examples/llama3-8b/train_llama3.py`` at any
-width: batches from a token file, microbatch accumulation and the bucketed
-gradient all-reduce (over the ``torch.distributed`` group when one is up),
-AdamW, telemetry step and phase accounting, async checkpoints, and a resume
-from the newest verified checkpoint.
+width: batches from a token file (uint32 ids for a vocabulary past 65,536,
+as Llama-3's 128,256), the whole or the chunked loss (the example's
+``_loss_on``: chunked at seq >= 8192, chunks of 2048), microbatch
+accumulation and the bucketed gradient all-reduce (over the
+``torch.distributed`` group when one is up), AdamW with the job's weight
+decay, telemetry step and phase accounting, async checkpoints, and a
+resume from the newest verified checkpoint. ``--model llama3_8b`` is the
+example's own job: ``TransformerConfig.llama3_8b`` under
+``remat_policy="dots_with_no_batch_dims_saveable"``, batch 8 × seq 8192,
+the chunked loss and AdamW(3e-4, weight decay 0.1); ``--accum``,
+``--bucket-mb`` and ``--matmul-dtype`` are its ``LLAMA_ACCUM_STEPS``,
+``LLAMA_BUCKET_MB`` and ``LLAMA_MATMUL_DTYPE``, and ``--mesh
+"dp=1,fsdp=-1,tp=4"`` its ``MeshSpec(dp=1, fsdp=-1, tp=TP)``. All 32
+layers (about 8.0 B parameters, ~128 GB of f32 parameters, gradients and
+Adam moments) need several cards under such a mesh; one card trains the
+full width at a cut depth, which the Python API sets
+(``dataclasses.replace(llama3_8b_config(), n_layers=2)``):
+
+    python -m tony_tpu_torch.trainer --model llama3_8b --data corpus.bin \\
+        --mesh "dp=1,fsdp=-1,tp=4" --ckpt-dir ckpt    # one process a card
 
 ``measure(..., mesh="fsdp=1")`` and ``train(..., mesh=...)`` run the same
 steps on a ``DeviceMesh`` (``parallel/mesh.py``): the state from
@@ -131,6 +147,13 @@ from tony_tpu_torch.parallel.train import (TrainState, adamw,
 
 
 LEARNING_RATE = 3e-4    # bench.py's optax.adamw(3e-4)
+ADAMW_WEIGHT_DECAY = 1e-4   # optax.adamw's default
+# examples/llama3-8b/train_llama3.py: LLAMA_BATCH, LLAMA_SEQ,
+# LLAMA_LOSS_CHUNK (the chunked loss at seq >= LLAMA_CHUNKED_FROM) and its
+# optax.adamw(3e-4, weight_decay=0.1).
+LLAMA_BATCH, LLAMA_SEQ, LLAMA_LOSS_CHUNK = 8, 8192, 2048
+LLAMA_CHUNKED_FROM = 8192
+LLAMA_WEIGHT_DECAY = 0.1
 
 
 def flagship_config(seq: int = 2048,
@@ -149,6 +172,15 @@ def flagship_remat_config(seq: int = 8192) -> TransformerConfig:
         vocab_size=32000, dim=1024, n_layers=16, n_heads=8,
         n_kv_heads=4, mlp_dim=4096, max_seq_len=seq, remat=True,
         remat_skip_every=2)
+
+
+def llama3_8b_config(seq: int = LLAMA_SEQ) -> TransformerConfig:
+    """``examples/llama3-8b/train_llama3.py:52-59``: the Llama-3-8B
+    geometry under the selective remat policy, its RoPE bound the longer of
+    ``seq`` and Llama-3's 8192."""
+    return TransformerConfig.llama3_8b(
+        remat=True, remat_policy="dots_with_no_batch_dims_saveable",
+        max_seq_len=max(seq, 8192))
 
 
 def big_config(seq: int = 2048) -> TransformerConfig:
@@ -186,10 +218,12 @@ def build_state(cfg: TransformerConfig,
                 loss_chunk: int = 2048,
                 mu_dtype: Optional[torch.dtype] = None,
                 mesh: Any = None,
-                model: Optional[Callable[..., nn.Module]] = None
+                model: Optional[Callable[..., nn.Module]] = None,
+                weight_decay: float = ADAMW_WEIGHT_DECAY
                 ) -> TrainState:
     """The model made from ``seed`` on ``device``, AdamW (first moment in
-    ``mu_dtype``, None: the parameter's) and the LM loss (chunked over
+    ``mu_dtype``, None: the parameter's; ``weight_decay``, optax's default
+    unless given) and the LM loss (chunked over
     ``loss_chunk`` positions with ``chunked``). ``model`` builds the
     decoder as ``model(cfg, device=, generator=)``: the sequential
     ``Transformer`` (the default), ``MoETransformer`` (the default for a
@@ -217,7 +251,8 @@ def build_state(cfg: TransformerConfig,
         return built
 
     def optimizer(params):
-        return adamw(params, LEARNING_RATE, mu_dtype=mu_dtype)
+        return adamw(params, LEARNING_RATE, weight_decay=weight_decay,
+                     mu_dtype=mu_dtype)
 
     if mesh is not None:
         state, _ = init_sharded_state(
@@ -383,7 +418,8 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
             seed: int = 0, chunked: bool = False, loss_chunk: int = 2048,
             mu_dtype: Optional[torch.dtype] = None,
             mesh: str = "",
-            model: Optional[Callable[..., nn.Module]] = None
+            model: Optional[Callable[..., nn.Module]] = None,
+            weight_decay: float = ADAMW_WEIGHT_DECAY
             ) -> Dict[str, Any]:
     """Train ``steps`` steps (the first ``warmup`` of them untimed) and
     return losses, tokens/s over the timed steps, MFU and, on the card, the
@@ -397,12 +433,13 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
     decoder (see ``build_state``: the MoE decoder for a ``MoEConfig``; the
     pipelined one runs over the mesh's pp, ``mesh="pp=..."``). Any of them
     takes a mesh, the quantized (``matmul_dtype``) and tied
-    (``tie_embeddings``) decoders under its tensor-parallel plan too."""
+    (``tie_embeddings``) decoders under its tensor-parallel plan too.
+    ``weight_decay`` is AdamW's (optax's default unless given)."""
     _check_steps(steps, warmup)
     dev = resolve_device(device)
     with mesh_scope(mesh, dev) as m:
         state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype,
-                            mesh=m, model=model)
+                            mesh=m, model=model, weight_decay=weight_decay)
         batches = [synthetic_lm_batch(s, batch, seq, cfg.vocab_size,
                                       seed=seed, device=dev, mesh=m)
                    for s in range(steps)]
@@ -416,13 +453,29 @@ def measure(cfg: TransformerConfig, batch: int = 4, seq: int = 2048,
 CORPUS_TOKENS = 4_000_000
 
 
+def token_dtype(vocab_size: int, dtype: Any = None) -> Any:
+    """The ids' dtype in a token file of a ``vocab_size`` vocabulary:
+    uint16 up to 65,536 ids, uint32 past it (``data.write_token_file``
+    refuses such ids in uint16). A ``dtype`` too narrow for the
+    vocabulary raises: a uint32 file read as uint16 is pairs of wrong
+    ids, with no error."""
+    need = np.dtype(np.uint16 if vocab_size <= 1 << 16 else np.uint32)
+    if dtype is None:
+        return need
+    if np.iinfo(dtype).max < vocab_size - 1:
+        raise ValueError(
+            f"a {np.dtype(dtype)} token file cannot hold the ids of a "
+            f"{vocab_size}-id vocabulary: read it as {need}")
+    return np.dtype(dtype)
+
+
 def write_corpus(path: str, vocab_size: int) -> str:
     """``bench.py``'s token-file corpus at ``path``: ``CORPUS_TOKENS``
     uniform ids below ``vocab_size`` from ``np.random.default_rng(0)``, as
-    uint16."""
+    ``token_dtype(vocab_size)`` (uint16, uint32 past 65,536 ids)."""
     corpus = np.random.default_rng(0).integers(
         0, vocab_size, size=CORPUS_TOKENS, dtype=np.int64)
-    return write_token_file(path, corpus, dtype=np.uint16)
+    return write_token_file(path, corpus, dtype=token_dtype(vocab_size))
 
 
 def measure_token_file(cfg: TransformerConfig, batch: int = 4,
@@ -443,8 +496,9 @@ def measure_token_file(cfg: TransformerConfig, batch: int = 4,
     it = None
     try:
         path = write_corpus(os.path.join(tmp, "corpus.bin"), cfg.vocab_size)
-        it = token_file_batches(path, batch, seq, seed=seed, device=dev,
-                                prefetch=prefetch)
+        it = token_file_batches(path, batch, seq,
+                                dtype=token_dtype(cfg.vocab_size), seed=seed,
+                                device=dev, prefetch=prefetch)
         out = _measure_lm(state, cfg, batch, seq, steps, warmup, dev,
                           lambda s: next(it))
     finally:
@@ -460,11 +514,21 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
           bucket_mb: int = DEFAULT_BUCKET_MB, ckpt_dir: Optional[str] = None,
           save_interval: int = 1, max_to_keep: int = 3,
           device: Union[str, torch.device] = "cuda",
-          seed: int = 0, mesh: str = "") -> Dict[str, Any]:
+          seed: int = 0, mesh: str = "", chunked: bool = False,
+          loss_chunk: int = 2048,
+          weight_decay: float = ADAMW_WEIGHT_DECAY,
+          mu_dtype: Optional[torch.dtype] = None,
+          dtype: Any = None) -> Dict[str, Any]:
     """The training job's loop, steps ``start..steps-1`` of a job of
     ``steps`` optimizer steps.
 
-    The model is made from ``seed``; with ``ckpt_dir`` holding a
+    The state is ``build_state``'s: the model made from ``seed``, AdamW
+    with ``weight_decay`` (optax's default unless given; the Llama-3-8B
+    example's is 0.1) and a first moment in ``mu_dtype``, the loss chunked
+    over ``loss_chunk`` positions with ``chunked`` (the example's
+    ``_loss_on``). The token file holds ids of ``dtype``, by default
+    ``token_dtype(cfg.vocab_size)``: uint32 past 65,536 ids, and a
+    narrower ``dtype`` raises. With ``ckpt_dir`` holding a
     checkpoint, the newest verified one is restored into it (parameters,
     Adam moments, step count) and the loop resumes after it: the
     checkpoint saved after iteration i holds step count i + 1, and the loop
@@ -508,12 +572,15 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     with mesh_scope(mesh, dev) as m:
         return _train(cfg, data_path, batch, seq, steps, accum_steps,
                       bucket_mb, ckpt_dir, save_interval, max_to_keep, dev,
-                      seed, m)
+                      seed, m, chunked, loss_chunk, weight_decay, mu_dtype,
+                      token_dtype(cfg.vocab_size, dtype))
 
 
 def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
-           ckpt_dir, save_interval, max_to_keep, dev, seed, mesh):
-    state = build_state(cfg, dev, seed, mesh=mesh)
+           ckpt_dir, save_interval, max_to_keep, dev, seed, mesh, chunked,
+           loss_chunk, weight_decay, mu_dtype, dtype):
+    state = build_state(cfg, dev, seed, chunked, loss_chunk, mu_dtype,
+                        mesh=mesh, weight_decay=weight_decay)
     dist = torch.distributed
     group = dist.group.WORLD if (mesh is None and dist.is_available()
                                  and dist.is_initialized()) else None
@@ -546,8 +613,9 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
             restore_s = time.perf_counter() - t0
             start = state.step
             restored = start - 1
-        it = token_file_batches(data_path, batch, seq, seed=seed,
-                                start_step=start, device=dev, mesh=mesh)
+        it = token_file_batches(data_path, batch, seq, dtype=dtype,
+                                seed=seed, start_step=start, device=dev,
+                                mesh=mesh)
         t0 = time.perf_counter()
         for i in range(start, steps):
             with telemetry.step(flops=flops, tokens=batch * seq):
@@ -585,6 +653,9 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
         "tokens_per_sec": (batch * seq * len(losses) / wall
                            if losses else None),
         "accum_steps": accum_steps, "bucket_mb": bucket_mb,
+        "loss_chunk": loss_chunk if chunked else None,
+        "weight_decay": weight_decay, "remat_policy": cfg.remat_policy,
+        "token_dtype": str(dtype),
         "world": dist.get_world_size() if dist.is_initialized() else 1,
         "mesh": mesh_shape(mesh) if mesh is not None else None,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
@@ -711,16 +782,20 @@ def measure_vision(kind: str, batch: int, steps: int, warmup: int = 2,
     }
 
 
-# --model -> bench's batch
+# --model -> bench's batch (the example's for llama3_8b)
 DEFAULT_BATCH = {"flagship": 4, "flagship_remat": 8, "big": 4,
-                 "resnet50": 256, "mnist": 4096}
-# Bench's decoder points: --model -> (config, seq, loss chunk or None for
-# the unchunked loss, Adam's mu_dtype) (bench.py:1127-1190, 1227-1247).
+                 "llama3_8b": LLAMA_BATCH, "resnet50": 256, "mnist": 4096}
+# Bench's decoder points and the Llama-3-8B example: --model -> (config,
+# seq, loss chunk or None for the unchunked loss, Adam's mu_dtype)
+# (bench.py:1127-1190, 1227-1247; train_llama3.py:34-92).
 LM_POINTS = {
     "flagship": (flagship_config, 2048, None, None),
     "flagship_remat": (flagship_remat_config, 8192, 2048, None),
     "big": (big_config, 2048, 1024, torch.bfloat16),
+    "llama3_8b": (llama3_8b_config, LLAMA_SEQ, LLAMA_LOSS_CHUNK, None),
 }
+# --model -> AdamW's weight decay where it is not optax's default.
+WEIGHT_DECAY = {"llama3_8b": LLAMA_WEIGHT_DECAY}
 # The flagship at bench's long-context lengths: seq -> (batch, loss chunk).
 LONG_CONTEXT = {8192: (4, 2048), 32768: (1, 8192)}
 
@@ -733,8 +808,9 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' for the plain path")
-    ap.add_argument("--data", help="token file (uint16 .bin): run the "
-                    "training job's loop on the flagship from it")
+    ap.add_argument("--data", help="token file (.bin of uint16 ids, "
+                    "uint32 past 65,536): run the training job's loop on "
+                    "the decoder from it")
     ap.add_argument("--accum", type=int, default=1,
                     help="microbatches per optimizer step (with --data)")
     ap.add_argument("--bucket-mb", type=int, default=DEFAULT_BUCKET_MB,
@@ -775,6 +851,9 @@ def main(argv=None) -> int:
         if a.model == "flagship" and seq in LONG_CONTEXT:
             batch = LONG_CONTEXT[seq][0]
             chunk = LONG_CONTEXT[seq][1] if a.chunked else None
+        if a.model == "llama3_8b" and seq < LLAMA_CHUNKED_FROM \
+                and not a.chunked:
+            chunk = None
         chunk = a.loss_chunk or chunk or (2048 if a.chunked else None)
         cfg = dataclasses.replace(config(seq), matmul_dtype=a.matmul_dtype,
                                   attn_impl=a.attn_impl)
@@ -786,18 +865,23 @@ def main(argv=None) -> int:
     _convfuse_cuda.reset_launch_counts()
     quant.reset_launch_counts()
     if a.data:
-        if a.model != "flagship" or chunk is not None:
-            ap.error("--data trains the flagship decoder, unchunked")
+        if a.model not in LM_POINTS:
+            ap.error(f"--data trains a decoder, not {a.model}")
         out = train(cfg, a.data, batch=batch, seq=seq, steps=a.steps,
                     accum_steps=a.accum, bucket_mb=a.bucket_mb,
                     ckpt_dir=a.ckpt_dir, save_interval=a.save_every,
-                    device=a.device, mesh=a.mesh)
+                    device=a.device, mesh=a.mesh, chunked=chunk is not None,
+                    loss_chunk=chunk or 2048, mu_dtype=mu_dtype,
+                    weight_decay=WEIGHT_DECAY.get(a.model,
+                                                  ADAMW_WEIGHT_DECAY))
         del out["state"]
     elif a.model in LM_POINTS:
         out = measure(cfg, batch=batch, seq=seq, steps=a.steps,
                       device=a.device, chunked=chunk is not None,
                       loss_chunk=chunk or 2048, mu_dtype=mu_dtype,
-                      mesh=a.mesh)
+                      mesh=a.mesh,
+                      weight_decay=WEIGHT_DECAY.get(a.model,
+                                                    ADAMW_WEIGHT_DECAY))
     else:
         out = measure_vision(a.model, batch=batch, steps=a.steps,
                              device=a.device, mesh=a.mesh)
