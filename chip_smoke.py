@@ -9,8 +9,8 @@ earlier paths (and bench's 0.95B point and the MoE decoder) at their full
 width and ``EARLIER_DEPTH`` = 4 layers: their launch counts are per layer
 of that depth, their rates and peak memory are not those of the whole
 model, and their labels say "4 of 16 layers" (24 for the 0.95B point).
-Phases 4, 12, 14-16, 17 (c) and 19 run all 16; phase 18 runs ResNet-50
-and the MNIST MLP whole:
+Phases 4, 12, 14-16, 17 (c), 19 and 22 run all 16; phase 18 runs
+ResNet-50 and the MNIST MLP whole:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
@@ -378,7 +378,25 @@ and the MNIST MLP whole:
    for bit); (e) the three flash kernels against their plain versions at
    the path's head layout, B1 S8192 H32/8 D128 bf16 causal, then timed
    beside SDPA as in phase 3;
-22. prints the whole run's seconds, the kernels' JSON line (each flash
+22. parameters on every mesh axis a rules table names, over a one-rank
+   NCCL group and ``build_mesh(MeshSpec())``: the flagship at its full 16
+   layers and width (4 x 2048, flash) under G1 (``embed`` over dp: ZeRO
+   over dp), G3 (the norms' scales over tp) and G4 (``embed`` over
+   ``(dcn_dp, fsdp)``), the flagship with ring attention under G2
+   (``embed`` over ``(fsdp, sp)``) and the MoE flagship (16 layers) under
+   G5 (``embed`` over ep), G6 (the experts' expert dim over tp) and G7
+   (MaxText's ``embed`` over ``(fsdp, sp, ep)``, the norms over tp), each
+   from ``init_sharded_state(..., rules=)`` beside its unsharded twin, 2
+   warm and 3 timed steps each on the same batches: the mesh dims each
+   parameter group sits on (a flattened dim of FSDP2's mesh named by its
+   axes joined by ``+``), the table's layout on its parameter, losses
+   within ``TOL_MESH_REL`` of the twin's (and whether bit for bit), flash
+   launches per step (16 each for the flagship; the MoE's as phase 17
+   (c)), sharded / unsharded tokens/s and peak memory, with the card's
+   name and power limit. At world 1 no collective runs;
+   ``tests/test_torch_rules_gspmd.py`` meets the tables on four gloo
+   ranks against the reference;
+23. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -4726,6 +4744,171 @@ def phase_llama(card):
     return timing
 
 
+# Phase 22: parameters on every mesh axis a rules table names (the tables
+# of tests/test_torch_rules_gspmd.py), the flagship at its full 16 layers
+# and the MoE flagship on the world-1 mesh, each beside its unsharded twin.
+GSPMD_WARM, GSPMD_TIMED = 2, 3
+
+# What each table lays where the default would not: (parameter, the mesh
+# dims its DTensor sits on at world 1).
+GSPMD_LAYOUT = {
+    "G1": ("layers.0.attn.wq.weight", ("dp", "tp")),
+    "G2": ("layers.0.attn.wq.weight", ("fsdp+sp", "tp")),
+    "G3": ("layers.0.attn_norm.scale", ("tp",)),
+    "G4": ("layers.0.attn.wq.weight", ("dcn_dp+fsdp", "tp")),
+    "G5": ("embedding", ("ep", "tp")),
+    "G6": ("layers.0.moe.gate", ("fsdp", "tp")),
+    "G7": ("layers.0.moe.gate", ("fsdp+sp+ep", "tp")),
+}
+
+
+def gspmd_tables():
+    """``DEFAULT_RULES`` with rules put first: ZeRO over dp (G1), embed
+    over ``(fsdp, sp)`` (G2), a norm's scale over tp (G3), ZeRO over
+    ``(dcn_dp, fsdp)`` (G4), embed over ep (G5), the experts' expert dim
+    over tp (G6), MaxText's embed over ``(fsdp, sp, ep)`` with the norms
+    over tp (G7)."""
+    from tony_tpu_torch.parallel import DEFAULT_RULES as d
+
+    return {
+        "G1": (("embed", "dp"),) + d,
+        "G2": (("embed", ("fsdp", "sp")),) + d,
+        "G3": (("norm", "tp"),) + d,
+        "G4": (("embed", ("dcn_dp", "fsdp")),) + d,
+        "G5": (("embed", "ep"),) + d,
+        "G6": (("expert", "tp"),) + d,
+        "G7": (("embed", ("fsdp", "sp", "ep")), ("norm", "tp")) + d,
+    }
+
+
+def gspmd_turn(label, cfg, table, batches, card):
+    """``cfg`` (a ``TransformerConfig`` or an ``MoEConfig``) unsharded
+    (``table`` None) or from ``init_sharded_state(..., rules=table)`` on
+    the world-1 mesh: ``GSPMD_WARM`` steps, then ``GSPMD_TIMED`` timed.
+    Checks the flash launches per step; returns (losses, tokens/s, peak
+    GiB)."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.models import MoETransformer, Transformer
+    from tony_tpu_torch.models.moe import MoEConfig
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import (MeshSpec, TrainState, adamw,
+                                         build_mesh, init_sharded_state,
+                                         sharded_train_step, train_step)
+
+    moe = isinstance(cfg, MoEConfig)
+    loss = trainer.moe_loss if moe else trainer.lm_loss
+
+    def build(device, generator=None):
+        return (MoETransformer if moe else Transformer)(
+            cfg, device=device, generator=generator)
+
+    def opt(params):
+        return adamw(params, trainer.LEARNING_RATE)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if table is None:
+        model = build("cuda", torch.Generator("cuda").manual_seed(0))
+        state = TrainState(model, opt(model.parameters()), loss)
+
+        def step(b):
+            return train_step(state, b)
+    else:
+        mesh = build_mesh(MeshSpec(), "cuda")
+        state, _ = init_sharded_state(build, opt, mesh,
+                                      rules=gspmd_tables()[table], seed=0)
+        groups = collections.Counter(
+            "+".join(p.device_mesh.mesh_dim_names) if hasattr(
+                p, "device_mesh") else "whole"
+            for p in state.model.parameters())
+        log(f"gspmd {label}: parameters by the mesh dims they sit on "
+            f"{json.dumps(dict(sorted(groups.items())))}")
+        name, dims = GSPMD_LAYOUT[table]
+        got = dict(state.model.named_parameters())[name].device_mesh \
+            .mesh_dim_names
+        check(got == dims, f"{label}: {name} on {got}, {table} says {dims}")
+
+        def step(b):
+            return sharded_train_step(loss, mesh, state, b)[1]
+    _flash_cuda.reset_launch_counts()
+    losses = []
+    for s, b in enumerate(batches):
+        if s == GSPMD_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(float(step(b)["loss"]))
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / GSPMD_TIMED
+    rows = batches[0]["tokens"].shape
+    rate = rows[0] * rows[1] / dt
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = {k: v / len(batches)
+                for k, v in _flash_cuda.launch_counts.items()}
+    log(f"gspmd {label}: losses {losses}, {rate:.1f} tokens/s, "
+        f"{dt * 1e3:.3f} ms/step (steps {GSPMD_WARM + 1}-{len(batches)}), "
+        f"peak memory {peak:.2f} GiB, flash launches per step "
+        f"{json.dumps(per_step)}; {card}")
+    check(all(math.isfinite(x) for x in losses), f"{label}: non-finite loss")
+    if moe:
+        for name, n in flash_launches_per_step(cfg).items():
+            check(per_step.get(name) == n, f"{label}: {name} launched "
+                  f"{per_step.get(name)} times a step, expected {n}")
+    else:
+        check_flash_counts(label, per_step, cfg.n_layers)
+    del state, step
+    return losses, rate, peak
+
+
+def phase_gspmd(card):
+    """Phase 22: the flagship (16 layers, flash) under G1, G3 and G4, its
+    ring twin under G2, and the MoE flagship under G5-G7 on the world-1
+    mesh, each beside its unsharded twin."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.data import synthetic_lm_batch
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-gspmd-")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    flagship = trainer.flagship_config(2048)
+    cases = [
+        ("flagship", flagship, ("G1", "G3", "G4")),
+        ("flagship ring", dataclasses.replace(flagship, attn_impl="ring"),
+         ("G2",)),
+        ("MoE flagship", moe_flagship_config(), ("G5", "G6", "G7")),
+    ]
+    try:
+        for name, cfg, tables in cases:
+            batches = [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size,
+                                          device="cuda")
+                       for s in range(GSPMD_WARM + GSPMD_TIMED)]
+            label = f"{name} ({cfg.n_layers} layers)"
+            want, base, base_peak = gspmd_turn(f"{label} unsharded", cfg,
+                                               None, batches, card)
+            for table in tables:
+                got, rate, peak = gspmd_turn(f"{label} {table}", cfg, table,
+                                             batches, card)
+                rel = max_rel(got, want)
+                diff = max(abs(a - b) for a, b in zip(got, want))
+                log(f"gspmd {label} {table} against unsharded: largest "
+                    f"difference {diff:.3e} (relative {rel:.3e}), bit for "
+                    f"bit {got == want}; sharded / unsharded tokens/s "
+                    f"{rate / base:.4f} ({rate:.1f} / {base:.1f}), peak "
+                    f"memory {peak:.2f} / {base_peak:.2f} GiB; {card}")
+                check(rel <= TOL_MESH_REL,
+                      f"{label} {table} losses differ from the unsharded by "
+                      f"{rel}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"gspmd: {time.perf_counter() - t0:.1f} s; {card}")
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -4763,6 +4946,7 @@ def main():
     phase_store_checkpoints(store_drain_s, local_drain_s, card)
     phase_rules(card)
     llama_timing = phase_llama(card)
+    phase_gspmd(card)
     for name, r in llama_timing.items():
         timing[name]["llama3_8b_s8192"] = {k: r[k] for k in (
             "ms", "bound_ms", "bound_by", "library_ms", "tflops")}

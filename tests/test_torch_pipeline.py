@@ -131,7 +131,8 @@ def grads_of(state, mesh, tokens, m):
     state.loss_fn = lambda model, batch: (
         pipeline_loss(model, batch["tokens"], m), {})
     grads, loss, _ = accumulate_grads(state, {"tokens": tokens}, 1)
-    _mesh_sync(grads, DEFAULT_BUCKET_MB, mesh)
+    _mesh_sync(grads, DEFAULT_BUCKET_MB, mesh,
+               reduced=state.model.reduced_by_fsdp)
     return grads, batch_mean(loss, mesh)
 
 

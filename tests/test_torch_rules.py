@@ -1,7 +1,7 @@
 """Port parity: tensor-parallel layouts under any logical rules table
 (``tony_tpu_torch/parallel/sharding.py``: ``mesh_axes``'s rule-priority
 resolution, ``tp_plan``'s and ``vision_tp_plan``'s pair-or-gather styles,
-``EmbedParallelTable``, ``check_layable``; the models' tp paths) against the
+``EmbedParallelTable``, ``fsdp_shards``; the models' tp paths) against the
 reference, which takes the same table in ``init_sharded_state`` and
 ``jit_train_step`` and lets GSPMD lay the models out.
 
@@ -30,10 +30,13 @@ elements across a rounding level at the next step).
 
 (c) In this process: the pipelined decoder's placements under T2 are the
 default's (the reference's pipeline reads ``DEFAULT_RULES`` whatever its
-caller passes); a table that puts a parameter on an axis FSDP2 and the plan
-cannot lay it on is refused, naming the parameter, the axis and the
-reference's ``PartitionSpec``; no table puts tp on a conv's in channels or
-lays a quantized projection other than ``Shard(0)``/``Shard(1)``.
+caller passes); the tables once refused (a dim on dp, sp, ep off the
+expert dim, tp on a norm or the expert dim) laid out on four fake ranks,
+each parameter on the axes its placement names (their training against
+the reference is ``tests/test_torch_rules_gspmd.py``); the refusals that
+stay (pp > 1 on a sequential model, the MoE with sp and ep, what FSDP2
+cannot hold); no table puts tp on a conv's in channels or lays a
+quantized projection other than ``Shard(0)``/``Shard(1)``.
 """
 
 import os
@@ -668,9 +671,13 @@ def _on_fake_ranks(world, fn):
      "layers.0.moe.gate", "tp=2", "PartitionSpec('tp', 'fsdp', None)"),
 ], ids=["embed_dp", "norm_sp", "norm_tp", "embed_ep", "expert_tp"])
 def test_unlayable_rules_refused(kind, spec, rules, param, axis, ref_spec):
-    """A parameter dim on an axis FSDP2 and the plan cannot express is
-    refused by ``shard_model``, naming the parameter, the axis and the
-    reference's ``PartitionSpec`` (its flax layout)."""
+    """The tables ``shard_model`` once refused (a dim on dp, sp, ep off the
+    expert dim, tp on a norm or on the expert dim) are laid out: on four
+    fake ranks every parameter's DTensor, the plan's or FSDP2's, sits on
+    the mesh axes ``param_placements`` names, shard for shard (a flattened
+    dim of FSDP2's mesh names its axes joined by ``+``), and the
+    parameter these cases once named carries the reference's
+    ``PartitionSpec`` (``_reference_spec``: its flax layout)."""
     def run():
         mesh = tmesh.build_mesh(tmesh.MeshSpec(**spec), "cpu")
         model = (tmoe.MoETransformer(tmoe.MoEConfig.tiny_moe(),
@@ -678,12 +685,139 @@ def test_unlayable_rules_refused(kind, spec, rules, param, axis, ref_spec):
                  ttf.Transformer(ttf.TransformerConfig.tiny(
                      attn_impl="ring" if kind == "ring" else "flash"),
                      device="meta"))
-        with pytest.raises(ValueError) as e:
-            tsh.shard_model(model, mesh, rules)
-        return str(e.value)
-    msg = _on_fake_ranks(4, run)
-    assert msg.startswith(f"{param}:") and f"axis {axis}" in msg
-    assert ref_spec in msg, msg
+        placements = tsh.shard_model(model, mesh, rules)
+        sizes = tmesh.mesh_shape(mesh)
+        for name, p in model.named_parameters():
+            want = placements[name].dims
+            carried = [[] for _ in want]
+            if isinstance(p, DTensor):
+                for dim, on in zip(p.device_mesh.mesh_dim_names,
+                                   p.placements):
+                    if hasattr(on, "dim"):       # Shard, _StridedShard
+                        carried[on.dim] += dim.split("+")
+            assert [sorted(c) for c in carried] == [sorted(w) for w in want],\
+                (name, p.placements if isinstance(p, DTensor) else None)
+            local = p.to_local() if isinstance(p, DTensor) else p
+            assert tuple(local.shape) == placements[name].local_shape, name
+        p = dict(model.named_parameters())[param]
+        return (_reference_spec(p, param, placements[param].dims),
+                f"{axis[:-2]}={sizes[axis[:-2]]}")
+    got, size = _on_fake_ranks(4, run)
+    assert got == ref_spec and size == axis
+
+
+GSPMD_TABLES = {
+    "G1": (("embed", "dp"),) + DEFAULT,
+    "G2": (("embed", ("fsdp", "sp")),) + DEFAULT,
+    "G3": (("norm", "tp"),) + DEFAULT,
+    "G4": (("embed", ("dcn_dp", "fsdp")),) + DEFAULT,
+    "G5": (("embed", "ep"),) + DEFAULT,
+    "G6": (("expert", "tp"),) + DEFAULT,
+    "G7": (("embed", ("fsdp", "sp", "ep")), ("norm", "tp")) + DEFAULT,
+}
+HSDP_CASES = [(kind, spec, table)
+              for kind, spec, tables in (
+                  ("dense", dict(dcn_dp=2, dp=2, fsdp=2, tp=2),
+                   ("G1", "G3", "G4")),
+                  ("ring", dict(dp=2, fsdp=2, sp=2, tp=2), ("G2", "G7")),
+                  ("moe", dict(dp=2, fsdp=2, ep=2, tp=2),
+                   ("G4", "G5", "G6", "G7")),
+                  ("moe", dict(dcn_dp=2, dp=2, fsdp=2, sp=2), ("G2", "G7")))
+              for table in tables]
+
+
+@pytest.mark.parametrize("kind,spec,table", HSDP_CASES,
+                         ids=[f"{k}_{t}_{'_'.join(s)}"
+                              for k, s, t in HSDP_CASES])
+def test_tables_lay_out_beside_hsdp(kind, spec, table):
+    """On sixteen fake ranks, with dp > 1 and up to four axes of two ranks,
+    each of ``tests/test_torch_rules_gspmd.py``'s tables lays the model
+    out (FSDP2's flattened shard meshes joined to HSDP's dp and the plan's
+    tp), every local shard of ``param_placements``' shape, and one SGD
+    step runs (the fake group moves no bytes: what runs is the code)."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.parallel import (init_sharded_state, sgd,
+                                         sharded_train_step)
+
+    moe = kind == "moe"
+    cfg = (tmoe.MoEConfig.tiny_moe(attn_impl="ring") if moe else
+           ttf.TransformerConfig.tiny(
+               attn_impl="ring" if kind == "ring" else "xla"))
+
+    def run():
+        mesh = tmesh.build_mesh(tmesh.MeshSpec(**spec), "cpu")
+        state, placements = init_sharded_state(
+            lambda d: (tmoe.MoETransformer if moe else ttf.Transformer)(
+                cfg, device=d),
+            lambda g: sgd(g, 0.1, momentum=0.9), mesh,
+            rules=GSPMD_TABLES[table])
+        for name, p in state.model.named_parameters():
+            local = p.to_local() if isinstance(p, DTensor) else p
+            assert tuple(local.shape) == placements[name].local_shape, name
+        sharded_train_step(trainer.moe_loss if moe else trainer.lm_loss,
+                           mesh, state,
+                           {"tokens": torch.zeros((2, 16), dtype=torch.long)})
+        return state.step
+    assert _on_fake_ranks(16, run) == 1
+
+
+def _reference_spec(p, name, dims):
+    """``dims`` as the reference's ``PartitionSpec`` of the same parameter,
+    in flax's layout (a projection's kernel ``[in, out]``, a conv's
+    ``HWIO``; ``convert.py``)."""
+    if name.endswith("weight") and p.dim() == 2:
+        dims = dims[::-1]
+    elif p.dim() == 4:
+        dims = [dims[i] for i in (2, 3, 1, 0)]
+    return "PartitionSpec%r" % (tuple(
+        None if not a else a[0] if len(a) == 1 else a for a in dims),)
+
+
+@pytest.mark.parametrize("kind,spec,knob", [
+    ("dense", dict(pp=2, fsdp=2), "pp=2"),
+    ("moe", dict(sp=2, ep=2), "sp=2 and ep=2"),
+], ids=["pp_sequential", "moe_sp_ep"])
+def test_refusals_that_stay(kind, spec, knob):
+    """What ``shard_model`` still refuses under any table: pp > 1 on a
+    sequential model (the pipelined decoder is ``pipeline_shard``'s) and
+    the MoE decoder with sp and ep together (the reference fails to lower
+    it), naming the knob."""
+    def run():
+        mesh = tmesh.build_mesh(tmesh.MeshSpec(**spec), "cpu")
+        model = (tmoe.MoETransformer(tmoe.MoEConfig.tiny_moe(
+            attn_impl="ring"), device="meta") if kind == "moe" else
+                 ttf.Transformer(ttf.TransformerConfig.tiny(), device="meta"))
+        for rules in (DEFAULT, T2, (("embed", ("fsdp", "sp", "ep")),)
+                      + DEFAULT):
+            with pytest.raises(NotImplementedError) as e:
+                tsh.shard_model(model, mesh, rules)
+            assert knob in str(e.value), str(e.value)
+    _on_fake_ranks(4, run)
+
+
+@pytest.mark.parametrize("rules,spec,match", [
+    ((("mlp", "sp"), ("embed", "fsdp")) + DEFAULT, dict(fsdp=2, sp=2),
+     r"its dimensions \[0, 1\] over \[\('sp',\), \('fsdp',\)\]: FSDP2 "
+     "shards one dimension"),
+    ((("embed", ("sp", "fsdp")),) + DEFAULT, dict(fsdp=2, sp=2),
+     r"over \('sp', 'fsdp'\), out of the mesh's order"),
+], ids=["two_dims", "out_of_order"])
+def test_layouts_fsdp2_cannot_hold(rules, spec, match):
+    """A parameter with axes of more than one rank on two of its dims, or
+    flattened out of the mesh's order, is refused with the parameter
+    named; the same table at size 1 on those axes is laid out."""
+    def run():
+        for sizes in (spec, {}):
+            mesh = tmesh.build_mesh(tmesh.MeshSpec(dp=-1, **sizes), "cpu")
+            model = ttf.Transformer(ttf.TransformerConfig.tiny(
+                attn_impl="ring"), device="meta")
+            if not sizes:
+                tsh.shard_model(model, mesh, rules)
+                continue
+            with pytest.raises(NotImplementedError, match=match) as e:
+                tsh.shard_model(model, mesh, rules)
+            assert str(e.value).startswith("layers.0.")
+    _on_fake_ranks(4, run)
 
 
 def test_dim_over_tp_must_divide():
@@ -708,16 +842,24 @@ def test_dim_over_tp_must_divide():
 
 
 def test_reference_specs_in_refusals_are_flaxs():
-    """The spec a refusal prints is flax's resolution of the reference's
-    names, in the reference's layout."""
+    """The spec ``_reference_spec`` reports for a parameter (the layout
+    cases above, once refusals) is flax's resolution of the reference's
+    names, in the reference's layout, for each of those cases' tables."""
     abstract = jax.eval_shape(
         lambda k: jtf.Transformer(jtf.TransformerConfig.tiny()).init(
             k, jnp.zeros((1, 8), jnp.int32))["params"], jax.random.key(0))
-    names = fnn.get_partition_spec(abstract)["layer_0"]["attn"]["wq"]
-    rules = (("embed", "dp"),) + DEFAULT
-    assert str(fnn.logical_to_mesh_axes(tuple(names["kernel"]),
-                                        rules=list(rules))) == \
-        "PartitionSpec('dp', 'tp')"
+    specs = fnn.get_partition_spec(abstract)
+    model = ttf.Transformer(ttf.TransformerConfig.tiny(), device="meta")
+    params = dict(model.named_parameters())
+    for rules, param, names in (
+            ((("embed", "dp"),) + DEFAULT, "layers.0.attn.wq.weight",
+             specs["layer_0"]["attn"]["wq"]["kernel"]),
+            ((("norm", "tp"),) + DEFAULT, "layers.0.attn_norm.scale",
+             specs["layer_0"]["attn_norm"]["scale"])):
+        dims = tsh.param_placements(
+            model, dict.fromkeys(tmesh.MESH_AXES, 1), rules)[param].dims
+        assert _reference_spec(params[param], param, dims) == str(
+            fnn.logical_to_mesh_axes(tuple(names), rules=list(rules)))
 
 
 def test_conv_names_reach_tp_only_on_out_channels(models):
@@ -745,11 +887,7 @@ def test_quantized_projections_are_colwise_or_rowwise():
         mesh = tmesh.build_mesh(tmesh.MeshSpec(tp=2, dp=1), "cpu")
         for rules in ALL_TABLES:
             model = ttf.Transformer(cfg, device="meta")
-            try:
-                tsh.shard_model(model, mesh, rules)
-            except ValueError as e:
-                assert "the rules lay its dimension" in str(e)
-                continue
+            tsh.shard_model(model, mesh, rules)
             for name, mod in model.named_modules():
                 w = mod.weight if isinstance(mod, ttf.Dense) else None
                 if isinstance(w, DTensor) and \

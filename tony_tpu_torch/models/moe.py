@@ -54,10 +54,21 @@ Counterpart of ``tony_tpu/models/moe.py``: the GShard/Switch dense dispatch.
   F]``, ``down`` ``[E/ep, F, D/tp]``): each rank takes its D/tp columns of
   the slots, the partial pre-activations are summed over tp, and the
   ``down`` product's D/tp columns are gathered (``_tp_split``: which dim
-  the ``gate`` weight's placement puts over tp). Routing is tp's business
-  nowhere: every tp rank routes the same tokens alike (a router split over
-  tp by the table is a projection of the plan, its logits whole on every
-  rank). The attention takes the dense decoder's tensor-parallel styles.
+  the ``gate`` weight's placement puts over tp). A table that puts the
+  ``expert`` dim over tp (``("expert", "tp")``, or ``("ep", "tp")``
+  together) has the expert shards gathered over tp before the dispatch:
+  every tp rank runs every one of its experts alike, and keeps its own
+  slice of their gradient. Routing is tp's business nowhere: every tp rank
+  routes the same tokens alike (a router split over tp by the table is a
+  projection of the plan, its logits whole on every rank). The attention
+  takes the dense decoder's tensor-parallel styles.
+- **The expert dim off ep.** A table that gives ep to another dim (or to
+  nothing) leaves every expert on each ep rank (FSDP2 may shard them over
+  ep on another dim, gathered before use): the dispatch still ships each
+  expert's slots to rank ``e // (E/ep)`` as the reference's ``shard_map``
+  over ep does, and each rank takes its E/ep experts
+  (``_comm.split_to_group``), whose backward gathers their gradients so
+  that every ep rank holds the whole one.
 - **sp > 1 (ep = 1).** The reference runs this layout as the dense
   decoder's: the whole model inside a full-manual ``shard_map`` over
   ``P(batch, "sp")``, so every (batch shard, sp shard) routes **its own
@@ -192,10 +203,11 @@ def _local(p: torch.Tensor) -> torch.Tensor:
 
 def _tp_split(w: torch.Tensor) -> Optional[int]:
     """The dim of a stacked expert weight that tp splits (its placement
-    on the ``(ep, tp)`` mesh ``shard_model`` lays it on), or None."""
-    if not isinstance(w, DTensor):
+    on the mesh ``shard_model`` lays it on), or None."""
+    names = w.device_mesh.mesh_dim_names if isinstance(w, DTensor) else ()
+    if "tp" not in names:
         return None
-    on = w.placements[w.device_mesh.mesh_dim_names.index("tp")]
+    on = w.placements[names.index("tp")]
     return on.dim if isinstance(on, Shard) else None
 
 
@@ -308,6 +320,16 @@ class MoEMLP(nn.Module):
         w_gate, w_up, w_down = (_local(w).to(cfg.dtype)
                                 for w in (self.gate, self.up, self.down))
         split = _tp_split(self.gate)
+        if split == 0:
+            # The expert dim over tp: the shards gathered, every tp rank
+            # runs every expert alike (its gradient: this rank's slice).
+            w_gate, w_up, w_down = (_comm.gather_from_group(w, tp, 0)
+                                    for w in (w_gate, w_up, w_down))
+        if w_gate.shape[0] == e:
+            # The expert dim not over ep: this rank's E/ep experts, their
+            # gradients gathered so that every ep rank holds the whole.
+            w_gate, w_up, w_down = (_comm.split_to_group(w, ep, 0)
+                                    for w in (w_gate, w_up, w_down))
         with remat.product_site("experts"):
             if split == 1:
                 # This rank's D/tp slice of its experts: the slots' D/tp

@@ -29,19 +29,19 @@ collective and books no comms phase.
 
 On a mesh (``train_step_accum(..., mesh=)``, the step
 ``parallel/train.py:sharded_train_step`` runs), as the reference's
-``_build_accum_fn`` with ``sync_axes=("dcn_dp",)``: FSDP2 reduces the
-DTensor gradients over ``(dp, fsdp)`` once per step, on the last
-microbatch (``set_requires_gradient_sync``); the gradients FSDP2 leaves
-alone (the replicated parameters', and the local shards of a DTensor over
-tp alone, as ResNet's convs are under the tp plan) are averaged over
-``fsdp`` and ``dp`` here; on a sequence-parallel mesh every gradient's
-local shard is then SUMMED over ``sp`` by the same bucketed all-reduce
+``_build_accum_fn`` with ``sync_axes=("dcn_dp",)``: FSDP2 reduces each
+DTensor gradient it holds over its parameter's shard mesh (and dp under
+HSDP) once per step, on the last microbatch (``set_requires_gradient_sync``):
+the mean, or over sp the sum; ``sharding.fully_shard_placed`` records
+those axes per parameter (``reduced_by_fsdp``). Every reduction left is
+done here on the local shards, each over an axis the parameter is not
+sharded over (where the ranks hold the same slice): the mean over
+``fsdp`` and ``dp``; on a sequence-parallel mesh the SUM over ``sp``
 (each sp rank's gradient is its sequence chunk's share of one loss, the
 whole sequence's), unless the model does not split the sequence (the
-pipelined decoder, whose sp ranks are replicas); then every gradient's
-local shard is
-averaged over ``dcn_dp`` by the bucketed all-reduce on that axis's group.
-The loss and aux are averaged over the batch axes.
+pipelined decoder, whose sp ranks are replicas); then the mean over
+``dcn_dp``, by the bucketed all-reduce on that axis's group. The loss and
+aux are averaged over the batch axes.
 
 Semantics note: ``loss_fn(model, batch)`` must return a MEAN over its batch
 (the ``train_step`` contract) — the mean of per-rank/per-microbatch means
@@ -245,35 +245,36 @@ def _sync_into(grads: Dict[str, torch.Tensor], bucket_mb: int,
         grads[k].copy_(g)
 
 
-def _fsdp_managed(g: torch.Tensor) -> bool:
-    """Whether FSDP2 reduces this gradient: a DTensor on a mesh with the
-    ``fsdp`` axis (FSDP2's own, alone or with tp, ep)."""
-    return isinstance(g, DTensor) and "fsdp" in (
-        g.device_mesh.mesh_dim_names or ())
-
-
 def _mesh_sync(grads: Mapping[str, torch.Tensor], bucket_mb: int,
-               mesh: Any, split_sp: bool = True) -> None:
-    """The gradient reductions FSDP2 does not do, in place: the parameters
-    FSDP2 leaves alone (the replicated ones, and a DTensor over tp alone,
-    such as a ResNet conv's out-channel shard: its local shard) averaged
-    over ``fsdp`` then ``dp``; with ``split_sp`` (a model that splits the
-    sequence over sp) every local shard summed over ``sp``, each rank's
-    being its chunk's share of one loss (the pipelined decoder's sp ranks
-    are replicas of one another, and sum nothing); then every local shard
-    averaged over ``dcn_dp``."""
+               mesh: Any, split_sp: bool = True,
+               reduced: Optional[Mapping[str, Sequence[str]]] = None
+               ) -> None:
+    """The gradient reductions FSDP2 does not do, in place, each on the
+    local shards of the gradients whose ``reduced`` entry (the mesh axes
+    FSDP2 reduced them over: ``sharding.fully_shard_placed``'s
+    ``reduced_by_fsdp``; none for a missing name) lacks the axis:
+    averaged over ``fsdp`` then ``dp``; with ``split_sp`` (a model that
+    splits the sequence over sp) summed over ``sp``, each rank's being its
+    chunk's share of one loss (the pipelined decoder's sp ranks are
+    replicas of one another, and sum nothing); then averaged over
+    ``dcn_dp``. A gradient's shard is the same on the ranks of an axis its
+    parameter is not sharded over, so each such reduction adds like
+    slices; over its shard axes FSDP2's reduce-scatter has already added
+    them."""
     shape = mesh_shape(mesh)
-    unmanaged = {k: _local(g) for k, g in grads.items()
-                 if not _fsdp_managed(g)}
+    reduced = reduced or {}
+
+    def left(axis):
+        return {k: _local(g) for k, g in grads.items()
+                if axis not in reduced.get(k, ())}
+
     for axis in ("fsdp", "dp"):
-        if shape[axis] > 1 and unmanaged:
-            _sync_into(unmanaged, bucket_mb, mesh.get_group(axis))
+        if shape[axis] > 1:
+            _sync_into(left(axis), bucket_mb, mesh.get_group(axis))
     if shape["sp"] > 1 and split_sp:
-        _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
-                   mesh.get_group("sp"), mean=False)
+        _sync_into(left("sp"), bucket_mb, mesh.get_group("sp"), mean=False)
     if shape["dcn_dp"] > 1:
-        _sync_into({k: _local(g) for k, g in grads.items()}, bucket_mb,
-                   mesh.get_group("dcn_dp"))
+        _sync_into(left("dcn_dp"), bucket_mb, mesh.get_group("dcn_dp"))
 
 
 def batch_mean(x: torch.Tensor, mesh: Any) -> torch.Tensor:
@@ -315,13 +316,14 @@ def train_step_accum(state: TrainState, batch: Mapping[str, Any],
         # Only a model that shard_model gave the sp group splits the
         # sequence over it.
         split_sp = getattr(state.model, "sp_group", None) is not None
+        reduced = getattr(state.model, "reduced_by_fsdp", None)
         if comms_phase and any(shape[a] > 1 for a in BATCH_AXES + ("sp",)):
             telemetry.block_until_ready(grads)
             with telemetry.phase("comms") as p:
-                _mesh_sync(grads, bucket_mb, mesh, split_sp)
+                _mesh_sync(grads, bucket_mb, mesh, split_sp, reduced)
                 p.block_until_ready(grads)
         else:
-            _mesh_sync(grads, bucket_mb, mesh, split_sp)
+            _mesh_sync(grads, bucket_mb, mesh, split_sp, reduced)
         state.apply_gradients()
         return {"loss": batch_mean(loss, mesh), "step": state.step,
                 **{k: batch_mean(v, mesh) for k, v in aux.items()}}

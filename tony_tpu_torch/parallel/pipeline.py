@@ -76,7 +76,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import DTensor, Replicate, Shard, \
     distribute_tensor
 from torch.utils.checkpoint import checkpoint
@@ -88,8 +87,9 @@ from tony_tpu_torch.models.transformer import (SEQUENCE_PARALLEL, Block,
                                                causal_lm_loss, init_dense_)
 from tony_tpu_torch.parallel import _comm
 from tony_tpu_torch.parallel.mesh import mesh_shape
-from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES, fsdp_mesh,
-                                              fsdp_placement_fn,
+from tony_tpu_torch.parallel.sharding import (DEFAULT_RULES,
+                                              fsdp_shards,
+                                              fully_shard_placed,
                                               logical_axes, mesh_axes)
 from tony_tpu_torch.parallel.train import TrainState, sharded_train_step
 
@@ -327,13 +327,11 @@ def pipeline_shard(model: PipelineTransformer, mesh: DeviceMesh
     held = dict(model.named_parameters())
     placements = {name: pl for name, pl in pipeline_param_placements(
         model.cfg, mesh).items() if name in held}
-    replicated = {p for name, p in model.named_parameters()
-                  if not any("fsdp" in a for a in placements[name].dims)}
-    kw = dict(mesh=fsdp_mesh(mesh),
-              shard_placement_fn=fsdp_placement_fn(model, placements))
-    for blk in model.layers.values():
-        fully_shard(blk, ignored_params=replicated, **kw)
-    fully_shard(model, ignored_params=replicated, **kw)
+    # The head's vocab over tp is the DTensor above; fsdp is FSDP2's.
+    shards = fsdp_shards(model, placements, shape,
+                         lambda model, name, axis, d: axis == "tp")
+    fully_shard_placed(model, mesh, shards, [
+        (f"layers.{key}", blk) for key, blk in model.layers.items()])
     return placements
 
 

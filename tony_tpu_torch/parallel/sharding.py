@@ -34,31 +34,42 @@ of the dims), and turns the mesh axes they give into what torch runs:
   ``DenseBiasParallel``, colwise or rowwise with its bias replicated, by
   the same pair-or-gather rule (``vision_tp_plan``). A dim that tp (or
   fsdp) does not divide is refused, as the reference refuses it;
-- ``fsdp`` on a dim → FSDP2's shard on that dim (``fsdp_placement_fn``);
-  a parameter whose layout names no ``fsdp`` (the norm scales, ResNet's
+- every other mesh axis a parameter's placement names (``fsdp``, ``dp``,
+  ``dcn_dp``, ``sp``, ``ep`` off the expert dim, ``tp`` on a norm's
+  scale), on any dim → FSDP2's shard on that dim, over that axis or over
+  several flattened in the rules' order (``fsdp_shards``): ZeRO over dp
+  or ``(dcn_dp, fsdp)``, params over sp or ep, a norm's scale over tp
+  (gathered before use: the activations are whole over tp; its tp ranks
+  are replicas, so FSDP2's mean is its gradient). ``dp`` where the
+  placement does not name it is FSDP2's replicate dim (HSDP); ``dcn_dp``
+  where it does not is synced by the explicit bucketed all-reduce
+  (``parallel/grad_sync.py``), the reference's multislice design. FSDP2
+  takes one mesh per call, so each unit's parameters are grouped by mesh
+  (``fully_shard_placed``); over sp the gradient is a sum, not FSDP2's
+  mean (the unit's divide factor). A parameter whose placement names no
+  such axis (the norm scales under the default rules, ResNet's
   convolutions and norms, the biases, every projection under a table that
-  gives ``embed`` to tp) stays whole over fsdp, as in the reference: FSDP2
-  leaves it alone and the train step averages its gradient by hand (a
-  DTensor over tp: its local shard);
-- ``dp`` → FSDP2's replicate dim (HSDP); ``dcn_dp`` stays out of FSDP2 and
-  is synced by the explicit bucketed all-reduce (``parallel/grad_sync.py``),
-  the reference's multislice design. The FSDP2 mesh is then a plain slice
-  of the mesh (``("dp", "fsdp")``), so no private ``DeviceMesh._flatten`` is
-  needed;
-- ``ep`` and ``tp`` on the MoE decoder's stacked experts (``expert`` → ep,
-  ``mlp`` or ``embed`` → tp) → the weights become DTensors on the mesh's
-  ``(ep, tp)`` axes (with the default rules ``gate``/``up`` ``[Shard(0),
-  Shard(2)]``, ``down`` ``[Shard(0), Shard(1)]``), which FSDP2 then shards
-  over fsdp where the rules name it; its attention, router and head take
-  the dense decoder's styles;
-- ``sp``: no parameter names it (parameters stay replicated over sp, as in
-  the reference); the model gets the sp group, over which its attention
-  runs (ring or Ulysses) and the train step sums the gradients.
+  gives ``embed`` to tp) stays whole, as in the reference: FSDP2 leaves it
+  alone and the train step averages its gradient by hand (a DTensor over
+  tp: its local shard). Each parameter's reduced axes are recorded for
+  ``grad_sync`` (``reduced_by_fsdp``), so that every gradient is reduced
+  once over each axis;
+- ``ep`` and ``tp`` on the MoE decoder's stacked experts (``expert`` → ep
+  on its dim 0, tp on any dim) → the weights become DTensors on those
+  axes (with the default rules ``gate``/``up`` ``[Shard(0), Shard(2)]``,
+  ``down`` ``[Shard(0), Shard(1)]`` on ``(ep, tp)``), which FSDP2 then
+  shards over the rest; the ``MoEMLP`` gathers an expert dim over tp and
+  takes its own E/ep experts of an expert dim ep does not split. Its
+  attention, router and head take the dense decoder's styles;
+- ``sp``: the model gets the sp group, over which its attention runs
+  (ring or Ulysses) and the train step sums the gradients that FSDP2 has
+  not summed.
 
-A table that lays a parameter's dim on an axis none of these can express
-(``dp``, ``dcn_dp``, ``sp``, ``pp``, ``ep`` off the expert dim, ``tp`` on a
-norm's scale), as GSPMD would, is refused by ``shard_model``
-(``check_layable``).
+What stays refused: ``pp`` > 1 for a sequential model, the MoE decoder
+with sp and ep together (``shard_model``), and two layouts FSDP2 cannot
+hold (``fsdp_shards``): axes of more than one rank on two dims of one
+tensor, or flattened out of the mesh's order; and an expert dim over
+``("tp", "ep")`` in that order (``_distribute_experts``).
 """
 
 from __future__ import annotations
@@ -76,7 +87,7 @@ from torch.distributed.tensor.parallel import (ColwiseParallel, ParallelStyle,
                                                RowwiseParallel,
                                                parallelize_module)
 
-from tony_tpu_torch.parallel.mesh import BATCH_AXES, mesh_shape
+from tony_tpu_torch.parallel.mesh import BATCH_AXES, MESH_AXES, mesh_shape
 
 # The model classes are imported where they are used: the models import
 # this package (its collectives, ``parallel/_comm.py``).
@@ -204,7 +215,7 @@ def param_placements(model: nn.Module,
     and the shapes its ``shard_shape``. A model class may name some of its
     parameters' axes itself (``PARAM_AXES``, by full name), where they
     differ from the table's. ``shard_model`` lays the model out as these
-    say, or refuses (``check_layable``)."""
+    say."""
     sizes = _sizes(mesh)
     own = getattr(model, "PARAM_AXES", {})
     out = {}
@@ -505,130 +516,244 @@ def check_divisible(model: nn.Module,
                     f"it is equal to {n} (full shape: {tuple(p.shape)})")
 
 
-def fsdp_placement_fn(model: nn.Module,
-                      placements: Mapping[str, Placement]):
-    """FSDP2's ``shard_placement_fn``: each parameter's shard on the dim
-    that names ``fsdp`` (its ``embed`` dim with the default rules; the
-    table's vocab rows, under tp's)."""
-    dim_of = {p: d for name, p in model.named_parameters()
-              for d, axes in enumerate(placements[name].dims)
-              if "fsdp" in axes}
-    return lambda p: Shard(dim_of[p])
+def plan_laid(model: nn.Module, name: str, axis: str, d: int) -> bool:
+    """Whether the tensor-parallel plan (``tp_plan``, ``vision_tp_plan``)
+    or the experts' own layout (``_distribute_experts``) lays dim ``d`` of
+    parameter ``name`` over mesh ``axis``: tp on a projection's weight,
+    the embedding table, a conv's out channels or any dim of a stacked
+    expert weight; ep on the experts' expert dim. FSDP2 lays every other
+    axis a placement names (``fsdp_shards``)."""
+    from tony_tpu_torch.models.mlp import DenseBias
+    from tony_tpu_torch.models.moe import MoEMLP
+    from tony_tpu_torch.models.resnet import _Conv
+
+    owner, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(owner) if owner else model
+    if axis == "tp":
+        return (isinstance(mod, (nn.Linear, DenseBias)) and leaf == "weight"
+                ) or leaf == "embedding" or isinstance(mod, MoEMLP) or (
+                    isinstance(mod, _Conv) and d == 0)
+    return axis == "ep" and isinstance(mod, MoEMLP) and d == 0
 
 
-def fsdp_mesh(mesh: DeviceMesh) -> DeviceMesh:
-    """FSDP2's mesh: ``(dp, fsdp)`` (HSDP: replicate over dp, shard over
-    fsdp) when dp > 1, else ``fsdp`` alone."""
-    return mesh["dp", "fsdp"] if mesh_shape(mesh)["dp"] > 1 \
-        else mesh["fsdp"]
+class FsdpShard(NamedTuple):
+    """How FSDP2 holds one parameter: the tensor dim it shards, the mesh
+    axes it shards that dim over (the rules' order, major first) and
+    whether it replicates the parameter over dp (HSDP)."""
+    dim: int
+    axes: Tuple[str, ...]
+    hsdp: bool
+
+    def reduced(self) -> Tuple[str, ...]:
+        """The mesh axes over which FSDP2 reduces the gradient."""
+        return ("dp",) * self.hsdp + self.axes
+
+
+def fsdp_shards(model: nn.Module, placements: Mapping[str, Placement],
+                sizes: Mapping[str, int], laid=plan_laid
+                ) -> Dict[str, Union[FsdpShard, None]]:
+    """Per parameter: where FSDP2 holds it, from its placement. The axes a
+    dim names outside the plan's (``laid(model, name, axis, dim)``) are
+    the parameter's shard axes, one axis or several flattened in the
+    rules' order, taken also where each has size 1 (FSDP2 then holds the
+    whole tensor, so that a world of one rank runs the code a larger one
+    does; axes of size 1 on a second dim lay nothing and are left out);
+    ``dp`` replicates it (HSDP) where its placement does not name dp.
+    None where no such axis is named: the parameter stays whole, FSDP2
+    leaves it alone and the train step reduces its gradient
+    (``parallel/grad_sync.py``).
+
+    ``NotImplementedError`` for a layout FSDP2 cannot hold: axes of more
+    than one rank on two dims of one tensor (FSDP2 shards one dim), or
+    axes of more than one rank flattened out of the mesh's order (a
+    process group numbers its ranks in ascending order, so such a dim
+    would hold each shard on another rank than the reference's)."""
+    out: Dict[str, Union[FsdpShard, None]] = {}
+    for name, _ in model.named_parameters():
+        dims = placements[name].dims
+        own = {d: tuple(a for a in axes if not laid(model, name, a, d))
+               for d, axes in enumerate(dims)}
+        own = {d: axes for d, axes in own.items() if axes}
+        if not own:
+            out[name] = None
+            continue
+        wide = [d for d, axes in own.items()
+                if any(sizes[a] > 1 for a in axes)]
+        if len(wide) > 1:
+            raise NotImplementedError(
+                f"{name}: the rules lay its dimensions {wide} over "
+                f"{[own[d] for d in wide]}: FSDP2 shards one dimension of "
+                "a tensor")
+        d = wide[0] if wide else min(own)
+        big = [a for a in own[d] if sizes[a] > 1]
+        if big != sorted(big, key=MESH_AXES.index):
+            raise NotImplementedError(
+                f"{name}: the rules lay its dimension {d} over {own[d]}, "
+                f"out of the mesh's order {MESH_AXES}: a process group "
+                "numbers its ranks in ascending order")
+        named = {a for axes in dims for a in axes}
+        out[name] = FsdpShard(d, own[d], sizes["dp"] > 1
+                              and "dp" not in named)
+    return out
+
+
+def _fsdp_mesh(mesh: DeviceMesh, axes: Tuple[str, ...],
+               hsdp: bool) -> DeviceMesh:
+    """FSDP2's mesh for ``axes`` (several flattened into one dim, in their
+    order) with, under HSDP, ``dp`` before it as the replicate dim. Built
+    by concatenating the root's one-axis meshes, as FSDP2 joins its mesh
+    to a tensor-parallel one: slicing a flattened dim back out of the root
+    is refused by torch where the axes are not adjacent."""
+    shard = mesh[axes[0]] if len(axes) == 1 else DeviceMesh._concatenate(
+        [mesh[a] for a in axes])._flatten("+".join(axes))
+    return DeviceMesh._concatenate([mesh["dp"], shard]) if hsdp else shard
+
+
+def fully_shard_placed(model: nn.Module, mesh: DeviceMesh,
+                       shards: Mapping[str, Union[FsdpShard, None]],
+                       units: Sequence[Tuple[str, nn.Module]],
+                       summed: Sequence[str] = ()) -> None:
+    """FSDP2 on each ``(name, module)`` of ``units`` that holds a sharded
+    parameter, then on ``model``, each parameter on the mesh of its
+    ``shards`` entry, the whole ones left out. FSDP2 takes one mesh per
+    call, so a unit's parameters are grouped by mesh: the unit takes the
+    group of its own parameters (the root's table) or else the largest,
+    and each other group goes to ``fully_shard`` on the modules that own
+    its parameters (a norm under ``("norm", "tp")``, the experts under a
+    table that lays them apart from the attention). FSDP2 averages a
+    gradient over its mesh; over an axis of ``summed`` (sp, whose ranks
+    each hold a share of one loss) the unit's divide factor leaves that
+    axis out, so the gradient is summed there. Records on ``model``
+    ``reduced_by_fsdp``: per parameter, the mesh axes FSDP2 reduces its
+    gradient over, read by ``grad_sync``."""
+    sizes = mesh_shape(mesh)
+    meshes: Dict[Any, DeviceMesh] = {}
+    params = dict(model.named_parameters())
+    replicated = {p for n, p in params.items() if shards[n] is None}
+    dim_of = {p: shards[n].dim for n, p in params.items()
+              if shards[n] is not None}
+
+    def key(name):
+        s = shards[name]
+        return None if s is None else (s.axes, s.hsdp)
+
+    def shard(module, k):
+        axes, hsdp = k
+        if k not in meshes:
+            meshes[k] = _fsdp_mesh(mesh, axes, hsdp)
+        fully_shard(module, mesh=meshes[k], ignored_params=replicated,
+                    shard_placement_fn=lambda p: Shard(dim_of[p]))
+        if any(sizes[a] > 1 for a in axes if a in summed):
+            module.set_gradient_divide_factor(float(math.prod(
+                sizes[a] for a in ("dp",) * hsdp + axes
+                if a not in summed)))
+            module.set_force_sum_reduction_for_comms(True)
+
+    done: set = set()
+    for prefix, unit in list(units) + [("", model)]:
+        pre = f"{prefix}." if prefix else ""
+        names = [pre + n for n, _ in unit.named_parameters()
+                 if pre + n not in done]
+        groups: Dict[Any, list] = {}
+        for n in names:
+            if key(n) is not None:
+                groups.setdefault(key(n), []).append(n)
+        own = {key(pre + n) for n, _ in unit.named_parameters(recurse=False)
+               } - {None}
+        if len(own) > 1:
+            raise NotImplementedError(
+                f"{prefix or type(model).__name__}: its own parameters on "
+                f"the meshes {sorted(own)}: FSDP2 takes one mesh a module")
+        main = own.pop() if own else max(groups, key=lambda k: len(groups[k]),
+                                         default=None)
+        claimed: set = set()
+        owners = sorted({n.rpartition(".")[0] for k, ns in groups.items()
+                         if k != main for n in ns},
+                        key=lambda o: -o.count("."))
+        for owner in owners:
+            sub = model.get_submodule(owner)
+            held = [f"{owner}.{n}" for n, _ in sub.named_parameters()]
+            ks = {key(n) for n in held if n not in claimed} - {None}
+            if len(ks) > 1:
+                raise NotImplementedError(
+                    f"{owner}: its parameters on the meshes {sorted(ks)}: "
+                    "FSDP2 takes one mesh a module")
+            shard(sub, ks.pop())
+            claimed.update(held)
+        if main is not None or unit is model:
+            shard(unit, main or (("fsdp",), sizes["dp"] > 1))
+        done.update(names)
+    model.reduced_by_fsdp = {n: () if s is None else s.reduced()
+                             for n, s in shards.items()}
 
 
 def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
                         placements: Mapping[str, Placement]) -> None:
     """Each stacked expert weight of the MoE decoder becomes a DTensor on
-    the mesh's ``(ep, tp)`` axes, sharded on the dims its rules give each
-    axis (``expert``: dim 0 over ep; with the default rules ``mlp`` over
-    tp: gate/up dim 2, down dim 1; a table that puts ``embed`` over tp:
-    gate/up dim 1, down dim 2), from which the ``MoEMLP`` reads the dim tp
-    splits. On the meta device nothing is allocated."""
+    the mesh axes of its placement that ``plan_laid`` gives the experts:
+    ``ep`` on the expert dim (``Shard(0)``) and ``tp`` on whichever dim
+    the rules put it (with the default rules ``mlp``: gate/up dim 2, down
+    dim 1; a table that puts ``embed`` over tp: gate/up dim 1, down dim
+    2; ``expert``: dim 0, after ep's), from which the ``MoEMLP`` reads the
+    dim tp splits. A weight neither axis lays stays a plain tensor (FSDP2
+    may still shard it). On the meta device nothing is allocated.
+    ``NotImplementedError`` for an expert dim over ``("tp", "ep")`` in
+    that order, both of more than one rank (a DTensor shards the mesh's
+    ep before its tp)."""
     from tony_tpu_torch.models.moe import MoEMLP
 
-    axes = ("ep", "tp")
+    sizes = mesh_shape(mesh)
     for prefix, mod in model.named_modules():
         if not isinstance(mod, MoEMLP):
             continue
         for name in ("gate", "up", "down"):
-            p = getattr(mod, name)
             dims = placements[f"{prefix}.{name}"].dims
-            where = [next((Shard(d) for d, on in enumerate(dims)
-                           if axis in on), Replicate()) for axis in axes]
+            laid = {a: d for d, axes in enumerate(dims) for a in axes
+                    if a == "tp" or (a == "ep" and d == 0)}
+            if not laid:
+                continue
+            first = [a for a in dims[0] if a in laid]
+            if first == ["tp", "ep"] and sizes["tp"] > 1 < sizes["ep"]:
+                raise NotImplementedError(
+                    f"{prefix}.{name}: the rules lay its expert dim over "
+                    "('tp', 'ep'): the experts shard ep before tp")
+            axes = tuple(a for a in ("ep", "tp") if a in laid)
+            p = getattr(mod, name)
             mod.register_parameter(name, nn.Parameter(
-                distribute_tensor(p.data, mesh[axes], where,
+                distribute_tensor(p.data, mesh[axes],
+                                  [Shard(laid[a]) for a in axes],
                                   src_data_rank=None),
                 requires_grad=p.requires_grad))
-
-
-def _reference_spec(p: torch.Tensor, name: str,
-                    dims: Sequence[Tuple[str, ...]]) -> str:
-    """``dims`` as the reference's ``PartitionSpec`` of the same
-    parameter, in flax's layout (a projection's kernel ``[in, out]``, a
-    conv's ``HWIO``; ``convert.py``)."""
-    if name.endswith("weight") and p.dim() == 2:
-        dims = dims[::-1]
-    elif p.dim() == 4:
-        dims = [dims[i] for i in (2, 3, 1, 0)]
-    return "PartitionSpec%r" % (tuple(
-        None if not a else a[0] if len(a) == 1 else a for a in dims),)
-
-
-def check_layable(model: nn.Module, placements: Mapping[str, Placement],
-                  sizes: Mapping[str, int]) -> None:
-    """``ValueError`` for a parameter dim that the rules lay over a mesh
-    axis (of more than one rank) that FSDP2 and the tensor-parallel plan
-    cannot lay it on, naming the parameter, the axis and the reference's
-    ``PartitionSpec``, so that ``param_placements`` never says what the
-    model does not do. The port lays parameters over ``fsdp`` (any dim),
-    ``tp`` (a projection's weight, the embedding table, a stacked expert's
-    ``embed`` or ``mlp`` dim, a conv's out channels) and ``ep`` (the
-    stacked experts' ``expert`` dim); GSPMD also takes ``dp``, ``dcn_dp``,
-    ``sp``, ``pp``, ``ep`` elsewhere, and ``tp`` on a norm's scale or an
-    expert dim."""
-    from tony_tpu_torch.models.mlp import DenseBias
-    from tony_tpu_torch.models.moe import MoEMLP
-    from tony_tpu_torch.models.resnet import _Conv
-
-    def layable(name, axis, d):
-        owner, _, leaf = name.rpartition(".")
-        mod = model.get_submodule(owner) if owner else model
-        if axis == "tp":
-            return (isinstance(mod, (nn.Linear, DenseBias))
-                    and leaf == "weight") or leaf == "embedding" or (
-                isinstance(mod, MoEMLP) and d > 0) or (
-                isinstance(mod, _Conv) and d == 0)
-        return axis == "ep" and isinstance(mod, MoEMLP) and d == 0
-
-    for name, p in model.named_parameters():
-        dims = placements[name].dims
-        for d, axes in enumerate(dims):
-            for axis in axes:
-                if axis == "fsdp" or sizes[axis] == 1 or \
-                        layable(name, axis, d):
-                    continue
-                raise ValueError(
-                    f"{name}: the rules lay its dimension {d} over mesh "
-                    f"axis {axis}={sizes[axis]}, as the reference's "
-                    f"{_reference_spec(p, name, dims)}: FSDP2 and the "
-                    "tensor-parallel plan lay a parameter over fsdp, over "
-                    "tp (a projection's weight, the embedding table, a "
-                    "stacked expert's embed or mlp dim, a conv's out "
-                    "channels) and over ep (the stacked experts' expert "
-                    "dim) only")
 
 
 def shard_model(model: nn.Module, mesh: DeviceMesh,
                 rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
                 ) -> Dict[str, Placement]:
-    """Lay ``model`` (best on the meta device) out on ``mesh``: a
-    decoder's tensor-parallel plan over ``tp`` (an ``MoETransformer``'s
-    stacked experts over ``(ep, tp)``), then FSDP2 on each ``Block`` /
-    ``MoEBlock`` (each ResNet bottleneck holding a sharded parameter) and
-    on the root, the replicated parameters left out; the model's attention
-    gets the ``sp`` group, each ``MoEMLP`` the ``ep``, ``tp`` and ``sp``
-    groups and the batch axes' groups. A ``ResNet`` or an ``MnistMLP``
-    takes ``vision_tp_plan`` over ``tp`` (its convs over their out
-    channels, its ``DenseBias`` layers colwise or rowwise), then FSDP2 the
-    same way. Parameters stay f32 (no mixed-precision policy: the
-    projections cast as the reference's do). Returns ``param_placements``.
+    """Lay ``model`` (best on the meta device) out on ``mesh`` where
+    ``param_placements`` says, as GSPMD lays the reference's: a decoder's
+    tensor-parallel plan over ``tp`` (an ``MoETransformer``'s stacked
+    experts over ``ep`` and ``tp``: ``_distribute_experts``), then FSDP2
+    on each ``Block`` / ``MoEBlock`` (each ResNet bottleneck) holding a
+    sharded parameter and on the root, each parameter over its shard axes
+    (``fsdp_shards``: every other axis its placement names, on any dim,
+    replicated over dp where it names no dp) and the whole ones left out
+    (``fully_shard_placed``); the model's attention gets the ``sp`` group,
+    each ``MoEMLP`` the ``ep``, ``tp`` and ``sp`` groups and the batch
+    axes' groups. A ``ResNet`` or an ``MnistMLP`` takes ``vision_tp_plan``
+    over ``tp`` (its convs over their out channels, its ``DenseBias``
+    layers colwise or rowwise), then FSDP2 the same way. Parameters stay
+    f32 (no mixed-precision policy: the projections cast as the
+    reference's do). Returns ``param_placements``.
 
     Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
     pipelined decoder is ``parallel/pipeline.py``'s, laid out by its
     ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer`` or an
     ``MoETransformer`` with ring or Ulysses attention, ``sp`` > 1 with
     ``ep`` > 1 for the MoE decoder (a layout the reference fails to
-    lower). ``ValueError`` for a ResNet or MLP dim that its mesh axes do
-    not divide (a class count tp does not divide), as the reference's, and
-    for a parameter dim that ``rules`` lay on an axis the port cannot lay
-    it on (``check_layable``)."""
+    lower); with the parameter, a layout FSDP2 cannot hold
+    (``fsdp_shards``). ``ValueError`` for a dim that its mesh axes do not
+    divide, in the reference's words (a decoder's over tp: FSDP2 pads the
+    others)."""
     from tony_tpu_torch.models.mlp import MnistMLP
     from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
     from tony_tpu_torch.models.resnet import ResNet, _Bottleneck
@@ -662,11 +787,11 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             "MoETransformer/layer_0/moe/top_k); take sp or ep, not both")
     # Names and global shapes: the plan below changes neither.
     placements = param_placements(model, mesh, rules)
-    check_layable(model, placements, shape)
     plan: Dict[str, ParallelStyle] = {}
     if decoder:
         plan = tp_plan(model.cfg, shape["tp"], rules)
-        # The rest of tp's widths (FSDP2 pads a dim fsdp does not divide).
+        # The rest of tp's widths (FSDP2 pads a dim its axes do not
+        # divide).
         check_divisible(model, placements,
                         {a: n if a == "tp" else 1 for a, n in shape.items()})
     elif isinstance(model, (ResNet, MnistMLP)):
@@ -675,6 +800,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     elif shape["tp"] > 1:
         raise NotImplementedError(
             f"tensor parallelism for {kind}")
+    shards = fsdp_shards(model, placements, shape)
     for key, style in plan.items():
         parallelize_module(model.get_submodule(key), mesh["tp"], style)
     if isinstance(model, MoETransformer):
@@ -690,15 +816,9 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             unit.tp_group = mesh["tp"].get_group()
             unit.sp_group = sp_group
             unit.batch_groups = batch_groups
-    replicated = {p for name, p in model.named_parameters()
-                  if not any("fsdp" in a for a in placements[name].dims)}
-    kw = dict(mesh=fsdp_mesh(mesh),
-              shard_placement_fn=fsdp_placement_fn(model, placements))
-    for unit in model.modules():
-        if isinstance(unit, (Block, MoEBlock, _Bottleneck)) and any(
-                p not in replicated for p in unit.parameters()):
-            fully_shard(unit, ignored_params=replicated, **kw)
-    fully_shard(model, ignored_params=replicated, **kw)
+    units = [(name, unit) for name, unit in model.named_modules()
+             if isinstance(unit, (Block, MoEBlock, _Bottleneck))]
+    fully_shard_placed(model, mesh, shards, units, summed=("sp",))
     return placements
 
 

@@ -204,9 +204,10 @@ def init_sharded_state(
     every parameter of the whole model is replayed in order through
     ``model.init_parameter_``, one whole tensor at a time, and each rank
     keeps its own slice of those it holds. ``optimizer_fn(param_groups)``
-    makes the optimizer: one group of the DTensor parameters, one of the
-    replicated ones. Returns the state (no ``loss_fn``:
-    ``sharded_train_step`` takes it) and ``param_placements``."""
+    makes the optimizer: one group of the DTensor parameters on each mesh
+    (FSDP2's shard meshes, the plan's), one of the replicated ones.
+    Returns the state (no ``loss_fn``: ``sharded_train_step`` takes it)
+    and ``param_placements``."""
     dev = (torch.device("cuda", torch.cuda.current_device())
            if mesh.device_type == "cuda" else torch.device("cpu"))
     model = build_model("meta")
@@ -228,13 +229,14 @@ def init_sharded_state(
                                           src_data_rank=None).to_local()
                 p = p.to_local()
             p.copy_(whole)
-    # DTensors and the replicated plain tensors in separate groups: torch's
+    # One group per mesh, the replicated plain tensors in one more: torch's
     # foreach optimizers (the default on the card) take one kind per call.
-    groups = [{"params": [p for p in model.parameters()
-                          if isinstance(p, DTensor) == sharded]}
-              for sharded in (True, False)]
-    return TrainState(model, optimizer_fn([g for g in groups
-                                           if g["params"]])), placements
+    groups: Dict[Any, list] = {}
+    for p in model.parameters():
+        groups.setdefault(p.device_mesh if isinstance(p, DTensor) else None,
+                          []).append(p)
+    return TrainState(model, optimizer_fn(
+        [{"params": ps} for ps in groups.values()])), placements
 
 
 def sharded_train_step(loss_fn: LossFn, mesh: DeviceMesh, state: TrainState,
@@ -268,21 +270,38 @@ def checkpoint_tree(state: TrainState) -> Dict[str, Any]:
     tensors ARE the live parameters and moments (a restore loads into them
     in place). An optimizer that has not stepped yet has no moments; for
     it ``get_state_dict`` runs one step with zero gradients at learning
-    rate 0, which creates them and moves no parameter."""
+    rate 0, which creates them and moves no parameter. Param groups that
+    differ in their parameters only (``init_sharded_state``'s, one per
+    mesh) are written as one, so that a checkpoint restores under any
+    layout, whatever groups that layout makes (``load_checkpoint_tree``
+    splits it again)."""
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+    groups = optim_sd["param_groups"]
+    hyper = [{k: v for k, v in g.items() if k != "params"} for g in groups]
+    if all(h == hyper[0] for h in hyper[1:]):
+        optim_sd = {**optim_sd, "param_groups": [
+            {**hyper[0], "params": [n for g in groups for n in g["params"]]}]}
     return {"step": state.step, "model": model_sd, "optim": optim_sd}
 
 
 def load_checkpoint_tree(state: TrainState, tree: Mapping[str, Any]
                          ) -> TrainState:
     """Put a (restored) checkpoint tree back into ``state``: parameters,
-    optimizer moments and hyper-parameters, and the step count."""
+    optimizer moments and hyper-parameters, and the step count. A tree's
+    one param group goes to each of the optimizer's groups."""
     from torch.distributed.checkpoint.state_dict import set_state_dict
 
+    optim = tree["optim"]
+    if len(optim["param_groups"]) == 1 < len(state.optimizer.param_groups):
+        name = {id(p): n for n, p in state.model.named_parameters()}
+        hyper = {k: v for k, v in optim["param_groups"][0].items()
+                 if k != "params"}
+        optim = {**optim, "param_groups": [
+            {**hyper, "params": [name[id(p)] for p in g["params"]]}
+            for g in state.optimizer.param_groups]}
     set_state_dict(state.model, state.optimizer,
-                   model_state_dict=tree["model"],
-                   optim_state_dict=tree["optim"])
+                   model_state_dict=tree["model"], optim_state_dict=optim)
     state.step = int(tree["step"])
     return state
