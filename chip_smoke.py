@@ -9,7 +9,7 @@ earlier paths (and bench's 0.95B point and the MoE decoder) at their full
 width and ``EARLIER_DEPTH`` = 4 layers: their launch counts are per layer
 of that depth, their rates and peak memory are not those of the whole
 model, and their labels say "4 of 16 layers" (24 for the 0.95B point).
-Phases 4, 12, 14-16, 17 (c), 19 and 22 run all 16; phase 18 runs
+Phases 4, 12, 14-16, 17 (c), 19, 22 and 23 run all 16; phase 18 runs
 ResNet-50 and the MNIST MLP whole:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
@@ -385,7 +385,9 @@ ResNet-50 and the MNIST MLP whole:
    ``(dcn_dp, fsdp)``), the flagship with ring attention under G2
    (``embed`` over ``(fsdp, sp)``) and the MoE flagship (16 layers) under
    G5 (``embed`` over ep), G6 (the experts' expert dim over tp) and G7
-   (MaxText's ``embed`` over ``(fsdp, sp, ep)``, the norms over tp), each
+   (MaxText's ``embed`` over ``(fsdp, sp, ep)``, against the mesh's
+   order: held on the submesh of its axes as phase 23's tables are; the
+   norms over tp), each
    from ``init_sharded_state(..., rules=)`` beside its unsharded twin, 2
    warm and 3 timed steps each on the same batches: the mesh dims each
    parameter group sits on (a flattened dim of FSDP2's mesh named by its
@@ -396,7 +398,24 @@ ResNet-50 and the MNIST MLP whole:
    name and power limit. At world 1 no collective runs;
    ``tests/test_torch_rules_gspmd.py`` meets the tables on four gloo
    ranks against the reference;
-23. prints the whole run's seconds, the kernels' JSON line (each flash
+23. the layouts the port once refused: (a) the flagship's attention
+   (B4 S2048, 8 q heads, 4 kv heads, D128, bf16, causal) as each of tp =
+   8's ranks runs it, q head r against the kv head r // 2 of k and v
+   gathered whole (``transformer.kv_heads_read``), forward and backward
+   through the three flash kernels: each rank's o within ``TOL_BF16_O``
+   and dq within ``TOL_BF16_GRAD_REL`` of the unsharded attention's head
+   r, dk and dv summed over the eight ranks within ``TOL_BF16_GRAD_REL``
+   of the unsharded ones, 8 launches of each kernel; (b) as phase 22, on
+   a one-rank NCCL group beside phase 22's unsharded twins: the flagship
+   under the two-dims table (``("mlp", "sp"), ("embed", "fsdp")``), the
+   out-of-order one (``("embed", ("sp", "fsdp"))``) and T4 (the head's
+   embed dim over ``(fsdp, tp)``), the MoE flagship under the two-dims
+   table and ``("expert", ("tp", "ep"))``: each table's parameter held on
+   the submesh of its axes and gathered before use
+   (``sharding.hold_gathered``), losses within ``TOL_MESH_REL``, flash
+   launches as phase 22's; ``tests/test_torch_rules_last_layouts.py``
+   meets them on four gloo ranks against the reference;
+24. prints the whole run's seconds, the kernels' JSON line (each flash
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
@@ -4750,15 +4769,23 @@ def phase_llama(card):
 GSPMD_WARM, GSPMD_TIMED = 2, 3
 
 # What each table lays where the default would not: (parameter, the mesh
-# dims its DTensor sits on at world 1).
+# dims its DTensor sits on at world 1, whether FSDP2 cannot hold it and it
+# is held on the submesh of its axes and gathered before use: G7's embed
+# over (fsdp, sp, ep) runs against the mesh's order, and so do phase 23's
+# tables).
 GSPMD_LAYOUT = {
-    "G1": ("layers.0.attn.wq.weight", ("dp", "tp")),
-    "G2": ("layers.0.attn.wq.weight", ("fsdp+sp", "tp")),
-    "G3": ("layers.0.attn_norm.scale", ("tp",)),
-    "G4": ("layers.0.attn.wq.weight", ("dcn_dp+fsdp", "tp")),
-    "G5": ("embedding", ("ep", "tp")),
-    "G6": ("layers.0.moe.gate", ("fsdp", "tp")),
-    "G7": ("layers.0.moe.gate", ("fsdp+sp+ep", "tp")),
+    "G1": ("layers.0.attn.wq.weight", ("dp", "tp"), False),
+    "G2": ("layers.0.attn.wq.weight", ("fsdp+sp", "tp"), False),
+    "G3": ("layers.0.attn_norm.scale", ("tp",), False),
+    "G4": ("layers.0.attn.wq.weight", ("dcn_dp+fsdp", "tp"), False),
+    "G5": ("embedding", ("ep", "tp"), False),
+    "G6": ("layers.0.moe.gate", ("fsdp", "tp"), False),
+    "G7": ("layers.0.moe.gate", ("fsdp", "ep", "sp", "tp"), True),
+    "two_dims": ("layers.0.mlp.gate.weight", ("fsdp", "sp"), True),
+    "out_of_order": ("layers.0.attn.wq.weight", ("fsdp", "sp", "tp"), True),
+    "T4": ("lm_head.weight", ("fsdp", "tp"), True),
+    "moe two_dims": ("layers.0.moe.gate", ("fsdp", "ep", "sp"), True),
+    "expert_tp_ep": ("layers.0.moe.gate", ("fsdp", "ep", "tp"), True),
 }
 
 
@@ -4778,6 +4805,23 @@ def gspmd_tables():
         "G5": (("embed", "ep"),) + d,
         "G6": (("expert", "tp"),) + d,
         "G7": (("embed", ("fsdp", "sp", "ep")), ("norm", "tp")) + d,
+        **last_tables(),
+    }
+
+
+def last_tables():
+    """The tables of ``tests/test_torch_rules_last_layouts.py`` that FSDP2
+    cannot hold: two dims of one tensor, a dim's axes out of the mesh's
+    order, T4's head over ``(fsdp, tp)`` fsdp-major, the experts' expert
+    dim over ``(tp, ep)``."""
+    from tony_tpu_torch.parallel import DEFAULT_RULES as d
+
+    two_dims = (("mlp", "sp"), ("embed", "fsdp")) + d
+    return {
+        "two_dims": two_dims, "moe two_dims": two_dims,
+        "out_of_order": (("embed", ("sp", "fsdp")),) + d,
+        "T4": rules_tables()["T4"],
+        "expert_tp_ep": (("expert", ("tp", "ep")),) + d,
     }
 
 
@@ -4824,10 +4868,15 @@ def gspmd_turn(label, cfg, table, batches, card):
             for p in state.model.parameters())
         log(f"gspmd {label}: parameters by the mesh dims they sit on "
             f"{json.dumps(dict(sorted(groups.items())))}")
-        name, dims = GSPMD_LAYOUT[table]
+        name, dims, held = GSPMD_LAYOUT[table]
         got = dict(state.model.named_parameters())[name].device_mesh \
             .mesh_dim_names
         check(got == dims, f"{label}: {name} on {got}, {table} says {dims}")
+        owner, _, leaf = name.rpartition(".")
+        gathered = leaf in getattr(state.model.get_submodule(owner),
+                                   "_gathered", {})
+        check(gathered == held,
+              f"{label}: {name} gathered before use: {gathered}")
 
         def step(b):
             return sharded_train_step(loss, mesh, state, b)[1]
@@ -4865,7 +4914,6 @@ def phase_gspmd(card):
     ring twin under G2, and the MoE flagship under G5-G7 on the world-1
     mesh, each beside its unsharded twin."""
     from tony_tpu_torch import trainer
-    from tony_tpu_torch.data import synthetic_lm_batch
 
     dist = torch.distributed
     t0 = time.perf_counter()
@@ -4881,32 +4929,138 @@ def phase_gspmd(card):
          ("G2",)),
         ("MoE flagship", moe_flagship_config(), ("G5", "G6", "G7")),
     ]
+    twins = {}
     try:
         for name, cfg, tables in cases:
-            batches = [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size,
-                                          device="cuda")
-                       for s in range(GSPMD_WARM + GSPMD_TIMED)]
+            batches = gspmd_batches(cfg)
             label = f"{name} ({cfg.n_layers} layers)"
-            want, base, base_peak = gspmd_turn(f"{label} unsharded", cfg,
-                                               None, batches, card)
-            for table in tables:
-                got, rate, peak = gspmd_turn(f"{label} {table}", cfg, table,
-                                             batches, card)
-                rel = max_rel(got, want)
-                diff = max(abs(a - b) for a, b in zip(got, want))
-                log(f"gspmd {label} {table} against unsharded: largest "
-                    f"difference {diff:.3e} (relative {rel:.3e}), bit for "
-                    f"bit {got == want}; sharded / unsharded tokens/s "
-                    f"{rate / base:.4f} ({rate:.1f} / {base:.1f}), peak "
-                    f"memory {peak:.2f} / {base_peak:.2f} GiB; {card}")
-                check(rel <= TOL_MESH_REL,
-                      f"{label} {table} losses differ from the unsharded by "
-                      f"{rel}")
+            twins[name] = gspmd_turn(f"{label} unsharded", cfg, None,
+                                     batches, card)
+            gspmd_against(label, cfg, tables, batches, twins[name], card)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     check(not dist.is_initialized(), "the NCCL group was not torn down")
     log(f"gspmd: {time.perf_counter() - t0:.1f} s; {card}")
+    return twins
+
+
+def gspmd_batches(cfg):
+    from tony_tpu_torch.data import synthetic_lm_batch
+
+    return [synthetic_lm_batch(s, 4, 2048, cfg.vocab_size, device="cuda")
+            for s in range(GSPMD_WARM + GSPMD_TIMED)]
+
+
+def gspmd_against(label, cfg, tables, batches, twin, card):
+    """``gspmd_turn`` under each of ``tables``, held to the unsharded
+    twin's turn (``twin``: its losses, tokens/s and peak GiB)."""
+    want, base, base_peak = twin
+    for table in tables:
+        got, rate, peak = gspmd_turn(f"{label} {table}", cfg, table,
+                                     batches, card)
+        rel = max_rel(got, want)
+        diff = max(abs(a - b) for a, b in zip(got, want))
+        log(f"gspmd {label} {table} against unsharded: largest difference "
+            f"{diff:.3e} (relative {rel:.3e}), bit for bit {got == want}; "
+            f"sharded / unsharded tokens/s {rate / base:.4f} ({rate:.1f} / "
+            f"{base:.1f}), peak memory {peak:.2f} / {base_peak:.2f} GiB; "
+            f"{card}")
+        check(rel <= TOL_MESH_REL,
+              f"{label} {table} losses differ from the unsharded by {rel}")
+
+
+# Phase 23: the layouts the port once refused. (a) The flagship's
+# attention as each rank of tp = 8 runs it; (b) the tables FSDP2 cannot
+# hold on the world-1 mesh, beside phase 22's unsharded twins.
+TP8 = 8
+
+
+def tp8_attention(card):
+    """Phase 23 (a): the flagship's attention at B4 S2048, 8 q heads and 4
+    kv heads, head_dim 128, bf16, as each of tp = 8's ranks runs it: rank
+    r's q head r against the kv head it reads (``kv_heads_read`` of k and
+    v gathered whole), forward and backward through the three flash
+    kernels. Each rank's o and dq against head r of the unsharded
+    attention's (bf16 tolerances of phase 3); dk and dv summed over the
+    ranks (in f32, from each rank's bf16 part) against the unsharded ones.
+    Counts the kernels' launches of the eight ranks."""
+    from tony_tpu_torch.models.transformer import kv_heads_read
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.ops.attention import flash_attention
+
+    q0, k0, v0, do = make_case(4, 2048, 8, 4, 128, torch.bfloat16, 23)
+
+    def attend(q, k, v, g):
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = flash_attention(q, k, v, causal=True)
+        o.backward(g)
+        return o.detach(), q.grad, k.grad, v.grad
+
+    o, dq, dk, dv = attend(q0, k0, v0, do)
+    _flash_cuda.reset_launch_counts()
+    sum_dk = torch.zeros_like(dk, dtype=torch.float32)
+    sum_dv = torch.zeros_like(dv, dtype=torch.float32)
+    errs = {"o": 0.0, "dq": 0.0}
+    bitwise = True
+    for r in range(TP8):
+        k = k0.detach().requires_grad_()
+        v = v0.detach().requires_grad_()
+        ks, vs = kv_heads_read(k, v, 8 // 4, r, 1)
+        q = q0[:, :, r:r + 1].detach().requires_grad_()
+        o_r = flash_attention(q, ks, vs, causal=True)
+        o_r.backward(do[:, :, r:r + 1])
+        sum_dk += k.grad.float()
+        sum_dv += v.grad.float()
+        errs["o"] = max(errs["o"], max_err(o_r, o[:, :, r:r + 1]))
+        errs["dq"] = max(errs["dq"], rel_err(q.grad, dq[:, :, r:r + 1]))
+        bitwise &= torch.equal(o_r, o[:, :, r:r + 1]) and torch.equal(
+            q.grad, dq[:, :, r:r + 1])
+    torch.cuda.synchronize()
+    counts = dict(_flash_cuda.launch_counts)
+    errs.update(dk=rel_err(sum_dk, dk), dv=rel_err(sum_dv, dv))
+    log(f"tp8 attention (B4 S2048 H8/4 D128 bf16): o max abs err "
+        f"{errs['o']:.3e}, dq rel err {errs['dq']:.3e}, summed dk / dv rel "
+        f"err {errs['dk']:.3e} / {errs['dv']:.3e}, o and dq bit for bit "
+        f"{bitwise}; launches of the 8 ranks {json.dumps(counts)}; {card}")
+    check(errs["o"] <= TOL_BF16_O, f"tp8 attention: o err {errs['o']}")
+    for n in ("dq", "dk", "dv"):
+        check(errs[n] <= TOL_BF16_GRAD_REL,
+              f"tp8 attention: {n} rel err {errs[n]}")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(counts.get(name) == TP8,
+              f"tp8 attention: {name} launched {counts.get(name)} times, "
+              f"expected {TP8}")
+
+
+def phase_last_layouts(card, twins):
+    """Phase 23: (a) ``tp8_attention``; (b) the flagship (16 layers) under
+    the two-dims, out-of-order and T4 tables and the MoE flagship under the
+    two-dims and ``("expert", ("tp", "ep"))`` tables on the world-1 mesh,
+    each parameter FSDP2 cannot hold gathered before use, held to phase
+    22's unsharded twins (``twins``)."""
+    from tony_tpu_torch import trainer
+
+    dist = torch.distributed
+    t0 = time.perf_counter()
+    tp8_attention(card)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-last-")
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(os.path.join(tmp, "store"),
+                                                 1))
+    try:
+        for name, cfg, tables in (
+                ("flagship", trainer.flagship_config(2048),
+                 ("two_dims", "out_of_order", "T4")),
+                ("MoE flagship", moe_flagship_config(),
+                 ("moe two_dims", "expert_tp_ep"))):
+            gspmd_against(f"{name} ({cfg.n_layers} layers)", cfg, tables,
+                          gspmd_batches(cfg), twins[name], card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not dist.is_initialized(), "the NCCL group was not torn down")
+    log(f"last layouts: {time.perf_counter() - t0:.1f} s; {card}")
 
 
 def _local(t):
@@ -4946,7 +5100,7 @@ def main():
     phase_store_checkpoints(store_drain_s, local_drain_s, card)
     phase_rules(card)
     llama_timing = phase_llama(card)
-    phase_gspmd(card)
+    phase_last_layouts(card, phase_gspmd(card))
     for name, r in llama_timing.items():
         timing[name]["llama3_8b_s8192"] = {k: r[k] for k in (
             "ms", "bound_ms", "bound_by", "library_ms", "tflops")}

@@ -188,20 +188,53 @@ def test_tp_plan_follows_the_rules():
                       torch.nn.Linear)
 
 
+# The ids the cases had when tp wider than the kv heads was refused: the
+# two n_kv_heads cases now check that the plan takes those layouts.
 @pytest.mark.parametrize("kw,tp,err,match", [
-    (dict(n_kv_heads=2), 4, ValueError, "n_kv_heads"),
-    (dict(n_heads=4, n_kv_heads=1), 2, ValueError, "n_kv_heads"),
+    (dict(n_kv_heads=2), 4, "laid", "n_kv_heads"),
+    (dict(n_heads=4, n_kv_heads=1), 2, "laid", "n_kv_heads"),
     (dict(mlp_dim=129), 2, ValueError, "mlp_dim"),
     (dict(vocab_size=255), 2, ValueError, "vocab_size"),
     (dict(tie_embeddings=True), 1, None, "tie_embeddings"),
     (dict(matmul_dtype="int8"), 2, None, "matmul_dtype"),
-])
+], ids=["kw0-4-ValueError-n_kv_heads", "kw1-2-ValueError-n_kv_heads",
+        "kw2-2-ValueError-mlp_dim", "kw3-2-ValueError-vocab_size",
+        "kw4-1-None-tie_embeddings", "kw5-2-None-matmul_dtype"])
 def test_tp_knob_checks_name_the_knob(kw, tp, err, match):
     """Widths that tp does not divide raise, naming the knob; a tied head
     and quantized projections take the plan (``err`` None): the tied one
     without an ``lm_head`` entry (it reads the vocab-sharded table), the
-    quantized one with the bf16 plan's styles."""
+    quantized one with the bf16 plan's styles. A tp wider than the kv
+    heads (``"laid"``: 2 kv heads at tp = 4, MQA at tp = 2) keeps q on each
+    rank's heads and gathers k and v (``KvGathered``), and ``shard_model``
+    lays the decoder out on that many fake ranks, each q projection
+    ``n_heads / tp`` heads wide, k and v whole heads' columns split over
+    tp as the reference splits them."""
     cfg = ttf.TransformerConfig.tiny(**kw)
+    if err == "laid":
+        plan = tsh.tp_plan(cfg, tp)
+        assert tsh.attention_split(cfg, tp) == "q_heads"
+        assert type(plan["layers.0.attn.wq"]) is ColwiseParallel
+        assert type(plan["layers.0.attn.wo"]) is RowwiseParallel
+        for m in ("wk", "wv"):
+            assert type(plan[f"layers.0.attn.{m}"]) is tsh.KvGathered
+
+        def run():
+            mesh = tmesh.build_mesh(tmesh.MeshSpec(tp=tp, dp=1), "cpu")
+            model = ttf.Transformer(cfg, device="meta")
+            tsh.shard_model(model, mesh)
+            attn = model.layers[0].attn
+            return (attn.wq.weight.to_local().shape[0],
+                    attn.wk.weight.to_local().shape[0])
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=tp)
+        try:
+            hd = cfg.dim // cfg.n_heads
+            assert run() == (cfg.n_heads * hd // tp,
+                             cfg.n_kv_heads * hd // tp)
+        finally:
+            dist.destroy_process_group()
+        return
     if err is not None:
         with pytest.raises(err, match=match):
             tsh.tp_plan(cfg, tp)

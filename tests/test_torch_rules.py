@@ -31,12 +31,14 @@ elements across a rounding level at the next step).
 (c) In this process: the pipelined decoder's placements under T2 are the
 default's (the reference's pipeline reads ``DEFAULT_RULES`` whatever its
 caller passes); the tables once refused (a dim on dp, sp, ep off the
-expert dim, tp on a norm or the expert dim) laid out on four fake ranks,
-each parameter on the axes its placement names (their training against
-the reference is ``tests/test_torch_rules_gspmd.py``); the refusals that
-stay (pp > 1 on a sequential model, the MoE with sp and ep, what FSDP2
-cannot hold); no table puts tp on a conv's in channels or lays a
-quantized projection other than ``Shard(0)``/``Shard(1)``.
+expert dim, tp on a norm or the expert dim; two dims of one tensor, axes
+out of the mesh's order) laid out on four fake ranks, each parameter on
+the axes its placement names (their training against the reference is
+``tests/test_torch_rules_gspmd.py`` and
+``tests/test_torch_rules_last_layouts.py``); the refusals that stay (pp >
+1 on a sequential model, the MoE with sp and ep); no table puts tp on a
+conv's in channels or lays a quantized projection other than
+``Shard(0)``/``Shard(1)``.
 """
 
 import os
@@ -795,29 +797,47 @@ def test_refusals_that_stay(kind, spec, knob):
     _on_fake_ranks(4, run)
 
 
-@pytest.mark.parametrize("rules,spec,match", [
+@pytest.mark.parametrize("rules,spec,param,held", [
     ((("mlp", "sp"), ("embed", "fsdp")) + DEFAULT, dict(fsdp=2, sp=2),
-     r"its dimensions \[0, 1\] over \[\('sp',\), \('fsdp',\)\]: FSDP2 "
-     "shards one dimension"),
+     "layers.0.mlp.gate.weight", ("fsdp", "sp")),
     ((("embed", ("sp", "fsdp")),) + DEFAULT, dict(fsdp=2, sp=2),
-     r"over \('sp', 'fsdp'\), out of the mesh's order"),
+     "layers.0.attn.wq.weight", ("fsdp", "sp", "tp")),
 ], ids=["two_dims", "out_of_order"])
-def test_layouts_fsdp2_cannot_hold(rules, spec, match):
-    """A parameter with axes of more than one rank on two of its dims, or
-    flattened out of the mesh's order, is refused with the parameter
-    named; the same table at size 1 on those axes is laid out."""
-    def run():
-        for sizes in (spec, {}):
+def test_layouts_fsdp2_cannot_hold(rules, spec, param, held):
+    """A parameter with axes on two of its dims, or flattened out of the
+    mesh's order (layouts FSDP2 cannot hold, once refused), is laid out:
+    where those axes have two ranks each, held by ``hold_gathered`` as a
+    DTensor on the submesh of its axes (in the mesh's order), a shard per
+    mesh dim (``_StridedShard`` for fsdp, which the table lays minor to
+    sp), its local shard of ``param_placements``' shape. Where they have
+    one rank each beside dp=4, FSDP2 holds it as before (an axis of one
+    rank lays nothing; the two-dims weight, no axis of which has two ranks,
+    stays whole). On a world of one rank the table alone decides,
+    and it is held as at scale."""
+    def run(world):
+        cases = ((spec, held), ({}, None)) if world > 1 else (({}, held),)
+        for sizes, on in cases:
             mesh = tmesh.build_mesh(tmesh.MeshSpec(dp=-1, **sizes), "cpu")
             model = ttf.Transformer(ttf.TransformerConfig.tiny(
                 attn_impl="ring"), device="meta")
-            if not sizes:
-                tsh.shard_model(model, mesh, rules)
+            placements = tsh.shard_model(model, mesh, rules)
+            p = dict(model.named_parameters())[param]
+            owner, _, leaf = param.rpartition(".")
+            gathered = getattr(model.get_submodule(owner), "_gathered", {})
+            assert (leaf in gathered) == (on is not None), (world, sizes)
+            local = p.to_local() if hasattr(p, "to_local") else p
+            assert tuple(local.shape) == placements[param].local_shape, \
+                (world, sizes)
+            if on is None:
                 continue
-            with pytest.raises(NotImplementedError, match=match) as e:
-                tsh.shard_model(model, mesh, rules)
-            assert str(e.value).startswith("layers.0.")
-    _on_fake_ranks(4, run)
+            assert p.device_mesh.mesh_dim_names == on, (world, sizes)
+            assert all(hasattr(on, "dim") for on in p.placements)
+            strided = [type(on).__name__ == "_StridedShard"
+                       for on in p.placements]
+            assert strided == [param.endswith("wq.weight") and
+                               bool(sizes), False, False][:len(strided)]
+    for world in (4, 1):
+        _on_fake_ranks(world, lambda: run(world))
 
 
 def test_dim_over_tp_must_divide():

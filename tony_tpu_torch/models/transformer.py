@@ -37,10 +37,13 @@ a time). ``device="meta"`` builds the skeleton without drawing.
 Under a tensor-parallel plan (``parallel/sharding.py:tp_plan``) the
 attention takes its head counts from the widths the projections hand it:
 ``n_heads / tp`` q heads and ``n_kv_heads / tp`` kv heads where the rules
-split both on heads (whole GQA groups on each rank), every head where the
-plan gathers q, k and v or never splits them (a table that keeps the kv
-heads whole, or puts the embed dim over tp), and a mix of the two is
-refused.
+split both on heads and tp divides the kv heads (whole GQA groups on each
+rank); ``n_heads / tp`` q heads beside every kv head where tp divides the
+heads and not the kv heads (k and v gathered; each q head reads the kv
+head of its group: at tp = 8 the 8-head, 4-kv-head flagship's rank r runs
+q head r against kv head r // 2); every head where the plan gathers q, k
+and v or never splits them (a table that keeps the kv heads whole, puts
+the embed dim over tp, or a tp that splits q mid-head).
 
 On a mesh with an ``sp`` axis (``shard_model`` sets ``sp_group`` on the model
 and on each ``Attention``; None off a mesh) the model still takes the whole
@@ -281,6 +284,27 @@ class Attention(nn.Module):
         self.wv = dense(cfg.dim, cfg.n_kv_heads * hd)
         self.wo = dense(cfg.n_heads * hd, cfg.dim)
         self.sp_group = None        # the mesh's sp group (shard_model)
+        self.tp_group = None        # the mesh's tp group (shard_model)
+
+    def _kv_read(self, k: torch.Tensor, v: torch.Tensor, hq: int):
+        """k and v as this rank's ``hq`` q heads read them: as they come
+        with the config's grouping (every head, or whole GQA groups on each
+        rank), ``kv_heads_read`` of them with q on this rank's heads
+        beside every kv head (a tp that divides the heads and not the kv
+        heads)."""
+        cfg, hk = self.cfg, k.shape[2]
+        if hq * cfg.n_kv_heads == hk * cfg.n_heads:
+            return k, v
+        tp = _comm.group_size(self.tp_group)
+        if hk != cfg.n_kv_heads or hq * tp != cfg.n_heads:
+            raise RuntimeError(
+                f"{hq} q heads beside {hk} kv heads over tp={tp}: neither "
+                f"the config's {cfg.n_heads}/{cfg.n_kv_heads} grouping nor "
+                "this rank's q heads beside every kv head (a plan that "
+                "splits q on heads and not k and v would pair each q head "
+                "with the wrong kv head)")
+        return kv_heads_read(k, v, cfg.n_heads // cfg.n_kv_heads,
+                             _comm.group_rank(self.tp_group) * hq, hq)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         cfg, hd = self.cfg, self.head_dim
@@ -289,12 +313,7 @@ class Attention(nn.Module):
         q = self.wq(x).view(b, s, -1, hd)
         k = self.wk(x).view(b, s, -1, hd)
         v = self.wv(x).view(b, s, -1, hd)
-        if q.shape[2] * cfg.n_kv_heads != k.shape[2] * cfg.n_heads:
-            raise RuntimeError(
-                f"{q.shape[2]} q heads beside {k.shape[2]} kv heads: not "
-                f"the config's {cfg.n_heads}/{cfg.n_kv_heads} grouping "
-                "(a tensor-parallel plan that splits q on heads and not k "
-                "and v would pair each q head with the wrong kv head)")
+        k, v = self._kv_read(k, v, q.shape[2])
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
@@ -318,6 +337,19 @@ class Attention(nn.Module):
                                         v.repeat_interleave(g, dim=2),
                                         causal=True)
         return self.wo(o.reshape(b, s, -1))
+
+
+def kv_heads_read(k: torch.Tensor, v: torch.Tensor, group: int,
+                  first: int, hq: int):
+    """k and v ``[B, S, n_kv_heads, D]`` as q heads ``[first, first +
+    hq)`` read them, ``group`` q heads to a kv head (q head h reads kv
+    head ``h // group``): the one kv head of those heads where they lie in
+    one group, else one kv head for each q head."""
+    if group % hq == 0:
+        return (k.narrow(2, first // group, 1),
+                v.narrow(2, first // group, 1))
+    idx = torch.arange(first, first + hq, device=k.device) // group
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 class MLP(nn.Module):

@@ -18,9 +18,12 @@ of the dims), and turns the mesh axes they give into what torch runs:
   ``gate``/``up`` → rowwise ``down``); every other colwise output is
   gathered (``output_layouts=Replicate()``), every other rowwise layer
   slices its whole input (``input_layouts=Replicate()``, no
-  communication). With the default rules that is Megatron's layout; a
-  table that keeps the kv heads whole gathers q to every head, one that
-  puts ``embed`` over tp runs every projection the other way round. The
+  communication). With the default rules that is Megatron's layout; a tp
+  wider than the kv heads keeps q on each rank's heads and gathers k and v
+  (``KvGathered``: their gradient summed over tp), each q head reading the
+  kv head of its group; a table that keeps the kv heads whole, or a tp
+  that splits q mid-head, gathers q to every head; one that puts ``embed``
+  over tp runs every projection the other way round. The
   LM head's vocab over tp → colwise with its logits gathered, its embed
   dim → rowwise with its logits summed; the embedding table's rows over
   tp → ``VocabParallelTable`` (masked lookup, then an all-reduce), its
@@ -61,15 +64,26 @@ of the dims), and turns the mesh axes they give into what torch runs:
   shards over the rest; the ``MoEMLP`` gathers an expert dim over tp and
   takes its own E/ep experts of an expert dim ep does not split. Its
   attention, router and head take the dense decoder's styles;
+- a layout FSDP2 cannot hold (``fsdp2_refusal``, read off the axes of
+  more than one rank, on one rank off all: axes outside the plan's on two
+  dims of one tensor, flattened out of the mesh's order, or before the
+  plan's on the plan's dim, as T4's head ``("embed", ("fsdp", "tp"))``;
+  an expert dim over ``("tp", "ep")``) →
+  the parameter is a DTensor on the root mesh's submesh of its axes,
+  ``Shard`` or ``_StridedShard`` so that each rank holds the block of the
+  reference's device at the same mesh coordinate (``hold_gathered``),
+  left out of FSDP2 and gathered by its owner module before each forward
+  to what the module reads (the whole tensor, or the plan's block of it);
+  the gather's backward reduce-scatters the gradient over those axes;
 - ``sp``: the model gets the sp group, over which its attention runs
   (ring or Ulysses) and the train step sums the gradients that FSDP2 has
   not summed.
 
-What stays refused: ``pp`` > 1 for a sequential model, the MoE decoder
-with sp and ep together (``shard_model``), and two layouts FSDP2 cannot
-hold (``fsdp_shards``): axes of more than one rank on two dims of one
-tensor, or flattened out of the mesh's order; and an expert dim over
-``("tp", "ep")`` in that order (``_distribute_experts``).
+What stays refused is what the reference refuses: ``pp`` > 1 for a
+sequential model (the pipelined decoder is ``parallel/pipeline.py``'s),
+the MoE decoder with sp and ep together (the reference fails to lower it;
+``shard_model``), and a dim its mesh axes do not divide
+(``check_tensor_parallel``, ``check_divisible``).
 """
 
 from __future__ import annotations
@@ -81,8 +95,9 @@ import torch
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.fsdp import fully_shard
-from torch.distributed.tensor import (DTensor, Replicate, Shard,
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
                                       distribute_tensor)
+from torch.distributed.tensor.placement_types import _StridedShard
 from torch.distributed.tensor.parallel import (ColwiseParallel, ParallelStyle,
                                                RowwiseParallel,
                                                parallelize_module)
@@ -318,21 +333,14 @@ def check_tensor_parallel(cfg, tp: int,
     """Raise unless ``cfg`` runs under the tensor-parallel plan that
     ``rules`` imply over ``tp`` ranks, naming the knob: each of the heads,
     the kv heads, the MLP width and the vocab that the rules split over tp
-    a multiple of tp (as the reference refuses a dim its mesh axes do not
-    divide), and where the attention runs on each rank's heads (q and k/v
-    both split on heads) whole heads and whole GQA groups on each rank. A
-    width the rules leave whole is not checked; the model's ``dim``, where
-    the rules put it over tp, is checked from the placements
-    (``check_divisible`` in ``shard_model``). A tied head and quantized
-    projections run under any tp (``tied_logits``, ``Dense``)."""
+    a multiple of tp, as the reference refuses a dim its mesh axes do not
+    divide (a tp wider than the kv heads, or than the heads, is no refusal:
+    ``tp_plan`` gathers what each rank's heads read). A width the rules
+    leave whole is not checked; the model's ``dim``, where the rules put it
+    over tp, is checked from the placements (``check_divisible`` in
+    ``shard_model``). A tied head and quantized projections run under any
+    tp (``tied_logits``, ``Dense``)."""
     dim = _decoder_tp_dim(cfg, rules)
-    if dim("attn.wq.weight") == dim("attn.wk.weight") == 0:
-        for knob in ("n_heads", "n_kv_heads"):
-            if getattr(cfg, knob) % tp:
-                raise ValueError(
-                    f"{knob} ({getattr(cfg, knob)}) is not divisible by the "
-                    f"mesh's tp ({tp}): the attention runs on each rank's "
-                    "heads, whole GQA groups of them")
     hd = cfg.dim // cfg.n_heads
     # (knob, a parameter that carries it, the dim, that dim's size)
     mlp = ("moe.gate", 2) if _is_moe(cfg) else ("mlp.gate.weight", 0)
@@ -350,6 +358,42 @@ def check_tensor_parallel(cfg, tp: int,
                 f"is equal to {size}")
 
 
+class KvGathered(ColwiseParallel):
+    """``ColwiseParallel`` with its output gathered over tp for k or v
+    that each rank reads with its own q heads (``tp_plan``'s heads split
+    where tp does not divide the kv heads): the gathered tensor's gradient
+    is a partial sum over tp (each rank's q heads give their part), so its
+    local view is taken with ``grad_placements=[Partial()]`` and the
+    backward reduce-scatters it (the plain style's ``to_local()`` would
+    call it replicated and keep one rank's part)."""
+
+    def __init__(self):
+        super().__init__(output_layouts=Replicate())
+
+    @staticmethod
+    def _prepare_output_fn(output_layouts, use_local_output, mod, outputs,
+                           device_mesh):
+        return outputs.redistribute(placements=output_layouts).to_local(
+            grad_placements=[Partial()])
+
+
+def attention_split(cfg, tp: int,
+                    rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES) -> str:
+    """How the attention runs under the plan over ``tp`` ranks: ``"heads"``
+    (q, k and v split on heads, whole GQA groups on each rank: tp divides
+    the kv heads), ``"q_heads"`` (q on each rank's heads, k and v gathered:
+    tp divides the heads, not the kv heads; each q head then reads the kv
+    head of its group, ``Attention.forward``) or ``"whole"`` (every rank
+    runs every head: the rules keep q or k and v off the heads' tp, or tp
+    splits q mid-head)."""
+    dim = _decoder_tp_dim(cfg, rules)
+    if not dim("attn.wq.weight") == dim("attn.wk.weight") == 0:
+        return "whole"
+    if cfg.n_kv_heads % tp == 0:
+        return "heads"
+    return "q_heads" if cfg.n_heads % tp == 0 else "whole"
+
+
 def tp_plan(cfg, tp: int = 1,
             rules: Sequence[Tuple[str, Any]] = DEFAULT_RULES
             ) -> Dict[str, ParallelStyle]:
@@ -357,10 +401,11 @@ def tp_plan(cfg, tp: int = 1,
     (or, for a ``MoEConfig``, an ``MoETransformer``) of ``cfg`` over ``tp``
     ranks: module name ("" is the root) → style, each projection's from
     where tp falls on its weight (``_dense_style``), by the pair-or-gather
-    rule: ``wq``/``wk``/``wv`` colwise keep their head shards only when all
-    three are split on heads (the attention then runs on each rank's heads,
-    whole GQA groups of them, and ``wo`` is rowwise on that shard); the
-    ``gate``/``up`` → ``down`` pair likewise; every other colwise output is
+    rule: ``wq``/``wk``/``wv`` colwise keep their head shards where the
+    attention runs on each rank's heads (``attention_split`` "heads"; with
+    "q_heads" ``wq`` keeps its shard and ``wk``/``wv`` are gathered,
+    ``KvGathered``), and ``wo`` is rowwise on that shard; the ``gate``/
+    ``up`` → ``down`` pair likewise; every other colwise output is
     gathered, every other rowwise layer slices its whole input. With the
     default rules: ``wq``/``wk``/``wv``/``gate``/``up`` colwise, ``wo``/
     ``down`` rowwise, ``lm_head`` colwise over the vocab with its logits
@@ -378,14 +423,16 @@ def tp_plan(cfg, tp: int = 1,
     if table is not None:
         plan[""] = VocabParallelTable() if table == 0 \
             else EmbedParallelTable()
-    paired = {"attn": dim("attn.wq.weight") == dim("attn.wk.weight") == 0,
-              "mlp": dim("mlp.gate.weight") == 0}
+    split = attention_split(cfg, tp, rules)
+    paired = {"attn": split != "whole", "mlp": dim("mlp.gate.weight") == 0}
     for i in range(cfg.n_layers):
         for sub, names in _MODULE_OF.items():
             if moe and sub != "attn":
                 continue
             for n in names:
                 style = _dense_style(dim(f"{sub}.{n}.weight"), paired[sub])
+                if split == "q_heads" and n in ("wk", "wv"):
+                    style = KvGathered()
                 if style is not None:
                     plan[f"layers.{i}.{sub}.{n}"] = style
         style = _dense_style(dim("moe.router.weight"), False)
@@ -549,52 +596,206 @@ class FsdpShard(NamedTuple):
         return ("dp",) * self.hsdp + self.axes
 
 
+def fsdp2_refusal(model: nn.Module, name: str,
+                  dims: Sequence[Tuple[str, ...]], sizes: Mapping[str, int],
+                  laid=plan_laid) -> Union[str, None]:
+    """Why FSDP2 cannot hold parameter ``name`` laid out on ``dims`` (its
+    placement's mesh axes per dim) beside the plan's axes (``laid``), or
+    None: axes outside the plan's on two dims (FSDP2 shards one dim),
+    flattened out of the mesh's order (a process group numbers its ranks
+    in ascending order), or before the plan's on the plan's dim (FSDP2
+    shards the plan's shard, so the plan's axes come first: T4's head,
+    ``("embed", ("fsdp", "tp"))``, would be laid tp-major where the
+    reference lays it fsdp-major); or the plan's axes on one dim against
+    the mesh's order (an expert dim over ``("tp", "ep")``: the experts
+    shard ep before tp). Read off the axes of more than one rank (one of
+    one rank lays nothing, so FSDP2 holds every layout whose wide axes it
+    can); on a mesh of one rank off all of them, so that a world of one
+    rank runs the code the table takes at scale (its gathers move
+    nothing)."""
+    if math.prod(sizes.values()) > 1:
+        dims = [tuple(a for a in axes if sizes[a] > 1) for axes in dims]
+    plan = [tuple(a for a in axes if laid(model, name, a, d))
+            for d, axes in enumerate(dims)]
+    own = {d: tuple(a for a in axes if a not in plan[d])
+           for d, axes in enumerate(dims)}
+    own = {d: axes for d, axes in own.items() if axes}
+    if len(own) > 1:
+        return (f"its dimensions {sorted(own)} over "
+                f"{[own[d] for d in sorted(own)]}: FSDP2 shards one "
+                "dimension of a tensor")
+    for d, axes in enumerate(dims):
+        for these in (own.get(d, ()), plan[d]):
+            if list(these) != sorted(these, key=MESH_AXES.index):
+                return (f"its dimension {d} over {these}, out of the mesh's "
+                        f"order {MESH_AXES}: a process group numbers its "
+                        "ranks in ascending order")
+        if d in own and plan[d] and \
+                axes.index(own[d][0]) < axes.index(plan[d][-1]):
+            return (f"its dimension {d} over {axes}: FSDP2 shards the "
+                    f"plan's shard, so it lays {plan[d]} first")
+    return None
+
+
 def fsdp_shards(model: nn.Module, placements: Mapping[str, Placement],
-                sizes: Mapping[str, int], laid=plan_laid
+                sizes: Mapping[str, int], laid=plan_laid,
+                gathered: Sequence[str] = ()
                 ) -> Dict[str, Union[FsdpShard, None]]:
     """Per parameter: where FSDP2 holds it, from its placement. The axes a
     dim names outside the plan's (``laid(model, name, axis, dim)``) are
     the parameter's shard axes, one axis or several flattened in the
     rules' order, taken also where each has size 1 (FSDP2 then holds the
     whole tensor, so that a world of one rank runs the code a larger one
-    does; axes of size 1 on a second dim lay nothing and are left out);
-    ``dp`` replicates it (HSDP) where its placement does not name dp.
-    None where no such axis is named: the parameter stays whole, FSDP2
-    leaves it alone and the train step reduces its gradient
-    (``parallel/grad_sync.py``).
-
-    ``NotImplementedError`` for a layout FSDP2 cannot hold: axes of more
-    than one rank on two dims of one tensor (FSDP2 shards one dim), or
-    axes of more than one rank flattened out of the mesh's order (a
-    process group numbers its ranks in ascending order, so such a dim
-    would hold each shard on another rank than the reference's)."""
+    does); of several dims, the one with an axis of more than one rank, or
+    else the one with the mesh's first axis (alike for every weight of a
+    module: the experts' ``gate`` and ``down`` name one table's axes on
+    their dims the other way round); ``dp`` replicates it (HSDP) where its
+    placement does not name dp. None where no such axis is named (the
+    parameter stays whole, FSDP2 leaves it alone and the train step
+    reduces its gradient, ``parallel/grad_sync.py``) and for the names of
+    ``gathered``, what FSDP2 cannot hold (``fsdp2_refusal``,
+    ``hold_gathered``)."""
     out: Dict[str, Union[FsdpShard, None]] = {}
     for name, _ in model.named_parameters():
         dims = placements[name].dims
         own = {d: tuple(a for a in axes if not laid(model, name, a, d))
                for d, axes in enumerate(dims)}
         own = {d: axes for d, axes in own.items() if axes}
-        if not own:
+        if name in gathered or not own:
             out[name] = None
             continue
         wide = [d for d, axes in own.items()
                 if any(sizes[a] > 1 for a in axes)]
-        if len(wide) > 1:
-            raise NotImplementedError(
-                f"{name}: the rules lay its dimensions {wide} over "
-                f"{[own[d] for d in wide]}: FSDP2 shards one dimension of "
-                "a tensor")
+        if len(own) > 1 and not wide:
+            out[name] = None
+            continue
         d = wide[0] if wide else min(own)
-        big = [a for a in own[d] if sizes[a] > 1]
-        if big != sorted(big, key=MESH_AXES.index):
-            raise NotImplementedError(
-                f"{name}: the rules lay its dimension {d} over {own[d]}, "
-                f"out of the mesh's order {MESH_AXES}: a process group "
-                "numbers its ranks in ascending order")
         named = {a for axes in dims for a in axes}
         out[name] = FsdpShard(d, own[d], sizes["dp"] > 1
                               and "dp" not in named)
     return out
+
+
+class _Gathered(NamedTuple):
+    """How the owner of a parameter that ``hold_gathered`` holds makes the
+    tensor its code reads: the whole tensor, whose gradient is reduced per
+    mesh dim of the held DTensor by ``grads`` (``Partial``: its ranks read
+    the tensor each their own way), then the block of ``use_mesh`` and
+    ``use_placements`` (the plan's DTensor, or None: the whole tensor)."""
+    grads: Tuple[Partial, ...]
+    use_mesh: Union[DeviceMesh, None]
+    use_placements: Tuple[Any, ...]
+
+
+def _use(p: DTensor, how: _Gathered) -> torch.Tensor:
+    """``p`` (held) as its owner reads it: gathered whole (its backward
+    reduce-scatters the gradient back to ``p``'s blocks; on a mesh of one
+    rank the local tensor is the whole), then the plan's block of it
+    (narrowed; its gradient zero elsewhere, so the sum over a plan axis is
+    the block owner's own)."""
+    x = p.to_local() if p.device_mesh.size() == 1 else p.redistribute(
+        placements=[Replicate()] * len(how.grads)).to_local(
+            grad_placements=how.grads)
+    if how.use_mesh is None:
+        return x
+    for i, on in enumerate(how.use_placements):
+        if isinstance(on, Shard):
+            n = x.shape[on.dim] // how.use_mesh.size(i)
+            x = x.narrow(on.dim, how.use_mesh.get_local_rank(i) * n, n)
+    return DTensor.from_local(x, how.use_mesh, how.use_placements,
+                              run_check=False)
+
+
+def _gather_in(module: nn.Module, args) -> None:
+    module._held = {}
+    for leaf, how in module._gathered.items():
+        module._held[leaf] = p = module._parameters[leaf]
+        module._parameters[leaf] = _use(p, how)
+
+
+def _gather_out(module: nn.Module, args, out) -> None:
+    module._parameters.update(module._held)
+    module._held = {}
+
+
+def _gathered_placements(dims: Sequence[Tuple[str, ...]],
+                        sizes: Mapping[str, int]) -> Tuple[Any, ...]:
+    """A parameter's placements on the mesh of its axes in the mesh's order
+    (``dims``: its axes per dim, major first): ``Shard`` on the dim of
+    each axis, ``_StridedShard`` where the dim's axes run against the
+    mesh's order (a DTensor shards a dim over its mesh dims in their order:
+    an axis whose dim names larger axes later in the mesh before it is
+    split into their product of strided pieces first), so that each rank
+    holds the block of the reference's device at the same mesh
+    coordinate."""
+    pos = {a: (d, axes) for d, axes in enumerate(dims) for a in axes}
+    out = []
+    for a in sorted(pos, key=MESH_AXES.index):
+        d, axes = pos[a]
+        split = math.prod(sizes[b] for b in axes[:axes.index(a)]
+                          if MESH_AXES.index(b) > MESH_AXES.index(a))
+        out.append(_StridedShard(d, split_factor=split) if split > 1
+                   else Shard(d))
+    return tuple(out)
+
+
+def hold_gathered(model: nn.Module, mesh: DeviceMesh,
+                  placements: Mapping[str, Placement],
+                  names: Sequence[str]) -> Dict[str, Tuple[str, ...]]:
+    """Hold each parameter of ``names`` (those FSDP2 cannot hold:
+    ``fsdp2_refusal``) as a DTensor on the root mesh's submesh of its
+    placement's axes (``DeviceMesh._concatenate`` of the one-axis meshes,
+    in the mesh's order), placed by ``_gathered_placements``: each rank
+    holds the block of the reference's device at the same mesh coordinate.
+    FSDP2 leaves it alone; its owner module gathers it before each forward
+    (``install_gathers``) to the whole tensor, then the plan's block where
+    the plan lays it (the DTensor the plan made of it). The gather's
+    backward reduce-scatters the gradient over each of its axes: the mean
+    over those outside the plan's (``plan_laid``), the sum over sp (whose
+    ranks each hold a share of one loss) and the plan's. Returns the axes
+    outside the plan's per parameter, for ``reduced_by_fsdp``."""
+    sizes = mesh_shape(mesh)
+    meshes: Dict[Tuple[str, ...], DeviceMesh] = {}
+    reduced = {}
+    for name in names:
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner) if owner else model
+        p = getattr(mod, leaf)
+        dims = placements[name].dims
+        order = [(a, d) for d, axes in enumerate(dims) for a in axes]
+        axes = tuple(sorted((a for a, _ in order), key=MESH_AXES.index))
+        if axes not in meshes:
+            meshes[axes] = mesh[axes[0]] if len(axes) == 1 else \
+                DeviceMesh._concatenate([mesh[a] for a in axes])
+        plan = {a for a, d in order if plan_laid(model, name, a, d)}
+        whole = (torch.empty(p.shape, dtype=p.dtype, device="meta")
+                 if p.is_meta else p.full_tensor()
+                 if isinstance(p, DTensor) else p.data)
+        mod.register_parameter(leaf, nn.Parameter(
+            distribute_tensor(whole, meshes[axes],
+                              _gathered_placements(dims, sizes),
+                              src_data_rank=None),
+            requires_grad=p.requires_grad))
+        if not hasattr(mod, "_gathered"):
+            mod._gathered = {}
+        mod._gathered[leaf] = _Gathered(
+            tuple(Partial("avg" if a not in plan and a != "sp" else "sum")
+                  for a in axes),
+            *((p.device_mesh, p.placements) if isinstance(p, DTensor)
+              else (None, ())))
+        reduced[name] = tuple(a for a in axes if a not in plan)
+    return reduced
+
+
+def install_gathers(model: nn.Module) -> None:
+    """The forward hooks that swap each gathered parameter (``_gathered``,
+    ``hold_gathered``) for the tensor its owner reads, and back after the
+    forward. Installed after FSDP2's, so that the root's lazy init sees
+    the parameters."""
+    for mod in model.modules():
+        if getattr(mod, "_gathered", None):
+            mod.register_forward_pre_hook(_gather_in)
+            mod.register_forward_hook(_gather_out, always_call=True)
 
 
 def _fsdp_mesh(mesh: DeviceMesh, axes: Tuple[str, ...],
@@ -612,7 +813,9 @@ def _fsdp_mesh(mesh: DeviceMesh, axes: Tuple[str, ...],
 def fully_shard_placed(model: nn.Module, mesh: DeviceMesh,
                        shards: Mapping[str, Union[FsdpShard, None]],
                        units: Sequence[Tuple[str, nn.Module]],
-                       summed: Sequence[str] = ()) -> None:
+                       summed: Sequence[str] = (),
+                       gathered: Mapping[str, Tuple[str, ...]] = {}
+                       ) -> None:
     """FSDP2 on each ``(name, module)`` of ``units`` that holds a sharded
     parameter, then on ``model``, each parameter on the mesh of its
     ``shards`` entry, the whole ones left out. FSDP2 takes one mesh per
@@ -620,11 +823,13 @@ def fully_shard_placed(model: nn.Module, mesh: DeviceMesh,
     group of its own parameters (the root's table) or else the largest,
     and each other group goes to ``fully_shard`` on the modules that own
     its parameters (a norm under ``("norm", "tp")``, the experts under a
-    table that lays them apart from the attention). FSDP2 averages a
-    gradient over its mesh; over an axis of ``summed`` (sp, whose ranks
-    each hold a share of one loss) the unit's divide factor leaves that
-    axis out, so the gradient is summed there. Records on ``model``
-    ``reduced_by_fsdp``: per parameter, the mesh axes FSDP2 reduces its
+    table that lays them apart from the attention), after their
+    submodules on yet another mesh (a router beside the experts). FSDP2
+    averages a gradient over its mesh; over an axis of ``summed`` (sp,
+    whose ranks each hold a share of one loss) the unit's divide factor
+    leaves that axis out, so the gradient is summed there. Records on ``model``
+    ``reduced_by_fsdp``: per parameter, the mesh axes FSDP2 (or, for a
+    parameter of ``gathered``, its gather: ``hold_gathered``) reduces its
     gradient over, read by ``grad_sync``."""
     sizes = mesh_shape(mesh)
     meshes: Dict[Any, DeviceMesh] = {}
@@ -660,31 +865,39 @@ def fully_shard_placed(model: nn.Module, mesh: DeviceMesh,
                 groups.setdefault(key(n), []).append(n)
         own = {key(pre + n) for n, _ in unit.named_parameters(recurse=False)
                } - {None}
-        if len(own) > 1:
-            raise NotImplementedError(
-                f"{prefix or type(model).__name__}: its own parameters on "
-                f"the meshes {sorted(own)}: FSDP2 takes one mesh a module")
+        assert len(own) <= 1, (prefix, own)
         main = own.pop() if own else max(groups, key=lambda k: len(groups[k]),
                                          default=None)
         claimed: set = set()
-        owners = sorted({n.rpartition(".")[0] for k, ns in groups.items()
-                         if k != main for n in ns},
-                        key=lambda o: -o.count("."))
-        for owner in owners:
+
+        def place(owner):
+            # FSDP2 on ``owner``, after its submodules that own parameters
+            # on another mesh than its own parameters (a router beside the
+            # experts), each on the mesh of its own.
             sub = model.get_submodule(owner)
-            held = [f"{owner}.{n}" for n, _ in sub.named_parameters()]
-            ks = {key(n) for n in held if n not in claimed} - {None}
-            if len(ks) > 1:
-                raise NotImplementedError(
-                    f"{owner}: its parameters on the meshes {sorted(ks)}: "
-                    "FSDP2 takes one mesh a module")
+            mine = {key(f"{owner}.{n}")
+                    for n, _ in sub.named_parameters(recurse=False)}
+            inner = {n.rpartition(".")[0] for n, _ in sub.named_parameters(
+                prefix=owner) if n not in claimed and key(n) not in
+                mine | {None}}
+            for o in sorted(inner, key=lambda o: -o.count(".")):
+                place(o)
+            held = [n for n, _ in sub.named_parameters(prefix=owner)
+                    if n not in claimed]
+            ks = {key(n) for n in held} - {None}
+            assert len(ks) == 1, (owner, ks)
             shard(sub, ks.pop())
             claimed.update(held)
+
+        for owner in sorted({n.rpartition(".")[0] for k, ns in groups.items()
+                             if k != main for n in ns},
+                            key=lambda o: -o.count(".")):
+            place(owner)
         if main is not None or unit is model:
             shard(unit, main or (("fsdp",), sizes["dp"] > 1))
         done.update(names)
-    model.reduced_by_fsdp = {n: () if s is None else s.reduced()
-                             for n, s in shards.items()}
+    model.reduced_by_fsdp = {n: gathered.get(n, ()) if s is None
+                             else s.reduced() for n, s in shards.items()}
 
 
 def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
@@ -696,13 +909,12 @@ def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
     dim 1; a table that puts ``embed`` over tp: gate/up dim 1, down dim
     2; ``expert``: dim 0, after ep's), from which the ``MoEMLP`` reads the
     dim tp splits. A weight neither axis lays stays a plain tensor (FSDP2
-    may still shard it). On the meta device nothing is allocated.
-    ``NotImplementedError`` for an expert dim over ``("tp", "ep")`` in
-    that order, both of more than one rank (a DTensor shards the mesh's
-    ep before its tp)."""
+    may still shard it). On the meta device nothing is allocated. An
+    expert dim over ``("tp", "ep")`` is held ep-major here and re-held
+    tp-major by ``hold_gathered``, which gathers it back to this layout
+    before each use."""
     from tony_tpu_torch.models.moe import MoEMLP
 
-    sizes = mesh_shape(mesh)
     for prefix, mod in model.named_modules():
         if not isinstance(mod, MoEMLP):
             continue
@@ -712,11 +924,6 @@ def _distribute_experts(model: nn.Module, mesh: DeviceMesh,
                     if a == "tp" or (a == "ep" and d == 0)}
             if not laid:
                 continue
-            first = [a for a in dims[0] if a in laid]
-            if first == ["tp", "ep"] and sizes["tp"] > 1 < sizes["ep"]:
-                raise NotImplementedError(
-                    f"{prefix}.{name}: the rules lay its expert dim over "
-                    "('tp', 'ep'): the experts shard ep before tp")
             axes = tuple(a for a in ("ep", "tp") if a in laid)
             p = getattr(mod, name)
             mod.register_parameter(name, nn.Parameter(
@@ -735,7 +942,7 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     experts over ``ep`` and ``tp``: ``_distribute_experts``), then FSDP2
     on each ``Block`` / ``MoEBlock`` (each ResNet bottleneck) holding a
     sharded parameter and on the root, each parameter over its shard axes
-    (``fsdp_shards``: every other axis its placement names, on any dim,
+    (``fsdp_shards``: every other axis its placement names, on one dim,
     replicated over dp where it names no dp) and the whole ones left out
     (``fully_shard_placed``); the model's attention gets the ``sp`` group,
     each ``MoEMLP`` the ``ep``, ``tp`` and ``sp`` groups and the batch
@@ -745,15 +952,19 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     f32 (no mixed-precision policy: the projections cast as the
     reference's do). Returns ``param_placements``.
 
+    A parameter FSDP2 cannot hold (``fsdp2_refusal``) is held on the
+    submesh of its axes instead and gathered before use
+    (``hold_gathered``, ``install_gathers``); the attention gets the
+    ``tp`` group, with which a rank's q heads find the kv heads they read
+    where tp is wider than the kv heads.
+
     Refused with ``NotImplementedError`` naming the knob: ``pp`` > 1 (the
     pipelined decoder is ``parallel/pipeline.py``'s, laid out by its
     ``pipeline_shard``), ``sp`` > 1 except for a ``Transformer`` or an
     ``MoETransformer`` with ring or Ulysses attention, ``sp`` > 1 with
     ``ep`` > 1 for the MoE decoder (a layout the reference fails to
-    lower); with the parameter, a layout FSDP2 cannot hold
-    (``fsdp_shards``). ``ValueError`` for a dim that its mesh axes do not
-    divide, in the reference's words (a decoder's over tp: FSDP2 pads the
-    others)."""
+    lower). ``ValueError`` for a dim that its mesh axes do not divide, in
+    the reference's words (a decoder's over tp: FSDP2 pads the others)."""
     from tony_tpu_torch.models.mlp import MnistMLP
     from tony_tpu_torch.models.moe import MoEBlock, MoEMLP, MoETransformer
     from tony_tpu_torch.models.resnet import ResNet, _Bottleneck
@@ -800,17 +1011,22 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
     elif shape["tp"] > 1:
         raise NotImplementedError(
             f"tensor parallelism for {kind}")
-    shards = fsdp_shards(model, placements, shape)
+    gathered = [name for name, pl in placements.items()
+                if fsdp2_refusal(model, name, pl.dims, shape)]
+    shards = fsdp_shards(model, placements, shape, gathered=gathered)
     for key, style in plan.items():
         parallelize_module(model.get_submodule(key), mesh["tp"], style)
     if isinstance(model, MoETransformer):
         _distribute_experts(model, mesh, placements)
+    reduced = hold_gathered(model, mesh, placements, gathered)
     sp_group = mesh["sp"].get_group()
     batch_groups = tuple(mesh[a].get_group() for a in BATCH_AXES
                          if shape[a] > 1)
     for unit in model.modules():
         if isinstance(unit, (Transformer, MoETransformer, Attention)):
             unit.sp_group = sp_group
+        if isinstance(unit, Attention):
+            unit.tp_group = mesh["tp"].get_group()
         elif isinstance(unit, MoEMLP):
             unit.ep_group = mesh["ep"].get_group()
             unit.tp_group = mesh["tp"].get_group()
@@ -818,7 +1034,9 @@ def shard_model(model: nn.Module, mesh: DeviceMesh,
             unit.batch_groups = batch_groups
     units = [(name, unit) for name, unit in model.named_modules()
              if isinstance(unit, (Block, MoEBlock, _Bottleneck))]
-    fully_shard_placed(model, mesh, shards, units, summed=("sp",))
+    fully_shard_placed(model, mesh, shards, units, summed=("sp",),
+                       gathered=reduced)
+    install_gathers(model)
     return placements
 
 
