@@ -4,21 +4,23 @@
     python3 chip_smoke.py          # from the root of the repository
 
 Phases, in order; any failure ends the run with a non-zero exit and no
-result line. Phases 7-11, 13 (b) and 17 (a)-(b) run the flagship's
-earlier paths (and bench's 0.95B point and the MoE decoder) at their full
-width and ``EARLIER_DEPTH`` = 4 layers: their launch counts are per layer
-of that depth, their rates and peak memory are not those of the whole
-model, and their labels say "4 of 16 layers" (24 for the 0.95B point).
-Phases 4, 12, 14-16, 17 (c), 19, 22 and 23 run all 16; phase 18 runs
-ResNet-50 and the MNIST MLP whole:
+result line; each phase's seconds are printed on a line of their own
+(``phase <n> <name>: <s> s``). Phases 7-11, 13 (b), 14-16 and 17 (a)-(b)
+run the flagship's earlier paths (and bench's 0.95B point and the MoE
+decoder) at their full width and ``EARLIER_DEPTH`` = 4 layers: their
+launch counts are per layer of that depth, their rates and peak memory
+are not those of the whole model, and their labels say "4 of 16 layers"
+(24 for the 0.95B point); so does phase 19 (a). Phases 4, 12, 17 (c), 22
+and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
 
 1. the device: a CUDA card must be present; prints ``nvidia-smi``'s name
    and power limit; TF32 off, so the f32 checks are full f32;
 2. the build: compiles the three flash kernels and the convfuse apply
    kernel from ``tony_tpu_torch/csrc`` (one ``nvcc`` each, all at once) and
    prints the seconds it took and each kernel's registers and spills; the
-   bf16 (wgmma) instantiations of the three flash kernels (four of the
-   forward, two each of dq and dk/dv) must report 0 spill bytes;
+   bf16 (wgmma) instantiations of the three flash kernels (eight of the
+   forward: width 64 and 128, o in bf16 or f32, at the width or a
+   narrower head; four each of dq and dk/dv) must report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal; o, lse, dq, dk and dv must
@@ -45,6 +47,29 @@ ResNet-50 and the MNIST MLP whole:
    ``fused_groupnorm_relu``; then a small f32 decoder's and a small f32
    ResNet's loss and gradients on the card against the same weights on the
    CPU;
+3b. the flash kernels at the head_dims other than 64 and 128
+   (``_flash_cuda.route``: bf16 at a multiple of 8 up to 128 on the wgmma
+   kernels at tile width 64 or 128, f32 and bf16 past 128 on the FMA
+   kernels at width 32-256): (a) each kernel against its plain version
+   (the plain forward over the kernel's key tiles) at d = 8, 16, 32, 80,
+   96 and 256 in bf16 (causal GQA B2 S256 H8/2, non-causal B1 S256 H4/4,
+   ragged causal B1 S100 H4/2), at d = 16, 32 and 256 in f32 (causal GQA
+   B1 S200 H4/2) and ``flash_attention_with_lse(out_dtype=f32)`` with an
+   lse cotangent at d = 16 and 96, within phase 3's tolerances, each
+   kernel launched in every case; then each timed beside SDPA and its
+   bound at B4 S2048 causal: H8/4 at d = 8, 16, 32 and 80, Phi-3-mini's
+   H32/32 at 96, Gemma-7B's H16/16 at 256; (b) ``TransformerConfig.tiny()``
+   unwidened (head_dim 16, f32, 2 layers) through ``trainer.build_state``
+   and ``train_step``: 5 AdamW steps under ``attn_impl="flash"``, one
+   under ``"ring"`` and one under ``"ulysses"`` (off any mesh: one rank),
+   from the CPU run's weights, losses within ``TOL_MODEL_REL`` of the
+   CPU's and the flash launches per step as predicted from the layers
+   and remat (2 each); (c) the MoE example's job
+   (``examples/moe/moe_ep.py``): ``MoEConfig.tiny_moe()`` (head_dim 16),
+   Adam 1e-3 (AdamW without decay), ``moe_lm_loss`` with its aux weight,
+   the same tokens (8, 32) for 5 steps at ep = 1, against the CPU within
+   ``TOL_MODEL_REL``, 2 launches of each kernel per step, the last loss
+   below the first;
 4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
    decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
    the kernels; every loss must be finite, the first within 0.5 of
@@ -195,27 +220,29 @@ ResNet-50 and the MNIST MLP whole:
    the measured bubble against (S - 1) / (M + S - 1) = 3/7, each timed by
    CUDA events (the host's launches included) and by the device's kernel
    time (torch.profiler);
-14. surviving failures, the flagship at full width and depth trained by
-   ``python -m tony_tpu_torch.trainer --data <corpus> --steps 300`` (the
-   corpus ``trainer.write_corpus`` makes) as a one-worker ``pytorch`` job,
-   against an uninterrupted in-process ``trainer.train`` of 300 steps on
+14. surviving failures, the flagship at full width and ``EARLIER_DEPTH``
+   layers trained by the trainer's CLI (``CUT_TRAINER``: ``python -m
+   tony_tpu_torch.trainer``'s ``main`` with the flagship's depth cut
+   through ``LM_POINTS``) ``--data <corpus> --steps 600`` (the corpus
+   ``trainer.write_corpus`` makes) as a one-worker ``pytorch`` job,
+   against an uninterrupted in-process ``trainer.train`` of 600 steps on
    the same corpus and seed: (a) the job's coordinator (``python -m
    tony_tpu_torch.coordinator``) is SIGKILLed after the first step and
-   ``python -m tony_tpu_torch.cli recover`` brings it home (a job of 150
+   ``python -m tony_tpu_torch.cli recover`` brings it home (a job of 200
    steps): recover exits 0, the job SUCCEEDED in one journal epoch, the
-   worker's process the same across the outage, 150 finite losses with
-   16 launches of each
+   worker's process the same across the outage, 200 finite losses with
+   4 launches of each
    flash kernel per step (no step ran twice), the first 20 within
    ``TOL_RESUME_REL`` of the uninterrupted run's; the outage (SIGKILL to
    the worker's re-registration) and recover's wall time printed; (b) a
-   job of 350 steps submitted with ``tony.elastic.enabled=true``, a save
+   job of 700 steps submitted with ``tony.elastic.enabled=true``, a save
    interval above its steps and its checkpoints on ``gs://`` (phase 19's
    store, see there), moved by ``python -m
    tony_tpu_torch.cli migrate <app> slice-1`` after step 5 (and its first
    step's save): the CLI exits 0, the journal holds REC_MIGRATE ``start``
    and ``applied`` in its one epoch, the drained trainer's SIGTERM save
    holds step k and the relaunched one restores it and starts at k + 1 (0
-   steps re-run) with 16 launches of each flash kernel per step it runs
+   steps re-run) with 4 launches of each flash kernel per step it runs
    and losses within ``TOL_RESUME_REL`` of the uninterrupted run's same
    steps, the store holding the first, the drain's and the last step and
    nothing of it on local disk; the drain save's bytes and seconds
@@ -226,20 +253,20 @@ ResNet-50 and the MNIST MLP whole:
    restore, no transfer between hosts; (c) ``python -m
    tony_tpu_torch.cli check`` exits 0 on both job dirs;
 15. the GPU host backend and the fleet, the flagship at full width and
-   depth: (a) ``python -m tony_tpu_torch.cli submit`` with
+   ``EARLIER_DEPTH`` layers (``CUT_TRAINER``): (a) ``python -m tony_tpu_torch.cli submit`` with
    ``tony.application.backend=gpu-host``, the fake provisioner and one
    host, the trainer for 10 steps as the worker command: the job
    SUCCEEDED, its task ran under ``<workdir>/fakehost-0/`` with
    ``TONY_HOST_ID`` and ``TONY_HOST_LOCAL_ORDINAL`` set, no
-   ``TPU_WORKER_*`` and the caller's ``CUDA_VISIBLE_DEVICES``, 16 launches
+   ``TPU_WORKER_*`` and the caller's ``CUDA_VISIBLE_DEVICES``, 4 launches
    of each flash kernel per step, ``cli check`` clean on its job dir; its
    ``submit_to_first_step_s`` and phases printed beside phase 12's cold
    local-backend job's, its tokens/s beside phase 4's; (b) ``cli pool
    start --size 1``, then ``cli fleet start --slices 2 --hosts-per-slice
    1`` on that pool, and ``cli fleet submit`` of phase 14 (b)'s elastic
-   job (the same corpus and seed, ``--ckpt-dir``, 150 steps); past step 20
+   job (the same corpus and seed, ``--ckpt-dir``, 300 steps); past step 20
    ``cli fleet migrate <job> 1``: the job FINISHED in one epoch with
-   REC_MIGRATE ``start`` and ``applied``, 0 steps re-run, 16 launches of
+   REC_MIGRATE ``start`` and ``applied``, 0 steps re-run, 4 launches of
    each flash kernel per step, losses within ``TOL_RESUME_REL`` of phase
    14's uninterrupted run's same steps, ``cli check`` clean on the fleet
    dir (the fleet rules, ``fleet-sim-parity`` included), and after ``fleet
@@ -249,17 +276,18 @@ ResNet-50 and the MNIST MLP whole:
    and one ``fleet top`` frame printed. The two "slices" share the one
    card: the move measures drain, save, relaunch and restore;
 16. a live flagship job observed: ``python -m tony_tpu_torch.cli submit``
-   of the trainer (16 layers, 4 x 2048, ``OBS_STEPS`` steps) as a
+   of the trainer (``CUT_TRAINER``: ``EARLIER_DEPTH`` layers, 4 x 2048,
+   ``OBS_STEPS`` steps) as a
    one-worker job on the local backend, and ``cli portal`` serving its
    history root from a subprocess on a free port. While it runs: ``cli top
    <app> --once`` exits 0 and its task row's MFU is within ``TOL_OBS_MFU``
-   (relative) of the MFU (against 989 TFLOP/s) that ``python -m
-   tony_tpu_torch.trainer --model flagship`` reports when run alone just
-   before the job is submitted, its
+   (relative) of the MFU (against 989 TFLOP/s) that the same trainer
+   (``--model flagship``) reports when run alone just before the job is
+   submitted, its
    device memory in use above 0 and at most the card's; ``cli profile
    <app> --steps 3`` exits 0 and prints ``captured:``, the capture lies
    under ``<history>/intermediate/<app>/profile/ondemand-*``, and its
-   Chrome trace holds 16 CUDA kernel events of each flash kernel per
+   Chrome trace holds 4 CUDA kernel events of each flash kernel per
    captured step (by the kernels' function names, ``flagship_kind``); the
    worker's user process is the same, alive, after it; ``cli alerts
    <app>`` exits 0 and prints the live rows (a rule firing on this healthy
@@ -267,7 +295,7 @@ ResNet-50 and the MNIST MLP whole:
    ``/jobs/<app>``, ``/profile/<app>`` (which lists the capture) and
    ``/metrics`` (Prometheus text with the job's series). After it: the
    job SUCCEEDED in one epoch with ``TASK_PROFILED`` (captured) in its
-   history, the trainer's counters say 16 launches of each flash kernel
+   history, the trainer's counters say 4 launches of each flash kernel
    per step, ``/trace/<app>?format=json`` answers 200, ``cli check`` is
    clean on the job dir, and the portal's process is gone once stopped.
    Printed: the capture's wall time (request to ``captured:``), the
@@ -320,15 +348,15 @@ ResNet-50 and the MNIST MLP whole:
 19. checkpoints through the port's object store, ``gs://`` on
    ``FakeGcsStore`` (``TONY_FAKE_GCS_ROOT`` a temporary root, set only in
    this process's environment): (a) ``trainer.train`` of the flagship at
-   full width and depth (16 layers, 4 x 2048), one step (saved,
-   ``max_to_keep`` 1) with ``ckpt_dir="gs://tony-ckpt/flagship"``, then
-   the same with a local directory: no async error, 16 launches of each
-   flash kernel per step, nothing written under the
+   full width and ``EARLIER_DEPTH`` layers (4 x 2048; 16 layers until PR
+   21), one step (saved, ``max_to_keep`` 1) with
+   ``ckpt_dir="gs://tony-ckpt/flagship"``, then the same with a local
+   directory: no async error, 4 launches of each flash kernel per step, nothing written under the
    working directory; each newest step restored into a fresh state bit for
    bit with the trained one (parameters and Adam moments), and the store's
    step bit for bit with the local one; the writer's seconds per step, the
    restore's seconds and the step's bytes printed for both; (b) phase 14
-   (b)'s migration is the store's: its job runs 50 steps longer than the
+   (b)'s migration is the store's: its job runs 100 steps longer than the
    uninterrupted run (the store's first save is slower), with
    ``tony.application.checkpoint-dir=gs://tony-ckpt/migrate`` and no
    ``--ckpt-dir`` in the command (the trainer reads
@@ -518,9 +546,10 @@ PROFILE_STEPS = 3
 # Phases 7-11 drive their paths at the flagship's full width and this
 # depth (its layers; the 0.95B point's too), so that the script stays near
 # 400 s with phases 12 (d) and 13 in it; phase 13 (b)'s pipelined flagship
-# and phase 17 (a)-(b)'s turns too since phase 19, which keeps the script
-# inside its time limit. Phase 4 (the main path) and the submitted jobs
-# keep all 16 layers.
+# and phase 17 (a)-(b)'s turns too since phase 19, and phases 14-16's jobs
+# and phase 19 (a)'s checkpoints since phase 3b, which keeps the script
+# inside its time limit. Phase 4 (the main path) and phase 12's submitted
+# jobs keep all 16 layers.
 EARLIER_DEPTH = 4
 RESNET_BATCH = 256
 # The stem, three norms in each of 16 bottlenecks, four projections.
@@ -591,9 +620,10 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
     # Registers and spills of every kernel (each source's ``ptxas -v`` log in
     # the build directory). The bf16 flash kernels hold their accumulators
-    # in registers: a spill there fails the run. The forward has four bf16
-    # instantiations (head_dim 64/128 x o in bf16/f32), dq and dk/dv two.
-    wgmma_kernels = {"flash_fwd": 4, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    # in registers: a spill there fails the run. The forward has eight bf16
+    # instantiations (width 64/128 x o in bf16/f32 x the exact width or a
+    # narrower head), dq and dk/dv four (width 64/128 x exact or narrower).
+    wgmma_kernels = {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
             text = f.read()
@@ -651,18 +681,20 @@ def rel_err(a, b):
 
 
 def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
-               deterministic=False):
+               deterministic=False, time_plain=True):
     """Kernel against plain version for fwd, dq and dk/dv on one case;
     with ``deterministic``, dq, dk and dv must come out bitwise equal from a
-    second run."""
+    second run; with ``timed``, each kernel timed beside SDPA (and, with
+    ``time_plain``, beside its plain version)."""
     from tony_tpu_torch.ops import _flash_cuda as K
     from tony_tpu_torch.ops import attention as A
 
     q, k, v, do = make_case(b, s, h, hk, d, dtype, seed)
     scale = d ** -0.5
     o, lse = K.flash_fwd(q, k, v, scale, causal)
-    o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, causal, block_q=128,
-                                   block_k=128)
+    tile = fwd_key_tile(d, dtype)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, causal, block_q=tile,
+                                   block_k=tile)
     # The backward kernels and their plain versions get identical inputs.
     delta = (o_p.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     dq = K.flash_bwd_dq(q, k, v, do, lse_p, delta, scale, causal)
@@ -707,18 +739,18 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
         return None
 
     res = time_flash(name, q, k, v, do, lse_p, delta, causal, o)
-    res["flash_fwd"].update(
-        plain_ms=cuda_ms(lambda: A.flash_fwd_plain(
-            q, k, v, scale, causal, block_q=128, block_k=128)),
-        max_abs_err=max(errs["o"], errs["lse"]))
-    res["flash_bwd_dq"].update(
-        plain_ms=cuda_ms(lambda: A.flash_bwd_dq_plain(
-            q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
-        max_abs_err=errs["dq"])
-    res["flash_bwd_dkv"].update(
-        plain_ms=cuda_ms(lambda: A.flash_bwd_dkv_plain(
-            q, k, v, do, lse_p, delta, scale, causal, 128, 128)),
-        max_abs_err=max(errs["dk"], errs["dv"]))
+    res["flash_fwd"]["max_abs_err"] = max(errs["o"], errs["lse"])
+    res["flash_bwd_dq"]["max_abs_err"] = errs["dq"]
+    res["flash_bwd_dkv"]["max_abs_err"] = max(errs["dk"], errs["dv"])
+    if time_plain:
+        res["flash_fwd"]["plain_ms"] = cuda_ms(lambda: A.flash_fwd_plain(
+            q, k, v, scale, causal, block_q=128, block_k=128))
+        res["flash_bwd_dq"]["plain_ms"] = cuda_ms(
+            lambda: A.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, scale,
+                                         causal, 128, 128))
+        res["flash_bwd_dkv"]["plain_ms"] = cuda_ms(
+            lambda: A.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, scale,
+                                          causal, 128, 128))
     log(f"timing ({name}): " + json.dumps(res))
     return res
 
@@ -786,9 +818,9 @@ def check_with_lse(name, b, s, h, hk, d, seed, causal=True):
     the kernels against their plain versions on the card on the same bf16
     inputs: the plain forward, then the plain backward with the delta
     ``_Flash.backward`` folds the lse cotangent into (rowsum(o·do) − dlse,
-    from the plain forward's o and lse). The plain versions run over
-    128-key tiles, as the kernels do, so that the bf16 P of the row sum
-    below head_dim 128 is rounded alike on both."""
+    from the plain forward's o and lse). The plain forward runs over the
+    forward kernel's key tiles, so that the bf16 P of the row sum below
+    head_dim 128 is rounded alike on both."""
     from tony_tpu_torch.ops import attention as A
 
     q, k, v, do = make_case(b, s, h, hk, d, torch.bfloat16, seed)
@@ -799,8 +831,9 @@ def check_with_lse(name, b, s, h, hk, d, seed, causal=True):
     # d sin(lse) / d lse = cos(lse): the lse cotangent.
     loss = (o * do.float()).sum() + torch.sin(lse).sum()
     grads = torch.autograd.grad(loss, leaves)
+    tile = fwd_key_tile(d, torch.bfloat16)
     o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, causal, torch.float32,
-                                   128, 128)
+                                   tile, tile)
     delta = ((o_p * do.float()).sum(-1).transpose(1, 2)
              - torch.cos(lse_p)).contiguous()
     dq_p = A.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, scale, causal,
@@ -870,6 +903,164 @@ def phase_kernels():
     check_with_lse("ring hop B1 S8192 H8/4 D128 full",
                    1, 8192, 8, 4, 128, 11, causal=False)
     return res
+
+
+# Phase 3b: the flash kernels at every head_dim the reference takes up to
+# 256. bf16 at a multiple of 8 up to 128 runs on the wgmma kernels at tile
+# width 64 or 128 (8, 16, 32, 80, 96 here), every other head_dim and every
+# f32 one on the FMA kernels at width 32, 64, 128 or 256 (256 here).
+HD_BF16 = (8, 16, 32, 80, 96, 256)
+HD_F32 = (16, 32, 256)
+HD_OUT_F32 = (16, 96)
+# Timed at B4 S2048 causal: the flagship's heads (H8/4) at the narrow
+# head_dims, Phi-3-mini's H32/32 at 96 and Gemma-7B's H16/16 at 256.
+HD_TIMED = {8: (8, 4), 16: (8, 4), 32: (8, 4), 80: (8, 4), 96: (32, 32),
+            256: (16, 16)}
+HD_STEPS = 5
+
+
+def fwd_key_tile(d, dtype):
+    """The key tile of the forward kernel ``d`` routes to: the plain version
+    runs over the same tiles, so that P is rounded against the same running
+    max (``TOL_BF16_LSE_MEAN``)."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    return K.FWD_KEY_TILE[K.route(d, dtype)[0]]
+
+
+def head_dim_cases(card):
+    """(a) Each kernel against its plain version at every new head_dim,
+    with the launch counts, then timed."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    def counted(label, d, dtype, fn):
+        K.reset_launch_counts()
+        fn()
+        counts = dict(K.launch_counts)
+        family, width = K.route(d, dtype)
+        log(f"head_dims (a) {label}: {family} kernels at width {width}, "
+            f"launches {json.dumps(counts)}")
+        check(all(n >= 1 for n in counts.values()),
+              f"{label}: a kernel did not run: {counts}")
+
+    for d in HD_BF16:
+        for label, (b, s, h, hk, causal) in (
+                ("causal GQA", (2, 256, 8, 2, True)),
+                ("non-causal", (1, 256, 4, 4, False)),
+                ("ragged causal", (1, 100, 4, 2, True))):
+            name = f"head_dims bf16 D{d} {label} B{b} S{s} H{h}/{hk}"
+            counted(name, d, torch.bfloat16, functools.partial(
+                check_case, name, b, s, h, hk, d, torch.bfloat16, causal,
+                100 + d))
+    for d in HD_F32:
+        name = f"head_dims f32 D{d} causal GQA B1 S200 H4/2"
+        counted(name, d, torch.float32, functools.partial(
+            check_case, name, 1, 200, 4, 2, d, torch.float32, True, 300 + d))
+    for d in HD_OUT_F32:
+        name = f"head_dims D{d} B1 S200 H4/2"
+        counted(f"with_lse {name}", d, torch.bfloat16, functools.partial(
+            check_with_lse, name, 1, 200, 4, 2, d, 400 + d))
+    timing = {n: {} for n in K.KERNELS}
+    for d, (h, hk) in HD_TIMED.items():
+        res = check_case(f"head_dims bf16 B4 S2048 H{h}/{hk} D{d} causal",
+                         4, 2048, h, hk, d, torch.bfloat16, True, 500 + d,
+                         timed=True, time_plain=False)
+        for n, r in res.items():
+            timing[n][str(d)] = {k: r[k] for k in (
+                "ms", "bound_ms", "bound_by", "library_ms", "tflops",
+                "max_abs_err")}
+            timing[n][str(d)]["heads"] = f"H{h}/{hk}"
+    log(f"head_dims (a) timing at B4 S2048 causal: {json.dumps(timing)}; "
+        f"{card}")
+    return timing
+
+
+def tiny_train(label, cfg, state_of, tokens, steps):
+    """``steps`` of ``train_step`` on the CPU (the plain versions) and then
+    on the card (the kernels), from the same weights: (losses by device,
+    the card's flash launches)."""
+    from tony_tpu_torch.ops import _flash_cuda
+    from tony_tpu_torch.parallel import train_step
+
+    cpu = state_of("cpu")
+    gpu = state_of("cuda")
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    losses = {}
+    for state, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        _flash_cuda.reset_launch_counts()
+        tok = tokens.to(dev)
+        losses[dev] = [train_step(state, {"tokens": tok})["loss"].item()
+                       for _ in range(steps)]
+    counts = dict(_flash_cuda.launch_counts)
+    rel = max_rel(losses["cuda"], losses["cpu"])
+    log(f"head_dims {label}: losses card {losses['cuda']} cpu "
+        f"{losses['cpu']} (max rel {rel:.3e}); card launches "
+        f"{json.dumps(counts)}")
+    check(all(math.isfinite(x) for x in losses["cuda"]),
+          f"{label}: non-finite loss")
+    check(rel <= TOL_MODEL_REL, f"{label}: losses differ by {rel}")
+    return losses, counts
+
+
+def phase_head_dims(card):
+    """Phase 3b: (a) the kernels at every head_dim; (b) the reference's tiny
+    decoder (head_dim 16, unwidened) trained through them under flash, ring
+    and Ulysses; (c) the MoE example's job (``examples/moe/moe_ep.py``:
+    ``tiny_moe``, Adam 1e-3, tokens (8, 32)) at ep = 1."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.models.moe import MoEConfig
+    from tony_tpu_torch.models.transformer import TransformerConfig
+    from tony_tpu_torch.parallel import adamw
+
+    t0 = time.perf_counter()
+    timing = head_dim_cases(card)
+    log(f"head_dims (a): {time.perf_counter() - t0:.1f} s")
+
+    # (b) Predicted launches: 2 layers, remat off, so each kernel runs once
+    # per layer and step (the ring's one diagonal hop included).
+    t1 = time.perf_counter()
+    cfg = TransformerConfig.tiny()
+    check(cfg.dim // cfg.n_heads == 16, "the tiny decoder is not at "
+          "head_dim 16")
+    per_step = flash_launches_per_step(cfg)
+    log(f"head_dims (b) TransformerConfig.tiny() (dim {cfg.dim}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim 16, "
+        f"{cfg.n_layers} layers, remat {cfg.remat}): predicted flash "
+        f"launches per step {json.dumps(per_step)}")
+    tokens = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (4, cfg.max_seq_len)))
+    for impl, steps in (("flash", HD_STEPS), ("ring", 1), ("ulysses", 1)):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        _, counts = tiny_train(
+            f"(b) tiny decoder {impl}, {steps} AdamW steps", c,
+            lambda dev: trainer.build_state(c, device=dev, seed=0), tokens,
+            steps)
+        for name, n in per_step.items():
+            check(counts[name] == n * steps, f"tiny {impl}: {name} "
+                  f"launched {counts[name]} times, expected {n * steps}")
+    log(f"head_dims (b): {time.perf_counter() - t1:.1f} s")
+
+    # (c) moe_ep.py: tiny_moe, optax.adam(1e-3) (AdamW without decay), the
+    # loss moe_lm_loss with aux_loss_weight, the same tokens every step.
+    t1 = time.perf_counter()
+    mcfg = MoEConfig.tiny_moe()
+
+    def moe_state(dev):
+        state = trainer.build_state(mcfg, device=dev, seed=0)
+        state.optimizer = adamw(state.model.parameters(), 1e-3,
+                                weight_decay=0.0)
+        return state
+    tokens = torch.from_numpy(np.random.default_rng(36).integers(
+        0, mcfg.vocab_size, (8, 32)))
+    losses, counts = tiny_train(
+        f"(c) moe_ep.py tiny_moe ep=1, {HD_STEPS} Adam steps", mcfg,
+        moe_state, tokens, HD_STEPS)
+    check_flash_counts("tiny_moe", counts, mcfg.n_layers * HD_STEPS)
+    check(losses["cuda"][-1] < losses["cuda"][0],
+          f"tiny_moe: loss did not decrease: {losses['cuda']}")
+    log(f"head_dims (c): {time.perf_counter() - t1:.1f} s")
+    log(f"head_dims: {time.perf_counter() - t0:.1f} s; {card}")
+    return timing
 
 
 def phase_small_model():
@@ -2858,13 +3049,50 @@ def phase_pipeline(in_process, card):
     return runs
 
 
+# Phases 14-16 submit the flagship at full width and ``EARLIER_DEPTH``
+# layers (~31 ms a step on an H100 80GB HBM3 at 700 W, ~1.4 GiB of
+# checkpoint, against ~83 ms and 3.5 GiB at 16): each job's command runs
+# ``CUT_TRAINER``, the trainer's CLI with the flagship's depth cut through
+# ``LM_POINTS`` (as phase 21 (b) cuts Llama's), written into the phase's
+# temporary directory; a step of those jobs launches each flash kernel
+# ``EARLIER_DEPTH`` times.
+CUT_TRAINER = """import faulthandler
+import signal
+
+# SIGUSR1 prints every thread's stack (chip_smoke.until_drained).
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+
+import dataclasses
+import sys
+
+from tony_tpu_torch import trainer
+
+config, *rest = trainer.LM_POINTS["flagship"]
+trainer.LM_POINTS["flagship"] = (
+    lambda seq, matmul_dtype=None: dataclasses.replace(
+        config(seq, matmul_dtype), n_layers=%d), *rest)
+sys.exit(trainer.main())
+""" % EARLIER_DEPTH
+
+
+def cut_trainer(tmp):
+    """The command that runs the trainer's CLI on the cut flagship (see
+    ``CUT_TRAINER``), its launcher written into ``tmp``."""
+    path = os.path.join(tmp, "cut_trainer.py")
+    with open(path, "w") as f:
+        f.write(CUT_TRAINER)
+    return f"{sys.executable} {path}"
+
+
 # Phase 14: surviving failures on the card.
-# ~26 s of flagship steps at phase 4's ~85 ms: (a) outlives the outage,
-# and (b) still runs when the migration lands, after the first step's
-# save (~12 s of the writer) is durable.
-FAIL_STEPS = 300
-# (a)'s job: it outlives the outage (~1 s) by ~12 s of steps.
-RECOVER_STEPS = 150
+# ~19 s of steps of the cut flagship: (a) outlives the outage, and (b)
+# still runs when the migration lands, after the first step's save (~5 s
+# of the store's writer at 4 layers) is durable: the drain landed at steps
+# 182, 206 and 297 (16 layers' at 176-258 of 300; NVIDIA H100 80GB HBM3,
+# 700 W), and lands later on a slower host.
+FAIL_STEPS = 600
+# (a)'s job: it outlives the outage (~1 s) by ~6 s of steps.
+RECOVER_STEPS = 200
 FAIL_MIGRATE_AT = 5       # migrate once the job reports this many steps
 # Above FAIL_STEPS: the interval policy saves the first step only, so the
 # drain's save is the one that carries the state across the move.
@@ -2873,14 +3101,13 @@ FAIL_SAVE_EVERY = 10_000
 # save of the flagship's ~3.8 GB is printed against it.
 FAIL_DRAIN_GRACE_S = 60
 FAIL_TIMEOUT_S = 600
-# (b)'s checkpoints go to the object store (phase 19). Its first save
-# takes ~12-20 s (a local one ~10-13) while the job trains on, and the move
-# waits for it: 50 steps more than the uninterrupted run, so that the
-# drain lands well before the end (it landed at steps 182-258 on an H100
-# 80GB HBM3 at 700 W). The uninterrupted losses hold its first 300.
+# (b)'s checkpoints go to the object store (phase 19). Its first save is
+# slower than a local one while the job trains on, and the move waits for
+# it: 100 steps more than the uninterrupted run, so that the drain lands
+# well before the end. The uninterrupted losses hold its first
+# FAIL_STEPS.
 STORE_MIGRATE_URL = "gs://tony-ckpt/migrate"
-MIGRATE_STEPS = FAIL_STEPS + 50
-TRAINER = f"{sys.executable} -m tony_tpu_torch.trainer"
+MIGRATE_STEPS = FAIL_STEPS + 100
 
 
 def failure_conf(hist, command, extra=()):
@@ -2970,33 +3197,75 @@ def first_after(records, index, kind):
                 None)
 
 
-def kill_app(app):
-    """SIGKILL every process whose environment carries the job's id (its
-    executors and user processes) — the clean-up of a failed drill."""
-    import signal
-
+def app_pids(app):
+    """(pid, argv) of every process whose environment carries the job's id
+    (its executors and user processes)."""
     needle = f"TONY_APP_ID={app}\0".encode()
+    found = []
     for pid in os.listdir("/proc"):
         if not pid.isdigit() or int(pid) == os.getpid():
             continue
         try:
             with open(f"/proc/{pid}/environ", "rb") as f:
                 if needle in f.read() + b"\0":
-                    os.kill(int(pid), signal.SIGKILL)
+                    with open(f"/proc/{pid}/cmdline", "rb") as c:
+                        found.append((int(pid), c.read().split(b"\0")))
+        except OSError:
+            continue
+    return found
+
+
+def kill_app(app):
+    """SIGKILL the job's processes — the clean-up of a failed drill."""
+    import signal
+
+    for pid, _ in app_pids(app):
+        try:
+            os.kill(pid, signal.SIGKILL)
         except OSError:
             continue
 
 
+def until_drained(landed, app, requested):
+    """``landed`` as a poll's test. The trainers running when the move was
+    asked for print every thread's stack (SIGUSR1, ``CUT_TRAINER``) into
+    their stderr, which a failed check shows, if the drain grace is nearly
+    gone without the move."""
+    import signal
+
+    drained = [pid for pid, argv in app_pids(app)
+               if len(argv) > 1 and argv[1].endswith(b"cut_trainer.py")]
+
+    def test():
+        if drained and time.time() - requested > FAIL_DRAIN_GRACE_S - 10:
+            for pid in drained:
+                try:
+                    os.kill(pid, signal.SIGUSR1)
+                except OSError:
+                    pass
+            drained.clear()
+        return landed()
+    return test
+
+
+def drained_log(err_log):
+    """The part of a job's stderr that says why its drain saved nothing:
+    the drained trainer's stacks (``until_drained``) where it printed
+    them, else the log's tail."""
+    at = err_log.rfind("Current thread")
+    return err_log[at:at + 3000] if at >= 0 else err_log[-3000:]
+
+
 def check_job_launches(label, run, steps, total=FAIL_STEPS):
-    """The job's trainer launched 16 of each flash kernel per step it ran
-    (its counters count this process's launches, its JSON divides them by
-    ``--steps``, ``total``), so no step ran twice in it."""
+    """The job's trainer launched ``EARLIER_DEPTH`` of each flash kernel per
+    step it ran (its counters count this process's launches, its JSON
+    divides them by ``--steps``, ``total``), so no step ran twice in it."""
     from tony_tpu_torch.ops import _flash_cuda
 
     for name in _flash_cuda.KERNELS:
         got = round(run["launches_per_step"][name] * total)
-        check(got == 16 * steps, f"{label}: {name} launched {got} times "
-              f"in {steps} steps, expected {16 * steps}")
+        check(got == EARLIER_DEPTH * steps, f"{label}: {name} launched {got} "
+              f"times in {steps} steps, expected {EARLIER_DEPTH * steps}")
 
 
 def worker_run(work, app):
@@ -3033,7 +3302,8 @@ def recover_drill(tmp, corpus, want, card):
     conf = TonyTpuConfig()
     # No client: the coordinator must not wait for one.
     for k, v in failure_conf(
-            hist, f"exec {TRAINER} --data {corpus} --steps {RECOVER_STEPS}",
+            hist, f"exec {cut_trainer(base)} --data {corpus} --steps "
+            f"{RECOVER_STEPS}",
             extra=[(K.APPLICATION_NUM_CLIENTS_TO_WAIT, False)]):
         conf.set(k, v)
     frozen = conf.freeze(os.path.join(job_dir, constants.FINAL_CONFIG_FILE))
@@ -3109,8 +3379,8 @@ def recover_drill(tmp, corpus, want, card):
     log(f"failures (a) coordinator SIGKILL + cli recover: {app} SUCCEEDED "
         f"in one epoch, worker pid {pid} unchanged, outage (SIGKILL to the "
         f"worker's re-registration) {outage:.4f} s, recover's wall "
-        f"{recover_s:.4f} s, {RECOVER_STEPS} steps with 16 launches of each "
-        f"flash kernel per step, first 20 losses {err:.3e} from the "
+        f"{recover_s:.4f} s, {RECOVER_STEPS} steps with {EARLIER_DEPTH} "
+        f"launches of each flash kernel per step, first 20 losses {err:.3e} from the "
         f"uninterrupted run's; {card}")
     return job_dir_hist
 
@@ -3130,7 +3400,8 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
 
     base = os.path.join(tmp, "migrate")
     hist, work = os.path.join(base, "history"), os.path.join(base, "work")
-    command = (f"exec {TRAINER} --data {corpus} --steps {steps} "
+    os.makedirs(base)
+    command = (f"exec {cut_trainer(base)} --data {corpus} --steps {steps} "
                f"--save-every {FAIL_SAVE_EVERY}")
     extra = [(K.ELASTIC_ENABLED, True),
              (K.ELASTIC_DRAIN_GRACE_S, FAIL_DRAIN_GRACE_S)]
@@ -3144,7 +3415,6 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
             "--workdir", work]
     for k, v in failure_conf(hist, command, extra=extra):
         argv += ["--conf", f"{k}={v}"]
-    os.makedirs(base)
     out_path = os.path.join(base, "submit.log")
     app = None
     with open(out_path, "w") as out:
@@ -3182,8 +3452,8 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
             report = rpc.call("get_application_report")
             return done and first_after(recs, done[-1], "register") \
                 and not (report.get("elastic") or {}).get("resizing")
-        poll(applied, "the migration to land",
-             timeout=FAIL_DRAIN_GRACE_S + 240)
+        poll(until_drained(applied, app, requested),
+             "the migration to land", timeout=FAIL_DRAIN_GRACE_S + 240)
         rpc.close()
         rc = submit.wait(timeout=FAIL_TIMEOUT_S)
     finally:
@@ -3212,7 +3482,7 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
     durable = re.search(r"preemption checkpoint durable in ([\d.]+) s",
                         err_log)
     check(saved and durable, "migrated job: the drained trainer logged no "
-          f"preemption save: {err_log[-3000:]}")
+          f"preemption save: {drained_log(err_log)}")
     k = int(saved.group(1))
     start = run["start_step"]
     check(run["restored_step"] == k and start == k + 1,
@@ -3249,8 +3519,9 @@ def migrate_drill(tmp, corpus, want, card, ckpt_url=None,
         f"{run['restore_s']:.3f} s and start at step {start}: "
         f"{k + 1 - start} steps re-run; migration wall (request to the "
         f"relaunched worker's re-registration) {wall:.4f} s; "
-        f"{steps - start} steps with 16 launches of each flash kernel "
-        f"per step, losses {err:.3e} from the uninterrupted run's (to step "
+        f"{steps - start} steps with {EARLIER_DEPTH} launches of each flash "
+        f"kernel per step, losses {err:.3e} from the uninterrupted run's (to "
+        f"step "
         f"{len(want) - 1}); {card}")
     return job_dir, drain_s
 
@@ -3268,7 +3539,9 @@ def phase_failures(card):
     tmp = tempfile.mkdtemp(prefix="chip-smoke-fail-")
     previous = os.environ.get(FAKE_GCS_ROOT_ENV)
     try:
-        cfg = trainer.flagship_config(seq=2048)
+        cfg = earlier(trainer.flagship_config(seq=2048))
+        log(cut_label("failures: the flagship's jobs",
+                      trainer.flagship_config(seq=2048)))
         corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
                                       cfg.vocab_size)
         ref = trainer.train(cfg, corpus, batch=4, seq=2048,
@@ -3301,8 +3574,10 @@ def phase_failures(card):
 
 # Phase 15: the GPU host backend and the fleet on the card.
 # The fleet's job: phase 14's corpus and seed, so phase 14's uninterrupted
-# losses hold its steps; migrated once it is past FLEET_MIGRATE_AFTER.
-FLEET_STEPS = 150
+# losses hold its steps; migrated once it is past FLEET_MIGRATE_AFTER. The
+# drain lands a CLI call later: step 45 of 150 at 16 layers, steps 53 and
+# 113 at 4 layers (by the host's speed), so 300 steps leave ~6 s after it.
+FLEET_STEPS = 300
 FLEET_MIGRATE_AFTER = 20
 FLEET_TIMEOUT_S = 480
 TASK_ENV_FILE = "task_env.txt"
@@ -3316,8 +3591,8 @@ def host_backend_job(tmp, in_process, cold, card):
     clean on the job dir."""
     from tony_tpu_torch.ops import _flash_cuda
 
-    command = (f"env > {TASK_ENV_FILE} && exec {TRAINER} --model flagship "
-               f"--steps {STEPS}")
+    command = (f"env > {TASK_ENV_FILE} && exec {cut_trainer(tmp)} --model "
+               f"flagship --steps {STEPS}")
     rc, text, app, hist, work, cmdlines, _ = submit_job(
         tmp, "gpu-host", command, backend="gpu-host",
         conf=["tony.slice.provisioner=fake", "tony.slice.num-hosts=1"])
@@ -3354,9 +3629,9 @@ def host_backend_job(tmp, in_process, cold, card):
     check(all(math.isfinite(x) for x in run["losses"]),
           f"gpu-host: non-finite loss {run['losses']}")
     for name in _flash_cuda.KERNELS:
-        check(run["launches_per_step"][name] == 16,
+        check(run["launches_per_step"][name] == EARLIER_DEPTH,
               f"gpu-host: {name} {run['launches_per_step'][name]} launches "
-              "per step, expected 16")
+              f"per step, expected {EARLIER_DEPTH}")
     check(any("-m tony_tpu_torch.coordinator" in c for c in cmdlines)
           and any("-m tony_tpu_torch.executor" in c for c in cmdlines),
           f"gpu-host: no coordinator or executor of the port among "
@@ -3372,8 +3647,9 @@ def host_backend_job(tmp, in_process, cold, card):
         f"submit_to_first_step_s {latency:.4f} against phase 12's cold "
         f"local backend {cold[0]:.4f}; phases {json.dumps(bd['phases'])} "
         f"against {json.dumps(cold[1]['phases'])}; "
-        f"{run['tokens_per_sec']:.1f} tokens/s against {in_process:.1f} in "
-        f"process (phase 4), {run['step_ms']:.3f} ms/step, launches per "
+        f"{run['tokens_per_sec']:.1f} tokens/s at {EARLIER_DEPTH} layers "
+        f"against {in_process:.1f} in process at 16 (phase 4), "
+        f"{run['step_ms']:.3f} ms/step, launches per "
         f"step {json.dumps(run['launches_per_step'])}; cli check clean; "
         f"{card}")
 
@@ -3407,8 +3683,9 @@ def fleet_job(tmp, want, card):
     fleet_dir = os.path.join(tmp, "fleet")
     hist = os.path.join(fleet_dir, "history")
     ckpt = os.path.join(tmp, "ckpt")
-    command = (f"exec {TRAINER} --data {corpus} --steps {FLEET_STEPS} "
-               f"--ckpt-dir {ckpt} --save-every {FAIL_SAVE_EVERY}")
+    command = (f"exec {cut_trainer(tmp)} --data {corpus} --steps "
+               f"{FLEET_STEPS} --ckpt-dir {ckpt} --save-every "
+               f"{FAIL_SAVE_EVERY}")
     # Phase 14's job settings; the fleet sets the gang size, the backend's
     # pool dir and the history root.
     own = {K.APPLICATION_BACKEND, "tony.worker.instances",
@@ -3457,8 +3734,8 @@ def fleet_job(tmp, want, card):
             report = rpc.call("get_application_report")
             return done and first_after(recs, done[-1], "register") \
                 and not (report.get("elastic") or {}).get("resizing")
-        poll(applied, "the migration to land",
-             timeout=FAIL_DRAIN_GRACE_S + 240)
+        poll(until_drained(applied, app, requested),
+             "the migration to land", timeout=FAIL_DRAIN_GRACE_S + 240)
         rpc.close()
         row = poll(lambda: (lambda r: r if r.get("state") in (
             "FINISHED", "FAILED", "CANCELLED") else None)(
@@ -3494,7 +3771,7 @@ def fleet_job(tmp, want, card):
     durable = re.search(r"preemption checkpoint durable in ([\d.]+) s",
                         err_log)
     check(saved and durable, "fleet job: the drained trainer logged no "
-          f"preemption save: {err_log[-3000:]}")
+          f"preemption save: {drained_log(err_log)}")
     k = int(saved.group(1))
     start = run["start_step"]
     check(run["restored_step"] == k and start == k + 1,
@@ -3522,8 +3799,9 @@ def fleet_job(tmp, want, card):
         f"{float(durable.group(1)):.3f} s (tony.elastic.drain-grace-s "
         f"default 15 s; this job's {FAIL_DRAIN_GRACE_S} s), restore "
         f"{run['restore_s']:.3f} s, start at step {start}: "
-        f"{k + 1 - start} steps re-run; {FLEET_STEPS - start} steps with 16 "
-        f"launches of each flash kernel per step, losses {err:.3e} from "
+        f"{k + 1 - start} steps re-run; {FLEET_STEPS - start} steps with "
+        f"{EARLIER_DEPTH} launches of each flash kernel per step, losses "
+        f"{err:.3e} from "
         f"phase 14's uninterrupted run's; ledger goodput_fraction "
         f"{led['goodput_fraction']}, held {led['held_chip_s']} "
         f"chip-seconds, phases {json.dumps(ph)}, chip-seconds "
@@ -3550,11 +3828,13 @@ def phase_host_and_fleet(in_process, cold, want, card):
 
 # Phase 16: a live flagship job observed through the CLI and the portal.
 # top's MFU is the job's mean since its first step, start-up included, so
-# top reads after 450 steps (~38 s at phase 4's ~84 ms); the capture and
-# its export take 40-60 steps (3.4-5.0 s, NVIDIA H100 80GB HBM3 at 700 W),
-# and 100 steps remain while alerts and the portal are read.
-OBS_STEPS = 610
-OBS_TOP_AFTER = 450
+# top reads after 700 steps of the cut flagship (~22 s at ~31 ms; 450
+# steps, ~38 s, at 16 layers; after 1000 steps top's MFU was 0.215
+# against 0.2195 for the trainer alone); the capture and its export take
+# 3.4-5.0 s (~160 steps; NVIDIA H100 80GB HBM3 at 700 W), and ~240 steps
+# remain while alerts and the portal are read.
+OBS_STEPS = 1100
+OBS_TOP_AFTER = 700
 OBS_PROFILE_STEPS = 3
 # top's MFU against the trainer's own, run alone as a process of its own
 # just before the job, relative. The reference is taken next to the job it
@@ -3639,7 +3919,8 @@ def observed_job(tmp, reference, in_process, card):
                (K.APPLICATION_BACKEND, "local"),
                ("tony.worker.instances", 1),
                ("tony.worker.command",
-                f"exec {TRAINER} --model flagship --steps {OBS_STEPS}"),
+                f"exec {cut_trainer(tmp)} --model flagship --steps "
+                f"{OBS_STEPS}"),
                (K.HISTORY_LOCATION, hist),
                (K.APPLICATION_TIMEOUT_S, OBS_TIMEOUT_S)):
         argv += ["--conf", f"{kv[0]}={kv[1]}"]
@@ -3703,9 +3984,9 @@ def observed_job(tmp, reference, in_process, card):
         trace = os.path.join(captured, "trace.json")
         counts, n_kernels = trace_kernel_counts(trace)
         for name in _flash_cuda.KERNELS:
-            check(counts[name] == 16 * OBS_PROFILE_STEPS,
+            check(counts[name] == EARLIER_DEPTH * OBS_PROFILE_STEPS,
                   f"observers: the trace holds {counts[name]} {name} "
-                  f"kernels, expected {16 * OBS_PROFILE_STEPS} "
+                  f"kernels, expected {EARLIER_DEPTH * OBS_PROFILE_STEPS} "
                   f"({n_kernels} CUDA kernel events in all: "
                   f"{dict(counts)})")
         with open(pgid) as f:
@@ -3771,9 +4052,9 @@ def observed_job(tmp, reference, in_process, card):
           f"observers: {len(run['losses'])} losses, finite "
           f"{all(math.isfinite(x) for x in run['losses'])}")
     for name in _flash_cuda.KERNELS:
-        check(run["launches_per_step"][name] == 16,
+        check(run["launches_per_step"][name] == EARLIER_DEPTH,
               f"observers: {name} {run['launches_per_step'][name]} "
-              "launches per step, expected 16")
+              f"launches per step, expected {EARLIER_DEPTH}")
     inside = run["profiled_steps"]
     check(len(inside) == OBS_PROFILE_STEPS,
           f"observers: the trainer saw steps {inside} under the capture")
@@ -3816,21 +4097,21 @@ def phase_observers(in_process, card):
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()   # the reference and the job need the memory
-    r = subprocess.run(f"{TRAINER} --model flagship --steps "
-                       f"{OBS_REFERENCE_STEPS}".split(), cwd=REPO,
-                       env=repo_env(), capture_output=True, text=True,
-                       timeout=OBS_TIMEOUT_S)
-    check(r.returncode == 0, f"observers: the trainer alone exited "
-          f"{r.returncode}: {r.stderr[-3000:]}")
-    reference = json.loads(r.stdout.strip().splitlines()[-1])
-    log(f"observers: the trainer alone before the job: "
-        f"{reference['tokens_per_sec']:.1f} tokens/s, "
-        f"{reference['step_ms']:.3f} ms/step, MFU "
-        f"{reference['mfu_vs_peak_bf16']} (phase 4 in this process: "
-        f"{in_process['step_ms']:.3f} ms/step, MFU "
-        f"{in_process['mfu_vs_peak_bf16']}); {card}")
     tmp = tempfile.mkdtemp(prefix="chip-smoke-obs-")
     try:
+        r = subprocess.run(f"{cut_trainer(tmp)} --model flagship --steps "
+                           f"{OBS_REFERENCE_STEPS}".split(), cwd=REPO,
+                           env=repo_env(), capture_output=True, text=True,
+                           timeout=OBS_TIMEOUT_S)
+        check(r.returncode == 0, f"observers: the trainer alone exited "
+              f"{r.returncode}: {r.stderr[-3000:]}")
+        reference = json.loads(r.stdout.strip().splitlines()[-1])
+        log(f"observers: the trainer alone before the job ({EARLIER_DEPTH} "
+            f"layers): {reference['tokens_per_sec']:.1f} tokens/s, "
+            f"{reference['step_ms']:.3f} ms/step, MFU "
+            f"{reference['mfu_vs_peak_bf16']} (phase 4 in this process, 16 "
+            f"layers: {in_process['step_ms']:.3f} ms/step, MFU "
+            f"{in_process['mfu_vs_peak_bf16']}); {card}")
         observed_job(tmp, reference, in_process, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -4226,11 +4507,12 @@ def store_turns(tmp, card):
     from tony_tpu_torch.ops import _flash_cuda
     from tony_tpu_torch.parallel import checkpoint_tree, load_checkpoint_tree
 
-    cfg = trainer.flagship_config(seq=2048)
+    cfg = earlier(trainer.flagship_config(seq=2048))
     corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
                                   cfg.vocab_size)
-    log(f"store (a): {shutil.disk_usage(tmp).free / 2**30:.1f} GiB free "
-        f"under {tmp}")
+    log(cut_label(f"store (a): {shutil.disk_usage(tmp).free / 2**30:.1f} "
+                  f"GiB free under {tmp}; the flagship",
+                  trainer.flagship_config(seq=2048)))
     cwd = os.getcwd()
     before = sorted(os.listdir(cwd))
     dirs = {"store": STORE_CKPT_URL, "local": os.path.join(tmp, "local")}
@@ -4246,7 +4528,8 @@ def store_turns(tmp, card):
         check(all(math.isfinite(x) for x in run["losses"]),
               f"store (a) {label}: losses {run['losses']}")
         check_flash_counts(f"store (a) {label}",
-                           dict(_flash_cuda.launch_counts), 16 * STORE_STEPS)
+                           dict(_flash_cuda.launch_counts),
+                           cfg.n_layers * STORE_STEPS)
         saved = state_tensors(run.pop("state"))
         fresh = trainer.build_state(cfg, "cuda", seed=1)
         mgr = CheckpointManager(dirs[label])
@@ -5067,40 +5350,56 @@ def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
 
+def run_phase(label, fn, *args):
+    """``fn(*args)``, its seconds printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     started = time.perf_counter()
-    card = phase_device()
-    phase_build()
-    timing = phase_kernels()
-    timing["convfuse_apply"] = phase_convfuse()
-    phase_small_model()
-    phase_small_resnet()
-    counts, main_run = phase_main_path()
-    phase_profile()
-    counts.update(phase_resnet_path())
-    phase_resnet_profile()
-    phase_training_job(main_run["tokens_per_sec"], main_run["step_ms"])
-    long_timing = phase_long_context()
+    card = run_phase("1 device", phase_device)
+    run_phase("2 build", phase_build)
+    timing = run_phase("3 flash kernels", phase_kernels)
+    hd_timing = run_phase("3b head dims", phase_head_dims, card)
+    timing["convfuse_apply"] = run_phase("3 convfuse", phase_convfuse)
+    run_phase("3 small decoder", phase_small_model)
+    run_phase("3 small resnet", phase_small_resnet)
+    counts, main_run = run_phase("4 main path", phase_main_path)
+    run_phase("5 profile", phase_profile)
+    counts.update(run_phase("6 resnet path", phase_resnet_path))
+    run_phase("6 resnet profile", phase_resnet_profile)
+    run_phase("7 training job", phase_training_job,
+              main_run["tokens_per_sec"], main_run["step_ms"])
+    long_timing = run_phase("8 long context", phase_long_context)
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         timing[name]["longctx"] = {
             shape: {k: r[name][k] for k in ("ms", "bound_ms", "bound_by",
                                             "library_ms", "tflops")}
             for shape, r in long_timing.items()}
-    phase_quant()
-    mesh_run = phase_mesh(card)
-    moe_run = phase_seq_expert(mesh_run, long_timing, card)
-    cold = phase_orchestrator(main_run["tokens_per_sec"])
-    pipe = phase_pipeline(main_run["tokens_per_sec"], card)
-    want, store_drain_s = phase_failures(card)
-    local_drain_s = phase_host_and_fleet(main_run["tokens_per_sec"], cold,
-                                         want, card)
-    phase_observers(main_run, card)
-    phase_mesh_layouts(card, moe_run)
-    phase_vision_layouts(card)
-    phase_store_checkpoints(store_drain_s, local_drain_s, card)
-    phase_rules(card)
-    llama_timing = phase_llama(card)
-    phase_last_layouts(card, phase_gspmd(card))
+        timing[name]["head_dims"] = hd_timing[name]
+    run_phase("9 quant", phase_quant)
+    mesh_run = run_phase("10 mesh", phase_mesh, card)
+    moe_run = run_phase("11 seq/expert", phase_seq_expert, mesh_run,
+                        long_timing, card)
+    cold = run_phase("12 orchestrator", phase_orchestrator,
+                     main_run["tokens_per_sec"])
+    pipe = run_phase("13 pipeline", phase_pipeline,
+                     main_run["tokens_per_sec"], card)
+    want, store_drain_s = run_phase("14 failures", phase_failures, card)
+    local_drain_s = run_phase("15 host and fleet", phase_host_and_fleet,
+                              main_run["tokens_per_sec"], cold, want, card)
+    run_phase("16 observers", phase_observers, main_run, card)
+    run_phase("17 mesh layouts", phase_mesh_layouts, card, moe_run)
+    run_phase("18 vision layouts", phase_vision_layouts, card)
+    run_phase("19 store", phase_store_checkpoints, store_drain_s,
+              local_drain_s, card)
+    run_phase("20 rules", phase_rules, card)
+    llama_timing = run_phase("21 llama", phase_llama, card)
+    twins = run_phase("22 gspmd", phase_gspmd, card)
+    run_phase("23 last layouts", phase_last_layouts, card, twins)
     for name, r in llama_timing.items():
         timing[name]["llama3_8b_s8192"] = {k: r[k] for k in (
             "ms", "bound_ms", "bound_by", "library_ms", "tflops")}
@@ -5117,7 +5416,7 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("tflops", "llama3_8b", "longctx",
-                                 "llama3_8b_s8192") if k in t},
+                                 "llama3_8b_s8192", "head_dims") if k in t},
             **({"pipelined_launches_per_step": {
                 f"M={m}": counts_m[name] / STEPS
                 for m, counts_m in pipe["launches"].items()}}

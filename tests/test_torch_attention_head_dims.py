@@ -1,0 +1,180 @@
+"""Port parity at every head_dim the flash kernels take besides 64 and 128:
+``tony_tpu_torch.ops.attention``'s plain versions (what a CPU tensor runs,
+and what the card's kernels are held to) against ``tony_tpu.ops.attention``
+(the Pallas kernels in interpret mode) on the same numpy inputs, at
+d = 8, 16, 32, 80, 96 and 256; and ``_flash_cuda.route``, which sends each
+(head_dim, dtype) to a kernel family and a compiled tile width.
+
+Tolerances are ``tests/test_torch_attention.py``'s (the reference's own):
+f32 2e-5 forward and 1e-4 on gradients, bf16 3e-2. The bf16 forward with
+an f32 output also holds the mean error of o and lse at 2e-6: below
+head_dim 128 the row sum adds P rounded to bf16 (the reference's
+``fused_rowsum``), and summing the f32 P there moves lse's mean by ~1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tony_tpu.ops import attention as jattn
+from tony_tpu_torch.ops import _flash_cuda
+from tony_tpu_torch.ops import attention as tattn
+
+F32 = dict(atol=2e-5, rtol=2e-5)
+GRAD = dict(atol=1e-4, rtol=1e-4)
+BF16 = dict(atol=3e-2, rtol=3e-2)
+HEAD_DIMS = (8, 16, 32, 80, 96, 256)
+BLOCK = 32
+torch.set_num_threads(2)
+
+
+def _qkv(b, s, h, hk, d, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, n, d), dtype=np.float32)
+                 for n in (h, hk, hk))
+
+
+def _np(t):
+    return t.detach().float().numpy()
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_bf16_to_f32_out_matches_jax(d):
+    """o and lse of a bf16 causal GQA forward with an f32 output (the ring's
+    hop): S = 100 leaves a ragged tail in the 32-row blocks both share."""
+    q, k, v = _qkv(2, 100, 4, 2, d, seed=d)
+    o, lse = tattn.flash_attention_with_lse(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), causal=True,
+        block_q=BLOCK, block_k=BLOCK, out_dtype=torch.float32)
+    assert o.dtype == torch.float32 and o.shape == (2, 100, 4, d)
+    jo, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=BLOCK, block_k=BLOCK, out_dtype=jnp.float32)
+    for name, t, j in (("o", o, jo), ("lse", lse, jlse)):
+        err = np.abs(_np(t) - np.asarray(j))
+        assert err.mean() <= 2e-6, f"{name}: mean abs err {err.mean()}"
+        np.testing.assert_allclose(_np(t), j, **BF16, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_forward_f32_matches_jax(d, causal):
+    q, k, v = _qkv(1, 64, 4, 2, d, seed=10 + d)
+    o, lse = tattn.flash_attention_with_lse(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        block_q=BLOCK, block_k=BLOCK)
+    jo, jlse = jattn.flash_attention_with_lse(
+        *map(jnp.asarray, (q, k, v)), causal=causal, block_q=BLOCK,
+        block_k=BLOCK)
+    np.testing.assert_allclose(_np(o), jo, **F32)
+    np.testing.assert_allclose(_np(lse), jlse, **F32)
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
+    """dq, dk and dv through the port's autograd Function (the plain dq and
+    dk/dv) against ``jax.grad`` of the reference's flash kernels: GQA group
+    4, causal, S = 100 over 32-row blocks, a loss of o and of lse."""
+    q, k, v = _qkv(1, 100, 8, 2, d, seed=20 + d)
+    w = np.random.default_rng(30 + d).standard_normal(q.shape,
+                                                      dtype=np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=True,
+                                            block_q=BLOCK, block_k=BLOCK)
+    ((o * torch.from_numpy(w)).sum() + torch.sin(lse).sum()).backward()
+
+    def loss(q, k, v):
+        o, lse = jattn.flash_attention_with_lse(q, k, v, causal=True,
+                                                block_q=BLOCK, block_k=BLOCK)
+        return jnp.sum(o * w) + jnp.sum(jnp.sin(lse))
+    jg = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, j, name in zip((tq, tk, tv), jg, "qkv"):
+        assert t.grad.shape == j.shape
+        np.testing.assert_allclose(_np(t.grad), j, **GRAD,
+                                   err_msg=f"d{name}")
+
+
+def test_bf16_forward_row_sum_rule_follows_the_true_head_dim():
+    """At d = 96 (the 128-wide wgmma tile on the card) the row sum adds the
+    rounded P, as the reference does below 128; the f32 P's sum differs
+    from the reference's lse by an order of magnitude more in the mean."""
+    q, k, v = _qkv(1, 100, 2, 2, 96, seed=7)
+    args = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    _, lse = tattn.flash_fwd_plain(*args, 96 ** -0.5, True, torch.float32,
+                                   BLOCK, BLOCK)
+    _, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=BLOCK, block_k=BLOCK, out_dtype=jnp.float32)
+    jlse = np.asarray(jlse).transpose(0, 2, 1)
+    rounded = np.abs(_np(lse) - jlse).mean()
+    # The f32 row sum, as from 128 up: sum_j exp(s_ij - lse_i) = 1 exactly.
+    qs = (args[0] * torch.tensor(96 ** -0.5, dtype=torch.bfloat16)).float()
+    kt = args[1].float().permute(0, 2, 3, 1)             # [B, H, D, S]
+    s = qs.transpose(1, 2) @ kt
+    s = s.masked_fill(~torch.ones(100, 100, dtype=torch.bool).tril(), -1e30)
+    f32_lse = torch.logsumexp(s, -1)
+    assert rounded <= 2e-6
+    assert np.abs(_np(f32_lse) - jlse).mean() > 10 * rounded
+
+
+@pytest.mark.parametrize("d,dtype,family,width", [
+    (8, torch.bfloat16, "wgmma", 64),
+    (16, torch.bfloat16, "wgmma", 64),
+    (32, torch.bfloat16, "wgmma", 64),
+    (64, torch.bfloat16, "wgmma", 64),
+    (72, torch.bfloat16, "wgmma", 128),
+    (80, torch.bfloat16, "wgmma", 128),
+    (96, torch.bfloat16, "wgmma", 128),
+    (128, torch.bfloat16, "wgmma", 128),
+    (20, torch.bfloat16, "fma", 32),
+    (100, torch.bfloat16, "fma", 128),
+    (136, torch.bfloat16, "fma", 256),
+    (256, torch.bfloat16, "fma", 256),
+    (1, torch.float32, "fma", 32),
+    (16, torch.float32, "fma", 32),
+    (33, torch.float32, "fma", 64),
+    (64, torch.float32, "fma", 64),
+    (96, torch.float32, "fma", 128),
+    (128, torch.float32, "fma", 128),
+    (256, torch.float32, "fma", 256),
+])
+def test_route_family_and_width(d, dtype, family, width):
+    assert _flash_cuda.route(d, dtype) == (family, width)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [0, 257, 264])
+def test_route_refuses_past_the_limit_naming_it(d, dtype):
+    with pytest.raises(ValueError, match="256"):
+        _flash_cuda.route(d, dtype)
+
+
+def test_route_covers_every_head_dim_up_to_the_limit():
+    """No head_dim from 1 to 256 is refused, in either dtype; the wgmma
+    family takes only bf16 rows of whole 16-byte vectors."""
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+            family, width = _flash_cuda.route(d, dtype)
+            assert d <= width
+            widths = (_flash_cuda.WGMMA_WIDTHS if family == "wgmma"
+                      else _flash_cuda.FMA_WIDTHS)
+            assert width == min(w for w in widths if d <= w)
+            if family == "wgmma":
+                assert dtype == torch.bfloat16 and d % 8 == 0
+
+
+def test_route_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        _flash_cuda.route(64, torch.float16)
+
+
+def test_kernel_entries_refuse_cpu_tensors_at_new_head_dims():
+    """A CPU tensor handed to a kernel entry raises at every head_dim: the
+    plain versions run only through the dispatchers."""
+    for d in (16, 96, 256):
+        q = torch.zeros((1, 16, 2, d))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _flash_cuda.flash_fwd(q, q, q, d ** -0.5, True)

@@ -44,8 +44,18 @@
 // dV and dS for dK, f32 accumulation, no atomics: each block owns its rows,
 // so the result is deterministic.
 //
-// f32 (flash_bwd_dkv_kernel<float>): the simple shared-memory FMA kernel of
-// flash_common.cuh, for the small f32 checks; wgmma takes no f32 input.
+// Head dims: the wgmma kernel is compiled at tile widths D = 64 and 128
+// and takes the true head_dim d (a multiple of 8, d <= D) at run time; the
+// tensor maps read columns d..D-1 as zeros, which leave every product over
+// the head dim unchanged and give zero columns in the products onto it,
+// and the epilogue stores columns < d only.
+//
+// FMA family (flash_bwd_dkv_kernel<T, W>): the simple shared-memory kernel of
+// flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
+// bf16 where the wgmma kernel does not go (d past 128, or not a multiple
+// of 8), at widths W = 32, 64, 128 and 256 with the true d at run time;
+// wgmma takes no f32 input. Same numerics as the wgmma kernel; slow (its
+// products read both operands from shared memory), see PERF.md.
 //
 // Left for later: one fused kernel for dq and dk/dv (s and dp are computed
 // here and again in flash_bwd_dq.cu), a producer warp with setmaxnreg and
@@ -59,23 +69,23 @@
 
 namespace tt {
 
-// ----------------------------------------------------------------- f32 path
-template <typename T, int D>
+// ----------------------------------------------------------- FMA path
+template <typename T, int W>
 struct DkvSmem {
   static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, D>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<D>();
+  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
   static constexpr size_t bytes =
       sizeof(T) * (size_t)(2 * BN * LDT + 2 * BM * LDT + 2 * BM * LDP) +
       sizeof(float) * (size_t)(2 * BM * LDS + 2 * BN * LDO + 2 * BM);
 };
 
-template <typename T, int D>
+template <typename T, int W>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                         int H, int Hkv, int Sq, int Sk, float scale, int causal) {
-  using L = DkvSmem<T, D>;
+                         int H, int Hkv, int Sq, int Sk, int d, float scale, int causal) {
+  using L = DkvSmem<T, W>;
   constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -96,14 +106,14 @@ __global__ void __launch_bounds__(NTHREADS)
   const int g = H / Hkv;
   const int k0 = kj * BN;
   const int nk_valid = min(BN, Sk - k0);
-  const long qstride = (long)H * D, kstride = (long)Hkv * D;
-  const long koff = ((long)b * Sk + k0) * kstride + (long)hk * D;
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const long koff = ((long)b * Sk + k0) * kstride + (long)hk * d;
 
   const float scale_t = to_f(from_f<T>(scale));
-  load_rows<T, BN, D>(sK, LDT, k + koff, kstride, nk_valid, false, 1.f);
-  load_rows<T, BN, D>(sV, LDT, v + koff, kstride, nk_valid, false, 1.f);
-  zero_f<BN, D>(sDK, LDO);
-  zero_f<BN, D>(sDV, LDO);
+  load_rows<T, BN, W>(sK, LDT, k + koff, kstride, nk_valid, d, false, 1.f);
+  load_rows<T, BN, W>(sV, LDT, v + koff, kstride, nk_valid, d, false, 1.f);
+  zero_f<BN, W>(sDK, LDO);
+  zero_f<BN, W>(sDV, LDO);
   const int nq = (Sq + BM - 1) / BM;
   const int i0 = causal ? k0 / BM : 0;
 
@@ -112,16 +122,16 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int i = i0; i < nq; ++i) {
       const int q0 = i * BM;
       const int nq_valid = min(BM, Sq - q0);
-      const long qoff = ((long)b * Sq + q0) * qstride + (long)h * D;
+      const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
       const long soff = ((long)b * H + h) * Sq + q0;
       __syncthreads();  // the previous tile's products are done with sQ/sDO/sP/sDS
-      load_rows<T, BM, D>(sQ, LDT, q + qoff, qstride, nq_valid, true, scale_t);
-      load_rows<T, BM, D>(sDO, LDT, dout + qoff, qstride, nq_valid, false, 1.f);
+      load_rows<T, BM, W>(sQ, LDT, q + qoff, qstride, nq_valid, d, true, scale_t);
+      load_rows<T, BM, W>(sDO, LDT, dout + qoff, qstride, nq_valid, d, false, 1.f);
       load_stat<BM>(sLse, lse + soff, nq_valid);
       load_stat<BM>(sDelta, delta + soff, nq_valid);
       __syncthreads();
-      mm<NT, BM, BN, D>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
-      mm<NT, BM, BN, D>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
+      mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
+      mm<NT, BM, BN, W>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
       __syncthreads();
       for (int e = threadIdx.x; e < BM * BN; e += NTHREADS) {
         const int r = e / BN, c = e % BN;
@@ -132,34 +142,34 @@ __global__ void __launch_bounds__(NTHREADS)
         sDS[r * LDP + c] = from_f<T>(p * (sDP[r * LDS + c] - sDelta[r]));
       }
       __syncthreads();
-      mm<TN, BN, D, BM>(sP, LDP, sDO, LDT, sDV, LDO, true, nullptr);
-      mm<TN, BN, D, BM>(sDS, LDP, sQ, LDT, sDK, LDO, true, nullptr);
+      mm<TN, BN, W, BM>(sP, LDP, sDO, LDT, sDV, LDO, true, nullptr);
+      mm<TN, BN, W, BM>(sDS, LDP, sQ, LDT, sDK, LDO, true, nullptr);
     }
   }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < BN * D; e += NTHREADS) {
-    const int r = e / D, c = e % D;
-    if (r < nk_valid) {
+  for (int e = threadIdx.x; e < BN * W; e += NTHREADS) {
+    const int r = e / W, c = e % W;
+    if (r < nk_valid && c < d) {
       dk[koff + (long)r * kstride + c] = from_f<T>(sDK[r * LDO + c]);
       dv[koff + (long)r * kstride + c] = from_f<T>(sDV[r * LDO + c]);
     }
   }
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-                       int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t st) {
-  using L = DkvSmem<T, D>;
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+                       int Hkv, int Sq, int Sk, int d, float scale, int causal, cudaStream_t st) {
+  using L = DkvSmem<T, W>;
+  auto kern = flash_bwd_dkv_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(cdiv(Sk, L::BN), Hkv, B);
   kern<<<grid, NTHREADS, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -178,7 +188,11 @@ struct DkvHop {
   static constexpr size_t bytes = BAR_OFF + 8 * 8 + 1024;  // + alignment slack
 };
 
-template <int D>
+// D is the tile width (64 or 128) and d <= D the true head_dim, a multiple
+// of 8: the tensor maps read columns d..D-1 as zeros and dk, dv are stored
+// for columns < d only. FULL (d == D): the strides and the epilogue take
+// the constant D, so that the column bound costs the exact width nothing.
+template <int D, bool FULL>
 __global__ void __launch_bounds__(128, 2)
     flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                                const __grid_constant__ CUtensorMap mk,
@@ -187,7 +201,7 @@ __global__ void __launch_bounds__(128, 2)
                                const __grid_constant__ CUtensorMap mlse,
                                const __grid_constant__ CUtensorMap mdelta, bf16* __restrict__ dk,
                                bf16* __restrict__ dv, int B, int H, int Hkv, int Sq, int Sk,
-                               float scale, int causal) {
+                               int d, float scale, int causal) {
   using L = DkvHop<D>;
   using namespace hop;
   constexpr int KD = D / 16;  // k-steps over the head dim
@@ -325,48 +339,73 @@ __global__ void __launch_bounds__(128, 2)
     mbar_arrive(&empty[t % L::STAGES]);
   }
 
-  const long kstride = (long)Hkv * D;
-  const long koff = ((long)b * Sk + k0) * kstride + (long)hk * D;
-  store_acc<D>(dK, dk + koff, kstride, Sk - k0, tid);
-  store_acc<D>(dV, dv + koff, kstride, Sk - k0, tid);
+  const int hd = FULL ? D : d;
+  const long kstride = (long)Hkv * hd;
+  const long koff = ((long)b * Sk + k0) * kstride + (long)hk * hd;
+  store_acc<D>(dK, dk + koff, kstride, Sk - k0, hd, tid);
+  store_acc<D>(dV, dv + koff, kstride, Sk - k0, hd, tid);
 }
 
-template <int D>
+template <int D, bool FULL>
 cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B, int H,
-                             int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t st) {
+                             int Hkv, int Sq, int Sk, int d, float scale, int causal,
+                             cudaStream_t st) {
   using L = DkvHop<D>;
   CUtensorMap mq, mk, mv, mdo, mlse, mdelta;
-  if (!hop::map_bshd(&mq, q, B, Sq, H, D, 64) || !hop::map_bshd(&mdo, dout, B, Sq, H, D, 64) ||
-      !hop::map_bshd(&mk, k, B, Sk, Hkv, D, 64) || !hop::map_bshd(&mv, v, B, Sk, Hkv, D, 64) ||
+  if (!hop::map_bshd(&mq, q, B, Sq, H, d, 64) || !hop::map_bshd(&mdo, dout, B, Sq, H, d, 64) ||
+      !hop::map_bshd(&mk, k, B, Sk, Hkv, d, 64) || !hop::map_bshd(&mv, v, B, Sk, Hkv, d, 64) ||
       !hop::map_vec(&mlse, lse, (long)B * H * Sq, L::BM) ||
       !hop::map_vec(&mdelta, delta, (long)B * H * Sq, L::BM))
     return cudaErrorInvalidValue;
-  auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+  auto kern = flash_bwd_dkv_wgmma_kernel<D, FULL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sk, L::BN) * Hkv * B;
   kern<<<grid, 128, L::bytes, st>>>(mq, mk, mv, mdo, mlse, mdelta, static_cast<bf16*>(dk),
-                                    static_cast<bf16*>(dv), B, H, Hkv, Sq, Sk, scale, causal);
+                                    static_cast<bf16*>(dv), B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace tt
 
-// dtype: 0 = bf16, 1 = f32 (q, k, v, do, dk, dv). Returns a cudaError_t.
+// family: 0 = wgmma (bf16, width 64 or 128, d a multiple of 8), 1 = FMA
+// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// bf16, 1 = f32 (q, k, v, do, dk, dv). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int B,
-                                int H, int Hkv, int Sq, int Sk, int D, int dtype, float scale,
-                                int causal, void* stream) {
+                                int H, int Hkv, int Sq, int Sk, int d, int width, int family,
+                                int dtype, float scale, int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TT_DKV(T, DD) return (int)launch_dkv<T, DD>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, st)
-#define TT_DKV_WG(DD) return (int)launch_dkv_wgmma<DD>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, scale, causal, st)
-  if (dtype == 0 && D == 64) TT_DKV_WG(64);
-  if (dtype == 0 && D == 128) TT_DKV_WG(128);
-  if (dtype == 1 && D == 64) TT_DKV(float, 64);
-  if (dtype == 1 && D == 128) TT_DKV(float, 128);
-#undef TT_DKV
-#undef TT_DKV_WG
+  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+#define TT_WG(W, FULL)                                                                  \
+  return (int)launch_dkv_wgmma<W, FULL>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, d, \
+                                        scale, causal, st)
+#define TT_FMA(T, W) \
+  return (int)launch_dkv<T, W>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_FMA_W(T)           \
+  switch (width) {            \
+    case 32: TT_FMA(T, 32);   \
+    case 64: TT_FMA(T, 64);   \
+    case 128: TT_FMA(T, 128); \
+    case 256: TT_FMA(T, 256); \
+  }                           \
+  break
+  if (family == 0 && dtype == 0 && d % 8 == 0) {
+    const bool full = d == width;
+    if (width == 64 && full) TT_WG(64, true);
+    if (width == 64 && !full) TT_WG(64, false);
+    if (width == 128 && full) TT_WG(128, true);
+    if (width == 128 && !full) TT_WG(128, false);
+  } else if (family == 1) {
+    switch (dtype) {
+      case 0: TT_FMA_W(bf16);
+      case 1: TT_FMA_W(float);
+    }
+  }
+#undef TT_WG
+#undef TT_FMA
+#undef TT_FMA_W
   return (int)cudaErrorInvalidValue;
 }

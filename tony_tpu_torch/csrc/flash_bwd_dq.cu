@@ -37,8 +37,18 @@
 // rounded to bf16; f32 accumulation; no atomics (each block owns its rows,
 // so the result is deterministic).
 //
-// f32 (flash_bwd_dq_kernel<float>): the simple shared-memory FMA kernel of
-// flash_common.cuh, for the small f32 checks; wgmma takes no f32 input.
+// Head dims: the wgmma kernel is compiled at tile widths D = 64 and 128
+// and takes the true head_dim d (a multiple of 8, d <= D) at run time; the
+// tensor maps read columns d..D-1 as zeros, which leave every product over
+// the head dim unchanged and give zero columns in the products onto it,
+// and the epilogue stores columns < d only.
+//
+// FMA family (flash_bwd_dq_kernel<T, W>): the simple shared-memory kernel of
+// flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
+// bf16 where the wgmma kernel does not go (d past 128, or not a multiple
+// of 8), at widths W = 32, 64, 128 and 256 with the true d at run time;
+// wgmma takes no f32 input. Same numerics as the wgmma kernel; slow (its
+// products read both operands from shared memory), see PERF.md.
 //
 // Left for later: a fused backward (s and dp are recomputed here and in the
 // dk/dv kernel; fusing them with an atomic dq would give up determinism, a
@@ -52,23 +62,23 @@
 
 namespace tt {
 
-// ----------------------------------------------------------------- f32 path
-template <typename T, int D>
+// ----------------------------------------------------------- FMA path
+template <typename T, int W>
 struct DqSmem {
   static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, D>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<D>();
+  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
   static constexpr size_t bytes =
       sizeof(T) * (size_t)(2 * BM * LDT + 2 * BN * LDT + BM * LDP) +
       sizeof(float) * (size_t)(2 * BM * LDS + BM * LDO + 2 * BM);
 };
 
-template <typename T, int D>
+template <typename T, int W>
 __global__ void __launch_bounds__(NTHREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq, int H, int Hkv, int Sq,
-                        int Sk, float scale, int causal) {
-  using L = DqSmem<T, D>;
+                        int Sk, int d, float scale, int causal) {
+  using L = DqSmem<T, W>;
   constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -87,18 +97,18 @@ __global__ void __launch_bounds__(NTHREADS)
   const int hk = h / (H / Hkv);
   const int q0 = qi * BM;
   const int nq_valid = min(BM, Sq - q0);
-  const long qstride = (long)H * D, kstride = (long)Hkv * D;
-  const long qoff = ((long)b * Sq + q0) * qstride + (long)h * D;
-  const T* kb = k + (long)b * Sk * kstride + (long)hk * D;
-  const T* vb = v + (long)b * Sk * kstride + (long)hk * D;
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
+  const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
+  const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
   const long soff = ((long)b * H + h) * Sq + q0;
 
   const float scale_t = to_f(from_f<T>(scale));
-  load_rows<T, BM, D>(sQ, LDT, q + qoff, qstride, nq_valid, false, 1.f);
-  load_rows<T, BM, D>(sDO, LDT, dout + qoff, qstride, nq_valid, false, 1.f);
+  load_rows<T, BM, W>(sQ, LDT, q + qoff, qstride, nq_valid, d, false, 1.f);
+  load_rows<T, BM, W>(sDO, LDT, dout + qoff, qstride, nq_valid, d, false, 1.f);
   load_stat<BM>(sLse, lse + soff, nq_valid);
   load_stat<BM>(sDelta, delta + soff, nq_valid);
-  zero_f<BM, D>(sDQ, LDO);
+  zero_f<BM, W>(sDQ, LDO);
   int nk = (Sk + BN - 1) / BN;
   if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
 
@@ -106,11 +116,11 @@ __global__ void __launch_bounds__(NTHREADS)
     const int k0 = j * BN;
     const int nk_valid = min(BN, Sk - k0);
     __syncthreads();
-    load_rows<T, BN, D>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, true, scale_t);
-    load_rows<T, BN, D>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, false, 1.f);
+    load_rows<T, BN, W>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, d, true, scale_t);
+    load_rows<T, BN, W>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
     __syncthreads();
-    mm<NT, BM, BN, D>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
-    mm<NT, BM, BN, D>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
+    mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
+    mm<NT, BM, BN, W>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
     __syncthreads();
     for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
       const int r = i / BN, c = i % BN;
@@ -120,30 +130,30 @@ __global__ void __launch_bounds__(NTHREADS)
       sDS[r * LDP + c] = from_f<T>(p * (sDP[r * LDS + c] - sDelta[r]));
     }
     __syncthreads();
-    mm<NN, BM, D, BN>(sDS, LDP, sK, LDT, sDQ, LDO, true, nullptr);
+    mm<NN, BM, W, BN>(sDS, LDP, sK, LDT, sDQ, LDO, true, nullptr);
   }
   __syncthreads();
 
   T* db = dq + qoff;
-  for (int i = threadIdx.x; i < BM * D; i += NTHREADS) {
-    const int r = i / D, c = i % D;
-    if (r < nq_valid) db[(long)r * qstride + c] = from_f<T>(sDQ[r * LDO + c]);
+  for (int i = threadIdx.x; i < BM * W; i += NTHREADS) {
+    const int r = i / W, c = i % W;
+    if (r < nq_valid && c < d) db[(long)r * qstride + c] = from_f<T>(sDQ[r * LDO + c]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int W>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int H, int Hkv, int Sq,
-                      int Sk, float scale, int causal, cudaStream_t st) {
-  using L = DqSmem<T, D>;
-  auto kern = flash_bwd_dq_kernel<T, D>;
+                      int Sk, int d, float scale, int causal, cudaStream_t st) {
+  using L = DqSmem<T, W>;
+  auto kern = flash_bwd_dq_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(cdiv(Sq, L::BM), H, B);
   kern<<<grid, NTHREADS, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hkv, Sq, Sk, scale, causal);
+      static_cast<T*>(dq), H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -161,7 +171,11 @@ struct DqHop {
   static constexpr size_t bytes = BAR_OFF + 8 * 8 + 1024;  // + alignment slack
 };
 
-template <int D>
+// D is the tile width (64 or 128) and d <= D the true head_dim, a multiple
+// of 8: the tensor maps read columns d..D-1 as zeros and dq is stored for
+// columns < d only. FULL (d == D): the strides and the epilogue take the
+// constant D, so that the column bound costs the exact width nothing.
+template <int D, bool FULL>
 __global__ void __launch_bounds__(128, 2)
     flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                               const __grid_constant__ CUtensorMap mk,
@@ -169,7 +183,7 @@ __global__ void __launch_bounds__(128, 2)
                               const __grid_constant__ CUtensorMap mdo,
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               bf16* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk,
-                              float scale, int causal) {
+                              int d, float scale, int causal) {
   using L = DqHop<D>;
   using namespace hop;
   constexpr int KD = D / 16;  // k-steps over the head dim
@@ -290,45 +304,68 @@ __global__ void __launch_bounds__(128, 2)
     mbar_arrive(&empty[j % L::STAGES]);
   }
 
-  const long qstride = (long)H * D;
-  store_acc<D>(dQ, dq + ((long)b * Sq + q0) * qstride + (long)h * D, qstride, Sq - q0, tid);
+  const int hd = FULL ? D : d;
+  const long qstride = (long)H * hd;
+  store_acc<D>(dQ, dq + ((long)b * Sq + q0) * qstride + (long)h * hd, qstride, Sq - q0, hd, tid);
 }
 
-template <int D>
+template <int D, bool FULL>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
-                            int Sq, int Sk, float scale, int causal, cudaStream_t st) {
+                            int Sq, int Sk, int d, float scale, int causal, cudaStream_t st) {
   using L = DqHop<D>;
   CUtensorMap mq, mk, mv, mdo;
-  if (!hop::map_bshd(&mq, q, B, Sq, H, D, 64) || !hop::map_bshd(&mdo, dout, B, Sq, H, D, 64) ||
-      !hop::map_bshd(&mk, k, B, Sk, Hkv, D, 64) || !hop::map_bshd(&mv, v, B, Sk, Hkv, D, 64))
+  if (!hop::map_bshd(&mq, q, B, Sq, H, d, 64) || !hop::map_bshd(&mdo, dout, B, Sq, H, d, 64) ||
+      !hop::map_bshd(&mk, k, B, Sk, Hkv, d, 64) || !hop::map_bshd(&mv, v, B, Sk, Hkv, d, 64))
     return cudaErrorInvalidValue;
-  auto kern = flash_bwd_dq_wgmma_kernel<D>;
+  auto kern = flash_bwd_dq_wgmma_kernel<D, FULL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sq, L::BM) * H * B;
   kern<<<grid, 128, L::bytes, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
                                     static_cast<const float*>(delta), static_cast<bf16*>(dq), B,
-                                    H, Hkv, Sq, Sk, scale, causal);
+                                    H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace tt
 
-// dtype: 0 = bf16, 1 = f32 (q, k, v, do, dq). Returns a cudaError_t.
+// family: 0 = wgmma (bf16, width 64 or 128, d a multiple of 8), 1 = FMA
+// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// bf16, 1 = f32 (q, k, v, do, dq). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
-                               int Sq, int Sk, int D, int dtype, float scale, int causal,
-                               void* stream) {
+                               int Sq, int Sk, int d, int width, int family, int dtype, float scale,
+                               int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TT_DQ(T, DD) return (int)launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, scale, causal, st)
-#define TT_DQ_WG(DD) return (int)launch_dq_wgmma<DD>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, scale, causal, st)
-  if (dtype == 0 && D == 64) TT_DQ_WG(64);
-  if (dtype == 0 && D == 128) TT_DQ_WG(128);
-  if (dtype == 1 && D == 64) TT_DQ(float, 64);
-  if (dtype == 1 && D == 128) TT_DQ(float, 128);
-#undef TT_DQ
-#undef TT_DQ_WG
+  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+#define TT_WG(W, FULL) \
+  return (int)launch_dq_wgmma<W, FULL>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_FMA(T, W) \
+  return (int)launch_dq<T, W>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_FMA_W(T)           \
+  switch (width) {            \
+    case 32: TT_FMA(T, 32);   \
+    case 64: TT_FMA(T, 64);   \
+    case 128: TT_FMA(T, 128); \
+    case 256: TT_FMA(T, 256); \
+  }                           \
+  break
+  if (family == 0 && dtype == 0 && d % 8 == 0) {
+    const bool full = d == width;
+    if (width == 64 && full) TT_WG(64, true);
+    if (width == 64 && !full) TT_WG(64, false);
+    if (width == 128 && full) TT_WG(128, true);
+    if (width == 128 && !full) TT_WG(128, false);
+  } else if (family == 1) {
+    switch (dtype) {
+      case 0: TT_FMA_W(bf16);
+      case 1: TT_FMA_W(float);
+    }
+  }
+#undef TT_WG
+#undef TT_FMA
+#undef TT_FMA_W
   return (int)cudaErrorInvalidValue;
 }

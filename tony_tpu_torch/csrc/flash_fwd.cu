@@ -72,28 +72,45 @@
 // Left for later: an epilogue through shared memory and a TMA store; two
 // blocks per SM (160 KB of shared memory and 186 registers allow one).
 //
-// f32 (flash_fwd_kernel<float>): the simple shared-memory FMA kernel of
-// flash_common.cuh, for the small f32 checks; wgmma takes no f32 input.
+// Head dims. The wgmma kernel is compiled at tile widths D = 64 and 128
+// and takes the true head_dim d (a multiple of 8, d <= D) at run time: its
+// tensor maps read columns d..D-1 as zeros, which add nothing to Qs . K^T
+// and give zero columns of O, and its epilogue stores columns < d. The
+// row-sum rule is the true d's: d = 96 on the 128-wide tile sums the
+// rounded P. Each width has an exact-width instantiation (d == D) whose
+// strides and epilogue are compile-time, and one for narrower heads. At d = 16 the 64-wide tile does four times the products the head
+// needs.
+//
+// FMA family (flash_fwd_kernel<T, OT, W>): the simple shared-memory kernel
+// of flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
+// bf16 where the wgmma kernel does not go (d past 128, or not a multiple
+// of 8), at widths W = 32, 64, 128 and 256 with the true d at run time
+// (wgmma takes no f32 input). Its numerics are the same: q scaled in T, P
+// rounded to T for P . V, l summing that rounded P below head_dim 128.
+// It is bounded by its shared-memory operand reads, far from the card's
+// tensor-core peak: at d = 256 bf16 (B4 S2048 H16/16 causal) it ran at
+// ~3.6 TFLOP/s, ~150x SDPA's forward, on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 3b).
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace tt {
 
-// ----------------------------------------------------------------- f32 path
-template <typename T, typename OT, int D>
+// ----------------------------------------------------------- FMA path
+template <typename T, typename OT, int W>
 struct FwdSmem {
   static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, D>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<D>();
+  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
   static constexpr size_t bytes =
       sizeof(T) * (size_t)(3 * BM * LDT + BM * LDP) + sizeof(float) * (size_t)(BM * LDS + BM * LDO + 3 * BM);
 };
 
-template <typename T, typename OT, int D>
+template <typename T, typename OT, int W>
 __global__ void __launch_bounds__(NTHREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      OT* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     float scale, int causal) {
-  using L = FwdSmem<T, OT, D>;
+                     int d, float scale, int causal) {
+  using L = FwdSmem<T, OT, W>;
   constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
   constexpr int TPR = NTHREADS / BM, CPT = BN / TPR;  // threads per row, columns per thread
 
@@ -112,14 +129,17 @@ __global__ void __launch_bounds__(NTHREADS)
   const int hk = h / (H / Hkv);
   const int q0 = qi * BM;
   const int nq_valid = min(BM, Sq - q0);
-  const long qstride = (long)H * D, kstride = (long)Hkv * D;
-  const T* qb = q + ((long)b * Sq + q0) * qstride + (long)h * D;
-  const T* kb = k + (long)b * Sk * kstride + (long)hk * D;
-  const T* vb = v + (long)b * Sk * kstride + (long)hk * D;
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const T* qb = q + ((long)b * Sq + q0) * qstride + (long)h * d;
+  const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
+  const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
+  // The reference's fused_rowsum = d < 128: below 128 l sums P rounded to
+  // v's dtype, from 128 up the f32 P (the same for f32 inputs).
+  const bool sum_rounded = d < 128;
 
   const float scale_t = to_f(from_f<T>(scale));  // the scale in the input dtype
-  load_rows<T, BM, D>(sQ, LDT, qb, qstride, nq_valid, true, scale_t);
-  zero_f<BM, D>(sO, LDO);
+  load_rows<T, BM, W>(sQ, LDT, qb, qstride, nq_valid, d, true, scale_t);
+  zero_f<BM, W>(sO, LDO);
   for (int r = threadIdx.x; r < BM; r += NTHREADS) {
     sM[r] = NEG_INF;
     sL[r] = 0.f;
@@ -133,10 +153,10 @@ __global__ void __launch_bounds__(NTHREADS)
     const int k0 = j * BN;
     const int nk_valid = min(BN, Sk - k0);
     __syncthreads();  // the previous tile's products are done with sK/sV/sP
-    load_rows<T, BN, D>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, false, 1.f);
-    load_rows<T, BN, D>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, false, 1.f);
+    load_rows<T, BN, W>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
+    load_rows<T, BN, W>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
     __syncthreads();
-    mm<NT, BM, BN, D>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
+    mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
     __syncthreads();
 
     float* srow = sS + r * LDS;
@@ -156,8 +176,9 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll 4
     for (int c = part * CPT; c < (part + 1) * CPT; ++c) {
       const float p = expf(srow[c] - m_new);
-      sum += p;
-      sP[r * LDP + c] = from_f<T>(p);
+      const T pt = from_f<T>(p);  // P rounded to v's dtype for P . V
+      sum += sum_rounded ? to_f(pt) : p;
+      sP[r * LDP + c] = pt;
     }
     sum = row_sum<TPR>(sum);
     __syncwarp();
@@ -168,30 +189,32 @@ __global__ void __launch_bounds__(NTHREADS)
       sM[r] = m_new;
     }
     __syncthreads();
-    mm<NN, BM, D, BN>(sP, LDP, sV, LDT, sO, LDO, true, sA);
+    mm<NN, BM, W, BN>(sP, LDP, sV, LDT, sO, LDO, true, sA);
   }
   __syncthreads();
 
-  OT* ob = o + ((long)b * Sq + q0) * qstride + (long)h * D;
-  for (int i = threadIdx.x; i < BM * D; i += NTHREADS) {
-    const int rr = i / D, c = i % D;
-    if (rr < nq_valid) ob[(long)rr * qstride + c] = from_f<OT>(sO[rr * LDO + c] / fmaxf(sL[rr], 1e-30f));
+  OT* ob = o + ((long)b * Sq + q0) * qstride + (long)h * d;
+  for (int i = threadIdx.x; i < BM * W; i += NTHREADS) {
+    const int rr = i / W, c = i % W;
+    if (rr < nq_valid && c < d)
+      ob[(long)rr * qstride + c] = from_f<OT>(sO[rr * LDO + c] / fmaxf(sL[rr], 1e-30f));
   }
   float* lb = lse + ((long)b * H + h) * Sq + q0;
   for (int rr = threadIdx.x; rr < nq_valid; rr += NTHREADS) lb[rr] = sM[rr] + logf(fmaxf(sL[rr], 1e-30f));
 }
 
-template <typename T, typename OT, int D>
+template <typename T, typename OT, int W>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                       int H, int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t st) {
-  using L = FwdSmem<T, OT, D>;
-  auto kern = flash_fwd_kernel<T, OT, D>;
+                       int H, int Hkv, int Sq, int Sk, int d, float scale, int causal,
+                       cudaStream_t st) {
+  using L = FwdSmem<T, OT, W>;
+  auto kern = flash_fwd_kernel<T, OT, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   dim3 grid(cdiv(Sq, L::BM), H, B);
   kern<<<grid, NTHREADS, L::bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                          static_cast<const T*>(v), static_cast<OT*>(o),
-                                         static_cast<float*>(lse), H, Hkv, Sq, Sk, scale, causal);
+                                         static_cast<float*>(lse), H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -270,17 +293,26 @@ __device__ __forceinline__ void p_to_a(const float (&s)[8 * KN], uint32_t (&pa)[
   }
 }
 
-template <int D, typename OT>
+// D is the tile width (64 or 128) and d <= D the true head_dim, a multiple
+// of 8: the tensor maps read columns d..D-1 as zeros and the epilogue
+// stores columns < d only. FULL (d == D) is the exact-width instantiation:
+// its strides and its epilogue take the constant D, so that the column
+// bound costs the D = 64 and 128 paths nothing (a run-time bound there cost
+// the forward 2-3 % in an A/B on the card).
+template <int D, typename OT, bool FULL>
 __global__ void __launch_bounds__(128 * FwdHop<D>::NWG, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
                            const __grid_constant__ CUtensorMap mv, OT* __restrict__ o,
                            float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk,
-                           float scale, int causal) {
+                           int d, float scale, int causal) {
   using L = FwdHop<D>;
   using namespace hop;
   constexpr int NWG = L::NWG, BN = L::BN, KD = D / 16, KN = BN / 16, ST = L::STAGES;
-  constexpr bool SUM_F32 = D >= 128;  // the reference's fused_rowsum = d < 128
+  // The reference's fused_rowsum = d < 128: on a tile of at most 128, d >= 128
+  // only where d == D == 128.
+  constexpr bool SUM_F32 = FULL && D >= 128;
+  const int hd = FULL ? D : d;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -408,8 +440,8 @@ __global__ void __launch_bounds__(128 * FwdHop<D>::NWG, 1)
   }
 #pragma unroll
   for (int x = 0; x < D / 2; ++x) O[x] = O[x] / lsum[(x >> 1) & 1];
-  const long qstride = (long)H * D;
-  store_acc<D>(O, o + ((long)b * Sq + qw) * qstride + (long)h * D, qstride, Sq - qw, wt);
+  const long qstride = (long)H * hd;
+  store_acc<D>(O, o + ((long)b * Sq + qw) * qstride + (long)h * hd, qstride, Sq - qw, hd, wt);
   if ((l & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -419,42 +451,68 @@ __global__ void __launch_bounds__(128 * FwdHop<D>::NWG, 1)
   }
 }
 
-template <int D, typename OT>
+template <int D, typename OT, bool FULL>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
-                             int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                             int B, int H, int Hkv, int Sq, int Sk, int d, float scale, int causal,
                              cudaStream_t st) {
   using L = FwdHop<D>;
   CUtensorMap mq, mk, mv;
-  if (!hop::map_bshd(&mq, q, B, Sq, H, D, 64) || !hop::map_bshd(&mk, k, B, Sk, Hkv, D, L::BN) ||
-      !hop::map_bshd(&mv, v, B, Sk, Hkv, D, L::BN))
+  if (!hop::map_bshd(&mq, q, B, Sq, H, d, 64) || !hop::map_bshd(&mk, k, B, Sk, Hkv, d, L::BN) ||
+      !hop::map_bshd(&mv, v, B, Sk, Hkv, d, L::BN))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_wgmma_kernel<D, OT>;
+  auto kern = flash_fwd_wgmma_kernel<D, OT, FULL>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sq, L::BM) * H * B;
   kern<<<grid, 128 * L::NWG, L::bytes, st>>>(mq, mk, mv, static_cast<OT*>(o), static_cast<float*>(lse),
-                                             B, H, Hkv, Sq, Sk, scale, causal);
+                                             B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace tt
 
-// dtype: 0 = bf16, 1 = f32 (q, k, v); out_f32: o is f32 instead of q's dtype.
-// Returns a cudaError_t; cudaErrorInvalidValue for a combination not built.
+// family: 0 = wgmma (bf16, width 64 or 128, d a multiple of 8), 1 = FMA
+// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// bf16, 1 = f32 (q, k, v); out_f32: o is f32 instead of q's dtype. Returns
+// a cudaError_t; cudaErrorInvalidValue for a combination not built.
 extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                            int H, int Hkv, int Sq, int Sk, int D, int dtype, int out_f32,
-                            float scale, int causal, void* stream) {
+                            int H, int Hkv, int Sq, int Sk, int d, int width, int family,
+                            int dtype, int out_f32, float scale, int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TT_FWD(T, OT, DD) return (int)launch_fwd<T, OT, DD>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, causal, st)
-#define TT_FWD_WGMMA(DD, OT) return (int)launch_fwd_wgmma<DD, OT>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, scale, causal, st)
-  if (dtype == 0 && !out_f32 && D == 64) TT_FWD_WGMMA(64, bf16);
-  if (dtype == 0 && !out_f32 && D == 128) TT_FWD_WGMMA(128, bf16);
-  if (dtype == 0 && out_f32 && D == 64) TT_FWD_WGMMA(64, float);
-  if (dtype == 0 && out_f32 && D == 128) TT_FWD_WGMMA(128, float);
-  if (dtype == 1 && D == 64) TT_FWD(float, float, 64);
-  if (dtype == 1 && D == 128) TT_FWD(float, float, 128);
-#undef TT_FWD
-#undef TT_FWD_WGMMA
+  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+#define TT_WG(W, OT, FULL) \
+  return (int)launch_fwd_wgmma<W, OT, FULL>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_FMA(T, OT, W) \
+  return (int)launch_fwd<T, OT, W>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_FMA_W(T, OT)             \
+  switch (width) {                  \
+    case 32: TT_FMA(T, OT, 32);     \
+    case 64: TT_FMA(T, OT, 64);     \
+    case 128: TT_FMA(T, OT, 128);   \
+    case 256: TT_FMA(T, OT, 256);   \
+  }                                 \
+  break
+  if (family == 0 && dtype == 0 && d % 8 == 0) {
+    const bool full = d == width;
+    if (width == 64 && !out_f32 && full) TT_WG(64, bf16, true);
+    if (width == 64 && !out_f32 && !full) TT_WG(64, bf16, false);
+    if (width == 64 && out_f32 && full) TT_WG(64, float, true);
+    if (width == 64 && out_f32 && !full) TT_WG(64, float, false);
+    if (width == 128 && !out_f32 && full) TT_WG(128, bf16, true);
+    if (width == 128 && !out_f32 && !full) TT_WG(128, bf16, false);
+    if (width == 128 && out_f32 && full) TT_WG(128, float, true);
+    if (width == 128 && out_f32 && !full) TT_WG(128, float, false);
+  } else if (family == 1) {
+    switch (dtype * 2 + out_f32) {
+      case 0: TT_FMA_W(bf16, bf16);
+      case 1: TT_FMA_W(bf16, float);
+      case 2:
+      case 3: TT_FMA_W(float, float);
+    }
+  }
+#undef TT_WG
+#undef TT_FMA
+#undef TT_FMA_W
   return (int)cudaErrorInvalidValue;
 }

@@ -3,10 +3,12 @@
 // 128-byte-swizzled bf16 tiles, and the wgmma.mma_async m64nNk16 products
 // (f32 accumulators in registers, A from shared memory or from registers).
 //
-// Tile layout. A bf16 tile of R rows by D columns (D = 64 or 128) lives in
-// shared memory as D / 64 boxes, each R rows of 128 bytes in the 128-byte
-// swizzle that a TMA load with CU_TENSOR_MAP_SWIZZLE_128B writes (16-byte
-// chunk c of row r sits at chunk c ^ (r % 8)). Box b starts at b * R * 128
+// Tile layout. A bf16 tile of R rows by D columns (the tile width D = 64 or
+// 128; a head_dim d < D is zero-filled to it by the tensor map, see
+// map_bshd) lives in shared memory as D / 64 boxes, each R rows of 128
+// bytes in the 128-byte swizzle that a TMA load with
+// CU_TENSOR_MAP_SWIZZLE_128B writes (16-byte chunk c of row r sits at chunk
+// c ^ (r % 8)). Box b starts at b * R * 128
 // bytes; every box is 1024-byte aligned, which the swizzle needs. Nothing
 // in the kernels addresses such a tile element by element except through
 // a wgmma descriptor, or in an elementwise pass that does not care where
@@ -277,10 +279,11 @@ __device__ __forceinline__ void scale_tile(__nv_bfloat16* t, float scale, int ti
 }
 
 // Write a 64 x N f32 accumulator as bf16 rows of global memory (row stride
-// `stride` elements), rows at or past `nvalid` skipped.
+// `stride` elements), rows at or past `nvalid` and columns at or past
+// `ncols` (the true head_dim, a multiple of 8) skipped.
 template <int N>
 __device__ __forceinline__ void store_acc(const float (&c)[N / 2], __nv_bfloat16* g, long stride,
-                                          int nvalid, int tid) {
+                                          int nvalid, int ncols, int tid) {
   const int w = tid >> 5, l = tid & 31;
   const int r0 = 16 * w + (l >> 2), c0 = 2 * (l & 3);
 #pragma unroll
@@ -290,13 +293,14 @@ __device__ __forceinline__ void store_acc(const float (&c)[N / 2], __nv_bfloat16
     __nv_bfloat16* row = g + (long)r * stride + c0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
+      if (8 * j < ncols)
+        *reinterpret_cast<uint32_t*>(row + 8 * j) = pack_bf16(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
   }
 }
 // The same rows written as f32, unrounded.
 template <int N>
 __device__ __forceinline__ void store_acc(const float (&c)[N / 2], float* g, long stride,
-                                          int nvalid, int tid) {
+                                          int nvalid, int ncols, int tid) {
   const int w = tid >> 5, l = tid & 31;
   const int r0 = 16 * w + (l >> 2), c0 = 2 * (l & 3);
 #pragma unroll
@@ -306,7 +310,8 @@ __device__ __forceinline__ void store_acc(const float (&c)[N / 2], float* g, lon
     float* row = g + (long)r * stride + c0;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
-      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
+      if (8 * j < ncols)
+        *reinterpret_cast<float2*>(row + 8 * j) = make_float2(c[4 * j + 2 * i], c[4 * j + 2 * i + 1]);
   }
 }
 
@@ -326,8 +331,10 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
   return fn;
 }
 
-// A contiguous bf16 [B, S, Hx, D] tensor as a 4-d map with [ROWS, 64] boxes
-// in the 128-byte swizzle; out-of-bounds rows read as zeros.
+// A contiguous bf16 [B, S, Hx, d] tensor as a 4-d map with [ROWS, 64] boxes
+// in the 128-byte swizzle; out-of-bounds rows, and columns at or past d
+// (a box wider than the head_dim, or the second box of a 128-wide tile
+// over 64 < d < 128), read as zeros. d * 2 bytes must be a multiple of 16.
 inline bool map_bshd(CUtensorMap* m, const void* p, int B, int S, int Hx, int D, int rows) {
   auto enc = encode_fn();
   if (!enc) return false;

@@ -1,14 +1,19 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
 The sources are ``tony_tpu_torch/csrc/flash_{fwd,bwd_dq,bwd_dkv}.cu``, with
-``hopper_common.cuh`` (the bf16 kernels: TMA loads, ``mbarrier`` rings and
-``wgmma`` products with register accumulators; sm_90a only) and
-``flash_common.cuh`` (the f32 kernels: FMA products over shared-memory
-tiles). At first use they are compiled (one ``nvcc`` each, all three at
-once) and loaded by ``ops/_build.py``. Nothing is downloaded and nothing is
-built at import. The bf16 kernels build their TMA tensor maps from the
-pointers and shapes given here, so the tensors must be contiguous and
-16-byte aligned, as ``_check`` demands.
+``hopper_common.cuh`` (the ``wgmma`` family: TMA loads, ``mbarrier`` rings
+and ``wgmma`` products with register accumulators; bf16, sm_90a only) and
+``flash_common.cuh`` (the FMA family: FMA products over shared-memory
+tiles; bf16 or f32). At first use they are compiled (one ``nvcc`` each, all
+three at once) and loaded by ``ops/_build.py``. Nothing is downloaded and
+nothing is built at import. The ``wgmma`` kernels build their TMA tensor
+maps from the pointers and shapes given here, so the tensors must be
+contiguous and 16-byte aligned, as ``_check`` demands.
+
+Every head_dim from 1 to ``MAX_HEAD_DIM`` (256) runs on a kernel; ``route``
+says which. Each family is compiled at a few tile widths, and the true
+head_dim is a run-time argument: a narrower head is zero-filled to the
+width on its way into shared memory and stored at its own width.
 
 Each launch function checks its tensors, allocates the outputs, launches on
 PyTorch's current stream, raises if the C function returns a CUDA error, and
@@ -27,22 +32,47 @@ from tony_tpu_torch.ops import _build
 from tony_tpu_torch.ops._build import F as _F, I as _I, P as _P
 
 SPECS = {
-    # q, k, v, o, lse; B, H, Hkv, Sq, Sk, D, dtype, out_f32; scale, causal,
-    # stream
+    # q, k, v, o, lse; B, H, Hkv, Sq, Sk, d, width, family, dtype, out_f32;
+    # scale, causal, stream
     "flash_fwd": _build.Kernel("flash_fwd.cu", "tt_flash_fwd",
-                               (_P,) * 5 + (_I,) * 8 + (_F, _I, _P)),
-    # q, k, v, do, lse, delta, dq; B, H, Hkv, Sq, Sk, D, dtype; scale,
-    # causal, stream
+                               (_P,) * 5 + (_I,) * 10 + (_F, _I, _P)),
+    # q, k, v, do, lse, delta, dq; B, H, Hkv, Sq, Sk, d, width, family,
+    # dtype; scale, causal, stream
     "flash_bwd_dq": _build.Kernel("flash_bwd_dq.cu", "tt_flash_bwd_dq",
-                                  (_P,) * 7 + (_I,) * 7 + (_F, _I, _P)),
-    # q, k, v, do, lse, delta, dk, dv; B, H, Hkv, Sq, Sk, D, dtype; scale,
-    # causal, stream
+                                  (_P,) * 7 + (_I,) * 9 + (_F, _I, _P)),
+    # q, k, v, do, lse, delta, dk, dv; B, H, Hkv, Sq, Sk, d, width, family,
+    # dtype; scale, causal, stream
     "flash_bwd_dkv": _build.Kernel("flash_bwd_dkv.cu", "tt_flash_bwd_dkv",
-                                   (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)),
+                                   (_P,) * 8 + (_I,) * 9 + (_F, _I, _P)),
 }
 # kernel name -> (source file, C entry point)
 KERNELS = {name: (k.source, k.entry) for name, k in SPECS.items()}
-HEAD_DIMS = (64, 128)
+
+MAX_HEAD_DIM = 256
+# The tile widths each family is compiled at (the C entry points' switch).
+WGMMA_WIDTHS = (64, 128)
+FMA_WIDTHS = (32, 64, 128, 256)
+FAMILIES = {"wgmma": 0, "fma": 1}
+# Keys per tile of each family's forward: its online softmax rounds P
+# against the running max of these tiles, so a plain version held to it
+# bit for bit in P's rounding runs over the same key tiles.
+FWD_KEY_TILE = {"wgmma": 128, "fma": 32}
+
+
+def route(d: int, dtype: torch.dtype) -> Tuple[str, int]:
+    """The kernel family and the compiled tile width that head_dim ``d`` of
+    ``dtype`` runs on: ``("wgmma", 64 or 128)`` for bf16 at a multiple of 8
+    up to 128 (a TMA row must be a whole number of 16 bytes), else
+    ``("fma", the narrowest of FMA_WIDTHS that holds d)``. Raises
+    ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash CUDA kernels take bf16 or f32, got {dtype}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash CUDA kernels take head_dim 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= WGMMA_WIDTHS[-1]:
+        return "wgmma", next(w for w in WGMMA_WIDTHS if d <= w)
+    return "fma", next(w for w in FMA_WIDTHS if d <= w)
 
 # Launches per kernel since the last reset (plain integers, see module doc).
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -64,6 +94,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
 
 
 def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
+    """(B, H, Hkv, Sq, Sk, d, width, family code) of a valid call."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash CUDA kernels take bf16 or f32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -73,9 +104,7 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
                              f"{tuple(t.shape)}")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash CUDA kernels take head_dim in {HEAD_DIMS}, "
-                         f"got {d}")
+    family, width = route(d, q.dtype)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -83,13 +112,13 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
         raise ValueError(f"q heads {h} not a multiple of kv heads {hk}")
     if causal and sq != sk:
         raise ValueError(f"causal needs seq_q == seq_k, got {sq} vs {sk}")
-    return b, h, hk, sq, sk, d
+    return b, h, hk, sq, sk, d, width, FAMILIES[family]
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool,
               out_dtype: Optional[torch.dtype] = None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (o [B,Sq,H,D], lse [B,H,Sq] f32)."""
-    b, h, hk, sq, sk, d = _check_qkv(q, k, v, causal)
+    b, h, hk, sq, sk, d, width, family = _check_qkv(q, k, v, causal)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} must be q's dtype or f32")
@@ -99,7 +128,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool,
     with torch.cuda.device(q.device):
         err = _build.fn("flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, hk, sq, sk, d,
+            lse.data_ptr(), b, h, hk, sq, sk, d, width, family,
             int(q.dtype == torch.float32), int(out_dtype != q.dtype),
             float(scale), int(causal), _build.stream(q))
     _build.raise_on("flash_fwd", err)
@@ -109,7 +138,7 @@ def flash_fwd(q, k, v, scale: float, causal: bool,
 
 def _check_bwd(q, k, v, do, lse, delta, causal):
     dims = _check_qkv(q, k, v, causal)
-    b, h, _, sq, _, _ = dims
+    b, h, _, sq = dims[:4]
     _check("do", do, q.dtype)
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
@@ -123,15 +152,16 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     """dq [B,Sq,H,D] in q's dtype; delta = rowsum(o·do) − dlse [B,H,Sq]."""
-    b, h, hk, sq, sk, d = _check_bwd(q, k, v, do, lse, delta, causal)
+    b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
+                                                    causal)
     build()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _build.fn("flash_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hk, sq,
-            sk, d, int(q.dtype == torch.float32), float(scale), int(causal),
-            _build.stream(q))
+            sk, d, width, family, int(q.dtype == torch.float32),
+            float(scale), int(causal), _build.stream(q))
     _build.raise_on("flash_bwd_dq", err)
     launch_counts["flash_bwd_dq"] += 1
     return dq
@@ -139,7 +169,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     """(dk, dv) [B,Sk,Hkv,D] in k's and v's dtype, summed over the group."""
-    b, h, hk, sq, sk, d = _check_bwd(q, k, v, do, lse, delta, causal)
+    b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
+                                                    causal)
     build()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -147,8 +178,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
         err = _build.fn("flash_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, hk, sq, sk, d, int(q.dtype == torch.float32), float(scale),
-            int(causal), _build.stream(q))
+            b, h, hk, sq, sk, d, width, family, int(q.dtype == torch.float32),
+            float(scale), int(causal), _build.stream(q))
     _build.raise_on("flash_bwd_dkv", err)
     launch_counts["flash_bwd_dkv"] += 1
     return dk, dv

@@ -22,13 +22,17 @@ a column of ones), from 128 up the f32 P; both accumulate in f32.
 
 ``block_q``/``block_k`` set the plain version's tiles and are kept in the
 signatures so configs carry over; the CUDA kernels choose their own tiles
-and ignore them. For bf16 all three run on Hopper warpgroups (``wgmma``,
-register accumulators, TMA loads through ``mbarrier`` rings,
-``csrc/hopper_common.cuh``): the forward with two warpgroups over 128
-query rows streaming 128-key tiles, the next tile's S under this tile's
-softmax; dq with one warpgroup over 64 query rows streaming 64-key tiles;
-dk/dv with one over 64 keys streaming the group's 64-row q tiles. For f32
-all three are simple FMA kernels over 32-row tiles.
+and ignore them. Every head_dim from 1 to 256 runs on a kernel
+(``_flash_cuda.route``). For bf16 at a multiple of 8 up to 128 all three
+run on Hopper warpgroups (``wgmma``, register accumulators, TMA loads
+through ``mbarrier`` rings, ``csrc/hopper_common.cuh``) at tile width 64 or
+128, a narrower head zero-filled to it: the forward with two warpgroups
+over 128 query rows streaming 128-key tiles, the next tile's S under this
+tile's softmax; dq with one warpgroup over 64 query rows streaming 64-key
+tiles; dk/dv with one over 64 keys streaming the group's 64-row q tiles.
+For f32 at every head_dim, and bf16 past 128 or off a multiple of 8, all
+three are simple FMA kernels over 32-row tiles at width 32, 64, 128 or
+256.
 """
 
 from __future__ import annotations

@@ -546,16 +546,17 @@ def train(cfg: TransformerConfig, data_path: str, batch: int = 4,
     (an elastic resize or a migration TERMs the process and expects one
     final save): once its first step is done it installs the manager's
     SIGTERM handler for the rest of the loop. The step updates the state
-    in place, so it runs inside ``mgr.updating()``: a TERM landing
-    mid-step is deferred to the step's boundary, and the final save holds
-    the state after the last whole step with its step count. The process
-    then exits 143. In a group of several processes, ranks that each acted
-    on the TERM at their own step would meet in different collectives (a
-    save's barrier, a step's). So there a TERM only marks the rank, and
-    at each step's boundary the ranks all-reduce the marks over a gloo
-    group on the host (``CheckpointManager.preemption_point``; it never
-    enters the card's stream): after the same step they all see the TERM
-    and save that step together.
+    in place, and the step's save may import and wait for the writer, so
+    each iteration (batch, step, save) runs inside ``mgr.updating()``: a
+    TERM landing in it is deferred to the step's boundary, and the final
+    save holds the state after the last whole step with its step count.
+    The process then exits 143. In a group of several processes, ranks
+    that each acted on the TERM at their own step would meet in different
+    collectives (a save's barrier, a step's). So there a TERM only marks
+    the rank, and at each step's boundary the ranks all-reduce the marks
+    over a gloo group on the host (``CheckpointManager.preemption_point``;
+    it never enters the card's stream): after the same step they all see
+    the TERM and save that step together.
 
     With ``mesh`` (see ``mesh_scope``) the state is sharded: each rank
     reads its batch coordinate's rows, the step is ``train_step_accum`` on
@@ -618,22 +619,28 @@ def _train(cfg, data_path, batch, seq, steps, accum_steps, bucket_mb,
                                 mesh=mesh)
         t0 = time.perf_counter()
         for i in range(start, steps):
-            with telemetry.step(flops=flops, tokens=batch * seq):
-                b = next(it)
-                with mgr.updating() if mgr is not None \
-                        else contextlib.nullcontext():
+            # The whole iteration is one busy scope: a TERM is acted on at
+            # its end, where this thread holds no lock. Run from the
+            # handler mid-iteration, the save could wait for the writer
+            # thread while this thread holds a lock the writer needs (the
+            # import lock of a module the step's save imports first).
+            with mgr.updating() if mgr is not None \
+                    else contextlib.nullcontext():
+                with telemetry.step(flops=flops, tokens=batch * seq):
+                    b = next(it)
                     m = train_step_accum(state, b, accum_steps, bucket_mb,
                                          group, mesh=mesh)
-            if mgr is not None and i == start:
-                # From here on a TERM has a whole step to save.
-                mgr.install_preemption_handler(snapshot, mesh=mesh,
-                                               group=flags)
-            losses.append(m["loss"])
-            if mgr is not None and saves and (i == steps - 1
-                                              or mgr.should_save(i)):
-                mgr.save(i, checkpoint_tree(state), force=True, mesh=mesh)
-            if flags is not None:
-                mgr.preemption_point()
+                if mgr is not None and i == start:
+                    # From here on a TERM has a whole step to save.
+                    mgr.install_preemption_handler(snapshot, mesh=mesh,
+                                                   group=flags)
+                losses.append(m["loss"])
+                if mgr is not None and saves and (i == steps - 1
+                                                  or mgr.should_save(i)):
+                    mgr.save(i, checkpoint_tree(state), force=True,
+                             mesh=mesh)
+                if flags is not None:
+                    mgr.preemption_point()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
