@@ -447,6 +447,18 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    kernel with its launches per step on the pipelined flagship), then the
    result line.
 
+``python3 chip_smoke.py --cards 4`` (on a host with four cards) runs the
+port's main path across cards instead: the device (four cards or it
+fails), the build, then C1 the multi-chip dry run
+(``python -m tony_tpu_torch.dryrun 4``) submitted as a gang over NCCL
+against the same gang on gloo, C2 ``tests/torch_layout_cases.py``'s nine
+cases on four NCCL and four gloo ranks, C3 the flash kernels at a rank's
+Llama shape, C4 the Llama-3-8B job at 32 layers as a submitted gang of
+four under four memory settings, C5 its 2-layer cross-check against one
+card with a 4-rank checkpoint and a resuming gang, C6 held parameters
+against FSDP2; ``--parts`` runs some of them. It goes on past a failed
+part and fails at the end.
+
 It imports nothing of JAX and nothing of ``tony_tpu``.
 """
 
@@ -2448,10 +2460,12 @@ def gpu_used_mib():
     return float(r.stdout.strip().splitlines()[0])
 
 
-def submit_job(tmp, label, command, conf=(), roots=(), backend="local"):
-    """``python -m tony_tpu_torch.cli submit`` of a one-worker pytorch job
-    on ``backend``, its history under ``tmp`` (``conf``: more
-    ``key=value`` settings): the CLI's exit code, its output, the
+def submit_job(tmp, label, command, conf=(), roots=(), backend="local",
+               workers=1, timeout_s=JOB_TIMEOUT_S):
+    """``python -m tony_tpu_torch.cli submit`` of a pytorch job of
+    ``workers`` tasks on ``backend``, its history under ``tmp``
+    (``conf``: more ``key=value`` settings): the CLI's exit code, its
+    output, the
     application id, the history root, the client workdir, the command
     lines of the CLI's descendants and of ``roots``' (a pool daemon's)
     while the job ran (read from /proc every 0.1 s), and with ``roots``
@@ -2463,10 +2477,10 @@ def submit_job(tmp, label, command, conf=(), roots=(), backend="local"):
     argv = [sys.executable, "-m", "tony_tpu_torch.cli", "submit",
             "--conf", "tony.application.framework=pytorch",
             "--conf", f"tony.application.backend={backend}",
-            "--conf", "tony.worker.instances=1",
+            "--conf", f"tony.worker.instances={workers}",
             "--conf", f"tony.worker.command={command}",
             "--conf", f"tony.history.location={hist}",
-            "--conf", f"tony.application.timeout-s={JOB_TIMEOUT_S}",
+            "--conf", f"tony.application.timeout-s={timeout_s}",
             "--workdir", work]
     for kv in conf:
         argv += ["--conf", kv]
@@ -2476,7 +2490,7 @@ def submit_job(tmp, label, command, conf=(), roots=(), backend="local"):
     with open(out_path, "w") as out:
         proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=out,
                                 stderr=subprocess.STDOUT)
-        deadline = time.monotonic() + JOB_TIMEOUT_S + 60
+        deadline = time.monotonic() + timeout_s + 60
         try:
             while proc.poll() is None:
                 for root in (proc.pid, *roots):
@@ -2493,7 +2507,7 @@ def submit_job(tmp, label, command, conf=(), roots=(), backend="local"):
             if proc.poll() is None:
                 proc.terminate()      # the CLI kills its application
                 proc.wait(timeout=120)
-                check(False, f"{label}: the job outlasted {JOB_TIMEOUT_S} s")
+                check(False, f"{label}: the job outlasted {timeout_s} s")
     with open(out_path) as f:
         text = f.read()
     m = re.search(r"submitted application (\S+)", text)
@@ -5346,6 +5360,783 @@ def phase_last_layouts(card, twins):
     log(f"last layouts: {time.perf_counter() - t0:.1f} s; {card}")
 
 
+# ---------------------------------------------------------------------------
+# Four cards (``python3 chip_smoke.py --cards 4`` on a host with four
+# cards): the port's main path across cards, each phase timed as above.
+# ---------------------------------------------------------------------------
+CARDS = 4
+TESTS = os.path.join(REPO, "tests")
+GANG_TIMEOUT_S = 420
+# Every rank of a four-card phase prints all of its threads' stacks and
+# exits after this long (``faulthandler``): NCCL hangs where a rank misses
+# a collective, without gloo's timeout messages.
+RANK_WATCHDOG_S = 240
+LLAMA_CARDS_STEPS = 10
+LLAMA_CARDS_MESH = "dp=1,fsdp=-1,tp=4"      # the example's MeshSpec
+# The settings tried at all 32 layers, in order: label, remat policy
+# ("full": full remat), batch, loss chunk (None: the example's 2048).
+LLAMA_CARDS_SETTINGS = (
+    ("dots_with_no_batch_dims_saveable B8", "dots_with_no_batch_dims_saveable",
+     8, None),
+    ("full remat B8", "full", 8, None),
+    ("full remat B8 loss chunk 1024", "full", 8, 1024),
+    ("full remat B4", "full", 4, None),
+)
+CROSS_DEPTH, CROSS_STEPS, CROSS_SAVE_AT = 2, 3, 2
+HELD_WARM, HELD_TIMED = 2, 3
+HELD_TABLES = ("dense_two_dims", "default")
+
+# The trainer's CLI with the example's job cut or set as a four-card
+# phase asks: ``--layers N`` (the depth), ``--remat-policy P`` ("full" for
+# full remat) and ``--batch B`` are taken off before ``trainer.main`` reads
+# the rest. It syncs the card after each step (the step's end wall time),
+# fingerprints the model's local shards where a checkpoint is saved and
+# where one is restored, and prints one more JSON line (``"smoke"``) with
+# those, its start time and the card's peak memory, whatever the run's end.
+LLAMA_GANG = r'''import time
+START = time.time()
+import faulthandler
+import hashlib
+import json
+import os
+import signal
+import sys
+
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+faulthandler.dump_traceback_later(%(watchdog)r, exit=True)
+
+import dataclasses
+
+import torch
+
+from tony_tpu_torch import trainer
+from tony_tpu_torch.checkpoint import CheckpointManager
+
+args, opts = [], {"--layers": None, "--remat-policy": None, "--batch": None}
+it = iter(sys.argv[1:])
+for a in it:
+    if a in opts:
+        opts[a] = next(it)
+    else:
+        args.append(a)
+config, *rest = trainer.LM_POINTS["llama3_8b"]
+
+
+def cut(seq, _config=config):
+    cfg = _config(seq)
+    policy = opts["--remat-policy"] or cfg.remat_policy
+    return dataclasses.replace(
+        cfg, n_layers=int(opts["--layers"] or cfg.n_layers), remat=True,
+        remat_policy=None if policy == "full" else policy)
+
+
+trainer.LM_POINTS["llama3_8b"] = (cut, *rest)
+if opts["--batch"]:
+    trainer.DEFAULT_BATCH["llama3_8b"] = int(opts["--batch"])
+smoke = {"rank": int(os.environ.get("RANK", "0")), "start_ts": START,
+         "step_ts": [], "saved": {}, "restored": None}
+
+
+def fingerprint(model_sd):
+    out = {}
+    for k in sorted(model_sd):
+        t = model_sd[k]
+        t = t.to_local() if hasattr(t, "to_local") else t
+        raw = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        out[k] = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+step_inner = trainer.train_step_accum
+
+
+def timed(*a, **k):
+    if not smoke["step_ts"]:
+        smoke["step_ts"].append(time.time())
+    m = step_inner(*a, **k)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    smoke["step_ts"].append(time.time())
+    return m
+
+
+save_inner = CheckpointManager.save
+
+
+def save(self, step, tree, *a, **k):
+    smoke["saved"][step] = fingerprint(tree["model"])
+    return save_inner(self, step, tree, *a, **k)
+
+
+load_inner = trainer.load_checkpoint_tree
+
+
+def load(state, tree):
+    out = load_inner(state, tree)
+    smoke["restored"] = fingerprint(trainer.checkpoint_tree(state)["model"])
+    return out
+
+
+trainer.train_step_accum = timed
+CheckpointManager.save = save
+trainer.load_checkpoint_tree = load
+try:
+    rc = trainer.main(args)
+finally:
+    faulthandler.cancel_dump_traceback_later()
+    smoke["peak_memory_bytes"] = (torch.cuda.max_memory_allocated()
+                                  if torch.cuda.is_available() else None)
+    print(json.dumps({"smoke": smoke}), flush=True)
+sys.exit(rc)
+''' % {"watchdog": float(RANK_WATCHDOG_S)}
+
+# Held parameters against FSDP2 (``PERF.md`` §7): the flagship at 16
+# layers with ring attention on ``(fsdp=2, sp=2)`` under each table, in
+# alternating turns, one NCCL rank a card (``FileStore`` rendezvous).
+HELD_SCRIPT = r'''import faulthandler
+import gc
+import json
+import os
+import signal
+import sys
+import time
+
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+faulthandler.dump_traceback_later(%(watchdog)r, exit=True)
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(rank)
+dist.init_process_group("nccl", store=dist.FileStore(
+    os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+from tony_tpu_torch import trainer
+from tony_tpu_torch.data import process_batch_slice
+from tony_tpu_torch.models import Transformer
+from tony_tpu_torch.ops import _flash_cuda
+from tony_tpu_torch.parallel import (DEFAULT_RULES, MeshSpec, adamw,
+                                     build_mesh, init_sharded_state,
+                                     sharded_train_step)
+
+TABLES = {"dense_two_dims": (("mlp", "sp"), ("embed", "fsdp")) + DEFAULT_RULES,
+          "default": DEFAULT_RULES}
+WARM, TIMED = %(steps)r
+cfg = dataclasses.replace(trainer.flagship_config(), attn_impl="ring")
+tokens = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                           (WARM + TIMED, 4, 2048))
+out = []
+for table in %(turns)r:
+    mesh = build_mesh(MeshSpec(fsdp=2, sp=2), "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = init_sharded_state(
+        lambda d: Transformer(cfg, device=d),
+        lambda g: adamw(g, trainer.LEARNING_RATE), mesh,
+        rules=TABLES[table], seed=0)
+    held = sorted(k for k, p in state.model.named_parameters()
+                  if k.rpartition(".")[2] in getattr(
+                      state.model.get_submodule(k.rpartition(".")[0]),
+                      "_gathered", {}))
+    rows = process_batch_slice(tokens.shape[1], mesh=mesh)
+    _flash_cuda.reset_launch_counts()
+    losses, ends = [], []
+    for s in range(WARM + TIMED):
+        batch = {"tokens": torch.from_numpy(tokens[s, rows]).long().cuda()}
+        _, m = sharded_train_step(trainer.lm_loss, mesh, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    out.append(dict(
+        table=table, losses=losses, held=held,
+        step_ms=(ends[-1] - ends[WARM - 1]) / TIMED * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches=dict(_flash_cuda.launch_counts)))
+    del state
+with open(os.path.join(tmp, f"held{rank}.json"), "w") as f:
+    json.dump(out, f)
+dist.barrier()
+dist.destroy_process_group()
+faulthandler.cancel_dump_traceback_later()
+''' % {"watchdog": float(RANK_WATCHDOG_S), "steps": (HELD_WARM, HELD_TIMED),
+       "turns": HELD_TABLES * 2}
+
+
+def phase_cards_device(n):
+    """Phase 1 of the four-card run: n CUDA cards visible, each card's name
+    and power limit."""
+    card = phase_device()
+    check(torch.cuda.device_count() >= n,
+          f"--cards {n}: {torch.cuda.device_count()} CUDA device(s) visible")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    log(f"cards: {smi}")
+    return card
+
+
+def submit_gang(tmp, label, command, n=CARDS, timeout_s=GANG_TIMEOUT_S):
+    """``submit_job`` of a gang of ``n`` tasks on the local backend (each
+    task's rank in the pytorch runtime's env, ``cuda:LOCAL_RANK`` its
+    card): the CLI's exit code and output, the application id, each
+    task's (stdout, stderr), the submit's wall time and its seconds."""
+    t0 = time.time()
+    rc, text, app, _, work, _, _ = submit_job(
+        tmp, label, command, workers=n, timeout_s=timeout_s)
+    logs = []
+    for i in range(n):
+        task = os.path.join(work, "jobs", app, "tasks", f"worker_{i}")
+        pair = []
+        for name in ("stdout.log", "stderr.log"):
+            try:
+                with open(os.path.join(task, name), errors="replace") as f:
+                    pair.append(f.read())
+            except OSError:
+                pair.append("")
+        logs.append(tuple(pair))
+    return dict(rc=rc, app=app, text=text, logs=logs, submit_ts=t0,
+                wall_s=time.time() - t0)
+
+
+def gang_failed(label, g):
+    """Fail with the CLI's tail and every task's (the watchdog's stacks
+    among them)."""
+    tails = "\n".join(f"--- worker {i} stdout ---\n{o[-1500:]}\n--- worker "
+                      f"{i} stderr ---\n{e[-3000:]}"
+                      for i, (o, e) in enumerate(g["logs"]))
+    check(False, f"{label}: exit {g['rc']}\n{g['text'][-1500:]}\n{tails}")
+
+
+def json_lines(text):
+    out = []
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def rel_or_zero(a, b):
+    """Relative Frobenius error, 0 where both are zero."""
+    a, b = a.double(), b.double()
+    den = b.norm().item()
+    return 0.0 if den == 0 and a.norm().item() == 0 else \
+        (a - b).norm().item() / max(den, 1e-300)
+
+
+def cards_dryrun(tmp, card, devices=("cuda", "cpu")):
+    """Part 1: ``python -m tony_tpu_torch.dryrun 4`` submitted as a gang
+    of four over NCCL, then the same gang on gloo (``--device cpu``); each
+    part's numbers on every rank within ``TOL_MODEL_REL`` of the gloo
+    run's, the flash launches of each part as ``predicted_launches``
+    says."""
+    from tony_tpu_torch import dryrun
+
+    res = {}
+    for dev in devices:
+        out_dir = os.path.join(tmp, f"dryrun_{dev}")
+        g = submit_gang(tmp, f"dryrun_{dev}", (
+            f"{sys.executable} -m tony_tpu_torch.dryrun {CARDS} --device "
+            f"{dev} --out {out_dir} --watchdog-s {RANK_WATCHDOG_S}"))
+        if g["rc"] != 0:
+            gang_failed(f"dry run ({dev})", g)
+        res[dev] = [torch.load(os.path.join(out_dir, f"dryrun_rank{r}.pt"))
+                    for r in range(CARDS)]
+        log(f"dry run ({dev}, a gang of {CARDS}): {g['wall_s']:.1f} s from "
+            f"submit to exit; worker 0 printed: "
+            f"{[x for x in g['logs'][0][0].splitlines() if 'dryrun_multichip' in x]}")
+        check(res[dev][0]["summary"] in g["logs"][0][0],
+              f"dry run ({dev}): rank 0 did not print its summary")
+    worst = collections.defaultdict(float)
+    for r, (gpu, cpu) in enumerate(zip(res["cuda"], res["cpu"])):
+        pairs = [("dense loss", gpu["dense"]["loss"], cpu["dense"]["loss"]),
+                 ("gpipe loss", gpu["gpipe"]["loss"], cpu["gpipe"]["loss"]),
+                 ("multislice loss", gpu["multislice"]["loss"],
+                  cpu["multislice"]["loss"]),
+                 ("moe loss", gpu["moe"]["loss"], cpu["moe"]["loss"])]
+        for name, a, b in pairs:
+            worst[name] = max(worst[name], abs(a - b) / abs(b))
+        tensors = ([("dense params", gpu["dense"]["params"][k],
+                     cpu["dense"]["params"][k]) for k in cpu["dense"]["params"]]
+                   + [("ring logits", gpu["ring"]["logits"],
+                       cpu["ring"]["logits"]),
+                      ("ulysses out", gpu["ulysses"]["out"],
+                       cpu["ulysses"]["out"])]
+                   + [("multislice grads", gpu["multislice"]["bucketed"][k],
+                       cpu["multislice"]["bucketed"][k])
+                      for k in cpu["multislice"]["bucketed"]])
+        for name, a, b in tensors:
+            worst[name] = max(worst[name], rel_or_zero(a, b))
+        check(gpu["launches"] == gpu["predicted"],
+              f"dry run rank {r}: flash launches {gpu['launches']}, "
+              f"predicted {gpu['predicted']}")
+        check(gpu["multislice"]["comms_fraction"] > 0,
+              "dry run: no comms phase on the card")
+    log(f"dry run, cards against gloo (worst over the ranks; losses "
+        f"relative, tensors relative Frobenius): "
+        f"{json.dumps(dict(worst))}; flash launches per part on rank 0 "
+        f"{json.dumps(res['cuda'][0]['launches'])}, rank 1 "
+        f"{json.dumps(res['cuda'][1]['launches'])}; comms fraction "
+        f"{res['cuda'][0]['multislice']['comms_fraction']:.4f} (card), "
+        f"{res['cpu'][0]['multislice']['comms_fraction']:.4f} (gloo); "
+        f"{card}")
+    log(f"dry run summary on the cards: {res['cuda'][0]['summary']}")
+    log(f"dry run summary on gloo:      {res['cpu'][0]['summary']}")
+    for name, e in worst.items():
+        check(e <= TOL_MODEL_REL, f"dry run {name}: {e} against gloo")
+    return res["cuda"][0]["launches"]
+
+
+def cards_layouts(tmp, card, devices=("cuda", "cpu")):
+    """Part 2: ``tests/torch_layout_cases.py``'s nine cases on four NCCL
+    ranks, one a card, and on four gloo ranks at once, from the same
+    seeded weights and tokens: each rank's first gradients, the losses and
+    the parameters after each step within ``TOL_MODEL_REL``, the shard
+    shapes, held parameters and their meshes equal."""
+    sys.path.insert(0, TESTS)
+    import torch_layout_cases as lc
+
+    for i, name in enumerate(lc.CASES):
+        torch.save(lc.seeded_weights(name, i),
+                   os.path.join(tmp, f"{name}_w.pt"))
+        np.save(os.path.join(tmp, f"{name}_data.npy"), lc.case_tokens(i))
+    procs = []
+    for dev in devices:
+        os.makedirs(os.path.join(tmp, dev), exist_ok=True)
+        for r in range(CARDS):
+            log_path = os.path.join(tmp, f"{dev}{r}.log")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(TESTS, "torch_layout_cases.py"),
+                 str(r), str(CARDS), tmp, "--device", dev, "--out",
+                 os.path.join(tmp, dev), "--watchdog-s",
+                 str(RANK_WATCHDOG_S)], cwd=REPO, env=repo_env(),
+                stdout=open(log_path, "w"), stderr=subprocess.STDOUT),
+                log_path))
+    t0 = time.perf_counter()
+    for p, _ in procs:
+        try:
+            p.wait(timeout=RANK_WATCHDOG_S + 60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    for p, path in procs:
+        if p.returncode != 0:
+            with open(path, errors="replace") as f:
+                check(False, f"layout cases: {path} exit {p.returncode}:\n"
+                      f"{f.read()[-4000:]}")
+    wall = time.perf_counter() - t0
+    out = {dev: [torch.load(os.path.join(tmp, dev, f"out{r}.pt"))
+                 for r in range(CARDS)] for dev in devices}
+    rows = {}
+    for name in lc.CASES:
+        worst = collections.defaultdict(float)
+        for r in range(CARDS):
+            gpu, cpu = out["cuda"][r][name], out["cpu"][r][name]
+            for k in cpu["grads"]:
+                worst["grads"] = max(worst["grads"],
+                                     rel_or_zero(gpu["grads"][k],
+                                                 cpu["grads"][k]))
+            worst["losses"] = max(worst["losses"], max(
+                abs(a - b) / abs(b) for a, b in zip(gpu["losses"],
+                                                    cpu["losses"])))
+            for s, (pg, pc) in enumerate(zip(gpu["params"], cpu["params"])):
+                for k in pc:
+                    worst["params"] = max(worst["params"],
+                                          rel_or_zero(pg[k], pc[k]))
+            check(gpu["local_shapes"] == cpu["local_shapes"]
+                  == gpu["planned"], f"layout {name} rank {r}: shard shapes "
+                  f"differ from gloo's or the plan's")
+            check(gpu["meshes"] == cpu["meshes"] and gpu["gathered"]
+                  == cpu["gathered"], f"layout {name} rank {r}: held "
+                  f"parameters differ from gloo's")
+            check(gpu["step"] == cpu["step"] == lc.STEPS,
+                  f"layout {name} rank {r}: steps")
+        param, held = lc.HELD[name]
+        got = out["cuda"][0][name]
+        check((param in got["gathered"]) == (held is not None)
+              and (held is None or got["meshes"][param] == held),
+              f"layout {name}: {param} not held as {held}")
+        rows[name] = dict(worst, losses_card=out["cuda"][0][name]["losses"])
+        log(f"layout {name}: cards against gloo (worst over the ranks) "
+            f"{json.dumps(dict(worst))}, losses {got['losses']}; {card}")
+        for what, e in worst.items():
+            check(e <= TOL_MODEL_REL, f"layout {name}: {what} {e} against "
+                  f"gloo")
+    log(f"layout cases: {len(lc.CASES)} cases on {CARDS} NCCL and {CARDS} "
+        f"gloo ranks in {wall:.1f} s; {card}")
+    return rows
+
+
+def llama_gang_cmd(tmp, corpus, steps, policy, batch, chunk=None,
+                   layers=None, ckpt=None):
+    path = os.path.join(tmp, "llama_gang.py")
+    if not os.path.exists(path):
+        with open(path, "w") as f:
+            f.write(LLAMA_GANG)
+    cmd = (f"{sys.executable} {path} --model llama3_8b --data {corpus} "
+           f"--mesh {LLAMA_CARDS_MESH} --steps {steps} --remat-policy "
+           f"{policy} --batch {batch}")
+    if chunk:
+        cmd += f" --loss-chunk {chunk}"
+    if layers:
+        cmd += f" --layers {layers}"
+    if ckpt:
+        cmd += f" --ckpt-dir {ckpt} --save-every 1000"
+    return cmd
+
+
+def llama_ranks(g):
+    """Per rank: (the trainer's JSON, the wrapper's ``smoke`` JSON) from
+    the gang's stdout logs (either None when missing)."""
+    out = []
+    for stdout, _ in g["logs"]:
+        lines = json_lines(stdout)
+        run = next((x for x in reversed(lines) if "losses" in x), None)
+        smoke = next((x["smoke"] for x in reversed(lines) if "smoke" in x),
+                     None)
+        out.append((run, smoke))
+    return out
+
+
+def llama_rank_numbers(g, cfg, batch, seq):
+    """tokens/s over the cards, step ms (median of steps 2..), MFU
+    against ``CARDS`` × the bf16 peak, peak memory per card, each task's
+    start-up seconds (from the submit and from its process start to its
+    first step)."""
+    from tony_tpu_torch import trainer
+    from tony_tpu_torch.models.transformer import Transformer
+
+    ranks = llama_ranks(g)
+    run0, smoke0 = ranks[0]
+    steps = np.diff(smoke0["step_ts"])
+    step_s = float(np.median(steps[1:])) if len(steps) > 1 else \
+        float(steps[0])
+    n_params = sum(p.numel() for p in Transformer(cfg, "meta").parameters())
+    tokens_per_sec = batch * seq / step_s
+    mfu = trainer.flops_per_token(cfg, n_params, seq) * tokens_per_sec / (
+        CARDS * PEAK_BF16)
+    return dict(
+        losses=run0["losses"], step_ms=step_s * 1e3,
+        step_ms_each=[round(x * 1e3, 3) for x in steps.tolist()],
+        tokens_per_sec=tokens_per_sec, mfu=mfu, params=n_params,
+        peak_memory_gib=[round((s["peak_memory_bytes"] or 0) / 2**30, 3)
+                         for _, s in ranks],
+        startup_from_submit_s=[round(s["step_ts"][0] - g["submit_ts"], 2)
+                               for _, s in ranks],
+        startup_from_process_s=[round(s["step_ts"][0] - s["start_ts"], 2)
+                                for _, s in ranks],
+        launches_per_step=[r["launches_per_step"] for r, _ in ranks],
+        mesh=run0["mesh"], world=run0["world"])
+
+
+def cards_llama(tmp, corpus, card):
+    """Part 3: the Llama-3-8B example's job at all 32 layers, submitted as
+    a gang of four on the example's mesh, under each of
+    ``LLAMA_CARDS_SETTINGS`` in order: 10 finite steps from a first loss
+    near ln(vocab) + 1/2 (the flash launches per step as the layers and
+    remat give) or the failed allocation; at least one setting must
+    train."""
+    from tony_tpu_torch import trainer
+
+    full = trainer.llama3_8b_config()
+    seq = trainer.LLAMA_SEQ
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = {}
+    for label, policy, batch, chunk in LLAMA_CARDS_SETTINGS:
+        cfg = dataclasses.replace(full, remat_policy=None if policy ==
+                                  "full" else policy)
+        g = submit_gang(tmp, "llama_" + re.sub(r"\W+", "_", label),
+                        llama_gang_cmd(tmp, corpus, LLAMA_CARDS_STEPS,
+                                       policy, batch, chunk))
+        if g["rc"] != 0:
+            ooms = [m.group(0) for _, err in g["logs"] for m in
+                    [re.search(r"CUDA out of memory\. Tried to allocate "
+                               r"[\d.]+ [KMG]iB[^\n]*", err)] if m]
+            peaks = [s and round((s["peak_memory_bytes"] or 0) / 2**30, 3)
+                     for _, s in llama_ranks(g)]
+            if not ooms:
+                gang_failed(f"llama 32 layers {label}", g)
+            log(f"llama 32 layers {label}: does not fit: {ooms[0][:240]}; "
+                f"peak memory per card before it (GiB) {peaks}; {card}")
+            results[label] = dict(oom=ooms[0][:240], peak_memory_gib=peaks)
+            continue
+        r = llama_rank_numbers(g, cfg, batch, seq)
+        log(f"llama 32 layers {label}: {r['params']} params, B{batch} x "
+            f"S{seq}, mesh {r['mesh']}, {r['tokens_per_sec']:.1f} tokens/s "
+            f"over {CARDS} cards, {r['step_ms']:.3f} ms/step (steps "
+            f"{r['step_ms_each']}), MFU {r['mfu']:.4f} against {CARDS} x "
+            f"{PEAK_BF16 / 1e12:.0f} TFLOP/s, peak memory per card (GiB) "
+            f"{r['peak_memory_gib']}, losses {r['losses']}, flash launches "
+            f"per step per rank {json.dumps(r['launches_per_step'])}, "
+            f"start-up s per task from the submit "
+            f"{r['startup_from_submit_s']} and from the process's start "
+            f"{r['startup_from_process_s']}; {card}")
+        check(len(r["losses"]) == LLAMA_CARDS_STEPS and all(
+            math.isfinite(x) for x in r["losses"]),
+            f"llama 32 layers {label}: losses {r['losses']}")
+        expected = math.log(full.vocab_size) + 0.5
+        check(abs(r["losses"][0] - expected) <= 0.5,
+              f"llama 32 layers {label}: first loss {r['losses'][0]} not "
+              f"near {expected:.4f}")
+        check(r["world"] == CARDS and r["mesh"]["tp"] == CARDS,
+              f"llama 32 layers {label}: mesh {r['mesh']}")
+        want = flash_launches_per_step(cfg)
+        for per_rank in r["launches_per_step"]:
+            for name, n in want.items():
+                check(per_rank.get(name) == n, f"llama 32 layers {label}: "
+                      f"{name} {per_rank.get(name)} launches a step, "
+                      f"expected {n}")
+        results[label] = r
+    check(any("oom" not in r for r in results.values()),
+          "llama 32 layers: no setting fits")
+    return results
+
+
+def cards_cross_check(tmp, corpus, card):
+    """Part 3's cross-check at ``CROSS_DEPTH`` layers, full remat, B8: the
+    job loop on one card (the process's own, cuda:0), then the gang of
+    four on the example's mesh (``CROSS_STEPS`` steps), each loss within
+    ``TOL_SP_REL``; a gang that saves a sharded checkpoint after step
+    ``CROSS_SAVE_AT`` from all four ranks, and a new gang that resumes
+    from it: the restored local shards equal the saved ones bit for bit
+    (sha256 on every rank) and its loss is the uninterrupted run's within
+    ``TOL_RESUME_REL``."""
+    from tony_tpu_torch import trainer
+
+    cfg = dataclasses.replace(trainer.llama3_8b_config(),
+                              n_layers=CROSS_DEPTH, remat_policy=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = trainer.train(cfg, corpus, batch=trainer.LLAMA_BATCH,
+                        seq=trainer.LLAMA_SEQ, steps=CROSS_STEPS,
+                        device="cuda", chunked=True,
+                        loss_chunk=trainer.LLAMA_LOSS_CHUNK,
+                        weight_decay=trainer.LLAMA_WEIGHT_DECAY)
+    one_losses = one["losses"]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"llama cross-check: one card, {CROSS_DEPTH} layers, full remat, "
+        f"B8: losses {one_losses}; {card}")
+
+    def gang(label, steps, ckpt=None):
+        g = submit_gang(tmp, label, llama_gang_cmd(
+            tmp, corpus, steps, "full", trainer.LLAMA_BATCH,
+            layers=CROSS_DEPTH, ckpt=ckpt))
+        if g["rc"] != 0:
+            gang_failed(f"llama cross-check {label}", g)
+        return g, llama_ranks(g)
+
+    g, ranks = gang("cross_whole", CROSS_STEPS)
+    whole = ranks[0][0]["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(whole, one_losses))
+    log(f"llama cross-check: {CARDS} cards on {LLAMA_CARDS_MESH}: losses "
+        f"{whole}, worst relative to one card {worst:.3e}; {card}")
+    check(len(whole) == CROSS_STEPS and worst <= TOL_SP_REL,
+          f"llama cross-check: {whole} against one card's {one_losses}")
+    ckpt = os.path.join(tmp, "cross_ckpt")
+    _, saved = gang("cross_save", CROSS_SAVE_AT, ckpt)
+    _, resumed = gang("cross_resume", CROSS_STEPS, ckpt)
+    for r, ((_, s), (run, rs)) in enumerate(zip(saved, resumed)):
+        want = s["saved"].get(str(CROSS_SAVE_AT - 1))
+        check(want is not None and rs["restored"] == want,
+              f"llama cross-check rank {r}: the restored shards are not the "
+              f"saved ones ({len(want or {})} saved, "
+              f"{len(rs['restored'] or {})} restored)")
+        check(run["start_step"] == CROSS_SAVE_AT,
+              f"llama cross-check rank {r}: resumed at {run['start_step']}")
+    back = resumed[0][0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(back, whole[CROSS_SAVE_AT:]))
+    saved_losses = saved[0][0]["losses"]
+    log(f"llama cross-check: saved after step {CROSS_SAVE_AT} by {CARDS} "
+        f"ranks ({len(saved[0][1]['saved'][str(CROSS_SAVE_AT - 1)])} "
+        f"tensors a rank, {saved[0][0].get('checkpoint_bytes')} bytes), "
+        f"restored bit for bit on every rank (sha256 of each local shard), "
+        f"restore {resumed[0][0]['restore_s']:.2f} s; the saving run's "
+        f"losses {saved_losses}, the resumed {back} against {whole} "
+        f"({rel:.3e}); {card}")
+    check(rel <= TOL_RESUME_REL, f"llama cross-check: resumed {back} "
+          f"against {whole[CROSS_SAVE_AT:]}")
+    return dict(one=one_losses, whole=whole, resumed=back)
+
+
+def cards_held(tmp, card):
+    """Held parameters against FSDP2: ``HELD_SCRIPT`` on four NCCL ranks;
+    per table the step ms of the timed steps (the slowest rank's, best of
+    its two turns) and the peak memory on each card, the losses of the two
+    tables within ``TOL_SP_REL``."""
+    path = os.path.join(tmp, "held.py")
+    with open(path, "w") as f:
+        f.write(HELD_SCRIPT)
+    procs = [(subprocess.Popen(
+        [sys.executable, path, str(r), str(CARDS), tmp], cwd=REPO,
+        env=repo_env(), stdout=open(os.path.join(tmp, f"held{r}.log"), "w"),
+        stderr=subprocess.STDOUT), os.path.join(tmp, f"held{r}.log"))
+        for r in range(CARDS)]
+    for p, _ in procs:
+        try:
+            p.wait(timeout=RANK_WATCHDOG_S + 60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    for p, log_path in procs:
+        if p.returncode != 0:
+            with open(log_path, errors="replace") as f:
+                check(False, f"held against FSDP2: {log_path} exit "
+                      f"{p.returncode}:\n{f.read()[-4000:]}")
+    ranks = []
+    for r in range(CARDS):
+        with open(os.path.join(tmp, f"held{r}.json")) as f:
+            ranks.append(json.load(f))
+    rows = {}
+    for turn, t in enumerate(ranks[0]):
+        table = t["table"]
+        ms = max(rk[turn]["step_ms"] for rk in ranks)
+        peaks = [round(rk[turn]["peak_memory_bytes"] / 2**30, 3)
+                 for rk in ranks]
+        log(f"held against FSDP2, turn {turn} {table}: {ms:.3f} ms/step "
+            f"(slowest rank, steps {HELD_WARM + 1}-{HELD_WARM + HELD_TIMED})"
+            f", peak memory per card (GiB) {peaks}, losses {t['losses']}, "
+            f"held {t['held']}, flash launches {json.dumps(t['launches'])}; "
+            f"{card}")
+        check(all(math.isfinite(x) for x in t["losses"]),
+              f"held {table}: losses")
+        rows.setdefault(table, []).append(dict(ms=ms, peaks=peaks,
+                                               losses=t["losses"],
+                                               held=t["held"]))
+    two, default = rows["dense_two_dims"], rows["default"]
+    check(two[0]["held"] and not default[0]["held"],
+          "held against FSDP2: dense_two_dims holds no parameter, or the "
+          "default does")
+    worst = max(abs(a - b) / abs(b) for a, b in
+                zip(two[0]["losses"], default[0]["losses"]))
+    check(worst <= TOL_SP_REL, f"held against FSDP2: losses {worst}")
+    best = {k: min(x["ms"] for x in v) for k, v in rows.items()}
+    log(f"held against FSDP2: dense_two_dims / default step ms "
+        f"{best['dense_two_dims'] / best['default']:.4f} (best turn each: "
+        f"{best['dense_two_dims']:.3f} / {best['default']:.3f}), peak memory "
+        f"per card {two[0]['peaks']} / {default[0]['peaks']} GiB, losses "
+        f"within {worst:.3e}; {card}")
+    return rows
+
+
+def cards_flash(card):
+    """The flash kernels at the per-rank Llama shape (tp = 4: B8 S8192
+    H8/2 D128 bf16 causal) against their plain versions on cuda:0, timed
+    beside SDPA with their bounds; the plain versions (~1 s a call there)
+    timed over 3 runs."""
+    from tony_tpu_torch.models.transformer import TransformerConfig
+    from tony_tpu_torch.ops import _flash_cuda as K
+    from tony_tpu_torch.ops import attention as A
+
+    llama = TransformerConfig.llama3_8b()
+    h, hk = llama.n_heads // CARDS, llama.n_kv_heads // CARDS
+    d = llama.dim // llama.n_heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    name = f"llama3-8b rank of tp={CARDS} bf16 B8 S8192 H{h}/{hk} D{d} causal"
+    res = check_case(name, 8, 8192, h, hk, d, torch.bfloat16, True, 31,
+                     timed=True, time_plain=False)
+    q, k, v, do = make_case(8, 8192, h, hk, d, torch.bfloat16, 31)
+    scale = d ** -0.5
+    o, lse = K.flash_fwd(q, k, v, scale, True)
+    delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    for n, fn in (
+            ("flash_fwd", lambda: A.flash_fwd_plain(
+                q, k, v, scale, True, block_q=128, block_k=128)),
+            ("flash_bwd_dq", lambda: A.flash_bwd_dq_plain(
+                q, k, v, do, lse, delta, scale, True, 128, 128)),
+            ("flash_bwd_dkv", lambda: A.flash_bwd_dkv_plain(
+                q, k, v, do, lse, delta, scale, True, 128, 128))):
+        res[n]["plain_ms"] = cuda_ms(fn, reps=3, warm=1)
+    log(f"timing ({name}): {json.dumps(res)}; {card}")
+    return res
+
+
+CARD_PARTS = ("C1", "C2", "C3", "C4", "C5", "C6")
+
+
+def main_cards(n, parts=CARD_PARTS):
+    """The four-card run: the device, the build, then parts 1-3 and the
+    flash kernels at a rank's Llama shape; the kernels' line (the flash
+    kernels at that shape, each with its launches per step on a rank of
+    the 32-layer job) and the result line."""
+    check(n == CARDS, f"--cards takes 1 or {CARDS}, not {n}")
+    started = time.perf_counter()
+    card = run_phase("1 device", phase_cards_device, n)
+    run_phase("2 build", phase_build)
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-cards-")
+    part = {}
+    for p in ("c1", "c2", "c4", "c5", "c6"):
+        part[p] = os.path.join(tmp, p)
+        os.makedirs(part[p])
+    try:
+        from tony_tpu_torch import trainer
+
+        corpus = trainer.write_corpus(os.path.join(tmp, "corpus.bin"),
+                                      trainer.llama3_8b_config().vocab_size)
+        steps = {
+            "C1": ("C1 dry run", cards_dryrun, part["c1"], card),
+            "C2": ("C2 layout cases", cards_layouts, part["c2"], card),
+            "C3": ("C3 flash at a rank's shape", cards_flash, card),
+            "C4": ("C4 llama 32 layers", cards_llama, part["c4"], corpus,
+                   card),
+            "C5": ("C5 llama cross-check", cards_cross_check, part["c5"],
+                   corpus, card),
+            "C6": ("C6 held against fsdp2", cards_held, part["c6"], card),
+        }
+        # Each part runs whatever an earlier one gave: one four-card call
+        # shows every part's result. Any failure fails the run at the end.
+        results, failed = {}, []
+        for key in CARD_PARTS:
+            if key not in parts:
+                continue
+            try:
+                results[key] = run_phase(*steps[key])
+            except (SystemExit, Exception) as e:   # noqa: BLE001
+                failed.append(f"{steps[key][0]}: {e}")
+                log(f"phase {steps[key][0]} FAILED: {e}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not failed, "--cards {}: {} part(s) failed:\n{}".format(
+        n, len(failed), "\n".join(failed)))
+    timing, llama = results.get("C3"), results.get("C4")
+    check(timing is not None and llama is not None,
+          f"--parts {','.join(parts)}: no kernels' line without C3 and C4")
+    fits = next(r for r in llama.values() if "oom" not in r)
+    from tony_tpu_torch.ops import _flash_cuda
+
+    kernels = []
+    for name, spec in _flash_cuda.SPECS.items():
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tony_tpu_torch/csrc/{spec.source}",
+            "replaces": REPLACES[name],
+            "launches": fits["launches_per_step"][0][name]
+            * LLAMA_CARDS_STEPS,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "tflops": t["tflops"],
+            "shape": "llama3-8b rank of tp=4: B8 S8192 H8/2 D128 bf16 causal"})
+    log(f"chip_smoke --cards {n}: {time.perf_counter() - started:.1f} s in "
+        f"all; {card}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 def _local(t):
     return t.to_local() if hasattr(t, "to_local") else t
 
@@ -5436,4 +6227,17 @@ REPLACES = {
 }
 
 if __name__ == "__main__":
-    main()
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cards", type=int, default=1,
+                    help=f"1 (default): the one-card run; {CARDS}: the "
+                    "port's main path across four cards")
+    ap.add_argument("--parts", default=",".join(CARD_PARTS),
+                    help="with --cards 4: the parts to run (all by default; "
+                    "the kernels' and result lines need C3 and C4)")
+    a = ap.parse_args()
+    if a.cards == 1:
+        main()
+    else:
+        main_cards(a.cards, tuple(a.parts.split(",")))

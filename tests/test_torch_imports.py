@@ -1,4 +1,5 @@
-"""The port stands alone: no file of tony_tpu_torch/ and not chip_smoke.py
+"""The port stands alone: no file of tony_tpu_torch/, not chip_smoke.py and not
+tests/torch_layout_cases.py (which chip_smoke.py runs on the cards)
 imports jax, flax, optax or tony_tpu, or names a module of tony_tpu in a
 string (a ``-m`` argument spawns that module); importing the package leaves
 jax out of sys.modules, and the control plane's entry modules import without
@@ -19,7 +20,10 @@ REFERENCE_MODULE = re.compile(r"\btony_tpu\.[A-Za-z_]")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    # chip_smoke.py --cards 4 runs the layout cases from the tests' helper
+    # on a host without JAX.
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_layout_cases.py")]
     for dirpath, dirnames, files in os.walk(
             os.path.join(REPO, "tony_tpu_torch")):
         dirnames[:] = [d for d in dirnames if d not in ("__pycache__",

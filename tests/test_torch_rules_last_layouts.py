@@ -53,6 +53,8 @@ from torch.testing._internal.distributed.fake_pg import FakeStore
 from test_torch_moe_layouts import _sp_model
 from test_torch_rules import (ALL_TABLES, DEFAULT, REPO, T4, TABLE_IDS,
                               _converters, _jmodel, _leaves, _rel, _wait)
+from torch_layout_cases import (CASES, GB, HELD, MOMENTUM, SEQ, SGD_LR,
+                                STEPS, TABLES)
 from tony_tpu import compat
 from tony_tpu.models import moe as jmoe
 from tony_tpu.models import transformer as jtf
@@ -63,158 +65,19 @@ from tony_tpu_torch.models import transformer as ttf
 from tony_tpu_torch.ops.attention import flash_attention
 from tony_tpu_torch.parallel import mesh as tmesh
 
-GB, SEQ, STEPS, RTOL = 8, 16, 3, 1e-5
-SGD_LR, MOMENTUM = 0.1, 0.9
+RTOL = 1e-5
 torch.set_num_threads(2)
 pytestmark = pytest.mark.timeout_s(900)
-
-TABLES = {
-    "default": DEFAULT, "T4": T4,
-    "two_dims": (("mlp", "sp"), ("embed", "fsdp")) + DEFAULT,
-    "out_of_order": (("embed", ("sp", "fsdp")),) + DEFAULT,
-    "random21": ALL_TABLES[TABLE_IDS.index("random21")],
-    "expert_tp_ep": (("expert", ("tp", "ep")),) + DEFAULT,
-}
-RING = dict(attn_impl="ring")
-TP4, FT, FS, ET = dict(tp=4), dict(fsdp=2, tp=2), dict(fsdp=2, sp=2), \
-    dict(ep=2, tp=2)
-# name -> (model kind, mesh spec, config keywords, table)
-CASES = {
-    "dense_tp4": ("dense", TP4, {}, "default"),
-    "mqa_fsdp_tp": ("dense", FT, dict(n_heads=4, n_kv_heads=1), "default"),
-    "moe_tp4": ("moe", TP4, {}, "default"),
-    "dense_two_dims": ("dense", FS, RING, "two_dims"),
-    "dense_out_of_order": ("dense", FS, RING, "out_of_order"),
-    "moe_two_dims": ("moe", FS, RING, "two_dims"),
-    "moe_random21": ("moe", FT, {}, "random21"),
-    "moe_expert_tp_ep": ("moe", ET, {}, "expert_tp_ep"),
-    "dense_T4": ("dense", FT, {}, "T4"),
-}
-# What each case lays where the port once refused it, read off rank 0's
-# parameters: (parameter, the mesh dims it is held on, in the mesh's order;
-# None: not gathered).
-HELD = {
-    "dense_tp4": ("layers.0.attn.wk.weight", None),
-    "mqa_fsdp_tp": ("layers.0.attn.wk.weight", None),
-    "moe_tp4": ("layers.0.attn.wv.weight", None),
-    "dense_two_dims": ("layers.0.mlp.gate.weight", ("fsdp", "sp")),
-    "dense_out_of_order": ("layers.0.attn.wq.weight", ("fsdp", "sp", "tp")),
-    "moe_two_dims": ("layers.0.moe.gate", ("fsdp", "ep", "sp")),
-    # Its axes off the plan's have one rank each: FSDP2 holds it, and the
-    # router beside the experts is an FSDP2 unit on its own mesh.
-    "moe_random21": ("layers.0.moe.down", None),
-    "moe_expert_tp_ep": ("layers.0.moe.gate", ("fsdp", "ep", "tp")),
-    "dense_T4": ("lm_head.weight", ("fsdp", "tp")),
-}
-
-_RANK_SCRIPT = r"""
-import os, sys
-import numpy as np
-import torch
-import torch.distributed as dist
-from torch.distributed.checkpoint.state_dict import (StateDictOptions,
-                                                     set_model_state_dict)
-from torch.distributed.tensor import DTensor
-torch.set_num_threads(1)
-from tony_tpu_torch.data import process_batch_slice
-from tony_tpu_torch.models import moe as tmoe
-from tony_tpu_torch.models import transformer as ttf
-from tony_tpu_torch.parallel import (MeshSpec, build_mesh, grad_sync,
-                                     init_sharded_state, sgd,
-                                     sharded_train_step)
-
-rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
-dist.init_process_group(
-    "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
-    rank=rank, world_size=world)
-CASES, TABLES = %(cases)r, %(tables)r
-SGD_LR, MOMENTUM, STEPS = %(consts)r
-
-
-def whole(x):
-    return (x.full_tensor() if isinstance(x, DTensor) else x).detach().clone()
-
-
-def local(x):
-    return (x.to_local() if isinstance(x, DTensor) else x).detach().clone()
-
-
-def setup(kind, kw):
-    # (build(device), loss_fn(model, batch))
-    if kind == "dense":
-        cfg = ttf.TransformerConfig.tiny(**kw)
-        return (lambda d: ttf.Transformer(cfg, device=d),
-                lambda m, b: (ttf.causal_lm_loss(m(b["tokens"]),
-                                                 b["tokens"]), {}))
-    cfg = tmoe.MoEConfig.tiny_moe(**kw)
-    return (lambda d: tmoe.MoETransformer(cfg, device=d),
-            lambda m, b: (tmoe.moe_lm_loss(m(b["tokens"]), b["tokens"],
-                                           cfg.aux_loss_weight), {}))
-
-
-def first_grads(state, mesh, loss_fn, batch):
-    # The first batch's gradients after the train step's reductions.
-    state.loss_fn = loss_fn
-    grads, _, _ = grad_sync.accumulate_grads(state, batch, 1)
-    grad_sync._mesh_sync(grads, grad_sync.DEFAULT_BUCKET_MB, mesh,
-                         state.model.sp_group is not None,
-                         state.model.reduced_by_fsdp)
-    out = {k: whole(g) for k, g in grads.items()}
-    state.optimizer.zero_grad(set_to_none=True)
-    return out
-
-
-out = {}
-for name, (kind, spec, kw, table) in CASES.items():
-    build, loss_fn = setup(kind, kw)
-    mesh = build_mesh(MeshSpec(**spec), "cpu")
-    state, placements = init_sharded_state(
-        build, lambda g: sgd(g, SGD_LR, momentum=MOMENTUM), mesh,
-        rules=TABLES[table])
-    set_model_state_dict(
-        state.model, torch.load(os.path.join(tmp, f"{name}_w.pt")),
-        options=StateDictOptions(full_state_dict=True))
-    case = dict(shards0={k: local(p)
-                         for k, p in state.model.named_parameters()})
-    data = np.load(os.path.join(tmp, f"{name}_data.npy"))
-    rows = process_batch_slice(data.shape[1], mesh=mesh)
-
-    def batch(s):
-        return {"tokens": torch.from_numpy(data[s, rows]).long()}
-    case["grads"] = first_grads(state, mesh, loss_fn, batch(0))
-    losses, params = [], []
-    for s in range(STEPS):
-        state, m = sharded_train_step(loss_fn, mesh, state, batch(s))
-        losses.append(m["loss"].item())
-        params.append({k: whole(p) for k, p in state.model.named_parameters()})
-    case.update(
-        losses=losses, step=state.step,
-        params=params if rank == 0 else params[-1:],
-        meshes={k: getattr(p, "device_mesh", None) and
-                p.device_mesh.mesh_dim_names
-                for k, p in state.model.named_parameters()},
-        gathered={k for k, p in state.model.named_parameters()
-                  if k.rpartition(".")[2] in getattr(
-                      state.model.get_submodule(k.rpartition(".")[0]),
-                      "_gathered", {})},
-        local_shapes={k: tuple(local(p).shape)
-                      for k, p in state.model.named_parameters()},
-        planned={k: pl.local_shape for k, pl in placements.items()})
-    out[name] = case
-    del state
-torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
-dist.barrier()
-dist.destroy_process_group()
-""" % {"cases": CASES, "tables": TABLES,
-       "consts": (SGD_LR, MOMENTUM, STEPS)}
+TESTS = os.path.dirname(os.path.abspath(__file__))
 
 
 def _spawn(tmp_path, world=4):
-    script = tmp_path / "rank.py"
-    script.write_text(_RANK_SCRIPT)
+    """The rank script of ``torch_layout_cases.py`` on ``world`` gloo
+    ranks."""
     env = dict(os.environ, PYTHONPATH=REPO)
     return [subprocess.Popen(
-        [sys.executable, str(script), str(r), str(world), str(tmp_path)],
+        [sys.executable, os.path.join(TESTS, "torch_layout_cases.py"),
+         str(r), str(world), str(tmp_path)],
         env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
 
@@ -433,3 +296,11 @@ def test_flagship_attention_at_tp8_is_the_unsharded_slices():
         sum_dv += v.grad
     torch.testing.assert_close(sum_dk, dk, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(sum_dv, dv, rtol=1e-5, atol=1e-6)
+
+
+def test_case_tables_are_the_rules_tests():
+    """``torch_layout_cases.py`` (JAX-free, for the cards' run) writes out
+    the tables ``tests/test_torch_rules.py`` makes: its ``random21``, T4
+    and the default are those."""
+    assert TABLES["random21"] == ALL_TABLES[TABLE_IDS.index("random21")]
+    assert TABLES["T4"] == T4 and TABLES["default"] == DEFAULT

@@ -99,7 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -475,19 +475,27 @@ def moe_lm_loss(model_out: Tuple[torch.Tensor, torch.Tensor],
     return causal_lm_loss(logits, tokens) + aux_weight * aux
 
 
-def dryrun_ep_step(mesh: Any, seed: int = 0) -> float:
+def dryrun_ep_step(mesh: Any, seed: int = 0,
+                   params: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> float:
     """One full MoE train step (forward, backward, AdamW) of ``tiny_moe``
     on ``mesh`` (a ``DeviceMesh`` with ``ep`` ≥ 1), every rank calling it;
     returns the global batch's loss and raises if it is not finite.
-    Counterpart of the reference's ``dryrun_ep_step``."""
+    Counterpart of the reference's ``dryrun_ep_step``. ``params`` (the
+    whole model's state dict) replaces the values drawn from ``seed`` on
+    the mesh's device: a run on the cards and one on gloo ranks then start
+    from the same weights."""
     from tony_tpu_torch.data import process_batch_slice
     from tony_tpu_torch.parallel import (adamw, batch_world,
                                          init_sharded_state,
                                          sharded_train_step)
+    from tony_tpu_torch.parallel.train import load_whole
 
     cfg = MoEConfig.tiny_moe()
     state, _ = init_sharded_state(lambda d: MoETransformer(cfg, device=d),
                                   lambda g: adamw(g, 1e-3), mesh, seed=seed)
+    if params is not None:
+        load_whole(state.model, params)
     dev = next(state.model.parameters()).device
     rows = 2 * batch_world(mesh)
     tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,

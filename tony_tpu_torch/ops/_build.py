@@ -27,6 +27,7 @@ import time
 from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
+from torch.distributed._functional_collectives import AsyncCollectiveTensor
 
 from tony_tpu_torch.utils import durable
 
@@ -133,6 +134,22 @@ def build(kernels: Mapping[str, Kernel]) -> Dict[str, object]:
 def fn(name: str) -> ctypes._CFuncPtr:
     """The loaded entry point of kernel ``name`` (after ``build``)."""
     return _fns[name]
+
+
+def plain(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a plain tensor whose data the kernel may read. A tensor
+    that a functional collective returned (``AsyncCollectiveTensor``:
+    DTensor's ``redistribute`` and ``to_local`` give one) is waited for:
+    its collective may still be in flight, and its ``data_ptr`` is not the
+    data (a kernel reading it faulted with an illegal address on four
+    H100s). Any other tensor subclass (a DTensor's shape is the global
+    one, its data the local shard) raises ``TypeError``."""
+    if isinstance(t, AsyncCollectiveTensor):
+        t = t.wait()
+    if type(t) is not torch.Tensor and not isinstance(t, torch.nn.Parameter):
+        raise TypeError(f"the CUDA kernels take plain tensors, got "
+                        f"{type(t).__name__}")
+    return t
 
 
 def check_tensor(name: str, t: torch.Tensor,

@@ -39,6 +39,7 @@ def apply(x3: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
           relu: bool) -> torch.Tensor:
     """x3 [B, R, C] bf16/f32, a/b [B, C] f32 → y [B, R, C] in x3's dtype,
     ``max(x3·a + b, 0)`` (no max when ``relu`` is False)."""
+    x3, a, b = map(_build.plain, (x3, a, b))
     _build.check_tensor("x", x3, (torch.bfloat16, torch.float32))
     for name, t in (("a", a), ("b", b)):
         _build.check_tensor(name, t, (torch.float32,))

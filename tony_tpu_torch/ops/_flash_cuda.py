@@ -118,6 +118,7 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
 def flash_fwd(q, k, v, scale: float, causal: bool,
               out_dtype: Optional[torch.dtype] = None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (o [B,Sq,H,D], lse [B,H,Sq] f32)."""
+    q, k, v = map(_build.plain, (q, k, v))
     b, h, hk, sq, sk, d, width, family = _check_qkv(q, k, v, causal)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
@@ -152,6 +153,7 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     """dq [B,Sq,H,D] in q's dtype; delta = rowsum(o·do) − dlse [B,H,Sq]."""
+    q, k, v, do, lse, delta = map(_build.plain, (q, k, v, do, lse, delta))
     b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
                                                     causal)
     build()
@@ -169,6 +171,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     """(dk, dv) [B,Sk,Hkv,D] in k's and v's dtype, summed over the group."""
+    q, k, v, do, lse, delta = map(_build.plain, (q, k, v, do, lse, delta))
     b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
                                                     causal)
     build()

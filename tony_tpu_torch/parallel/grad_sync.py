@@ -174,12 +174,28 @@ def monolithic_grads(loss_fn: Callable, model: torch.nn.Module,
                      batch: Any) -> Dict[str, torch.Tensor]:
     """The reference the bucketed path is held against: the gradient of
     one loss over the whole batch, by name (zeros where the loss does not
-    reach a parameter), leaving ``.grad`` untouched."""
+    reach a parameter), leaving ``.grad`` as it was.
+
+    It runs the backward into ``.grad`` and hands back what lands there:
+    FSDP2 computes a sharded parameter's gradient on the unsharded copy it
+    gathers and reduce-scatters it into ``.grad`` from its hooks, outside
+    autograd, so ``torch.autograd.grad`` with respect to the sharded
+    parameter reads no path from the loss and gives zeros (on a laid-out
+    model every gradient FSDP2 holds). Every rank of a sharded model
+    computes the same whole-batch loss, so FSDP2's mean over its axes
+    keeps that gradient."""
     named = [(k, p) for k, p in model.named_parameters() if p.requires_grad]
-    loss, _ = loss_fn(model, batch)
-    grads = torch.autograd.grad(loss, [p for _, p in named],
-                                allow_unused=True, materialize_grads=True)
-    return {k: g for (k, _), g in zip(named, grads)}
+    saved = [p.grad for _, p in named]
+    for _, p in named:
+        p.grad = None
+    try:
+        loss, _ = loss_fn(model, batch)
+        loss.backward()
+        return {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                for k, p in named}
+    finally:
+        for (_, p), g in zip(named, saved):
+            p.grad = g
 
 
 def _microbatches(batch: Mapping[str, Any], accum_steps: int

@@ -24,12 +24,16 @@ the same at every size.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Optional, Sequence
+import os
+from typing import Iterator, Optional, Sequence
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from tony_tpu_torch import constants
 
 # Outermost (slow, DCN-tolerant) → innermost (fast, wants NVLink peers).
 MESH_AXES = ("dcn_dp", "dp", "fsdp", "pp", "ep", "sp", "tp")
@@ -101,6 +105,65 @@ class MeshSpec:
         if "dp" not in kwargs:
             kwargs["dp"] = -1
         return cls(**kwargs)
+
+
+#: The rendezvous env of a job's task (the pytorch runtime's, and
+#: torchrun's): with all four set, ``process_group`` joins the gang's group.
+RENDEZVOUS_ENV = (constants.RANK, constants.WORLD_SIZE, constants.MASTER_ADDR,
+                  constants.MASTER_PORT)
+
+
+def in_gang() -> bool:
+    """Whether this process has its gang's rendezvous env."""
+    return all(os.environ.get(k) for k in RENDEZVOUS_ENV)
+
+
+@contextlib.contextmanager
+def process_group(device: torch.device) -> Iterator[None]:
+    """This process in a ``torch.distributed`` group: the one already up,
+    which is kept; or, with the rendezvous env (``RENDEZVOUS_ENV``, as a
+    submitted job's executor exports it), its gang's through ``env://``;
+    or else a group of one rank. NCCL on a CUDA device (one without an
+    index: the gang's ``cuda:LOCAL_RANK``, else the current device), gloo
+    on the CPU. A group brought up here is taken down on exit, through
+    ``abandon_group`` when the body raised."""
+    dist = torch.distributed
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    gang = in_gang()
+    if device.type == "cuda":
+        # set_device refuses a bare "cuda".
+        torch.cuda.set_device(
+            device.index if device.index is not None
+            else int(os.environ.get(constants.LOCAL_RANK, "0")) if gang
+            else torch.cuda.current_device())
+    if gang:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    except BaseException:
+        abandon_group()
+        raise
+    dist.destroy_process_group()
+
+
+def abandon_group() -> None:
+    """Take down this process's group after this rank failed. NCCL's
+    destroy waits for the collectives in flight, and the other ranks sit
+    in one this rank will never join: the failed rank then never exits
+    and its error is never printed, while the gang waits for its timeout.
+    So an NCCL group is aborted (``_abort_process_group``); gloo's destroy
+    does not wait."""
+    dist = torch.distributed
+    if dist.get_backend() == "nccl":
+        dist.distributed_c10d._abort_process_group()
+    else:
+        dist.destroy_process_group()
 
 
 def build_mesh(spec: Optional[MeshSpec] = None,

@@ -239,6 +239,22 @@ def init_sharded_state(
         [{"params": ps} for ps in groups.values()])), placements
 
 
+def load_whole(model: nn.Module,
+               state: Mapping[str, torch.Tensor]) -> None:
+    """Copy each parameter of a laid-out ``model`` that this rank holds
+    from the whole tensor of the same name in ``state`` (a DTensor keeps
+    its own slice, as ``init_sharded_state`` fills it); the layers of other
+    pipeline stages, which this rank does not hold, are passed over."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            local = p.to_local() if isinstance(p, DTensor) else p
+            whole = state[name].to(device=local.device, dtype=local.dtype)
+            if isinstance(p, DTensor):
+                whole = distribute_tensor(whole, p.device_mesh, p.placements,
+                                          src_data_rank=None).to_local()
+            local.copy_(whole)
+
+
 def sharded_train_step(loss_fn: LossFn, mesh: DeviceMesh, state: TrainState,
                        batch: Any, accum_steps: int = 1,
                        bucket_mb: Optional[int] = None

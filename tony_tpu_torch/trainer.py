@@ -135,7 +135,8 @@ from tony_tpu_torch.models.transformer import (Transformer, TransformerConfig,
 from tony_tpu_torch.ops import _convfuse_cuda, _flash_cuda, quant
 from tony_tpu_torch.parallel.grad_sync import (DEFAULT_BUCKET_MB,
                                                train_step_accum)
-from tony_tpu_torch.parallel.mesh import MeshSpec, build_mesh, mesh_shape
+from tony_tpu_torch.parallel.mesh import (MeshSpec, build_mesh, in_gang,
+                                         mesh_shape, process_group)
 from tony_tpu_torch.parallel.pipeline import (PipelineTransformer,
                                               pipeline_shard)
 from tony_tpu_torch.parallel.sharding import shard_model
@@ -272,50 +273,21 @@ def _layout(model: nn.Module, mesh: Any) -> Any:
     return shard_model(model, mesh)
 
 
-#: The rendezvous env of a job's task (the pytorch runtime's, and
-#: torchrun's): with all four set, ``mesh_scope`` joins the gang's group.
-RENDEZVOUS_ENV = (constants.RANK, constants.WORLD_SIZE, constants.MASTER_ADDR,
-                  constants.MASTER_PORT)
-
-
 @contextlib.contextmanager
 def mesh_scope(mesh: str, device: torch.device):
     """The ``DeviceMesh`` of the spec string ``mesh`` (``"fsdp=2,tp=2"``;
-    "" yields None) over the process group. With none up, a process
-    started with the rendezvous env (``RENDEZVOUS_ENV``, as a submitted
-    job's executor exports it) joins its gang's group through ``env://``:
-    NCCL on ``cuda:LOCAL_RANK`` for a CUDA device without an index, gloo
-    for the CPU. Without that env, a spec that resolves to one rank brings
-    up a one-rank group (NCCL for a CUDA device, gloo for the CPU). The
-    group is taken down on exit."""
+    "" yields None) over the process group (``parallel.mesh.process_group``:
+    the one up, a gang's through ``env://`` where the process has the
+    rendezvous env, else a one-rank group, which the spec must resolve
+    to). A group brought up here is taken down on exit."""
     if not mesh:
         yield None
         return
     spec = MeshSpec.from_string(mesh)
-    dist = torch.distributed
-    own = not dist.is_initialized()
-    if own:
-        backend = "nccl" if device.type == "cuda" else "gloo"
-        gang = all(os.environ.get(k) for k in RENDEZVOUS_ENV)
-        if not gang:
-            spec.resolve(1)
-        if device.type == "cuda":
-            # A device without an index: the gang's LOCAL_RANK, or the
-            # current device (set_device refuses a bare "cuda").
-            torch.cuda.set_device(
-                device.index if device.index is not None
-                else int(os.environ.get(constants.LOCAL_RANK, "0")) if gang
-                else torch.cuda.current_device())
-        if gang:
-            dist.init_process_group(backend, init_method="env://")
-        else:
-            dist.init_process_group(backend, store=dist.HashStore(),
-                                    rank=0, world_size=1)
-    try:
+    if not torch.distributed.is_initialized() and not in_gang():
+        spec.resolve(1)
+    with process_group(device):
         yield build_mesh(spec, device.type)
-    finally:
-        if own:
-            dist.destroy_process_group()
 
 
 def step_fn(mesh: Any) -> Callable[[TrainState, Any], Dict[str, Any]]:
