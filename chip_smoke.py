@@ -20,7 +20,8 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    prints the seconds it took and each kernel's registers and spills; the
    bf16 (wgmma) instantiations of the three flash kernels (eight of the
    forward: width 64 and 128, o in bf16 or f32, at the width or a
-   narrower head; four each of dq and dk/dv) must report 0 spill bytes;
+   narrower head; six each of dq and dk/dv: width 64, 128 and 256) must
+   report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal; o, lse, dq, dk and dv must
@@ -48,15 +49,17 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    ResNet's loss and gradients on the card against the same weights on the
    CPU;
 3b. the flash kernels at the head_dims other than 64 and 128
-   (``_flash_cuda.route``: bf16 at a multiple of 8 up to 128 on the wgmma
-   kernels at tile width 64 or 128, f32 and bf16 past 128 on the FMA
+   (``_flash_cuda.route``, per kernel: bf16 at a multiple of 8 up to 128 on
+   the wgmma kernels at tile width 64 or 128, and dq and dk/dv past 128 on
+   theirs at width 256; f32, and the bf16 forward past 128, on the FMA
    kernels at width 32-256): (a) each kernel against its plain version
    (the plain forward over the kernel's key tiles) at d = 8, 16, 32, 80,
-   96 and 256 in bf16 (causal GQA B2 S256 H8/2, non-causal B1 S256 H4/4,
-   ragged causal B1 S100 H4/2), at d = 16, 32 and 256 in f32 (causal GQA
-   B1 S200 H4/2) and ``flash_attention_with_lse(out_dtype=f32)`` with an
-   lse cotangent at d = 16 and 96, within phase 3's tolerances, each
-   kernel launched in every case; then each timed beside SDPA and its
+   96, 192 and 256 in bf16 (causal GQA B2 S256 H8/2, non-causal B1 S256
+   H4/4, ragged causal B1 S100 H4/2), at d = 16, 32 and 256 in f32 (causal
+   GQA B1 S200 H4/2) and ``flash_attention_with_lse(out_dtype=f32)`` with
+   an lse cotangent at d = 16, 96 and 256, within phase 3's tolerances,
+   each kernel launched in every case and only on its routed family and
+   width (launches counted by route); then each timed beside SDPA and its
    bound at B4 S2048 causal: H8/4 at d = 8, 16, 32 and 80, Phi-3-mini's
    H32/32 at 96, Gemma-7B's H16/16 at 256; (b) ``TransformerConfig.tiny()``
    unwidened (head_dim 16, f32, 2 layers) through ``trainer.build_state``
@@ -69,7 +72,12 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    Adam 1e-3 (AdamW without decay), ``moe_lm_loss`` with its aux weight,
    the same tokens (8, 32) for 5 steps at ep = 1, against the CPU within
    ``TOL_MODEL_REL``, 2 launches of each kernel per step, the last loss
-   below the first;
+   below the first; (d) one forward and backward step of the decoder at
+   Gemma-2B's widths (dim 2048, 8 heads of 256 over 1 kv head, mlp 16384,
+   vocab 256,000; 2 of 18 layers, B1 S2048 bf16) through the kernels (2
+   launches of each, its ms printed), then with ``attn_impl="xla"`` from
+   the same weights: loss within ``TOL_GEMMA_LOSS_REL``, each layer's wq,
+   wk and wv gradient within ``TOL_GEMMA_GRAD_REL``;
 4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
    decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
    the kernels; every loss must be finite, the first within 0.5 of
@@ -634,8 +642,9 @@ def phase_build():
     # the build directory). The bf16 flash kernels hold their accumulators
     # in registers: a spill there fails the run. The forward has eight bf16
     # instantiations (width 64/128 x o in bf16/f32 x the exact width or a
-    # narrower head), dq and dk/dv four (width 64/128 x exact or narrower).
-    wgmma_kernels = {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    # narrower head), dq and dk/dv six (width 64/128/256 x exact or
+    # narrower).
+    wgmma_kernels = {"flash_fwd": 8, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
             text = f.read()
@@ -918,12 +927,15 @@ def phase_kernels():
 
 
 # Phase 3b: the flash kernels at every head_dim the reference takes up to
-# 256. bf16 at a multiple of 8 up to 128 runs on the wgmma kernels at tile
-# width 64 or 128 (8, 16, 32, 80, 96 here), every other head_dim and every
-# f32 one on the FMA kernels at width 32, 64, 128 or 256 (256 here).
-HD_BF16 = (8, 16, 32, 80, 96, 256)
+# 256 (``_flash_cuda.route``, per kernel). bf16 at a multiple of 8 up to 128
+# runs on the wgmma kernels at tile width 64 or 128 (8, 16, 32, 80, 96
+# here), and past 128 the backward pair on its wgmma kernels at width 256
+# (192 on the narrower-head instantiation, 256 on the exact one) beside the
+# FMA forward; every other head_dim and every f32 one runs on the FMA
+# kernels at width 32, 64, 128 or 256 (256 here).
+HD_BF16 = (8, 16, 32, 80, 96, 192, 256)
 HD_F32 = (16, 32, 256)
-HD_OUT_F32 = (16, 96)
+HD_OUT_F32 = (16, 96, 256)
 # Timed at B4 S2048 causal: the flagship's heads (H8/4) at the narrow
 # head_dims, Phi-3-mini's H32/32 at 96 and Gemma-7B's H16/16 at 256.
 HD_TIMED = {8: (8, 4), 16: (8, 4), 32: (8, 4), 80: (8, 4), 96: (32, 32),
@@ -937,7 +949,7 @@ def fwd_key_tile(d, dtype):
     max (``TOL_BF16_LSE_MEAN``)."""
     from tony_tpu_torch.ops import _flash_cuda as K
 
-    return K.FWD_KEY_TILE[K.route(d, dtype)[0]]
+    return K.FWD_KEY_TILE[K.route(d, dtype, "flash_fwd")[0]]
 
 
 def head_dim_cases(card):
@@ -949,11 +961,19 @@ def head_dim_cases(card):
         K.reset_launch_counts()
         fn()
         counts = dict(K.launch_counts)
-        family, width = K.route(d, dtype)
-        log(f"head_dims (a) {label}: {family} kernels at width {width}, "
-            f"launches {json.dumps(counts)}")
+        ran = {f"{n} {f} {w}": c for (n, f, w), c in K.route_counts.items()}
+        routed = {n: K.route(d, dtype, n) for n in K.KERNELS}
+        log(f"head_dims (a) {label}: " + ", ".join(
+            f"{n} on {f} width {w}" for n, (f, w) in routed.items())
+            + f"; launches {json.dumps(ran)}")
         check(all(n >= 1 for n in counts.values()),
               f"{label}: a kernel did not run: {counts}")
+        check(set(K.route_counts) == {(n, *r) for n, r in routed.items()},
+              f"{label}: launches {ran} not on the routed kernels {routed}")
+        if dtype == torch.bfloat16 and d > 128 and d % 8 == 0:
+            for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+                check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
+                      f"{label}: {n} did not run on wgmma width 256: {ran}")
 
     for d in HD_BF16:
         for label, (b, s, h, hk, causal) in (
@@ -981,7 +1001,9 @@ def head_dim_cases(card):
             timing[n][str(d)] = {k: r[k] for k in (
                 "ms", "bound_ms", "bound_by", "library_ms", "tflops",
                 "max_abs_err")}
-            timing[n][str(d)]["heads"] = f"H{h}/{hk}"
+            family, width = K.route(d, torch.bfloat16, n)
+            timing[n][str(d)].update(heads=f"H{h}/{hk}", family=family,
+                                     width=width)
     log(f"head_dims (a) timing at B4 S2048 causal: {json.dumps(timing)}; "
         f"{card}")
     return timing
@@ -1018,7 +1040,9 @@ def phase_head_dims(card):
     """Phase 3b: (a) the kernels at every head_dim; (b) the reference's tiny
     decoder (head_dim 16, unwidened) trained through them under flash, ring
     and Ulysses; (c) the MoE example's job (``examples/moe/moe_ep.py``:
-    ``tiny_moe``, Adam 1e-3, tokens (8, 32)) at ep = 1."""
+    ``tiny_moe``, Adam 1e-3, tokens (8, 32)) at ep = 1; (d) a step of the
+    decoder at Gemma-2B's widths (head_dim 256) against its plain
+    attention."""
     from tony_tpu_torch import trainer
     from tony_tpu_torch.models.moe import MoEConfig
     from tony_tpu_torch.models.transformer import TransformerConfig
@@ -1071,8 +1095,97 @@ def phase_head_dims(card):
     check(losses["cuda"][-1] < losses["cuda"][0],
           f"tiny_moe: loss did not decrease: {losses['cuda']}")
     log(f"head_dims (c): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    gemma_width_step(card)
+    log(f"head_dims (d): {time.perf_counter() - t1:.1f} s")
     log(f"head_dims: {time.perf_counter() - t0:.1f} s; {card}")
     return timing
+
+
+# Phase 3b (d): the reference's decoder at Gemma-2B's widths (its published
+# config.json: hidden 2048, 8 heads of 256 over 1 kv head, intermediate
+# 16384, vocab 256,000, rope base 10,000, RMSNorm eps 1e-6, 18 layers),
+# cut to 2 layers, remat off, B1 S2048 bf16.
+GEMMA_LAYERS = 2
+# The step through the kernels against the same step with
+# attn_impl="xla" (the plain attention) on the same weights and tokens:
+# the loss relative, and each layer's wq / wk / wv gradient by relative
+# Frobenius error. Both are bf16 computations of one function that round
+# in other places (the xla path rounds the unscaled scores to bf16, its
+# einsum runs in bf16, and takes softmax's backward in f32; the kernels keep
+# S in f32 and round dS to bf16), and a weight's gradient sums those
+# rounded terms over 2048 positions with much cancellation: the plain flash
+# path and the xla path on the CPU, at dim 1024-2048, head_dim 256, MQA and
+# S512-1024, parted by 1.2e-2 to 2.3e-2 in these gradients and 1.4e-5 to
+# 5.6e-5 in the loss. The limits are twice and twenty times those; a
+# dropped group sum or a wrong scale moves a gradient by tens of percent.
+TOL_GEMMA_LOSS_REL = 1e-3
+TOL_GEMMA_GRAD_REL = 5e-2
+
+
+def gemma_width_step(card):
+    """(d) One forward and backward step of the decoder at Gemma-2B's
+    widths through the kernels (the forward on FMA at width 256, dq and
+    dk/dv on wgmma at width 256; 2 launches of each, its ms printed), then
+    the same step with ``attn_impl="xla"`` from the same weights; the
+    loss and every layer's wq, wk and wv gradient held together."""
+    from tony_tpu_torch.models.transformer import (Transformer,
+                                                   TransformerConfig,
+                                                   causal_lm_loss)
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    cfg = TransformerConfig(vocab_size=256_000, dim=2048,
+                            n_layers=GEMMA_LAYERS, n_heads=8, n_kv_heads=1,
+                            mlp_dim=16_384, max_seq_len=2048,
+                            rope_theta=10_000.0, norm_eps=1e-6, remat=False)
+    check(cfg.dim // cfg.n_heads == 256, "Gemma-2B's head_dim is not 256")
+    tokens = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (1, 2048))).cuda()
+    names = [f"layers.{i}.attn.{w}.weight" for i in range(cfg.n_layers)
+             for w in ("wq", "wk", "wv")]
+
+    def step(model):
+        model.zero_grad(set_to_none=True)
+        loss = causal_lm_loss(model(tokens), tokens)
+        loss.backward()
+        torch.cuda.synchronize()
+        params = dict(model.named_parameters())
+        return loss.item(), {n: params[n].grad.float() for n in names}
+
+    model = Transformer(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(23))
+    step(model)                                   # warm
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    loss, grads = step(model)
+    step_ms = (time.perf_counter() - t) * 1e3
+    counts = dict(K.launch_counts)
+    ran = {f"{n} {f} {w}": c for (n, f, w), c in K.route_counts.items()}
+    xla = Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                      device="cuda")
+    xla.load_state_dict(model.state_dict())
+    del model
+    loss_x, grads_x = step(xla)
+    del xla
+    loss_rel = abs(loss - loss_x) / abs(loss_x)
+    rels = {n: rel_err(grads[n], grads_x[n]) for n in names}
+    log(f"head_dims (d) Gemma-2B widths ({GEMMA_LAYERS} of 18 layers, dim "
+        f"{cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim 256, "
+        f"mlp {cfg.mlp_dim}, vocab {cfg.vocab_size}) B1 S2048 bf16: step "
+        f"{step_ms:.3f} ms through the kernels, launches {json.dumps(ran)}; "
+        f"loss {loss:.6f} vs xla {loss_x:.6f} (rel {loss_rel:.3e}); wq/wk/wv "
+        f"grad rel err {json.dumps(rels)}; {card}")
+    for n, (f, w) in {n: K.route(256, torch.bfloat16, n)
+                      for n in K.KERNELS}.items():
+        check(counts[n] == GEMMA_LAYERS and K.route_counts.get((n, f, w)) ==
+              GEMMA_LAYERS, f"Gemma widths: {n} launches {ran}, expected "
+              f"{GEMMA_LAYERS} on {f} width {w}")
+    check(math.isfinite(loss), f"Gemma widths: loss {loss}")
+    check(loss_rel <= TOL_GEMMA_LOSS_REL,
+          f"Gemma widths: loss rel err {loss_rel}")
+    for n, e in rels.items():
+        check(e <= TOL_GEMMA_GRAD_REL, f"Gemma widths: {n} grad rel err {e}")
+    torch.cuda.empty_cache()
 
 
 def phase_small_model():

@@ -3,7 +3,7 @@
 and what the card's kernels are held to) against ``tony_tpu.ops.attention``
 (the Pallas kernels in interpret mode) on the same numpy inputs, at
 d = 8, 16, 32, 80, 96 and 256; and ``_flash_cuda.route``, which sends each
-(head_dim, dtype) to a kernel family and a compiled tile width.
+(head_dim, dtype, kernel) to a kernel family and a compiled tile width.
 
 Tolerances are ``tests/test_torch_attention.py``'s (the reference's own):
 f32 2e-5 forward and 1e-4 on gradients, bf16 3e-2. The bf16 forward with
@@ -72,7 +72,7 @@ def test_forward_f32_matches_jax(d, causal):
     np.testing.assert_allclose(_np(lse), jlse, **F32)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + (192,))
 def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
     """dq, dk and dv through the port's autograd Function (the plain dq and
     dk/dv) against ``jax.grad`` of the reference's flash kernels: GQA group
@@ -120,7 +120,8 @@ def test_bf16_forward_row_sum_rule_follows_the_true_head_dim():
     assert np.abs(_np(f32_lse) - jlse).mean() > 10 * rounded
 
 
-@pytest.mark.parametrize("d,dtype,family,width", [
+# The forward's routes: wgmma up to 128, the FMA family past it.
+FWD_ROUTES = [
     (8, torch.bfloat16, "wgmma", 64),
     (16, torch.bfloat16, "wgmma", 64),
     (32, torch.bfloat16, "wgmma", 64),
@@ -140,35 +141,61 @@ def test_bf16_forward_row_sum_rule_follows_the_true_head_dim():
     (96, torch.float32, "fma", 128),
     (128, torch.float32, "fma", 128),
     (256, torch.float32, "fma", 256),
-])
-def test_route_family_and_width(d, dtype, family, width):
-    assert _flash_cuda.route(d, dtype) == (family, width)
+]
+# The backward pair's: the same up to 128, and bf16 at a multiple of 8 in
+# 136..256 on its wgmma kernels at width 256; off a multiple of 8, and f32,
+# still FMA.
+BWD_ROUTES = [
+    (d, dtype, *(("wgmma", 256) if dtype == torch.bfloat16 and d > 128
+                 and d % 8 == 0 else (family, width)))
+    for d, dtype, family, width in FWD_ROUTES] + [
+    (192, torch.bfloat16, "wgmma", 256),
+    (248, torch.bfloat16, "wgmma", 256),
+    (140, torch.bfloat16, "fma", 256),
+]
+ROUTES = ([("flash_fwd", *r) for r in FWD_ROUTES]
+          + [(kernel, *r) for kernel in ("flash_bwd_dq", "flash_bwd_dkv")
+             for r in BWD_ROUTES])
 
 
+@pytest.mark.parametrize("kernel,d,dtype,family,width", ROUTES)
+def test_route_family_and_width(kernel, d, dtype, family, width):
+    assert _flash_cuda.route(d, dtype, kernel) == (family, width)
+
+
+@pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [0, 257, 264])
-def test_route_refuses_past_the_limit_naming_it(d, dtype):
+def test_route_refuses_past_the_limit_naming_it(d, dtype, kernel):
     with pytest.raises(ValueError, match="256"):
-        _flash_cuda.route(d, dtype)
+        _flash_cuda.route(d, dtype, kernel)
 
 
-def test_route_covers_every_head_dim_up_to_the_limit():
-    """No head_dim from 1 to 256 is refused, in either dtype; the wgmma
-    family takes only bf16 rows of whole 16-byte vectors."""
+@pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
+def test_route_covers_every_head_dim_up_to_the_limit(kernel):
+    """No head_dim from 1 to 256 is refused, in either dtype, by any
+    kernel; the wgmma family takes only bf16 rows of whole 16-byte vectors,
+    and every such row the kernel's widest wgmma tile holds."""
+    widest = _flash_cuda.WGMMA_WIDTHS[kernel][-1]
     for dtype in (torch.bfloat16, torch.float32):
         for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
-            family, width = _flash_cuda.route(d, dtype)
+            family, width = _flash_cuda.route(d, dtype, kernel)
             assert d <= width
-            widths = (_flash_cuda.WGMMA_WIDTHS if family == "wgmma"
+            widths = (_flash_cuda.WGMMA_WIDTHS[kernel] if family == "wgmma"
                       else _flash_cuda.FMA_WIDTHS)
             assert width == min(w for w in widths if d <= w)
-            if family == "wgmma":
-                assert dtype == torch.bfloat16 and d % 8 == 0
+            on_wgmma = dtype == torch.bfloat16 and d % 8 == 0 and d <= widest
+            assert (family == "wgmma") == on_wgmma, (d, dtype)
 
 
 def test_route_refuses_other_dtypes():
     with pytest.raises(TypeError, match="bf16 or f32"):
-        _flash_cuda.route(64, torch.float16)
+        _flash_cuda.route(64, torch.float16, "flash_fwd")
+
+
+def test_route_refuses_other_kernels():
+    with pytest.raises(KeyError):
+        _flash_cuda.route(64, torch.bfloat16, "convfuse_apply")
 
 
 def test_kernel_entries_refuse_cpu_tensors_at_new_head_dims():

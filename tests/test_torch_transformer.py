@@ -73,9 +73,26 @@ def test_bf16_logits_match():
 def test_every_gradient_matches_jax_grad(remat):
     """Gradients of causal_lm_loss for every parameter, remat on and off
     (remat_skip_every=2 with remat on: layer 0 runs un-checkpointed)."""
-    kw = dict(remat=remat, remat_skip_every=2 if remat else 0)
+    _check_every_gradient(dict(remat=remat, remat_skip_every=2 if remat
+                               else 0), seed=2)
+
+
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_head_dim_256_mqa_every_gradient_matches_jax_grad(attn_impl):
+    """Gemma's head width: dim 512 over 2 query heads and 1 kv head
+    (head_dim 256, MQA: both query heads' dk and dv summed into the one kv
+    head), 2 layers, f32; under "flash" the port's plain flash backward
+    against ``jax.grad`` through the reference's Pallas kernels (interpret
+    mode), the loss and every parameter's gradient."""
+    cfg = dict(dim=512, n_heads=2, n_kv_heads=1, mlp_dim=256,
+               attn_impl=attn_impl)
+    assert cfg["dim"] // cfg["n_heads"] == 256
+    _check_every_gradient(cfg, seed=7)
+
+
+def _check_every_gradient(kw, seed):
     jm, params, tm = _pair(**kw)
-    tok = _tokens(seed=2)
+    tok = _tokens(seed=seed)
 
     def jloss(p):
         return jtf.causal_lm_loss(jm.apply({"params": p}, jnp.asarray(tok)),

@@ -37,18 +37,45 @@
 // rounded to bf16; f32 accumulation; no atomics (each block owns its rows,
 // so the result is deterministic).
 //
-// Head dims: the wgmma kernel is compiled at tile widths D = 64 and 128
-// and takes the true head_dim d (a multiple of 8, d <= D) at run time; the
-// tensor maps read columns d..D-1 as zeros, which leave every product over
-// the head dim unchanged and give zero columns in the products onto it,
-// and the epilogue stores columns < d only.
+// Head dims: the wgmma kernel is compiled at tile widths D = 64, 128 and
+// 256 and takes the true head_dim d (a multiple of 8, d <= D) at run time;
+// the tensor maps read columns d..D-1 as zeros (a box wholly past d too),
+// which leave every product over the head dim unchanged and give zero
+// columns in the products onto it, and the epilogue stores columns < d only.
+//
+// Width 256 (flash_bwd_dq_wgmma256_kernel, Gemma's heads). One warpgroup
+// cannot hold dQ (64 x 256 f32 is 128 registers a thread) beside S, dP and
+// dS, and the Q, dO and two K | V stages take 192 KB: one block per SM. So
+// two consumer warpgroups share the block's 64 query rows and its K / V
+// stream, each on 32 of every tile's 64 keys: it scales its own K rows in
+// place (its own named barrier, so the two never wait for each other
+// within a tile), forms S and dP on its keys (m64n32), P and dS in
+// registers, and adds dS . Ks over those keys into a whole-width partial
+// dQ (m64n256 with dS as the register A operand). After the loop the
+// partials are summed in a fixed order through shared memory, each
+// warpgroup storing one 128-column half: 212 registers, 0 spills. Measured
+// in one-call A/Bs at B4 S2048 H16/16 d = 256 bf16 causal on an H100 SXM
+// 80 GB at 700 W (medians of 20, four turns; SDPA's backward 1.096-1.107
+// ms): this design 0.584-0.593 ms (2.8x its bound); the next tile's load
+// issued after S instead of before it, so that dQ of tile j runs under the
+// scores of tile j + 1, 0.695-0.701 (the two-stage ring then exposes the
+// load); dS through shared memory and a 128-column half of dQ in each
+// warpgroup (64 registers fewer, a block barrier per tile) 0.629-0.640;
+// 128 query rows per block (each warpgroup its own 64 rows and whole dQ)
+// over a three-stage ring of 32-key tiles, which halves the K / V bytes
+// streamed but needs a block barrier after each tile's scaling, 0.646-0.654;
+// the loads and barriers alone (no products) 0.654-0.660, no less than
+// the whole kernel. With half the bytes streamed no faster either, what
+// holds it at 2.8x is not settled: no instruction-level profiler runs on
+// that machine.
 //
 // FMA family (flash_bwd_dq_kernel<T, W>): the simple shared-memory kernel of
 // flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
-// bf16 where the wgmma kernel does not go (d past 128, or not a multiple
-// of 8), at widths W = 32, 64, 128 and 256 with the true d at run time;
-// wgmma takes no f32 input. Same numerics as the wgmma kernel; slow (its
-// products read both operands from shared memory), see PERF.md.
+// bf16 where the wgmma kernel does not go (d not a multiple of 8), at widths
+// W = 32, 64, 128 and 256 with the true d at run time; wgmma takes no f32
+// input. Same numerics as the wgmma kernel; slow (its products read both
+// operands from shared memory): at d = 256 bf16 it took 60.0 ms at the
+// shape above, see PERF.md.
 //
 // Left for later: a fused backward (s and dp are recomputed here and in the
 // dk/dv kernel; fusing them with an atomic dq would give up determinism, a
@@ -309,6 +336,179 @@ __global__ void __launch_bounds__(128, 2)
   store_acc<D>(dQ, dq + ((long)b * Sq + q0) * qstride + (long)h * hd, qstride, Sq - q0, hd, tid);
 }
 
+// ------------------------------------------------ bf16 path, width 256 (wgmma)
+// Two consumer warpgroups over one block's 64 query rows, each owning 32 of
+// every K / V tile's 64 keys: warpgroup w scales its K rows in place (a
+// barrier of its own 128 threads), forms S and dP on its keys (m64n32),
+// P and dS in registers, and adds dS . Ks over its keys into a whole-width
+// partial dQ (64 x 256 f32, m64n256, 128 registers a thread). The two
+// partials are summed once, through shared memory, after the loop. The
+// same shared memory as DqHop<256>: Q, dO and two K | V ring stages.
+template <bool FULL>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_dq_wgmma256_kernel(const __grid_constant__ CUtensorMap mq,
+                                 const __grid_constant__ CUtensorMap mk,
+                                 const __grid_constant__ CUtensorMap mv,
+                                 const __grid_constant__ CUtensorMap mdo,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 bf16* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk,
+                                 int d, float scale, int causal) {
+  using namespace hop;
+  constexpr int D = 256, KD = D / 16, BOXE = 64 * BOX;  // bf16 elements of one 64-column box
+  using L = DqHop<D>;
+
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::Q_OFF);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + L::DO_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* qbar = empty + L::STAGES;
+
+  const int tid = threadIdx.x, wg = tid >> 7, wt = tid & 127;
+  const int per = H * B;
+  const int nq = (Sq + L::BM - 1) / L::BM;
+  const int tile = blockIdx.x / per, h = blockIdx.x % per % H, b = blockIdx.x % per / H;
+  const int qi = causal ? nq - 1 - tile : tile;
+  const int hk = h / (H / Hkv);
+  const int q0 = qi * L::BM;
+  int nk = (Sk + L::BN - 1) / L::BN;
+  if (causal) nk = min(nk, qi + 1);
+
+  if (tid == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  auto stage = [&](int j) { return smem + L::RING_OFF + (j % L::STAGES) * L::STAGE_STRIDE; };
+  auto issue = [&](int j) {
+    unsigned char* st = stage(j);
+    uint64_t* bar = &full[j % L::STAGES];
+    mbar_expect_tx(bar, L::STAGE_TX);
+    tma_tile<64, D>(reinterpret_cast<bf16*>(st), &mk, bar, hk, j * L::BN, b);
+    tma_tile<64, D>(reinterpret_cast<bf16*>(st + L::TILE_B), &mv, bar, hk, j * L::BN, b);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(qbar, 2 * L::TILE_B);
+    tma_tile<64, D>(sQ, &mq, qbar, h, q0, b);
+    tma_tile<64, D>(sDO, &mdo, qbar, h, q0, b);
+    issue(0);
+  }
+
+  const float scale_t = __bfloat162float(__float2bfloat16(scale));
+  const int w = wt >> 5, l = tid & 31;
+  const int row0 = q0 + 16 * w + (l >> 2);  // this thread's query rows: row0, row0 + 8
+  const int kw = 32 * wg;                   // this warpgroup's first key of a tile
+  const int ck = 2 * (l & 3);               // and its key columns kw + 8j + ck + {0, 1}
+  float lse_r[2], delta_r[2];
+  const long soff = ((long)b * H + h) * Sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    lse_r[i] = r < Sq ? lse[soff + r] : 0.f;
+    delta_r[i] = r < Sq ? delta[soff + r] : 0.f;
+  }
+
+  float dQ[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
+
+  mbar_wait(qbar, 0);
+  for (int j = 0; j < nk; ++j) {
+    if (tid == 0 && j + 1 < nk) {
+      // Stage (j + 1) % 2 last held tile j - 1: wait until every thread is done with it.
+      if (j >= 1) mbar_wait(&empty[(j + 1) % L::STAGES], ((j - 1) >> 1) & 1);
+      issue(j + 1);
+    }
+    __syncwarp();
+    unsigned char* st = stage(j);
+    bf16* sK = reinterpret_cast<bf16*>(st);
+    bf16* sV = reinterpret_cast<bf16*>(st + L::TILE_B);
+    const int k0 = j * L::BN;
+
+    mbar_wait(&full[j % L::STAGES], (j >> 1) & 1);
+    // Ks = k * scale in bf16, in place, on this warpgroup's 32 rows of each box.
+#pragma unroll
+    for (int c = 0; c < D / BOX; ++c) scale_tile<32 * BOX, 128>(sK + c * BOXE + kw * BOX, scale_t, wt);
+    fence_proxy_async();
+    named_sync(1 + wg, 128);
+
+    float s[16], dp[16];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)  // S = Q . Ks^T on this warpgroup's keys
+      Wg<32>::ss(s, desc_k<64>(sQ, kk), desc_k<64>(sK + kw * BOX, kk), kk > 0);
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)  // dP = dO . V^T
+      Wg<32>::ss(dp, desc_k<64>(sDO, kk), desc_k<64>(sV + kw * BOX, kk), kk > 0);
+    wg_commit();
+    wg_wait<1>();
+    pin(s);
+
+    // P = exp(S - lse), 0 where masked; tiles wholly below the diagonal and
+    // inside both sequences skip the mask.
+    const bool inside = q0 + L::BM <= Sq && k0 + L::BN <= Sk && (!causal || k0 < q0);
+#pragma unroll
+    for (int x = 0; x < 16; ++x) {
+      const int i = (x >> 1) & 1;
+      const int row = row0 + 8 * i, key = k0 + kw + 8 * (x >> 2) + ck + (x & 1);
+      float p = expf(s[x] - lse_r[i]);
+      if (!inside && (row >= Sq || key >= Sk || (causal && key > row))) p = 0.f;
+      s[x] = p;
+    }
+    wg_wait<0>();
+    pin(dp);
+    // dS = P * (dP - delta), rounded to bf16 as the A operand of dQ += dS . Ks.
+#pragma unroll
+    for (int x = 0; x < 16; ++x) dp[x] = s[x] * (dp[x] - delta_r[(x >> 1) & 1]);
+    uint32_t dsa[2][4];
+    acc_to_a<2>(dp, dsa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) Wg<D>::rs(dQ, dsa[kk], desc_mn<64>(sK, 2 * wg + kk));
+    wg_commit();
+    wg_wait<0>();
+    pin(dQ);
+    pin(dsa);
+    mbar_arrive(&empty[j % L::STAGES]);
+  }
+
+  // dQ = the two partials: warpgroup w keeps columns 128w..128w+127 and
+  // hands the other half to its partner through the Q | dO area (two
+  // 64 x 128 f32 halves, 64 KB), each word at [register][thread].
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + L::Q_OFF);
+  float* give = red + (1 - wg) * 64 * 128;
+  const float* take = red + wg * 64 * 128;
+  const int hd = FULL ? D : d;
+  const long qstride = (long)H * hd;
+  bf16* g = dq + ((long)b * Sq + q0) * qstride + (long)h * hd;
+  if (wg == 0) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) give[x * 128 + wt] = dQ[64 + x];
+  } else {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) give[x * 128 + wt] = dQ[x];
+  }
+  __syncthreads();
+  if (wg == 0) {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) dQ[x] += take[x * 128 + wt];
+    store_acc<128>(reinterpret_cast<const float(&)[64]>(dQ[0]), g, qstride, Sq - q0, hd, wt);
+  } else {
+#pragma unroll
+    for (int x = 0; x < 64; ++x) dQ[64 + x] += take[x * 128 + wt];
+    store_acc<128>(reinterpret_cast<const float(&)[64]>(dQ[64]), g + 128, qstride, Sq - q0,
+                   hd - 128, wt);
+  }
+}
+
 template <int D, bool FULL>
 cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
@@ -318,19 +518,22 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
   if (!hop::map_bshd(&mq, q, B, Sq, H, d, 64) || !hop::map_bshd(&mdo, dout, B, Sq, H, d, 64) ||
       !hop::map_bshd(&mk, k, B, Sk, Hkv, d, 64) || !hop::map_bshd(&mv, v, B, Sk, Hkv, d, 64))
     return cudaErrorInvalidValue;
-  auto kern = flash_bwd_dq_wgmma_kernel<D, FULL>;
+  // The width-256 kernel takes the same arguments with two warpgroups.
+  auto kern = flash_bwd_dq_wgmma256_kernel<FULL>;
+  if constexpr (D != 256) kern = flash_bwd_dq_wgmma_kernel<D, FULL>;
+  const int threads = D == 256 ? 256 : 128;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sq, L::BM) * H * B;
-  kern<<<grid, 128, L::bytes, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
-                                    static_cast<const float*>(delta), static_cast<bf16*>(dq), B,
-                                    H, Hkv, Sq, Sk, d, scale, causal);
+  kern<<<grid, threads, L::bytes, st>>>(mq, mk, mv, mdo, static_cast<const float*>(lse),
+                                        static_cast<const float*>(delta), static_cast<bf16*>(dq),
+                                        B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace tt
 
-// family: 0 = wgmma (bf16, width 64 or 128, d a multiple of 8), 1 = FMA
+// family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8), 1 = FMA
 // (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
 // bf16, 1 = f32 (q, k, v, do, dq). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -358,6 +561,8 @@ extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
     if (width == 64 && !full) TT_WG(64, false);
     if (width == 128 && full) TT_WG(128, true);
     if (width == 128 && !full) TT_WG(128, false);
+    if (width == 256 && full) TT_WG(256, true);
+    if (width == 256 && !full) TT_WG(256, false);
   } else if (family == 1) {
     switch (dtype) {
       case 0: TT_FMA_W(bf16);

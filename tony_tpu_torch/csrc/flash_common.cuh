@@ -3,9 +3,9 @@
 // flash_bwd_dq.cu and flash_bwd_dkv.cu): tile sizes, tile loads from device
 // memory into shared memory, and one block-level FMA matrix product on
 // shared-memory tiles. They take f32 at every head_dim up to 256, and bf16
-// at the head_dims the wgmma kernels of hopper_common.cuh do not take (past
-// 128, or not a multiple of 8); those take the layouts, NEG_INF and cdiv
-// from here.
+// at the head_dims the wgmma kernels of hopper_common.cuh do not take (not
+// a multiple of 8; for the forward also past 128); those take the layouts,
+// NEG_INF and cdiv from here.
 //
 // Layouts. q/o/do are [B, Sq, H, d] and k/v/dk/dv are [B, Sk, Hkv, d], all
 // contiguous, so one sequence row of one head is d contiguous elements and

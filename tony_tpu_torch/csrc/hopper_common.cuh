@@ -3,16 +3,16 @@
 // 128-byte-swizzled bf16 tiles, and the wgmma.mma_async m64nNk16 products
 // (f32 accumulators in registers, A from shared memory or from registers).
 //
-// Tile layout. A bf16 tile of R rows by D columns (the tile width D = 64 or
-// 128; a head_dim d < D is zero-filled to it by the tensor map, see
+// Tile layout. A bf16 tile of R rows by D columns (the tile width D = 64,
+// 128 or 256; a head_dim d < D is zero-filled to it by the tensor map, see
 // map_bshd) lives in shared memory as D / 64 boxes, each R rows of 128
 // bytes in the 128-byte swizzle that a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes (16-byte chunk c of row r sits at chunk
 // c ^ (r % 8)). Box b starts at b * R * 128
 // bytes; every box is 1024-byte aligned, which the swizzle needs. Nothing
 // in the kernels addresses such a tile element by element except through
-// a wgmma descriptor, or in an elementwise pass that does not care where
-// an element sits.
+// a wgmma descriptor, in an elementwise pass that does not care where an
+// element sits, or through st_swz, which writes where a TMA load would.
 //
 // Register layouts (PTX ISA, wgmma m64nNk16, 128 threads of a warpgroup):
 // thread t = 32w + l holds accumulator rows 16w + l/4 and 16w + l/4 + 8 and
@@ -76,6 +76,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // made visible to the async proxy (wgmma, TMA) that reads it next.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over the `n` threads that name it:
+// one warpgroup's threads wait for each other and not for the block's.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -154,70 +160,80 @@ __device__ __forceinline__ void pin(uint32_t (&r)[m][n]) {
 }
 
 // ------------------------------------------------------------ wgmma products
-// d (64 x N, f32) = A (64 x 16) . B (16 x N) + (acc ? d : 0), bf16 inputs.
-// ss: A and B both K-major in shared memory (B stored [N][16], so
-//     d = A . B^T in row-major terms); d is overwritten when acc is 0.
+// d (64 x N, f32) = A (64 x 16) . B (16 x N) + (acc ? d : 0), bf16 inputs, at
+// N = 32, 64, 128 and 256 (N / 2 accumulator registers a thread).
+// ss: A K-major in shared memory; B K-major (TB = 0: stored [N][16], so
+//     d = A . B^T in row-major terms) or MN-major (TB = 1: stored [16][N],
+//     the transpose bit set); d is overwritten when acc is 0.
 // rs: A from registers, B MN-major in shared memory (stored [16][N], the
 //     transpose bit set); always accumulates.
 #define TT_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
                  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define TT_D32 TT_D8(0), TT_D8(8), TT_D8(16), TT_D8(24)
+#define TT_D16 TT_D8(0), TT_D8(8)
+#define TT_D32 TT_D16, TT_D8(16), TT_D8(24)
 #define TT_D64 TT_D32, TT_D8(32), TT_D8(40), TT_D8(48), TT_D8(56)
+#define TT_D128 TT_D64, TT_D8(64), TT_D8(72), TT_D8(80), TT_D8(88), TT_D8(96), TT_D8(104), \
+                TT_D8(112), TT_D8(120)
+#define TT_R16                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define TT_R32                                                                    \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define TT_R64                                                                    \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
-  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "  \
-  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "   \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
   "%62, %63}"
+#define TT_R128                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, "   \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "   \
+  "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "   \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, "   \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "  \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "      \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+// The operand numbers follow the N / 2 accumulators: ss's a, b, acc and TB,
+// rs's four A registers, b and the predicate's 1.
+#define TT_WG(N, DREGS, RLIST, IA, IB, IACC, ITB, IA0, IA1, IA2, IA3, IRB, IONE)             \
+  template <> struct Wg<N> {                                                                \
+    template <int TB = 0>                                                                   \
+    static __device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t a, uint64_t b,    \
+                                              int acc) {                                    \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IACC ", 0;\n"                      \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " RLIST         \
+                   ", %" #IA ", %" #IB ", p, 1, 1, 0, %" #ITB ";\n}\n"                       \
+                   : DREGS                                                                  \
+                   : "l"(a), "l"(b), "r"(acc), "n"(TB));                                    \
+    }                                                                                       \
+    static __device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],    \
+                                              uint64_t b) {                                 \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IONE ", 0;\n"                      \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " RLIST         \
+                   ", {%" #IA0 ", %" #IA1 ", %" #IA2 ", %" #IA3 "}, %" #IRB ", p, 1, 1, 1;\n}\n" \
+                   : DREGS                                                                  \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));            \
+    }                                                                                       \
+  };
 
 template <int N> struct Wg;
+TT_WG(32, TT_D16, TT_R16, 16, 17, 18, 19, 16, 17, 18, 19, 20, 21)
+TT_WG(64, TT_D32, TT_R32, 32, 33, 34, 35, 32, 33, 34, 35, 36, 37)
+TT_WG(128, TT_D64, TT_R64, 64, 65, 66, 67, 64, 65, 66, 67, 68, 69)
+TT_WG(256, TT_D128, TT_R128, 128, 129, 130, 131, 128, 129, 130, 131, 132, 133)
 
-template <> struct Wg<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_R32
-        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : TT_D32
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TT_R32
-        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : TT_D32
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Wg<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TT_R64
-        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : TT_D64
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " TT_R64
-        ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : TT_D64
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
+#undef TT_WG
 #undef TT_D8
+#undef TT_D16
 #undef TT_D32
 #undef TT_D64
+#undef TT_D128
+#undef TT_R16
 #undef TT_R32
 #undef TT_R64
+#undef TT_R128
 
 // d (64 x N) = A . B^T over a contraction of 16 * KSTEPS: A is a K-major
 // [64, 16 KSTEPS] tile and B a K-major [N, 16 KSTEPS] tile in shared
@@ -253,6 +269,14 @@ __device__ __forceinline__ void acc_to_a(const float (&c)[8 * K], uint32_t (&a)[
     a[kk][2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
     a[kk][3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
   }
+}
+
+// Two bf16 (packed in v) at row r, columns c and c + 1 (c even, < 64) of a
+// 64-column box in the 128-byte swizzle: where a TMA load would put them,
+// so that a wgmma descriptor reads the box as a loaded tile.
+__device__ __forceinline__ void st_swz(__nv_bfloat16* box, int r, int c, uint32_t v) {
+  unsigned char* row = reinterpret_cast<unsigned char*>(box) + r * 128;
+  *reinterpret_cast<uint32_t*>(row + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) * 2))) = v;
 }
 
 // The two bf16 of a packed register, exactly, as f32.
@@ -333,8 +357,9 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
 
 // A contiguous bf16 [B, S, Hx, d] tensor as a 4-d map with [ROWS, 64] boxes
 // in the 128-byte swizzle; out-of-bounds rows, and columns at or past d
-// (a box wider than the head_dim, or the second box of a 128-wide tile
-// over 64 < d < 128), read as zeros. d * 2 bytes must be a multiple of 16.
+// (a box wider than the head_dim, the second box of a 128-wide tile
+// over 64 < d < 128, a box of a 256-wide tile that starts at or past d),
+// read as zeros. d * 2 bytes must be a multiple of 16.
 inline bool map_bshd(CUtensorMap* m, const void* p, int B, int S, int Hx, int D, int rows) {
   auto enc = encode_fn();
   if (!enc) return false;

@@ -11,9 +11,10 @@ maps from the pointers and shapes given here, so the tensors must be
 contiguous and 16-byte aligned, as ``_check`` demands.
 
 Every head_dim from 1 to ``MAX_HEAD_DIM`` (256) runs on a kernel; ``route``
-says which. Each family is compiled at a few tile widths, and the true
-head_dim is a run-time argument: a narrower head is zero-filled to the
-width on its way into shared memory and stored at its own width.
+says which, for each kernel: bf16 dq and dk/dv take ``wgmma`` up to 256,
+the forward up to 128. Each family is compiled at a few tile widths, and
+the true head_dim is a run-time argument: a narrower head is zero-filled
+to the width on its way into shared memory and stored at its own width.
 
 Each launch function checks its tensors, allocates the outputs, launches on
 PyTorch's current stream, raises if the C function returns a CUDA error, and
@@ -49,8 +50,11 @@ SPECS = {
 KERNELS = {name: (k.source, k.entry) for name, k in SPECS.items()}
 
 MAX_HEAD_DIM = 256
-# The tile widths each family is compiled at (the C entry points' switch).
-WGMMA_WIDTHS = (64, 128)
+# The tile widths each kernel's families are compiled at (the C entry
+# points' switches): the backward pair has a wgmma instantiation at 256 as
+# well, the forward's widest wgmma tile is 128.
+WGMMA_WIDTHS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128, 256),
+                "flash_bwd_dkv": (64, 128, 256)}
 FMA_WIDTHS = (32, 64, 128, 256)
 FAMILIES = {"wgmma": 0, "fma": 1}
 # Keys per tile of each family's forward: its online softmax rounds P
@@ -59,28 +63,40 @@ FAMILIES = {"wgmma": 0, "fma": 1}
 FWD_KEY_TILE = {"wgmma": 128, "fma": 32}
 
 
-def route(d: int, dtype: torch.dtype) -> Tuple[str, int]:
-    """The kernel family and the compiled tile width that head_dim ``d`` of
-    ``dtype`` runs on: ``("wgmma", 64 or 128)`` for bf16 at a multiple of 8
-    up to 128 (a TMA row must be a whole number of 16 bytes), else
-    ``("fma", the narrowest of FMA_WIDTHS that holds d)``. Raises
-    ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype."""
+def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
+    """The family and the compiled tile width that ``kernel`` (one of
+    ``KERNELS``) runs head_dim ``d`` of ``dtype`` on: ``("wgmma", the
+    narrowest of WGMMA_WIDTHS[kernel] that holds d)`` for bf16 at a multiple
+    of 8 that one holds (a TMA row must be a whole number of 16 bytes),
+    else ``("fma", the narrowest of FMA_WIDTHS that holds d)``. Raises
+    ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype,
+    ``KeyError`` for another kernel."""
+    widths = WGMMA_WIDTHS[kernel]
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash CUDA kernels take bf16 or f32, got {dtype}")
     if not 1 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"flash CUDA kernels take head_dim 1 to "
                          f"{MAX_HEAD_DIM}, got {d}")
-    if dtype == torch.bfloat16 and d % 8 == 0 and d <= WGMMA_WIDTHS[-1]:
-        return "wgmma", next(w for w in WGMMA_WIDTHS if d <= w)
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= widths[-1]:
+        return "wgmma", next(w for w in widths if d <= w)
     return "fma", next(w for w in FMA_WIDTHS if d <= w)
 
-# Launches per kernel since the last reset (plain integers, see module doc).
+# Launches per kernel since the last reset (plain integers, see module doc),
+# and per (kernel, family, tile width): which compiled kernel each ran on.
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
+route_counts: Dict[Tuple[str, str, int], int] = {}
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+    route_counts.clear()
+
+
+def _launched(kernel: str, family: str, width: int) -> None:
+    launch_counts[kernel] += 1
+    key = (kernel, family, width)
+    route_counts[key] = route_counts.get(key, 0) + 1
 
 
 def build() -> Dict[str, object]:
@@ -93,8 +109,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     _build.check_tensor(name, t, (dtype,))
 
 
-def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
-    """(B, H, Hkv, Sq, Sk, d, width, family code) of a valid call."""
+def _check_qkv(kernel, q, k, v,
+               causal) -> Tuple[int, int, int, int, int, int, int, str]:
+    """(B, H, Hkv, Sq, Sk, d, width, family) of a valid call of
+    ``kernel``."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash CUDA kernels take bf16 or f32, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -104,7 +122,7 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
                              f"{tuple(t.shape)}")
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    family, width = route(d, q.dtype)
+    family, width = route(d, q.dtype, kernel)
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
@@ -112,14 +130,15 @@ def _check_qkv(q, k, v, causal) -> Tuple[int, ...]:
         raise ValueError(f"q heads {h} not a multiple of kv heads {hk}")
     if causal and sq != sk:
         raise ValueError(f"causal needs seq_q == seq_k, got {sq} vs {sk}")
-    return b, h, hk, sq, sk, d, width, FAMILIES[family]
+    return b, h, hk, sq, sk, d, width, family
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool,
               out_dtype: Optional[torch.dtype] = None):
     """q [B,Sq,H,D], k/v [B,Sk,Hkv,D] -> (o [B,Sq,H,D], lse [B,H,Sq] f32)."""
     q, k, v = map(_build.plain, (q, k, v))
-    b, h, hk, sq, sk, d, width, family = _check_qkv(q, k, v, causal)
+    b, h, hk, sq, sk, d, width, family = _check_qkv("flash_fwd", q, k, v,
+                                                    causal)
     out_dtype = out_dtype or q.dtype
     if out_dtype not in (q.dtype, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} must be q's dtype or f32")
@@ -129,16 +148,16 @@ def flash_fwd(q, k, v, scale: float, causal: bool,
     with torch.cuda.device(q.device):
         err = _build.fn("flash_fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, hk, sq, sk, d, width, family,
+            lse.data_ptr(), b, h, hk, sq, sk, d, width, FAMILIES[family],
             int(q.dtype == torch.float32), int(out_dtype != q.dtype),
             float(scale), int(causal), _build.stream(q))
     _build.raise_on("flash_fwd", err)
-    launch_counts["flash_fwd"] += 1
+    _launched("flash_fwd", family, width)
     return o, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta, causal):
-    dims = _check_qkv(q, k, v, causal)
+def _check_bwd(kernel, q, k, v, do, lse, delta, causal):
+    dims = _check_qkv(kernel, q, k, v, causal)
     b, h, _, sq = dims[:4]
     _check("do", do, q.dtype)
     if do.shape != q.shape:
@@ -154,26 +173,26 @@ def _check_bwd(q, k, v, do, lse, delta, causal):
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     """dq [B,Sq,H,D] in q's dtype; delta = rowsum(o·do) − dlse [B,H,Sq]."""
     q, k, v, do, lse, delta = map(_build.plain, (q, k, v, do, lse, delta))
-    b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
-                                                    causal)
+    b, h, hk, sq, sk, d, width, family = _check_bwd(
+        "flash_bwd_dq", q, k, v, do, lse, delta, causal)
     build()
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _build.fn("flash_bwd_dq")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, hk, sq,
-            sk, d, width, family, int(q.dtype == torch.float32),
+            sk, d, width, FAMILIES[family], int(q.dtype == torch.float32),
             float(scale), int(causal), _build.stream(q))
     _build.raise_on("flash_bwd_dq", err)
-    launch_counts["flash_bwd_dq"] += 1
+    _launched("flash_bwd_dq", family, width)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
     """(dk, dv) [B,Sk,Hkv,D] in k's and v's dtype, summed over the group."""
     q, k, v, do, lse, delta = map(_build.plain, (q, k, v, do, lse, delta))
-    b, h, hk, sq, sk, d, width, family = _check_bwd(q, k, v, do, lse, delta,
-                                                    causal)
+    b, h, hk, sq, sk, d, width, family = _check_bwd(
+        "flash_bwd_dkv", q, k, v, do, lse, delta, causal)
     build()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -181,8 +200,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool):
         err = _build.fn("flash_bwd_dkv")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, hk, sq, sk, d, width, family, int(q.dtype == torch.float32),
-            float(scale), int(causal), _build.stream(q))
+            b, h, hk, sq, sk, d, width, FAMILIES[family],
+            int(q.dtype == torch.float32), float(scale), int(causal),
+            _build.stream(q))
     _build.raise_on("flash_bwd_dkv", err)
-    launch_counts["flash_bwd_dkv"] += 1
+    _launched("flash_bwd_dkv", family, width)
     return dk, dv
