@@ -18,8 +18,8 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
 2. the build: compiles the three flash kernels and the convfuse apply
    kernel from ``tony_tpu_torch/csrc`` (one ``nvcc`` each, all at once) and
    prints the seconds it took and each kernel's registers and spills; the
-   bf16 (wgmma) instantiations of the three flash kernels (eight of the
-   forward: width 64 and 128, o in bf16 or f32, at the width or a
+   bf16 (wgmma) instantiations of the three flash kernels (twelve of the
+   forward: width 64, 128 and 256, o in bf16 or f32, at the width or a
    narrower head; six each of dq and dk/dv: width 64, 128 and 256) must
    report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
@@ -49,19 +49,24 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    ResNet's loss and gradients on the card against the same weights on the
    CPU;
 3b. the flash kernels at the head_dims other than 64 and 128
-   (``_flash_cuda.route``, per kernel: bf16 at a multiple of 8 up to 128 on
-   the wgmma kernels at tile width 64 or 128, and dq and dk/dv past 128 on
-   theirs at width 256; f32, and the bf16 forward past 128, on the FMA
-   kernels at width 32-256): (a) each kernel against its plain version
-   (the plain forward over the kernel's key tiles) at d = 8, 16, 32, 80,
-   96, 192 and 256 in bf16 (causal GQA B2 S256 H8/2, non-causal B1 S256
-   H4/4, ragged causal B1 S100 H4/2), at d = 16, 32 and 256 in f32 (causal
-   GQA B1 S200 H4/2) and ``flash_attention_with_lse(out_dtype=f32)`` with
-   an lse cotangent at d = 16, 96 and 256, within phase 3's tolerances,
-   each kernel launched in every case and only on its routed family and
-   width (launches counted by route); then each timed beside SDPA and its
-   bound at B4 S2048 causal: H8/4 at d = 8, 16, 32 and 80, Phi-3-mini's
-   H32/32 at 96, Gemma-7B's H16/16 at 256; (b) ``TransformerConfig.tiny()``
+   (``_flash_cuda.route``, per kernel: bf16 at a multiple of 8 on the
+   wgmma kernels at tile width 64, 128 or 256; f32, and bf16 off a
+   multiple of 8, on the FMA kernels at width 32-256): (a) each kernel
+   against its plain version (the plain forward over the kernel's key
+   tiles, ``_flash_cuda.fwd_key_tile``: 64 keys at width 256) at d = 8,
+   16, 32, 80, 96, 192 and 256 in bf16 (causal GQA B2 S256 H8/2,
+   non-causal B1 S256 H4/4, ragged causal B1 S100 H4/2), at d = 16, 32 and
+   256 in f32 (causal GQA B1 S200 H4/2) and
+   ``flash_attention_with_lse(out_dtype=f32)`` with an lse cotangent at
+   d = 16, 96 and 256, within phase 3's tolerances (the lse mean included,
+   which at d = 192 catches a row sum over the rounded P), each kernel
+   launched in every case and only on its routed family and width
+   (launches counted by route; at d = 192 and 256 all three on wgmma 256);
+   then each timed beside SDPA and its bound at B4 S2048 causal: H8/4 at
+   d = 8, 16, 32 and 80, Phi-3-mini's H32/32 at 96, Gemma-7B's H16/16 at
+   256 (o, lse, dq, dk and dv also bitwise equal across two runs there),
+   and the f32 FMA kernels at d = 16 H8/4 beside SDPA in f32 (their bound
+   at the f32 peak); (b) ``TransformerConfig.tiny()``
    unwidened (head_dim 16, f32, 2 layers) through ``trainer.build_state``
    and ``train_step``: 5 AdamW steps under ``attn_impl="flash"``, one
    under ``"ring"`` and one under ``"ulysses"`` (off any mesh: one rank),
@@ -75,9 +80,15 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    below the first; (d) one forward and backward step of the decoder at
    Gemma-2B's widths (dim 2048, 8 heads of 256 over 1 kv head, mlp 16384,
    vocab 256,000; 2 of 18 layers, B1 S2048 bf16) through the kernels (2
-   launches of each, its ms printed), then with ``attn_impl="xla"`` from
-   the same weights: loss within ``TOL_GEMMA_LOSS_REL``, each layer's wq,
-   wk and wv gradient within ``TOL_GEMMA_GRAD_REL``;
+   launches of each, all on wgmma at width 256, its ms printed), then with
+   ``attn_impl="xla"`` from the same weights: loss within
+   ``TOL_GEMMA_LOSS_REL``, each layer's wq, wk and wv gradient within
+   ``TOL_GEMMA_GRAD_REL``; then the same decoder at all 18 layers (about
+   3.0 B parameters, f32 parameters and gradients, no optimizer): 2 warm
+   and 3 timed forward and backward steps, 18 launches of each kernel a
+   step on wgmma 256, ms a step, tokens/s, MFU and peak memory printed,
+   and the loss within ``TOL_GEMMA_LOSS_REL`` of the same weights' forward
+   under ``attn_impl="xla"``;
 4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
    decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
    the kernels; every loss must be finite, the first within 0.5 of
@@ -640,11 +651,11 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
     # Registers and spills of every kernel (each source's ``ptxas -v`` log in
     # the build directory). The bf16 flash kernels hold their accumulators
-    # in registers: a spill there fails the run. The forward has eight bf16
-    # instantiations (width 64/128 x o in bf16/f32 x the exact width or a
-    # narrower head), dq and dk/dv six (width 64/128/256 x exact or
+    # in registers: a spill there fails the run. The forward has twelve bf16
+    # instantiations (width 64/128/256 x o in bf16/f32 x the exact width or
+    # a narrower head), dq and dk/dv six (width 64/128/256 x exact or
     # narrower).
-    wgmma_kernels = {"flash_fwd": 8, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+    wgmma_kernels = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
             text = f.read()
@@ -777,7 +788,8 @@ def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
 
 
 def time_flash(name, q, k, v, do, lse, delta, causal, o):
-    """Each flash kernel's ms by CUDA events, its TFLOP/s and bound, and
+    """Each flash kernel's ms by CUDA events, its TFLOP/s and bound (bf16
+    at the tensor cores' peak, f32 at the f32 peak outside them), and
     ``scaled_dot_product_attention``'s forward and backward (the library
     yardstick, used nowhere in the port; its output is held against ``o``,
     the forward kernel's or the plain version's)."""
@@ -822,8 +834,9 @@ def time_flash(name, q, k, v, do, lse, delta, causal, o):
             "flash_bwd_dq": (6 * d * pairs, 2 * qb + 2 * kb + 2 * sb + qb),
             "flash_bwd_dkv": (8 * d * pairs,
                               2 * qb + 2 * kb + 2 * sb + 2 * kb)}
+    peak = PEAK_BF16 if q.dtype == torch.bfloat16 else PEAK_F32
     for n, (flops, nbytes) in work.items():
-        tf, tb = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+        tf, tb = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         res[n].update(bound_ms=max(tf, tb),
                       bound_by="operations" if tf >= tb else "bytes",
                       tflops=flops / res[n]["ms"] / 1e9)
@@ -927,12 +940,11 @@ def phase_kernels():
 
 
 # Phase 3b: the flash kernels at every head_dim the reference takes up to
-# 256 (``_flash_cuda.route``, per kernel). bf16 at a multiple of 8 up to 128
-# runs on the wgmma kernels at tile width 64 or 128 (8, 16, 32, 80, 96
-# here), and past 128 the backward pair on its wgmma kernels at width 256
-# (192 on the narrower-head instantiation, 256 on the exact one) beside the
-# FMA forward; every other head_dim and every f32 one runs on the FMA
-# kernels at width 32, 64, 128 or 256 (256 here).
+# 256 (``_flash_cuda.route``, per kernel). bf16 at a multiple of 8 runs on
+# the wgmma kernels at tile width 64 or 128 (8, 16, 32, 80, 96 here) and
+# past 128 at width 256 (192 on the narrower-head instantiations, 256 on
+# the exact ones); every other head_dim and every f32 one runs on the FMA
+# kernels at width 32, 64, 128 or 256 (16, 32 and 256 here).
 HD_BF16 = (8, 16, 32, 80, 96, 192, 256)
 HD_F32 = (16, 32, 256)
 HD_OUT_F32 = (16, 96, 256)
@@ -949,7 +961,7 @@ def fwd_key_tile(d, dtype):
     max (``TOL_BF16_LSE_MEAN``)."""
     from tony_tpu_torch.ops import _flash_cuda as K
 
-    return K.FWD_KEY_TILE[K.route(d, dtype, "flash_fwd")[0]]
+    return K.fwd_key_tile(d, dtype)
 
 
 def head_dim_cases(card):
@@ -971,7 +983,7 @@ def head_dim_cases(card):
         check(set(K.route_counts) == {(n, *r) for n, r in routed.items()},
               f"{label}: launches {ran} not on the routed kernels {routed}")
         if dtype == torch.bfloat16 and d > 128 and d % 8 == 0:
-            for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+            for n in K.KERNELS:
                 check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
                       f"{label}: {n} did not run on wgmma width 256: {ran}")
 
@@ -993,17 +1005,24 @@ def head_dim_cases(card):
         counted(f"with_lse {name}", d, torch.bfloat16, functools.partial(
             check_with_lse, name, 1, 200, 4, 2, d, 400 + d))
     timing = {n: {} for n in K.KERNELS}
-    for d, (h, hk) in HD_TIMED.items():
-        res = check_case(f"head_dims bf16 B4 S2048 H{h}/{hk} D{d} causal",
-                         4, 2048, h, hk, d, torch.bfloat16, True, 500 + d,
-                         timed=True, time_plain=False)
+    # The width-256 forward is also held bitwise across two runs; the f32
+    # FMA kernels are timed at the tiny decoders' head_dim beside SDPA in
+    # f32, their bound at the f32 peak.
+    for key, (d, (h, hk), dtype) in [
+            *((str(d), (d, hd, torch.bfloat16)) for d, hd in HD_TIMED.items()),
+            ("16 f32", (16, (8, 4), torch.float32))]:
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        res = check_case(f"head_dims {name} B4 S2048 H{h}/{hk} D{d} causal",
+                         4, 2048, h, hk, d, dtype, True, 500 + d,
+                         timed=True, deterministic=d == 256,
+                         time_plain=False)
         for n, r in res.items():
-            timing[n][str(d)] = {k: r[k] for k in (
+            timing[n][key] = {k: r[k] for k in (
                 "ms", "bound_ms", "bound_by", "library_ms", "tflops",
                 "max_abs_err")}
-            family, width = K.route(d, torch.bfloat16, n)
-            timing[n][str(d)].update(heads=f"H{h}/{hk}", family=family,
-                                     width=width)
+            family, width = K.route(d, dtype, n)
+            timing[n][key].update(heads=f"H{h}/{hk}", family=family,
+                                  width=width)
     log(f"head_dims (a) timing at B4 S2048 causal: {json.dumps(timing)}; "
         f"{card}")
     return timing
@@ -1097,6 +1116,7 @@ def phase_head_dims(card):
     log(f"head_dims (c): {time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     gemma_width_step(card)
+    gemma_full_depth(card)
     log(f"head_dims (d): {time.perf_counter() - t1:.1f} s")
     log(f"head_dims: {time.perf_counter() - t0:.1f} s; {card}")
     return timing
@@ -1105,7 +1125,7 @@ def phase_head_dims(card):
 # Phase 3b (d): the reference's decoder at Gemma-2B's widths (its published
 # config.json: hidden 2048, 8 heads of 256 over 1 kv head, intermediate
 # 16384, vocab 256,000, rope base 10,000, RMSNorm eps 1e-6, 18 layers),
-# cut to 2 layers, remat off, B1 S2048 bf16.
+# cut to 2 layers, remat off, B1 S2048 bf16, and then at all 18.
 GEMMA_LAYERS = 2
 # The step through the kernels against the same step with
 # attn_impl="xla" (the plain attention) on the same weights and tokens:
@@ -1121,24 +1141,33 @@ GEMMA_LAYERS = 2
 # dropped group sum or a wrong scale moves a gradient by tens of percent.
 TOL_GEMMA_LOSS_REL = 1e-3
 TOL_GEMMA_GRAD_REL = 5e-2
+# The same decoder at all of Gemma-2B's 18 layers: warm and timed steps.
+GEMMA_FULL_LAYERS = 18
+GEMMA_WARM, GEMMA_TIMED = 2, 3
+
+
+def gemma_config(layers):
+    """The reference's decoder at Gemma-2B's widths, ``layers`` deep."""
+    from tony_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=256_000, dim=2048, n_layers=layers,
+                            n_heads=8, n_kv_heads=1, mlp_dim=16_384,
+                            max_seq_len=2048, rope_theta=10_000.0,
+                            norm_eps=1e-6, remat=False)
+    check(cfg.dim // cfg.n_heads == 256, "Gemma-2B's head_dim is not 256")
+    return cfg
 
 
 def gemma_width_step(card):
     """(d) One forward and backward step of the decoder at Gemma-2B's
-    widths through the kernels (the forward on FMA at width 256, dq and
-    dk/dv on wgmma at width 256; 2 launches of each, its ms printed), then
-    the same step with ``attn_impl="xla"`` from the same weights; the
-    loss and every layer's wq, wk and wv gradient held together."""
-    from tony_tpu_torch.models.transformer import (Transformer,
-                                                   TransformerConfig,
-                                                   causal_lm_loss)
+    widths through the kernels (all three on wgmma at width 256; 2
+    launches of each, its ms printed), then the same step with
+    ``attn_impl="xla"`` from the same weights; the loss and every layer's
+    wq, wk and wv gradient held together."""
+    from tony_tpu_torch.models.transformer import Transformer, causal_lm_loss
     from tony_tpu_torch.ops import _flash_cuda as K
 
-    cfg = TransformerConfig(vocab_size=256_000, dim=2048,
-                            n_layers=GEMMA_LAYERS, n_heads=8, n_kv_heads=1,
-                            mlp_dim=16_384, max_seq_len=2048,
-                            rope_theta=10_000.0, norm_eps=1e-6, remat=False)
-    check(cfg.dim // cfg.n_heads == 256, "Gemma-2B's head_dim is not 256")
+    cfg = gemma_config(GEMMA_LAYERS)
     tokens = torch.from_numpy(np.random.default_rng(23).integers(
         0, cfg.vocab_size, (1, 2048))).cuda()
     names = [f"layers.{i}.attn.{w}.weight" for i in range(cfg.n_layers)
@@ -1186,6 +1215,75 @@ def gemma_width_step(card):
     for n, e in rels.items():
         check(e <= TOL_GEMMA_GRAD_REL, f"Gemma widths: {n} grad rel err {e}")
     torch.cuda.empty_cache()
+
+
+def gemma_full_depth(card):
+    """(d) The decoder at Gemma-2B's widths at all 18 layers (about 3.0 B
+    parameters; f32 parameters and gradients, no optimizer), B1 S2048:
+    ``GEMMA_WARM`` warm and ``GEMMA_TIMED`` timed forward and backward
+    steps through the kernels (one launch of each per layer and step, all
+    on wgmma at width 256), ms a step, tokens/s, MFU (bench's count against
+    the bf16 peak) and peak memory; the loss held to the same weights'
+    forward under ``attn_impl="xla"``."""
+    from tony_tpu_torch.models.transformer import Transformer, causal_lm_loss
+    from tony_tpu_torch.ops import _flash_cuda as K
+    from tony_tpu_torch.trainer import flops_per_token
+
+    cfg = gemma_config(GEMMA_FULL_LAYERS)
+    seq = cfg.max_seq_len
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (1, seq))).cuda()
+    model = Transformer(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(24))
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        loss = causal_lm_loss(model(tokens), tokens)
+        loss.backward()
+        return loss.detach()
+
+    for _ in range(GEMMA_WARM):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    losses = [step() for _ in range(GEMMA_TIMED)]
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t) / GEMMA_TIMED
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(K.launch_counts)
+    ran = {f"{n} {f} {w}": c for (n, f, w), c in K.route_counts.items()}
+    losses = [x.item() for x in losses]
+    model.zero_grad(set_to_none=True)
+    xla = Transformer(dataclasses.replace(cfg, attn_impl="xla"),
+                      device="cuda")
+    xla.load_state_dict(model.state_dict())
+    del model
+    with torch.no_grad():
+        loss_x = causal_lm_loss(xla(tokens), tokens).item()
+    del xla
+    torch.cuda.empty_cache()
+    tokens_per_sec = seq / dt
+    mfu = tokens_per_sec * flops_per_token(cfg, n_params, seq) / PEAK_BF16
+    loss_rel = max(abs(x - loss_x) for x in losses) / abs(loss_x)
+    log(f"head_dims (d) Gemma-2B widths at all {cfg.n_layers} layers "
+        f"({n_params / 1e9:.3f} B parameters) B1 S{seq} bf16, remat off: "
+        f"{dt * 1e3:.3f} ms a step ({GEMMA_TIMED} after {GEMMA_WARM} warm), "
+        f"{tokens_per_sec:.1f} tokens/s, MFU {mfu:.4f}, peak memory "
+        f"{peak / 2**30:.2f} GiB, launches {json.dumps(ran)}; losses "
+        f"{losses} vs xla {loss_x:.6f} (rel {loss_rel:.3e}); {card}")
+    want = GEMMA_FULL_LAYERS * GEMMA_TIMED
+    for n in K.KERNELS:
+        check(counts[n] == want
+              and K.route_counts.get((n, "wgmma", 256)) == want,
+              f"Gemma widths at {cfg.n_layers} layers: {n} launches {ran}, "
+              f"expected {want} on wgmma width 256")
+    check(all(math.isfinite(x) for x in losses),
+          f"Gemma widths at {cfg.n_layers} layers: losses {losses}")
+    check(loss_rel <= TOL_GEMMA_LOSS_REL,
+          f"Gemma widths at {cfg.n_layers} layers: loss rel err {loss_rel}")
 
 
 def phase_small_model():

@@ -2,8 +2,9 @@
 ``tony_tpu_torch.ops.attention``'s plain versions (what a CPU tensor runs,
 and what the card's kernels are held to) against ``tony_tpu.ops.attention``
 (the Pallas kernels in interpret mode) on the same numpy inputs, at
-d = 8, 16, 32, 80, 96 and 256; and ``_flash_cuda.route``, which sends each
-(head_dim, dtype, kernel) to a kernel family and a compiled tile width.
+d = 8, 16, 32, 80, 96, 136, 192 and 256; ``_flash_cuda.route``, which sends
+each (head_dim, dtype, kernel) to a kernel family and a compiled tile
+width; and ``fwd_key_tile``, the key tile of the routed forward kernel.
 
 Tolerances are ``tests/test_torch_attention.py``'s (the reference's own):
 f32 2e-5 forward and 1e-4 on gradients, bf16 3e-2. The bf16 forward with
@@ -97,18 +98,43 @@ def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
                                    err_msg=f"d{name}")
 
 
+def _lse_rounded_sum(q, k, d, block):
+    """lse of a causal bf16 forward whose row sum adds P rounded to bf16
+    over ``block``-key tiles (the rule below head_dim 128), at any d: the
+    plain forward's loop with that rule forced."""
+    qs = (q * torch.tensor(d ** -0.5, dtype=torch.bfloat16)).float()
+    s = qs.transpose(1, 2) @ k.float().permute(0, 2, 3, 1)   # [B, H, S, S]
+    n = s.shape[-1]
+    s = s.masked_fill(~torch.ones(n, n, dtype=torch.bool).tril(), -1e30)
+    m = torch.full(s.shape[:3] + (1,), -1e30)
+    l = torch.zeros_like(m)
+    for k0 in range(0, n, block):
+        t = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        p = torch.exp(t - m_new).bfloat16().float()
+        l = l * torch.exp(m - m_new) + p.sum(-1, keepdim=True)
+        m = m_new
+    return (m + torch.log(l.clamp_min(1e-30)))[..., 0]
+
+
+def _jax_lse(q, k, v, block):
+    _, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=block, block_k=block, out_dtype=jnp.float32)
+    return np.asarray(jlse).transpose(0, 2, 1)
+
+
 def test_bf16_forward_row_sum_rule_follows_the_true_head_dim():
     """At d = 96 (the 128-wide wgmma tile on the card) the row sum adds the
     rounded P, as the reference does below 128; the f32 P's sum differs
-    from the reference's lse by an order of magnitude more in the mean."""
+    from the reference's lse by an order of magnitude more in the mean. At
+    d = 192 (the 256-wide tile, a narrower head) the rule flips: the f32
+    sum matches the reference, the rounded sum is 10x further off."""
     q, k, v = _qkv(1, 100, 2, 2, 96, seed=7)
     args = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
     _, lse = tattn.flash_fwd_plain(*args, 96 ** -0.5, True, torch.float32,
                                    BLOCK, BLOCK)
-    _, jlse = jattn.flash_attention_with_lse(
-        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
-        causal=True, block_q=BLOCK, block_k=BLOCK, out_dtype=jnp.float32)
-    jlse = np.asarray(jlse).transpose(0, 2, 1)
+    jlse = _jax_lse(q, k, v, BLOCK)
     rounded = np.abs(_np(lse) - jlse).mean()
     # The f32 row sum, as from 128 up: sum_j exp(s_ij - lse_i) = 1 exactly.
     qs = (args[0] * torch.tensor(96 ** -0.5, dtype=torch.bfloat16)).float()
@@ -118,9 +144,56 @@ def test_bf16_forward_row_sum_rule_follows_the_true_head_dim():
     f32_lse = torch.logsumexp(s, -1)
     assert rounded <= 2e-6
     assert np.abs(_np(f32_lse) - jlse).mean() > 10 * rounded
+    assert np.abs(_np(_lse_rounded_sum(args[0], args[1], 96, BLOCK))
+                  - jlse).mean() <= 2e-6
+
+    q, k, v = _qkv(1, 100, 2, 2, 192, seed=8)
+    args = [torch.from_numpy(x).bfloat16() for x in (q, k, v)]
+    _, lse = tattn.flash_fwd_plain(*args, 192 ** -0.5, True, torch.float32,
+                                   BLOCK, BLOCK)
+    jlse = _jax_lse(q, k, v, BLOCK)
+    f32_sum = np.abs(_np(lse) - jlse).mean()
+    assert f32_sum <= 2e-6
+    assert np.abs(_np(_lse_rounded_sum(args[0], args[1], 192, BLOCK))
+                  - jlse).mean() > 10 * f32_sum
 
 
-# The forward's routes: wgmma up to 128, the FMA family past it.
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_forward_over_the_width_256_key_tile_matches_jax(d):
+    """The plain forward the card's width-256 kernel is held to, over that
+    kernel's key tiles (``fwd_key_tile``): bf16 in, f32 out, causal GQA,
+    S = 200 (a ragged last tile), against the reference's kernels in
+    interpret mode at the same blocks; o and lse also in the mean."""
+    tile = _flash_cuda.fwd_key_tile(d, torch.bfloat16)
+    q, k, v = _qkv(1, 200, 4, 2, d, seed=40 + d)
+    o, lse = tattn.flash_fwd_plain(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), d ** -0.5,
+        True, torch.float32, tile, tile)
+    jo, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=tile, block_k=tile, out_dtype=jnp.float32)
+    jlse = np.asarray(jlse).transpose(0, 2, 1)
+    for name, t, j in (("o", o, jo), ("lse", lse, jlse)):
+        err = np.abs(_np(t) - np.asarray(j))
+        assert err.mean() <= 2e-6, f"{name}: mean abs err {err.mean()}"
+        np.testing.assert_allclose(_np(t), j, **BF16, err_msg=name)
+
+
+@pytest.mark.parametrize("d,dtype,tile", [
+    (8, torch.bfloat16, 128), (64, torch.bfloat16, 128),
+    (96, torch.bfloat16, 128), (128, torch.bfloat16, 128),
+    (136, torch.bfloat16, 80), (192, torch.bfloat16, 80),
+    (256, torch.bfloat16, 80), (20, torch.bfloat16, 32),
+    (140, torch.bfloat16, 32), (16, torch.float32, 32),
+    (256, torch.float32, 32)])
+def test_fwd_key_tile_is_the_routed_forward_kernels(d, dtype, tile):
+    """128 keys a tile on wgmma at width 64 / 128, 80 at width 256, 32 on
+    FMA (bf16 off a multiple of 8, every f32)."""
+    assert _flash_cuda.fwd_key_tile(d, dtype) == tile
+
+
+# The forward's routes, the backward pair's too: bf16 at a multiple of 8
+# on wgmma at width 64, 128 or 256; off a multiple of 8, and f32, FMA.
 FWD_ROUTES = [
     (8, torch.bfloat16, "wgmma", 64),
     (16, torch.bfloat16, "wgmma", 64),
@@ -132,8 +205,8 @@ FWD_ROUTES = [
     (128, torch.bfloat16, "wgmma", 128),
     (20, torch.bfloat16, "fma", 32),
     (100, torch.bfloat16, "fma", 128),
-    (136, torch.bfloat16, "fma", 256),
-    (256, torch.bfloat16, "fma", 256),
+    (136, torch.bfloat16, "wgmma", 256),
+    (256, torch.bfloat16, "wgmma", 256),
     (1, torch.float32, "fma", 32),
     (16, torch.float32, "fma", 32),
     (33, torch.float32, "fma", 64),
@@ -142,20 +215,11 @@ FWD_ROUTES = [
     (128, torch.float32, "fma", 128),
     (256, torch.float32, "fma", 256),
 ]
-# The backward pair's: the same up to 128, and bf16 at a multiple of 8 in
-# 136..256 on its wgmma kernels at width 256; off a multiple of 8, and f32,
-# still FMA.
-BWD_ROUTES = [
-    (d, dtype, *(("wgmma", 256) if dtype == torch.bfloat16 and d > 128
-                 and d % 8 == 0 else (family, width)))
-    for d, dtype, family, width in FWD_ROUTES] + [
-    (192, torch.bfloat16, "wgmma", 256),
-    (248, torch.bfloat16, "wgmma", 256),
-    (140, torch.bfloat16, "fma", 256),
-]
-ROUTES = ([("flash_fwd", *r) for r in FWD_ROUTES]
-          + [(kernel, *r) for kernel in ("flash_bwd_dq", "flash_bwd_dkv")
-             for r in BWD_ROUTES])
+ROUTES = [(kernel, *r) for kernel in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")
+          for r in FWD_ROUTES + [(192, torch.bfloat16, "wgmma", 256),
+                                 (248, torch.bfloat16, "wgmma", 256),
+                                 (140, torch.bfloat16, "fma", 256)]]
 
 
 @pytest.mark.parametrize("kernel,d,dtype,family,width", ROUTES)

@@ -11,10 +11,10 @@
 //
 // bf16 design (flash_fwd_wgmma_kernel, sm_90a). Two consumer warpgroups
 // (256 threads) per (q tile of 128 rows, head, batch), 64 rows each, over
-// 128-key tiles; 160 KB of shared memory at D = 128 (Q 32 KB, two ring
-// stages each of K and V at 32 KB a tile), one block per SM. Blocks run
-// q tile slowest, last q tile first: under the causal mask the heaviest
-// start first. The block loads its Q tile once by TMA (a 4-d map, so rows
+// 128-key tiles (80 at width 256, see below); 160 KB of shared memory at
+// D = 128 (Q 32 KB, two ring stages each of K and V at 32 KB a tile), one
+// block per SM. Blocks run q tile slowest, last q tile first: under the
+// causal mask the heaviest start first. The block loads its Q tile once by TMA (a 4-d map, so rows
 // past Sq read as zeros) and scales it in place once, in bf16, as the
 // reference's qs = q * scale. Thread 0 streams the K and V tiles up to the
 // causal diagonal through two two-stage rings (TMA, a "full" and an "empty"
@@ -72,25 +72,45 @@
 // Left for later: an epilogue through shared memory and a TMA store; two
 // blocks per SM (160 KB of shared memory and 186 registers allow one).
 //
-// Head dims. The wgmma kernel is compiled at tile widths D = 64 and 128
-// and takes the true head_dim d (a multiple of 8, d <= D) at run time: its
-// tensor maps read columns d..D-1 as zeros, which add nothing to Qs . K^T
-// and give zero columns of O, and its epilogue stores columns < d. The
-// row-sum rule is the true d's: d = 96 on the 128-wide tile sums the
-// rounded P. Each width has an exact-width instantiation (d == D) whose
-// strides and epilogue are compile-time, and one for narrower heads. At d = 16 the 64-wide tile does four times the products the head
-// needs.
+// Head dims. The wgmma kernel is compiled at tile widths D = 64, 128 and
+// 256 and takes the true head_dim d (a multiple of 8, d <= D) at run time:
+// its tensor maps read columns d..D-1 as zeros (a box wholly past d too),
+// which add nothing to Qs . K^T and give zero columns of O, and its
+// epilogue stores columns < d. The row-sum rule is the true d's: d = 96 on
+// the 128-wide tile sums the rounded P, d = 136-248 on the 256-wide tile
+// the f32 P. Each width has an exact-width instantiation (d == D) whose
+// strides and epilogue are compile-time, and one for narrower heads. At
+// d = 16 the 64-wide tile does four times the products the head needs.
+//
+// Width 256 (Gemma's heads). The same kernel over 80-key tiles: O (64 x
+// 256 f32) is 128 registers a thread, S 40 and the P operand 20; 214
+// registers a thread, no spill; Q (64 KB) and two ring stages each of K and
+// V (40 KB a tile) take 225 KB of shared memory. S_{j+1} (m64n80) is issued
+// with O += P_j . V_j (m64n256, V MN-major) as at D = 128; the last key tile
+// is ragged (2048 = 25 x 80 + 48) and masked. Measured in one call at B4
+// S2048 H16/16 d = 256 bf16 causal on an H100 80GB HBM3 at 700 W (medians
+// of 20, four turns; SDPA's forward 0.2561-0.2565 ms; the variant builds
+// carried a watchdog in mbar_wait that cost ~3 %, the committed 64-key
+// build without it took 0.3325-0.3336): 64-key tiles (202 registers)
+// 0.3418-0.3437 ms; 64-key tiles without the overlap (S, then P . V; 188
+// registers) 0.3557-0.3590; a producer warpgroup with setmaxnreg 24 / 240
+// over 64-key tiles, which ptxas held at 168 registers with 428-436 bytes
+// of spill, 0.6777-0.6785; 80-key tiles (this design) 0.3369-0.3392;
+// 80-key tiles without the overlap 0.3476-0.3512. Each was held to the
+// plain forward over its own key tiles and was bitwise deterministic. The
+// 80-key tile's m64n80 score product reads less shared memory per FLOP
+// than m64n64 (4.5 KB per 40 cycles of tensor core, not 4 KB per 32).
 //
 // FMA family (flash_fwd_kernel<T, OT, W>): the simple shared-memory kernel
 // of flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
-// bf16 where the wgmma kernel does not go (d past 128, or not a multiple
-// of 8), at widths W = 32, 64, 128 and 256 with the true d at run time
-// (wgmma takes no f32 input). Its numerics are the same: q scaled in T, P
-// rounded to T for P . V, l summing that rounded P below head_dim 128.
-// It is bounded by its shared-memory operand reads, far from the card's
-// tensor-core peak: at d = 256 bf16 (B4 S2048 H16/16 causal) it ran at
-// ~3.6 TFLOP/s, ~150x SDPA's forward, on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py phase 3b).
+// bf16 where the wgmma kernel does not go (d not a multiple of 8), at
+// widths W = 32, 64, 128 and 256 with the true d at run time (wgmma takes
+// no f32 input). Its numerics are the same: q scaled in T, P rounded to T
+// for P . V, l summing that rounded P below head_dim 128. It is bounded by
+// its shared-memory operand reads, far from the card's tensor-core peak:
+// at d = 256 bf16 (B4 S2048 H16/16 causal) it ran at ~3.6 TFLOP/s, ~150x
+// SDPA's forward, on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3b,
+// before the width-256 wgmma kernel).
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -222,9 +242,13 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
 // Shared memory (bytes from a 1024-aligned base): one [64, D] Q tile per
 // warpgroup, two ring stages of [BN, D] K tiles, two of V tiles, then
 // barriers.
+// Keys per tile: 128 at width 64 and 128; 80 at width 256, where O alone
+// is 128 registers a thread and a 128-key S (64) and P (32) would not fit
+// beside it under 255, and where two ring stages of 80-key K and V tiles
+// fill 225 KB of shared memory with Q.
 template <int D>
 struct FwdHop {
-  static constexpr int NWG = 2, BM = 64 * NWG, BN = 128, STAGES = 2;
+  static constexpr int NWG = 2, BM = 64 * NWG, BN = D == 256 ? 80 : 128, STAGES = 2;
   static constexpr int Q_B = 64 * D * 2;   // one warpgroup's [64, D] bf16 q tile
   static constexpr int KV_B = BN * D * 2;  // one [BN, D] bf16 k or v tile
   static constexpr int K_OFF = NWG * Q_B, V_OFF = K_OFF + STAGES * KV_B;
@@ -293,12 +317,12 @@ __device__ __forceinline__ void p_to_a(const float (&s)[8 * KN], uint32_t (&pa)[
   }
 }
 
-// D is the tile width (64 or 128) and d <= D the true head_dim, a multiple
+// D is the tile width (64, 128 or 256) and d <= D the true head_dim, a multiple
 // of 8: the tensor maps read columns d..D-1 as zeros and the epilogue
 // stores columns < d only. FULL (d == D) is the exact-width instantiation:
 // its strides and its epilogue take the constant D, so that the column
-// bound costs the D = 64 and 128 paths nothing (a run-time bound there cost
-// the forward 2-3 % in an A/B on the card).
+// bound costs the exact widths nothing (a run-time bound there cost the
+// D = 128 forward 2-3 % in an A/B on the card).
 template <int D, typename OT, bool FULL>
 __global__ void __launch_bounds__(128 * FwdHop<D>::NWG, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
@@ -309,9 +333,10 @@ __global__ void __launch_bounds__(128 * FwdHop<D>::NWG, 1)
   using L = FwdHop<D>;
   using namespace hop;
   constexpr int NWG = L::NWG, BN = L::BN, KD = D / 16, KN = BN / 16, ST = L::STAGES;
-  // The reference's fused_rowsum = d < 128: on a tile of at most 128, d >= 128
-  // only where d == D == 128.
-  constexpr bool SUM_F32 = FULL && D >= 128;
+  // The reference's fused_rowsum = d < 128: a narrower head at width 128 has
+  // d < 128, and one at width 256 d > 128 (tt_flash_fwd refuses d <= 128
+  // there), so d >= 128 on the exact width 128 and at every d of width 256.
+  constexpr bool SUM_F32 = FULL ? D >= 128 : D > 128;
   const int hd = FULL ? D : d;
 
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -471,7 +496,8 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 
 }  // namespace tt
 
-// family: 0 = wgmma (bf16, width 64 or 128, d a multiple of 8), 1 = FMA
+// family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8, past
+// 128 at width 256), 1 = FMA
 // (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
 // bf16, 1 = f32 (q, k, v); out_f32: o is f32 instead of q's dtype. Returns
 // a cudaError_t; cudaErrorInvalidValue for a combination not built.
@@ -503,6 +529,11 @@ extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o
     if (width == 128 && !out_f32 && !full) TT_WG(128, bf16, false);
     if (width == 128 && out_f32 && full) TT_WG(128, float, true);
     if (width == 128 && out_f32 && !full) TT_WG(128, float, false);
+    if (width == 256 && d <= 128) return (int)cudaErrorInvalidValue;  // the row-sum rule
+    if (width == 256 && !out_f32 && full) TT_WG(256, bf16, true);
+    if (width == 256 && !out_f32 && !full) TT_WG(256, bf16, false);
+    if (width == 256 && out_f32 && full) TT_WG(256, float, true);
+    if (width == 256 && out_f32 && !full) TT_WG(256, float, false);
   } else if (family == 1) {
     switch (dtype * 2 + out_f32) {
       case 0: TT_FMA_W(bf16, bf16);

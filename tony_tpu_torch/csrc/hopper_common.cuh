@@ -161,7 +161,7 @@ __device__ __forceinline__ void pin(uint32_t (&r)[m][n]) {
 
 // ------------------------------------------------------------ wgmma products
 // d (64 x N, f32) = A (64 x 16) . B (16 x N) + (acc ? d : 0), bf16 inputs, at
-// N = 32, 64, 128 and 256 (N / 2 accumulator registers a thread).
+// N = 32, 64, 80, 128 and 256 (N / 2 accumulator registers a thread).
 // ss: A K-major in shared memory; B K-major (TB = 0: stored [N][16], so
 //     d = A . B^T in row-major terms) or MN-major (TB = 1: stored [16][N],
 //     the transpose bit set); d is overwritten when acc is 0.
@@ -171,6 +171,7 @@ __device__ __forceinline__ void pin(uint32_t (&r)[m][n]) {
                  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define TT_D16 TT_D8(0), TT_D8(8)
 #define TT_D32 TT_D16, TT_D8(16), TT_D8(24)
+#define TT_D40 TT_D32, TT_D8(32)
 #define TT_D64 TT_D32, TT_D8(32), TT_D8(40), TT_D8(48), TT_D8(56)
 #define TT_D128 TT_D64, TT_D8(64), TT_D8(72), TT_D8(80), TT_D8(88), TT_D8(96), TT_D8(104), \
                 TT_D8(112), TT_D8(120)
@@ -179,6 +180,10 @@ __device__ __forceinline__ void pin(uint32_t (&r)[m][n]) {
 #define TT_R32                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define TT_R40                                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39}"
 #define TT_R64                                                                    \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "  \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
@@ -221,6 +226,7 @@ __device__ __forceinline__ void pin(uint32_t (&r)[m][n]) {
 template <int N> struct Wg;
 TT_WG(32, TT_D16, TT_R16, 16, 17, 18, 19, 16, 17, 18, 19, 20, 21)
 TT_WG(64, TT_D32, TT_R32, 32, 33, 34, 35, 32, 33, 34, 35, 36, 37)
+TT_WG(80, TT_D40, TT_R40, 40, 41, 42, 43, 40, 41, 42, 43, 44, 45)
 TT_WG(128, TT_D64, TT_R64, 64, 65, 66, 67, 64, 65, 66, 67, 68, 69)
 TT_WG(256, TT_D128, TT_R128, 128, 129, 130, 131, 128, 129, 130, 131, 132, 133)
 
@@ -228,10 +234,12 @@ TT_WG(256, TT_D128, TT_R128, 128, 129, 130, 131, 128, 129, 130, 131, 132, 133)
 #undef TT_D8
 #undef TT_D16
 #undef TT_D32
+#undef TT_D40
 #undef TT_D64
 #undef TT_D128
 #undef TT_R16
 #undef TT_R32
+#undef TT_R40
 #undef TT_R64
 #undef TT_R128
 

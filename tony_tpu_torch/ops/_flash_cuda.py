@@ -11,10 +11,12 @@ maps from the pointers and shapes given here, so the tensors must be
 contiguous and 16-byte aligned, as ``_check`` demands.
 
 Every head_dim from 1 to ``MAX_HEAD_DIM`` (256) runs on a kernel; ``route``
-says which, for each kernel: bf16 dq and dk/dv take ``wgmma`` up to 256,
-the forward up to 128. Each family is compiled at a few tile widths, and
-the true head_dim is a run-time argument: a narrower head is zero-filled
-to the width on its way into shared memory and stored at its own width.
+says which, for each kernel: bf16 at a multiple of 8 takes ``wgmma`` up to
+256 in all three, everything else the FMA family. Each family is compiled
+at a few tile widths, and the true head_dim is a run-time argument: a
+narrower head is zero-filled to the width on its way into shared memory
+and stored at its own width. The forward's key tile follows its kernel
+(``fwd_key_tile``).
 
 Each launch function checks its tensors, allocates the outputs, launches on
 PyTorch's current stream, raises if the C function returns a CUDA error, and
@@ -51,24 +53,20 @@ KERNELS = {name: (k.source, k.entry) for name, k in SPECS.items()}
 
 MAX_HEAD_DIM = 256
 # The tile widths each kernel's families are compiled at (the C entry
-# points' switches): the backward pair has a wgmma instantiation at 256 as
-# well, the forward's widest wgmma tile is 128.
-WGMMA_WIDTHS = {"flash_fwd": (64, 128), "flash_bwd_dq": (64, 128, 256),
+# points' switches).
+WGMMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
                 "flash_bwd_dkv": (64, 128, 256)}
 FMA_WIDTHS = (32, 64, 128, 256)
 FAMILIES = {"wgmma": 0, "fma": 1}
-# Keys per tile of each family's forward: its online softmax rounds P
-# against the running max of these tiles, so a plain version held to it
-# bit for bit in P's rounding runs over the same key tiles.
-FWD_KEY_TILE = {"wgmma": 128, "fma": 32}
 
 
 def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
     """The family and the compiled tile width that ``kernel`` (one of
     ``KERNELS``) runs head_dim ``d`` of ``dtype`` on: ``("wgmma", the
     narrowest of WGMMA_WIDTHS[kernel] that holds d)`` for bf16 at a multiple
-    of 8 that one holds (a TMA row must be a whole number of 16 bytes),
-    else ``("fma", the narrowest of FMA_WIDTHS that holds d)``. Raises
+    of 8 (a TMA row must be a whole number of 16 bytes; all three kernels
+    have a wgmma tile up to 256), else ``("fma", the narrowest of
+    FMA_WIDTHS that holds d)``. Raises
     ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype,
     ``KeyError`` for another kernel."""
     widths = WGMMA_WIDTHS[kernel]
@@ -80,6 +78,18 @@ def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
     if dtype == torch.bfloat16 and d % 8 == 0 and d <= widths[-1]:
         return "wgmma", next(w for w in widths if d <= w)
     return "fma", next(w for w in FMA_WIDTHS if d <= w)
+
+
+def fwd_key_tile(d: int, dtype: torch.dtype) -> int:
+    """Keys per tile of the forward kernel that ``route(d, dtype,
+    "flash_fwd")`` picks: 128 on ``wgmma`` at width 64 and 128, 80 on
+    ``wgmma`` at width 256 (``csrc/flash_fwd.cu``'s ``FwdHop``), 32 on FMA.
+    Its online softmax rounds P against the running max of these tiles, so
+    a plain version held to it in P's rounding runs over the same tiles."""
+    family, width = route(d, dtype, "flash_fwd")
+    if family == "fma":
+        return 32
+    return 80 if width == 256 else 128
 
 # Launches per kernel since the last reset (plain integers, see module doc),
 # and per (kernel, family, tile width): which compiled kernel each ran on.

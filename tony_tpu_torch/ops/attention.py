@@ -30,13 +30,14 @@ through ``mbarrier`` rings, ``csrc/hopper_common.cuh``) at tile width 64 or
 over 128 query rows streaming 128-key tiles, the next tile's S under this
 tile's softmax; dq with one warpgroup over 64 query rows streaming 64-key
 tiles; dk/dv with one over 64 keys streaming the group's 64-row q tiles.
-For bf16 at a multiple of 8 from 136 to 256 (Gemma's 256) dq and dk/dv run
-on ``wgmma`` at width 256 with two warpgroups a block (dq's each on half of
-a tile's keys, summing their whole-width partial dQ at the end; dk/dv's
-each holding half of dK's and dV's columns, P and dS shared through
-shared memory) and the forward on FMA. For f32 at every head_dim, the
-bf16 forward past 128, and bf16 off a multiple of 8, the kernels are
-simple FMA kernels over 32-row tiles at width 32, 64, 128 or 256.
+For bf16 at a multiple of 8 from 136 to 256 (Gemma's 256) all three run
+on ``wgmma`` at width 256 with two warpgroups a block: the forward's over
+128 query rows streaming 64-key tiles; dq's each on half of a tile's
+keys, summing their whole-width partial dQ at the end; dk/dv's each
+holding half of dK's and dV's columns, P and dS shared through shared
+memory. For f32 at every head_dim, and bf16 off a multiple of 8, the
+kernels are simple FMA kernels over 32-row tiles at width 32, 64, 128 or
+256.
 """
 
 from __future__ import annotations
