@@ -20,8 +20,9 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    prints the seconds it took and each kernel's registers and spills; the
    bf16 (wgmma) instantiations of the three flash kernels (twelve of the
    forward: width 64, 128 and 256, o in bf16 or f32, at the width or a
-   narrower head; six each of dq and dk/dv: width 64, 128 and 256) must
-   report 0 spill bytes;
+   narrower head; six each of dq and dk/dv: width 64, 128 and 256) and the
+   FMA dq and dk/dv (ten each: f32 and bf16 at width 16, 32, 64, 128 and
+   256) must report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal; o, lse, dq, dk and dv must
@@ -51,22 +52,25 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
 3b. the flash kernels at the head_dims other than 64 and 128
    (``_flash_cuda.route``, per kernel: bf16 at a multiple of 8 on the
    wgmma kernels at tile width 64, 128 or 256; f32, and bf16 off a
-   multiple of 8, on the FMA kernels at width 32-256): (a) each kernel
-   against its plain version (the plain forward over the kernel's key
-   tiles, ``_flash_cuda.fwd_key_tile``: 64 keys at width 256) at d = 8,
-   16, 32, 80, 96, 192 and 256 in bf16 (causal GQA B2 S256 H8/2,
-   non-causal B1 S256 H4/4, ragged causal B1 S100 H4/2), at d = 16, 32 and
-   256 in f32 (causal GQA B1 S200 H4/2) and
-   ``flash_attention_with_lse(out_dtype=f32)`` with an lse cotangent at
-   d = 16, 96 and 256, within phase 3's tolerances (the lse mean included,
-   which at d = 192 catches a row sum over the rounded P), each kernel
-   launched in every case and only on its routed family and width
-   (launches counted by route; at d = 192 and 256 all three on wgmma 256);
+   multiple of 8, on the FMA kernels at width 32-256, dq and dk/dv from
+   16): (a) each kernel against its plain version (the plain forward over
+   the kernel's key tiles, ``_flash_cuda.fwd_key_tile``: 80 keys at width
+   256) at d = 8, 16, 32, 80, 96, 192 and 256 in bf16 (causal GQA B2 S256
+   H8/2, non-causal B1 S256 H4/4, ragged causal B1 S100 H4/2), at d = 1,
+   16, 20, 32, 33, 64, 100, 128 and 256 in f32 and at d = 20, 100 and 140
+   in bf16 (causal GQA B1 S200 H4/2, non-causal B1 S256 H4/4, ragged
+   causal B1 S100 H4/2) and ``flash_attention_with_lse(out_dtype=f32)``
+   with an lse cotangent at d = 16, 96 and 256, within phase 3's
+   tolerances (the lse mean included, which at d = 192 catches a row sum
+   over the rounded P), each kernel launched in every case and only on its
+   routed family and width (launches counted by route; at d = 192 and 256
+   all three on wgmma 256, at d <= 16 off wgmma dq and dk/dv on FMA 16);
    then each timed beside SDPA and its bound at B4 S2048 causal: H8/4 at
    d = 8, 16, 32 and 80, Phi-3-mini's H32/32 at 96, Gemma-7B's H16/16 at
    256 (o, lse, dq, dk and dv also bitwise equal across two runs there),
-   and the f32 FMA kernels at d = 16 H8/4 beside SDPA in f32 (their bound
-   at the f32 peak); (b) ``TransformerConfig.tiny()``
+   and the f32 FMA kernels beside SDPA in f32 (their bound at the f32
+   peak) at H8/4 d = 16 (bitwise equal across two runs too), 64 and 128
+   and H16/16 d = 256; (b) ``TransformerConfig.tiny()``
    unwidened (head_dim 16, f32, 2 layers) through ``trainer.build_state``
    and ``train_step``: 5 AdamW steps under ``attn_impl="flash"``, one
    under ``"ring"`` and one under ``"ulysses"`` (off any mesh: one rank),
@@ -650,12 +654,18 @@ def phase_build():
     info = _build.build(specs)
     log(f"build: {time.perf_counter() - t0:.1f} s into {info['dir']}")
     # Registers and spills of every kernel (each source's ``ptxas -v`` log in
-    # the build directory). The bf16 flash kernels hold their accumulators
-    # in registers: a spill there fails the run. The forward has twelve bf16
-    # instantiations (width 64/128/256 x o in bf16/f32 x the exact width or
-    # a narrower head), dq and dk/dv six (width 64/128/256 x exact or
-    # narrower).
+    # the build directory). The bf16 flash kernels and the FMA backward pair
+    # hold their accumulators in registers: a spill there fails the run. The
+    # forward has twelve bf16 instantiations (width 64/128/256 x o in
+    # bf16/f32 x the exact width or a narrower head), dq and dk/dv six
+    # (width 64/128/256 x exact or narrower); the FMA dq and dk/dv one for
+    # each of f32 and bf16 at each of their widths (16-256).
+    from tony_tpu_torch.ops._flash_cuda import FMA_WIDTHS
+
     wgmma_kernels = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
+    fma_kernels = {n: 2 * len(FMA_WIDTHS[n])
+                   for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    faults = []
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
             text = f.read()
@@ -666,13 +676,17 @@ def phase_build():
         for line in text.splitlines():
             if "serialized" in line:
                 log(f"  {name}: {line.strip()}")
-        if name in wgmma_kernels:
-            bf16 = [r for r in report if "wgmma" in r[0]]
-            check(len(bf16) == wgmma_kernels[name],
-                  f"{name}: {len(bf16)} ptxas reports of its bf16 kernels, "
-                  f"expected {wgmma_kernels[name]}")
-            for fn, _, stores, loads in bf16:
-                check(stores == 0 and loads == 0, f"{fn} spills registers")
+        for tag, want in (("wgmma", wgmma_kernels.get(name)),
+                          (f"{name}_kernel", fma_kernels.get(name))):
+            if want is None:
+                continue
+            held = [r for r in report if tag in r[0]]
+            faults.extend(f"{fn} spills registers"
+                          for fn, _, stores, loads in held if stores or loads)
+            if len(held) != want:
+                faults.append(f"{name}: {len(held)} ptxas reports of its "
+                              f"{tag} kernels, expected {want}")
+    check(not faults, "; ".join(faults))
 
 
 def ptxas_report(text):
@@ -946,12 +960,20 @@ def phase_kernels():
 # the exact ones); every other head_dim and every f32 one runs on the FMA
 # kernels at width 32, 64, 128 or 256 (16, 32 and 256 here).
 HD_BF16 = (8, 16, 32, 80, 96, 192, 256)
-HD_F32 = (16, 32, 256)
+# The FMA kernels at every width: f32 (d = 1 and 33 copy rows that are no
+# whole number of 16-byte vectors element by element) and bf16 off a
+# multiple of 8, each on the three FMA cases below.
+HD_F32 = (1, 16, 20, 32, 33, 64, 100, 128, 256)
+HD_BF16_FMA = (20, 100, 140)
+FMA_CASES = (("causal GQA", (1, 200, 4, 2, True)),
+             ("non-causal", (1, 256, 4, 4, False)),
+             ("ragged causal", (1, 100, 4, 2, True)))
 HD_OUT_F32 = (16, 96, 256)
 # Timed at B4 S2048 causal: the flagship's heads (H8/4) at the narrow
 # head_dims, Phi-3-mini's H32/32 at 96 and Gemma-7B's H16/16 at 256.
 HD_TIMED = {8: (8, 4), 16: (8, 4), 32: (8, 4), 80: (8, 4), 96: (32, 32),
             256: (16, 16)}
+HD_TIMED_F32 = ((16, (8, 4)), (64, (8, 4)), (128, (8, 4)), (256, (16, 16)))
 HD_STEPS = 5
 
 
@@ -986,6 +1008,10 @@ def head_dim_cases(card):
             for n in K.KERNELS:
                 check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
                       f"{label}: {n} did not run on wgmma width 256: {ran}")
+        if d <= 16 and routed["flash_bwd_dq"][0] == "fma":
+            for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+                check(K.route_counts.get((n, "fma", 16), 0) >= 1,
+                      f"{label}: {n} did not run on FMA width 16: {ran}")
 
     for d in HD_BF16:
         for label, (b, s, h, hk, causal) in (
@@ -996,25 +1022,33 @@ def head_dim_cases(card):
             counted(name, d, torch.bfloat16, functools.partial(
                 check_case, name, b, s, h, hk, d, torch.bfloat16, causal,
                 100 + d))
-    for d in HD_F32:
-        name = f"head_dims f32 D{d} causal GQA B1 S200 H4/2"
-        counted(name, d, torch.float32, functools.partial(
-            check_case, name, 1, 200, 4, 2, d, torch.float32, True, 300 + d))
+    for dtype, dims in ((torch.float32, HD_F32),
+                        (torch.bfloat16, HD_BF16_FMA)):
+        for d in dims:
+            for label, (b, s, h, hk, causal) in FMA_CASES:
+                tag = "f32" if dtype == torch.float32 else "bf16"
+                name = f"head_dims {tag} D{d} {label} B{b} S{s} H{h}/{hk}"
+                counted(name, d, dtype, functools.partial(
+                    check_case, name, b, s, h, hk, d, dtype, causal,
+                    300 + d + s))
     for d in HD_OUT_F32:
         name = f"head_dims D{d} B1 S200 H4/2"
         counted(f"with_lse {name}", d, torch.bfloat16, functools.partial(
             check_with_lse, name, 1, 200, 4, 2, d, 400 + d))
     timing = {n: {} for n in K.KERNELS}
     # The width-256 forward is also held bitwise across two runs; the f32
-    # FMA kernels are timed at the tiny decoders' head_dim beside SDPA in
-    # f32, their bound at the f32 peak.
+    # FMA kernels are timed beside SDPA in f32, their bound at the f32 peak,
+    # at the tiny decoders' head_dim (bitwise across two runs too), at the
+    # flagship's 64 and 128 and at Gemma-7B's H16/16 256.
     for key, (d, (h, hk), dtype) in [
             *((str(d), (d, hd, torch.bfloat16)) for d, hd in HD_TIMED.items()),
-            ("16 f32", (16, (8, 4), torch.float32))]:
+            *((f"{d} f32", (d, hd, torch.float32))
+              for d, hd in HD_TIMED_F32)]:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         res = check_case(f"head_dims {name} B4 S2048 H{h}/{hk} D{d} causal",
                          4, 2048, h, hk, d, dtype, True, 500 + d,
-                         timed=True, deterministic=d == 256,
+                         timed=True, deterministic=(
+                             d == 256 if dtype == torch.bfloat16 else d == 16),
                          time_plain=False)
         for n, r in res.items():
             timing[n][key] = {k: r[k] for k in (
@@ -6421,7 +6455,10 @@ def main():
                                  "llama3_8b_s8192", "head_dims") if k in t},
             **({"pipelined_launches_per_step": {
                 f"M={m}": counts_m[name] / STEPS
-                for m, counts_m in pipe["launches"].items()}}
+                for m, counts_m in pipe["launches"].items()},
+                "families": {
+                    "wgmma": list(_flash_cuda.WGMMA_WIDTHS[name]),
+                    "fma": list(_flash_cuda.FMA_WIDTHS[name])}}
                if name in _flash_cuda.SPECS else {})})
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all; {card}")
     print(json.dumps({"kernels": kernels}))

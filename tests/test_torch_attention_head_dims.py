@@ -2,9 +2,10 @@
 ``tony_tpu_torch.ops.attention``'s plain versions (what a CPU tensor runs,
 and what the card's kernels are held to) against ``tony_tpu.ops.attention``
 (the Pallas kernels in interpret mode) on the same numpy inputs, at
-d = 8, 16, 32, 80, 96, 136, 192 and 256; ``_flash_cuda.route``, which sends
-each (head_dim, dtype, kernel) to a kernel family and a compiled tile
-width; and ``fwd_key_tile``, the key tile of the routed forward kernel.
+d = 8, 16, 20, 32, 80, 96, 100, 136, 192 and 256; ``_flash_cuda.route``,
+which sends each (head_dim, dtype, kernel) to a kernel family and a
+compiled tile width, against the widths each C entry point launches; and
+``fwd_key_tile``, the key tile of the routed forward kernel.
 
 Tolerances are ``tests/test_torch_attention.py``'s (the reference's own):
 f32 2e-5 forward and 1e-4 on gradients, bf16 3e-2. The bf16 forward with
@@ -12,6 +13,9 @@ an f32 output also holds the mean error of o and lse at 2e-6: below
 head_dim 128 the row sum adds P rounded to bf16 (the reference's
 ``fused_rowsum``), and summing the f32 P there moves lse's mean by ~1e-4.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +32,7 @@ GRAD = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
 HEAD_DIMS = (8, 16, 32, 80, 96, 256)
 BLOCK = 32
+CSRC = pathlib.Path(tattn.__file__).resolve().parents[1] / "csrc"
 torch.set_num_threads(2)
 
 
@@ -73,11 +78,13 @@ def test_forward_f32_matches_jax(d, causal):
     np.testing.assert_allclose(_np(lse), jlse, **F32)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS + (192,))
+@pytest.mark.parametrize("d", HEAD_DIMS + (192, 20, 100))
 def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
     """dq, dk and dv through the port's autograd Function (the plain dq and
     dk/dv) against ``jax.grad`` of the reference's flash kernels: GQA group
-    4, causal, S = 100 over 32-row blocks, a loss of o and of lse."""
+    4, causal, S = 100 over 32-row blocks, a loss of o and of lse. d = 20
+    and 100 are rows off a 16-byte vector in bf16 (the FMA kernels at width
+    32 and 128)."""
     q, k, v = _qkv(1, 100, 8, 2, d, seed=20 + d)
     w = np.random.default_rng(30 + d).standard_normal(q.shape,
                                                       dtype=np.float32)
@@ -192,8 +199,9 @@ def test_fwd_key_tile_is_the_routed_forward_kernels(d, dtype, tile):
     assert _flash_cuda.fwd_key_tile(d, dtype) == tile
 
 
-# The forward's routes, the backward pair's too: bf16 at a multiple of 8
-# on wgmma at width 64, 128 or 256; off a multiple of 8, and f32, FMA.
+# The forward's routes, the backward pair's too where BWD_WIDTH16 does not
+# say otherwise: bf16 at a multiple of 8 on wgmma at width 64, 128 or 256;
+# off a multiple of 8, and f32, FMA.
 FWD_ROUTES = [
     (8, torch.bfloat16, "wgmma", 64),
     (16, torch.bfloat16, "wgmma", 64),
@@ -215,11 +223,26 @@ FWD_ROUTES = [
     (128, torch.float32, "fma", 128),
     (256, torch.float32, "fma", 256),
 ]
-ROUTES = [(kernel, *r) for kernel in ("flash_fwd", "flash_bwd_dq",
-                                       "flash_bwd_dkv")
-          for r in FWD_ROUTES + [(192, torch.bfloat16, "wgmma", 256),
-                                 (248, torch.bfloat16, "wgmma", 256),
-                                 (140, torch.bfloat16, "fma", 256)]]
+# The backward pair's FMA kernels also have a 16-wide tile: f32 and bf16
+# up to d = 16 go there (the forward's narrowest FMA tile is 32).
+BWD_WIDTH16 = {(1, torch.float32), (16, torch.float32), (12, torch.bfloat16)}
+
+
+def _routes():
+    out = []
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for d, dtype, family, width in FWD_ROUTES + [
+                (192, torch.bfloat16, "wgmma", 256),
+                (248, torch.bfloat16, "wgmma", 256),
+                (140, torch.bfloat16, "fma", 256),
+                (12, torch.bfloat16, "fma", 32)]:
+            if kernel != "flash_fwd" and (d, dtype) in BWD_WIDTH16:
+                width = 16
+            out.append((kernel, d, dtype, family, width))
+    return out
+
+
+ROUTES = _routes()
 
 
 @pytest.mark.parametrize("kernel,d,dtype,family,width", ROUTES)
@@ -246,10 +269,40 @@ def test_route_covers_every_head_dim_up_to_the_limit(kernel):
             family, width = _flash_cuda.route(d, dtype, kernel)
             assert d <= width
             widths = (_flash_cuda.WGMMA_WIDTHS[kernel] if family == "wgmma"
-                      else _flash_cuda.FMA_WIDTHS)
+                      else _flash_cuda.FMA_WIDTHS[kernel])
             assert width == min(w for w in widths if d <= w)
             on_wgmma = dtype == torch.bfloat16 and d % 8 == 0 and d <= widest
             assert (family == "wgmma") == on_wgmma, (d, dtype)
+
+
+def _entry_widths(kernel):
+    """The widths the C entry point of ``kernel`` launches, by family: the
+    ``case`` labels of its FMA ``switch (width)`` and the ``width == N``
+    tests in front of its wgmma launches."""
+    src = (CSRC / _flash_cuda.KERNELS[kernel][0]).read_text()
+    entry = src[src.index(f'extern "C" int tt_{kernel}('):]
+    fma = entry[entry.index("#define TT_FMA_W"):]
+    fma = fma[:fma.index("break")]
+    return {"fma": {int(w) for w in re.findall(r"case (\d+):", fma)},
+            "wgmma": {int(w) for w in re.findall(r"width == (\d+) &&",
+                                                 entry)}}
+
+
+@pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
+def test_route_widths_have_their_case_in_the_c_entry(kernel):
+    """Every (family, width) ``route`` can return for ``kernel``, in either
+    dtype, is a width its C entry point's switch launches, and the entry
+    launches no width ``route`` never picks: the Python and C sides of
+    the widths cannot drift apart."""
+    entry = _entry_widths(kernel)
+    routed = {"fma": set(), "wgmma": set()}
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+            family, width = _flash_cuda.route(d, dtype, kernel)
+            routed[family].add(width)
+    assert routed == entry
+    assert entry["fma"] == set(_flash_cuda.FMA_WIDTHS[kernel])
+    assert entry["wgmma"] == set(_flash_cuda.WGMMA_WIDTHS[kernel])
 
 
 def test_route_refuses_other_dtypes():

@@ -7,7 +7,7 @@
 //
 // Bound on the H100: operations. Four products of D-deep dots per unmasked
 // score (s, dp, dv, dk), 8 . D FLOP each, on the bf16 tensor cores at 989
-// TFLOP/s; the bytes (q, k, v, do, lse, delta in, dk, dv out) are two
+// TFLOP/s (f32: on the CUDA cores at 67); the bytes (q, k, v, do, lse, delta in, dk, dv out) are two
 // orders of magnitude below that at S = 2048.
 //
 // bf16 design (flash_bwd_dkv_wgmma_kernel, sm_90a). One warpgroup (128
@@ -73,13 +73,51 @@
 // suspect, and more keys per block, which would halve it, need more
 // registers than dK and dV leave.
 //
-// FMA family (flash_bwd_dkv_kernel<T, W>): the simple shared-memory kernel of
-// flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
-// bf16 where the wgmma kernel does not go (d not a multiple of 8), at widths
-// W = 32, 64, 128 and 256 with the true d at run time; wgmma takes no f32
-// input. Same numerics as the wgmma kernel; slow (its products read both
-// operands from shared memory): at d = 256 bf16 it took 94.2 ms at the
-// shape above, see PERF.md.
+// FMA family (flash_bwd_dkv_kernel<T, W>), for f32 at every head_dim and
+// bf16 where the wgmma kernel does not go (d not a multiple of 8), at tile
+// widths W = 16, 32, 64, 128 and 256 with the true d at run time; wgmma
+// takes no f32 input, so f32 stays exact: fmaf on the CUDA cores, no TF32,
+// bound at the f32 peak of 67 TFLOP/s. Same numerics as above (q scaled in
+// T in place, P rounded to T for dV and dS for dK, f32 sums, no atomics).
+// Tiles are f32 in shared memory (bf16 widened on the way in), row stride
+// W + 4. Per block (DkvFma): BN keys, K and V resident; the group's (query
+// head, q tile) pairs stream through a two-stage cp.async ring of [Q | dO
+// | lse | delta] (16-byte copies where a row is whole 16-byte vectors,
+// 4-byte ones else, zero-fill past Sq; bf16 copies synchronously), the
+// next pair in flight while this one's products run. Each thread scales
+// the Q elements it copied itself once they land: two block barriers a
+// pair. S^T and dP^T (keys as rows) are register micro-tiles (4 x 4 cells
+// at width 16-64, 4 x 2 at 128, 2 x 2 at 256); P^T and dS^T are formed in
+// registers and go through shared memory once each, as the A operands of
+// dV += P^T . dO and dK += dS^T . Qs. dK and dV stay in registers across
+// the whole loop (4 x 4 or 4 x 8 cells each; at width 16 and 32 over 4
+// and 2 splits of a pair's queries, summed once at the end in a fixed
+// order) and are stored once.
+//   width   BN x BM   threads  f32 regs  shared KiB  blocks an SM
+//    16     64 x 64     256       128        65.0        2
+//    32     64 x 64     256       128        89.0        2
+//    64     64 x 32     128       216        86.5        2
+//   128     64 x 32     256       204       150.5        1
+//   256     32 x 32     256       212       204.5        1
+// (bf16, under no block count: 168-208 registers; no spills.)
+// Measured at B4 S2048 causal f32 (H8/4, Gemma-7B's H16/16 at 256) on an
+// NVIDIA H100 80GB HBM3 at 700 W, medians of 20 CUDA-event timings, in
+// one-call A/Bs (SDPA's f32 backward, all three gradients, beside it):
+// d = 16 0.3265 ms (2.5x its bound 0.1283; SDPA 2.135), d = 64 1.159
+// (2.3x; 2.874), d = 128 2.427 (2.4x; 4.189), d = 256 12.565 (3.1x;
+// 10.88); the kernel it replaced (one element a thread over shared memory,
+// 32-row tiles, synchronous loads, width 32 at d = 16) took 2.96699 at
+// d = 16. Variants timed: loops over the head dim unrolled 4 steps instead
+// of all 2.61 at d = 128 (unrolled 2: 2.77); one block of 256 threads an SM
+// at width 16 0.409; __expf instead of expf 0.321 at d = 16, not kept; at
+// width 128 32 x 32 tiles of 128 threads 2.556; at width 256 two blocks an
+// SM (128 registers) 14.59 with spills, 128 threads with 4 x 2 S^T cells
+// 12.90; at width 64 64 x 64 tiles of 256 threads 1.186. What still holds
+// it from the bound (no profiler there; from the instruction mix): at d =
+// 16 each score costs 64 FMAs and about a dozen more instructions (expf,
+// the mask, P^T and dS^T and their two stores), besides a float4 shared
+// load per 4-16 FMAs and two barriers a pair; at width 256 the 2 x 2 S^T
+// cells read a float4 per 4 FMAs, all the shared memory the SM serves.
 //
 // Left for later: one fused kernel for dq and dk/dv (s and dp are computed
 // here and again in flash_bwd_dq.cu), a producer warp with setmaxnreg and
@@ -94,90 +132,157 @@
 namespace tt {
 
 // ----------------------------------------------------------- FMA path
-template <typename T, int W>
-struct DkvSmem {
-  static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
-  static constexpr size_t bytes =
-      sizeof(T) * (size_t)(2 * BN * LDT + 2 * BM * LDT + 2 * BM * LDP) +
-      sizeof(float) * (size_t)(2 * BM * LDS + 2 * BN * LDO + 2 * BM);
+// Tiles of one block, per width W: BN keys (K and V resident), BM query rows
+// a streamed (query head, q tile) pair, NTH threads. S^T and dP^T are TM x
+// TN cells a thread (keys GY apart, queries GX apart); dK and dV are TMO x
+// 4 TCO cells each a thread (rows QY apart, float4 columns 4 QX apart),
+// over KS splits of a pair's queries whose partials are summed once at the
+// end. Shared memory (f32, row stride W + 4): K, V, two stages of [Q | dO |
+// lse | delta], P^T and dS^T [BN, BM + 4].
+// MINB f32 blocks an SM (bf16: 1) bound the registers (2 x 256 threads:
+// 128 a thread); U float4 steps of a product are unrolled (0: all).
+template <int W> struct DkvFma;
+template <> struct DkvFma<16> { static constexpr int BN = 64, BM = 64, NTH = 256, TM = 4, TN = 4, TMO = 4, TCO = 1, KS = 4, MINB = 2, U = 0; };
+template <> struct DkvFma<32> { static constexpr int BN = 64, BM = 64, NTH = 256, TM = 4, TN = 4, TMO = 4, TCO = 1, KS = 2, MINB = 2, U = 0; };
+template <> struct DkvFma<64> { static constexpr int BN = 64, BM = 32, NTH = 128, TM = 4, TN = 4, TMO = 4, TCO = 2, KS = 1, MINB = 2, U = 0; };
+template <> struct DkvFma<128> { static constexpr int BN = 64, BM = 32, NTH = 256, TM = 4, TN = 2, TMO = 4, TCO = 2, KS = 1, MINB = 1, U = 0; };
+template <> struct DkvFma<256> { static constexpr int BN = 32, BM = 32, NTH = 256, TM = 2, TN = 2, TMO = 4, TCO = 2, KS = 1, MINB = 1, U = 4; };
+
+template <int W>
+struct DkvLay : DkvFma<W> {
+  using C = DkvFma<W>;
+  static constexpr int LD = ldw<W>(), LDP = C::BM + 4;
+  static constexpr int GX = C::BM / C::TN, GY = C::BN / C::TM;   // score cells
+  static constexpr int QX = W / 4 / C::TCO, QY = C::BN / C::TMO;  // dK / dV cells of one split
+  static constexpr int STAGE = 2 * C::BM * LD + 2 * C::BM;       // Q, dO, lse, delta
+  static constexpr int P_OFF = 2 * C::BN * LD + 2 * STAGE;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(P_OFF + 2 * C::BN * LDP);
+  static_assert(GX * GY == C::NTH && QX * QY * C::KS == C::NTH, "one cell of each a thread");
+  static_assert(2 * C::KS * C::BN * W <= P_OFF + 2 * C::BN * LDP, "the partials fit");
 };
 
 template <typename T, int W>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(DkvFma<W>::NTH, std::is_same<T, float>::value ? DkvFma<W>::MINB : 1)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                          const T* __restrict__ dout, const float* __restrict__ lse,
                          const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                         int H, int Hkv, int Sq, int Sk, int d, float scale, int causal) {
-  using L = DkvSmem<T, W>;
-  constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
+                         int B, int H, int Hkv, int Sq, int Sk, int d, float scale, int causal) {
+  using L = DkvLay<W>;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, TM = L::TM, TN = L::TN, TMO = L::TMO,
+                TCO = L::TCO, KS = L::KS, LD = L::LD, LDP = L::LDP, GX = L::GX, GY = L::GY,
+                QX = L::QX, QY = L::QY, QSPAN = BM / KS, STAGE = L::STAGE;
+  constexpr int US = L::U ? L::U : W / 4, UA = L::U && L::U < QSPAN / 4 ? L::U : QSPAN / 4;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + BN * LDT;
-  T* sQ = sV + BN * LDT;
-  T* sDO = sQ + BM * LDT;
-  T* sP = sDO + BM * LDT;
-  T* sDS = sP + BM * LDP;
-  float* sS = reinterpret_cast<float*>(sDS + BM * LDP);
-  float* sDP = sS + BM * LDS;
-  float* sDK = sDP + BM * LDS;
-  float* sDV = sDK + BN * LDO;
-  float* sLse = sDV + BN * LDO;
-  float* sDelta = sLse + BM;
+  extern __shared__ __align__(16) float sm[];
+  float* sK = sm;
+  float* sV = sK + BN * LD;
+  float* sRing = sV + BN * LD;  // stage s at sRing + s STAGE
+  float* sP = sm + L::P_OFF;
+  float* sDS = sP + BN * LDP;
 
-  const int kj = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int g = H / Hkv;
-  const int k0 = kj * BN;
-  const int nk_valid = min(BN, Sk - k0);
+  // Block -> (k tile, kv head, batch), k tile slowest and first k tile
+  // first: under the causal mask the tiles with the most q tiles start first.
+  const int tid = threadIdx.x;
+  const int per = Hkv * B, g = H / Hkv;
+  const int kj = blockIdx.x / per, hk = blockIdx.x % per % Hkv, b = blockIdx.x % per / Hkv;
+  const int k0 = kj * BN, nk_valid = min(BN, Sk - k0);
   const long qstride = (long)H * d, kstride = (long)Hkv * d;
   const long koff = ((long)b * Sk + k0) * kstride + (long)hk * d;
-
+  // The pairs: the group's query heads, each from the first q tile whose
+  // rows reach key k0 under the causal mask.
+  const int nq = (Sq + BM - 1) / BM, i0 = causal ? k0 / BM : 0;
+  const int nqi = nq - i0, np = g * nqi;
   const float scale_t = to_f(from_f<T>(scale));
-  load_rows<T, BN, W>(sK, LDT, k + koff, kstride, nk_valid, d, false, 1.f);
-  load_rows<T, BN, W>(sV, LDT, v + koff, kstride, nk_valid, d, false, 1.f);
-  zero_f<BN, W>(sDK, LDO);
-  zero_f<BN, W>(sDV, LDO);
-  const int nq = (Sq + BM - 1) / BM;
-  const int i0 = causal ? k0 / BM : 0;
 
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = hk * g + gi;
-    for (int i = i0; i < nq; ++i) {
-      const int q0 = i * BM;
-      const int nq_valid = min(BM, Sq - q0);
-      const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
-      const long soff = ((long)b * H + h) * Sq + q0;
-      __syncthreads();  // the previous tile's products are done with sQ/sDO/sP/sDS
-      load_rows<T, BM, W>(sQ, LDT, q + qoff, qstride, nq_valid, d, true, scale_t);
-      load_rows<T, BM, W>(sDO, LDT, dout + qoff, qstride, nq_valid, d, false, 1.f);
-      load_stat<BM>(sLse, lse + soff, nq_valid);
-      load_stat<BM>(sDelta, delta + soff, nq_valid);
-      __syncthreads();
-      mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
-      mm<NT, BM, BN, W>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
-      __syncthreads();
-      for (int e = threadIdx.x; e < BM * BN; e += NTHREADS) {
-        const int r = e / BN, c = e % BN;
-        const int row = q0 + r, col = k0 + c;
-        const bool valid = row < Sq && col < Sk && !(causal && col > row);
-        const float p = valid ? expf(sS[r * LDS + c] - sLse[r]) : 0.f;
-        sP[r * LDP + c] = from_f<T>(p);
-        sDS[r * LDP + c] = from_f<T>(p * (sDP[r * LDS + c] - sDelta[r]));
+  zero_tail<W, NTH>(sK, 2 * BN, d);
+  zero_tail<W, NTH>(sRing, 2 * BM, d);
+  zero_tail<W, NTH>(sRing + STAGE, 2 * BM, d);
+  copy_tile<T, BN, W, NTH>(sK, k + koff, kstride, nk_valid, d, false, 1.f);
+  copy_tile<T, BN, W, NTH>(sV, v + koff, kstride, nk_valid, d, false, 1.f);
+  auto issue = [&](int p) {  // Q, dO, lse and delta of pair p into stage p % 2, one commit group
+    float* st = sRing + (p & 1) * STAGE;
+    const int h = hk * g + p / nqi, q0 = (i0 + p % nqi) * BM, n = min(BM, Sq - q0);
+    const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
+    const long soff = ((long)b * H + h) * Sq + q0;
+    copy_tile<T, BM, W, NTH>(st, q + qoff, qstride, n, d, true, scale_t);
+    copy_tile<T, BM, W, NTH>(st + BM * LD, dout + qoff, qstride, n, d, false, 1.f);
+    copy_stat<BM, NTH>(st + 2 * BM * LD, lse + soff, n);
+    copy_stat<BM, NTH>(st + 2 * BM * LD + BM, delta + soff, n);
+    cp_commit();
+  };
+  issue(0);
+
+  // This thread's score cells (keys ty + i GY, queries tx + j GX) and its
+  // dK / dV cells (rows oy + i QY, columns 4 (ox + c QX)) over queries ks
+  // QSPAN ... of each pair.
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  const int ks = tid / (NTH / KS), u = tid % (NTH / KS);
+  const int ox = Cells<QX, QY>::x(u), oy = Cells<QX, QY>::y(u);
+  float dK[TMO][4 * TCO], dV[TMO][4 * TCO];
+#pragma unroll
+  for (int i = 0; i < TMO; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * TCO; ++c) dK[i][c] = dV[i][c] = 0.f;
+
+  for (int p = 0; p < np; ++p) {
+    float* sQ = sRing + (p & 1) * STAGE;
+    const float* sDO = sQ + BM * LD;
+    const float* sLse = sDO + BM * LD;
+    const float* sDelta = sLse + BM;
+    const int q0 = (i0 + p % nqi) * BM;
+    cp_wait_all();
+    scale_own<T, BM, W, NTH>(sQ, d, scale_t);  // Qs = q * scale, in place (f32)
+    __syncthreads();  // pair p visible; every thread done with pair p - 1, P^T and dS^T
+    if (p + 1 < np) issue(p + 1);
+
+    float s[TM][TN], dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) s[i][c] = dp[i][c] = 0.f;
+    dot_rows<TM, TN, W, LD, GY, GX, US>(s, sK + ty * LD, sQ + tx * LD);    // S^T = K . Qs^T
+    dot_rows<TM, TN, W, LD, GY, GX, US>(dp, sV + ty * LD, sDO + tx * LD);  // dP^T = V . dO^T
+
+    // P^T = exp(S^T - lse), 0 where masked, rounded to T for dV += P^T . dO;
+    // dS^T = P^T * (dP^T - delta), rounded to T for dK += dS^T . Qs. Tiles
+    // wholly below the diagonal and inside both sequences skip the mask.
+    const bool inside = q0 + BM <= Sq && k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int n = tx + c * GX;
+      const float lse_c = sLse[n], delta_c = sDelta[n];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int m = ty + i * GY;
+        float pv = expf(s[i][c] - lse_c);
+        if (!inside && (q0 + n >= Sq || k0 + m >= Sk || (causal && k0 + m > q0 + n))) pv = 0.f;
+        sP[m * LDP + n] = rounded<T>(pv);
+        sDS[m * LDP + n] = rounded<T>(pv * (dp[i][c] - delta_c));
       }
-      __syncthreads();
-      mm<TN, BN, W, BM>(sP, LDP, sDO, LDT, sDV, LDO, true, nullptr);
-      mm<TN, BN, W, BM>(sDS, LDP, sQ, LDT, sDK, LDO, true, nullptr);
     }
+    __syncthreads();
+    acc_rows<TMO, TCO, QSPAN, LDP, LD, QY, 4 * QX, UA>(dV, sP + oy * LDP + ks * QSPAN,
+                                                  sDO + ks * QSPAN * LD + 4 * ox);
+    acc_rows<TMO, TCO, QSPAN, LDP, LD, QY, 4 * QX, UA>(dK, sDS + oy * LDP + ks * QSPAN,
+                                                  sQ + ks * QSPAN * LD + 4 * ox);
   }
-  __syncthreads();
 
-  for (int e = threadIdx.x; e < BN * W; e += NTHREADS) {
+  // dK and dV = the sums of the KS partials, in a fixed order, through
+  // shared memory: dV's partials, then dK's.
+  __syncthreads();
+  float* rv = sm;
+  float* rk = sm + KS * BN * W;
+  put_cells<TMO, TCO, W, QY, 4 * QX>(rv + (ks * BN + oy) * W + 4 * ox, dV);
+  put_cells<TMO, TCO, W, QY, 4 * QX>(rk + (ks * BN + oy) * W + 4 * ox, dK);
+  __syncthreads();
+  for (int e = tid; e < BN * W; e += NTH) {
     const int r = e / W, c = e % W;
-    if (r < nk_valid && c < d) {
-      dk[koff + (long)r * kstride + c] = from_f<T>(sDK[r * LDO + c]);
-      dv[koff + (long)r * kstride + c] = from_f<T>(sDV[r * LDO + c]);
-    }
+    if (r >= nk_valid || c >= d) continue;
+    float xv = rv[e], xk = rk[e];
+#pragma unroll
+    for (int s = 1; s < KS; ++s) xv += rv[s * BN * W + e], xk += rk[s * BN * W + e];
+    dv[koff + (long)r * kstride + c] = from_f<T>(xv);
+    dk[koff + (long)r * kstride + c] = from_f<T>(xk);
   }
 }
 
@@ -185,15 +290,15 @@ template <typename T, int W>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
                        int Hkv, int Sq, int Sk, int d, float scale, int causal, cudaStream_t st) {
-  using L = DkvSmem<T, W>;
+  using L = DkvLay<W>;
   auto kern = flash_bwd_dkv_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(cdiv(Sk, L::BN), Hkv, B);
-  kern<<<grid, NTHREADS, L::bytes, st>>>(
+  const int grid = cdiv(Sk, L::BN) * Hkv * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Hkv, Sq, Sk, d, scale, causal);
+      static_cast<T*>(dk), static_cast<T*>(dv), B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -592,7 +697,7 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
 }  // namespace tt
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8), 1 = FMA
-// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
 // bf16, 1 = f32 (q, k, v, do, dk, dv). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int B,
@@ -608,6 +713,7 @@ extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   return (int)launch_dkv<T, W>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA_W(T)           \
   switch (width) {            \
+    case 16: TT_FMA(T, 16);   \
     case 32: TT_FMA(T, 32);   \
     case 64: TT_FMA(T, 64);   \
     case 128: TT_FMA(T, 128); \

@@ -6,7 +6,8 @@
 //
 // Bound on the H100: operations. Three products of D-deep dots per unmasked
 // score (s, dp, dq), 6 . D FLOP each, on the bf16 tensor cores at 989
-// TFLOP/s; the bytes are two orders of magnitude below that at S = 2048.
+// TFLOP/s (f32: on the CUDA cores at 67); the bytes are two orders of
+// magnitude below that at S = 2048.
 //
 // bf16 design (flash_bwd_dq_wgmma_kernel, sm_90a). One warpgroup (128
 // threads) per (q tile of 64 rows, head, batch); about 98 KB of shared
@@ -69,13 +70,52 @@
 // holds it at 2.8x is not settled: no instruction-level profiler runs on
 // that machine.
 //
-// FMA family (flash_bwd_dq_kernel<T, W>): the simple shared-memory kernel of
-// flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
-// bf16 where the wgmma kernel does not go (d not a multiple of 8), at widths
-// W = 32, 64, 128 and 256 with the true d at run time; wgmma takes no f32
-// input. Same numerics as the wgmma kernel; slow (its products read both
-// operands from shared memory): at d = 256 bf16 it took 60.0 ms at the
-// shape above, see PERF.md.
+// FMA family (flash_bwd_dq_kernel<T, W>), for f32 at every head_dim and
+// bf16 where the wgmma kernel does not go (d not a multiple of 8), at tile
+// widths W = 16, 32, 64, 128 and 256 with the true d at run time; wgmma
+// takes no f32 input, so f32 stays exact: fmaf on the CUDA cores, no TF32,
+// bound at the f32 peak of 67 TFLOP/s. Same numerics as above (k scaled in
+// T in place, p = expf(s - lse), dS rounded to T, f32 sums, no atomics).
+// Tiles are f32 in shared memory (bf16 widened on the way in), row stride
+// W + 4. Per block (DqFma): BM query rows, their Q, dO, lse and delta
+// loaded once; K and V stream through a two-stage cp.async ring (16-byte
+// copies where a row is whole 16-byte vectors, 4-byte ones else, zero-fill
+// past Sk; bf16 copies synchronously), the next tile in flight while this
+// one's products run. Each thread scales the K elements it copied itself
+// once they land, so the scaling needs no barrier of its own: two block
+// barriers a tile. S and dP are register micro-tiles (4 x 4 cells at
+// width 16-64, 4 x 2 at 128, 2 x 2 at 256), each float4 of an operand
+// read from shared memory once for 4-16 FMAs; P and dS are formed in
+// registers by the thread that computed them, and dS goes through shared
+// memory once as the A operand of dQ += dS . Ks. dQ stays in registers (4
+// x 4 or 4 x 8 cells; at width 16 and 32 over 4 and 2 splits of a tile's
+// keys, summed once at the end in a fixed order) and is stored once.
+//   width   BM x BN   threads  f32 regs  shared KiB  blocks an SM
+//    16     64 x 64     256       128        47.5        2
+//    32     64 x 64     256       128        71.5        2
+//    64     64 x 32     128       168        77.5        2
+//   128     64 x 32     256       180       141.5        1
+//   256     32 x 32     256       128       199.75       1
+// (bf16, under no block count: 144-168 registers; no spills.)
+// Measured at B4 S2048 causal f32 (H8/4, Gemma-7B's H16/16 at 256) on an
+// NVIDIA H100 80GB HBM3 at 700 W, medians of 20 CUDA-event timings, in
+// one-call A/Bs (SDPA's f32 backward, all three gradients, beside it):
+// d = 16 0.2545 ms (2.6x its bound 0.0962; SDPA 2.135), d = 64 0.914 (2.4x;
+// 2.874), d = 128 1.958 (2.5x; 4.189), d = 256 10.04-10.49 (3.3x; 10.88);
+// the kernel it replaced (one element a thread over shared memory, 32-row
+// tiles, synchronous loads, width 32 at d = 16) took 1.69307 at d = 16.
+// Variants timed: loops over the head dim unrolled 4 steps instead of all
+// 2.19 at d = 128 (unrolled 2: 2.33); one block of 256 threads an SM (no
+// 128-register bound) 0.330 at d = 16; __expf instead of expf 0.2475 at d
+// = 16, not kept (the reference's exp); at width 128 32 x 32 tiles of 128
+// threads 2.107; at width 256 128 threads with 4 x 2 S cells and 4 x 16 dQ
+// cells 10.62; at width 64 64 x 64 tiles of 256 threads 0.907, within noise.
+// What still holds it from the bound (no profiler runs on that machine, so
+// from the instruction mix): at d = 16 each score costs 48 FMAs and about
+// ten more instructions (expf, the mask, dS, its store), besides a float4
+// shared load per 4-16 FMAs and two barriers a tile; at width 256 the 2 x
+// 2 S cells read a float4 per 4 FMAs, as much shared memory as the SM
+// serves, since 32 x 32 tiles are all that fit beside Q, dO and the ring.
 //
 // Left for later: a fused backward (s and dp are recomputed here and in the
 // dk/dv kernel; fusing them with an atomic dq would give up determinism, a
@@ -90,81 +130,146 @@
 namespace tt {
 
 // ----------------------------------------------------------- FMA path
-template <typename T, int W>
-struct DqSmem {
-  static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
-  static constexpr size_t bytes =
-      sizeof(T) * (size_t)(2 * BM * LDT + 2 * BN * LDT + BM * LDP) +
-      sizeof(float) * (size_t)(2 * BM * LDS + BM * LDO + 2 * BM);
+// Tiles of one block, per width W: BM query rows, BN keys a K / V tile,
+// NTH threads. S and dP are TM x TN cells a thread (queries GY apart, keys
+// GX apart); dQ is TMO x 4 TCO cells a thread (rows QY apart, float4
+// columns 4 QX apart), over KS splits of a tile's keys whose partial dQs
+// are summed once at the end. Shared memory (f32, row stride W + 4): Q,
+// dO, two stages of [K | V], dS [BM, BN + 4], lse and delta.
+// MINB f32 blocks an SM (bf16: 1) bound the registers (2 x 256 threads:
+// 128 a thread); U float4 steps of a product are unrolled (0: all).
+template <int W> struct DqFma;
+template <> struct DqFma<16> { static constexpr int BM = 64, BN = 64, NTH = 256, TM = 4, TN = 4, TMO = 4, TCO = 1, KS = 4, MINB = 2, U = 0; };
+template <> struct DqFma<32> { static constexpr int BM = 64, BN = 64, NTH = 256, TM = 4, TN = 4, TMO = 4, TCO = 1, KS = 2, MINB = 2, U = 0; };
+template <> struct DqFma<64> { static constexpr int BM = 64, BN = 32, NTH = 128, TM = 4, TN = 4, TMO = 4, TCO = 2, KS = 1, MINB = 2, U = 0; };
+template <> struct DqFma<128> { static constexpr int BM = 64, BN = 32, NTH = 256, TM = 4, TN = 2, TMO = 4, TCO = 2, KS = 1, MINB = 1, U = 0; };
+template <> struct DqFma<256> { static constexpr int BM = 32, BN = 32, NTH = 256, TM = 2, TN = 2, TMO = 4, TCO = 2, KS = 1, MINB = 2, U = 4; };
+
+template <int W>
+struct DqLay : DqFma<W> {
+  using C = DqFma<W>;
+  static constexpr int LD = ldw<W>(), LDS = C::BN + 4;
+  static constexpr int GX = C::BN / C::TN, GY = C::BM / C::TM;   // score cells
+  static constexpr int QX = W / 4 / C::TCO, QY = C::BM / C::TMO;  // dQ cells of one key split
+  static constexpr int TILES = 2 * C::BM * LD + 4 * C::BN * LD;  // Q, dO, the ring
+  static constexpr size_t bytes = sizeof(float) * (size_t)(TILES + C::BM * LDS + 2 * C::BM);
+  static_assert(GX * GY == C::NTH && QX * QY * C::KS == C::NTH, "one cell of each a thread");
+  static_assert(C::KS * C::BM * W <= TILES, "the dQ partials fit where the tiles were");
 };
 
 template <typename T, int W>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(DqFma<W>::NTH, std::is_same<T, float>::value ? DqFma<W>::MINB : 1)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                         const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int H, int Hkv, int Sq,
-                        int Sk, int d, float scale, int causal) {
-  using L = DqSmem<T, W>;
-  constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
+                        const float* __restrict__ delta, T* __restrict__ dq, int B, int H, int Hkv,
+                        int Sq, int Sk, int d, float scale, int causal) {
+  using L = DqLay<W>;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, TM = L::TM, TN = L::TN, TMO = L::TMO,
+                TCO = L::TCO, KS = L::KS, LD = L::LD, LDS = L::LDS, GX = L::GX, GY = L::GY,
+                QX = L::QX, QY = L::QY, KSPAN = BN / KS;
+  constexpr int US = L::U ? L::U : W / 4, UA = L::U && L::U < KSPAN / 4 ? L::U : KSPAN / 4;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + BM * LDT;
-  T* sK = sDO + BM * LDT;
-  T* sV = sK + BN * LDT;
-  T* sDS = sV + BN * LDT;
-  float* sS = reinterpret_cast<float*>(sDS + BM * LDP);
-  float* sDP = sS + BM * LDS;
-  float* sDQ = sDP + BM * LDS;
-  float* sLse = sDQ + BM * LDO;
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;
+  float* sDO = sQ + BM * LD;
+  float* sRing = sDO + BM * LD;  // stage s: K at sRing + 2 s BN LD, V after it
+  float* sDS = sm + L::TILES;
+  float* sLse = sDS + BM * LDS;  // lse and delta of the block's rows
   float* sDelta = sLse + BM;
 
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // Block -> (q tile, head, batch), q tile slowest and last q tile first:
+  // under the causal mask the heaviest tiles start first.
+  const int tid = threadIdx.x;
+  const int per = H * B, nq = (Sq + BM - 1) / BM;
+  const int tile = blockIdx.x / per, h = blockIdx.x % per % H, b = blockIdx.x % per / H;
+  const int qi = causal ? nq - 1 - tile : tile;
   const int hk = h / (H / Hkv);
-  const int q0 = qi * BM;
-  const int nq_valid = min(BM, Sq - q0);
+  const int q0 = qi * BM, nq_valid = min(BM, Sq - q0);
+  int nk = (Sk + BN - 1) / BN;
+  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
   const long qstride = (long)H * d, kstride = (long)Hkv * d;
   const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
   const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
   const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
-  const long soff = ((long)b * H + h) * Sq + q0;
-
   const float scale_t = to_f(from_f<T>(scale));
-  load_rows<T, BM, W>(sQ, LDT, q + qoff, qstride, nq_valid, d, false, 1.f);
-  load_rows<T, BM, W>(sDO, LDT, dout + qoff, qstride, nq_valid, d, false, 1.f);
-  load_stat<BM>(sLse, lse + soff, nq_valid);
-  load_stat<BM>(sDelta, delta + soff, nq_valid);
-  zero_f<BM, W>(sDQ, LDO);
-  int nk = (Sk + BN - 1) / BN;
-  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
+
+  zero_tail<W, NTH>(sm, 2 * BM + 4 * BN, d);
+  copy_tile<T, BM, W, NTH>(sQ, q + qoff, qstride, nq_valid, d, false, 1.f);
+  copy_tile<T, BM, W, NTH>(sDO, dout + qoff, qstride, nq_valid, d, false, 1.f);
+  const long soff = ((long)b * H + h) * Sq + q0;
+  copy_stat<BM, NTH>(sLse, lse + soff, nq_valid);
+  copy_stat<BM, NTH>(sDelta, delta + soff, nq_valid);
+  auto issue = [&](int j) {  // K and V of tile j into stage j % 2, one commit group
+    float* st = sRing + (j & 1) * 2 * BN * LD;
+    const int k0 = j * BN, n = min(BN, Sk - k0);
+    copy_tile<T, BN, W, NTH>(st, kb + (long)k0 * kstride, kstride, n, d, true, scale_t);
+    copy_tile<T, BN, W, NTH>(st + BN * LD, vb + (long)k0 * kstride, kstride, n, d, false, 1.f);
+    cp_commit();
+  };
+  issue(0);
+
+  // This thread's score cells (queries ty + i GY, keys tx + j GX) and its
+  // dQ cells (rows oy + i QY, columns 4 (ox + c QX)) over keys ks KSPAN ...
+  // of each tile.
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  const int ks = tid / (NTH / KS), u = tid % (NTH / KS);
+  const int ox = Cells<QX, QY>::x(u), oy = Cells<QX, QY>::y(u);
+  float acc[TMO][4 * TCO];
+#pragma unroll
+  for (int i = 0; i < TMO; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * TCO; ++c) acc[i][c] = 0.f;
 
   for (int j = 0; j < nk; ++j) {
+    float* sK = sRing + (j & 1) * 2 * BN * LD;
+    const float* sV = sK + BN * LD;
     const int k0 = j * BN;
-    const int nk_valid = min(BN, Sk - k0);
-    __syncthreads();
-    load_rows<T, BN, W>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, d, true, scale_t);
-    load_rows<T, BN, W>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
-    __syncthreads();
-    mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
-    mm<NT, BM, BN, W>(sDO, LDT, sV, LDT, sDP, LDS, false, nullptr);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BM * BN; i += NTHREADS) {
-      const int r = i / BN, c = i % BN;
-      const int row = q0 + r, col = k0 + c;
-      const bool valid = row < Sq && col < Sk && !(causal && col > row);
-      const float p = valid ? expf(sS[r * LDS + c] - sLse[r]) : 0.f;
-      sDS[r * LDP + c] = from_f<T>(p * (sDP[r * LDS + c] - sDelta[r]));
+    cp_wait_all();
+    scale_own<T, BN, W, NTH>(sK, d, scale_t);  // Ks = k * scale, in place (f32)
+    __syncthreads();  // tile j visible; every thread done with tile j - 1 and dS
+    if (j + 1 < nk) issue(j + 1);
+
+    float s[TM][TN], dp[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) s[i][c] = dp[i][c] = 0.f;
+    dot_rows<TM, TN, W, LD, GY, GX, US>(s, sQ + ty * LD, sK + tx * LD);    // S = Q . Ks^T
+    dot_rows<TM, TN, W, LD, GY, GX, US>(dp, sDO + ty * LD, sV + tx * LD);  // dP = dO . V^T
+
+    // P = exp(S - lse), 0 where masked; dS = P * (dP - delta), rounded to
+    // T as the A operand of dQ += dS . Ks. Tiles wholly below the diagonal
+    // and inside both sequences skip the mask.
+    const bool inside = q0 + BM <= Sq && k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int m = ty + i * GY;
+      const float lse_m = sLse[m], delta_m = sDelta[m];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int n = tx + c * GX;
+        float p = expf(s[i][c] - lse_m);
+        if (!inside && (q0 + m >= Sq || k0 + n >= Sk || (causal && k0 + n > q0 + m))) p = 0.f;
+        sDS[m * LDS + n] = rounded<T>(p * (dp[i][c] - delta_m));
+      }
     }
     __syncthreads();
-    mm<NN, BM, W, BN>(sDS, LDP, sK, LDT, sDQ, LDO, true, nullptr);
+    acc_rows<TMO, TCO, KSPAN, LDS, LD, QY, 4 * QX, UA>(acc, sDS + oy * LDS + ks * KSPAN,
+                                                  sK + ks * KSPAN * LD + 4 * ox);
   }
-  __syncthreads();
 
-  T* db = dq + qoff;
-  for (int i = threadIdx.x; i < BM * W; i += NTHREADS) {
-    const int r = i / W, c = i % W;
-    if (r < nq_valid && c < d) db[(long)r * qstride + c] = from_f<T>(sDQ[r * LDO + c]);
+  // dQ = the sum of the KS partials, in a fixed order, through shared memory.
+  __syncthreads();
+  put_cells<TMO, TCO, W, QY, 4 * QX>(sm + (ks * BM + oy) * W + 4 * ox, acc);
+  __syncthreads();
+  T* g = dq + qoff;
+  for (int e = tid; e < BM * W; e += NTH) {
+    const int r = e / W, c = e % W;
+    if (r >= nq_valid || c >= d) continue;
+    float x = sm[e];
+#pragma unroll
+    for (int p = 1; p < KS; ++p) x += sm[p * BM * W + e];
+    g[(long)r * qstride + c] = from_f<T>(x);
   }
 }
 
@@ -172,15 +277,15 @@ template <typename T, int W>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int B, int H, int Hkv, int Sq,
                       int Sk, int d, float scale, int causal, cudaStream_t st) {
-  using L = DqSmem<T, W>;
+  using L = DqLay<W>;
   auto kern = flash_bwd_dq_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(cdiv(Sq, L::BM), H, B);
-  kern<<<grid, NTHREADS, L::bytes, st>>>(
+  const int grid = cdiv(Sq, L::BM) * H * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Hkv, Sq, Sk, d, scale, causal);
+      static_cast<T*>(dq), B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -534,7 +639,7 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
 }  // namespace tt
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8), 1 = FMA
-// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
 // bf16, 1 = f32 (q, k, v, do, dq). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
@@ -549,6 +654,7 @@ extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
   return (int)launch_dq<T, W>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA_W(T)           \
   switch (width) {            \
+    case 16: TT_FMA(T, 16);   \
     case 32: TT_FMA(T, 32);   \
     case 64: TT_FMA(T, 64);   \
     case 128: TT_FMA(T, 128); \

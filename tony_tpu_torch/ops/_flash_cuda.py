@@ -3,9 +3,10 @@
 The sources are ``tony_tpu_torch/csrc/flash_{fwd,bwd_dq,bwd_dkv}.cu``, with
 ``hopper_common.cuh`` (the ``wgmma`` family: TMA loads, ``mbarrier`` rings
 and ``wgmma`` products with register accumulators; bf16, sm_90a only) and
-``flash_common.cuh`` (the FMA family: FMA products over shared-memory
-tiles; bf16 or f32). At first use they are compiled (one ``nvcc`` each, all
-three at once) and loaded by ``ops/_build.py``. Nothing is downloaded and
+``flash_common.cuh`` (the FMA family, bf16 or f32: the forward's FMA
+products over shared-memory tiles; the backward pair's register
+micro-tiles fed by ``cp.async``). At first use they are compiled (one
+``nvcc`` each, all three at once) and loaded by ``ops/_build.py``. Nothing is downloaded and
 nothing is built at import. The ``wgmma`` kernels build their TMA tensor
 maps from the pointers and shapes given here, so the tensors must be
 contiguous and 16-byte aligned, as ``_check`` demands.
@@ -56,7 +57,12 @@ MAX_HEAD_DIM = 256
 # points' switches).
 WGMMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
                 "flash_bwd_dkv": (64, 128, 256)}
-FMA_WIDTHS = (32, 64, 128, 256)
+# The FMA family's widths: the backward pair also has a 16-wide tile (the
+# tiny decoders' head_dim 16); the forward's narrowest is 32, which its
+# key tile and its P's rounding (``fwd_key_tile``) follow.
+FMA_WIDTHS = {"flash_fwd": (32, 64, 128, 256),
+              "flash_bwd_dq": (16, 32, 64, 128, 256),
+              "flash_bwd_dkv": (16, 32, 64, 128, 256)}
 FAMILIES = {"wgmma": 0, "fma": 1}
 
 
@@ -66,7 +72,7 @@ def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
     narrowest of WGMMA_WIDTHS[kernel] that holds d)`` for bf16 at a multiple
     of 8 (a TMA row must be a whole number of 16 bytes; all three kernels
     have a wgmma tile up to 256), else ``("fma", the narrowest of
-    FMA_WIDTHS that holds d)``. Raises
+    FMA_WIDTHS[kernel] that holds d)``. Raises
     ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype,
     ``KeyError`` for another kernel."""
     widths = WGMMA_WIDTHS[kernel]
@@ -77,7 +83,7 @@ def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
                          f"{MAX_HEAD_DIM}, got {d}")
     if dtype == torch.bfloat16 and d % 8 == 0 and d <= widths[-1]:
         return "wgmma", next(w for w in widths if d <= w)
-    return "fma", next(w for w in FMA_WIDTHS if d <= w)
+    return "fma", next(w for w in FMA_WIDTHS[kernel] if d <= w)
 
 
 def fwd_key_tile(d: int, dtype: torch.dtype) -> int:
