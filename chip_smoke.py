@@ -20,9 +20,10 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    prints the seconds it took and each kernel's registers and spills; the
    bf16 (wgmma) instantiations of the three flash kernels (twelve of the
    forward: width 64, 128 and 256, o in bf16 or f32, at the width or a
-   narrower head; six each of dq and dk/dv: width 64, 128 and 256) and the
-   FMA dq and dk/dv (ten each: f32 and bf16 at width 16, 32, 64, 128 and
-   256) must report 0 spill bytes;
+   narrower head; six each of dq and dk/dv: width 64, 128 and 256), the
+   FMA forward (fifteen: f32 to f32, bf16 to bf16 and bf16 to f32 at width
+   16, 32, 64, 128 and 256) and the FMA dq and dk/dv (ten each: f32 and
+   bf16 at the same widths) must report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal; o, lse, dq, dk and dv must
@@ -52,10 +53,9 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
 3b. the flash kernels at the head_dims other than 64 and 128
    (``_flash_cuda.route``, per kernel: bf16 at a multiple of 8 on the
    wgmma kernels at tile width 64, 128 or 256; f32, and bf16 off a
-   multiple of 8, on the FMA kernels at width 32-256, dq and dk/dv from
-   16): (a) each kernel against its plain version (the plain forward over
-   the kernel's key tiles, ``_flash_cuda.fwd_key_tile``: 80 keys at width
-   256) at d = 8, 16, 32, 80, 96, 192 and 256 in bf16 (causal GQA B2 S256
+   multiple of 8, on the FMA kernels at width 16-256): (a) each kernel
+   against its plain version (the plain forward over the kernel's key
+   tiles, ``_flash_cuda.fwd_key_tile``: 80 keys at width 256) at d = 8, 16, 32, 80, 96, 192 and 256 in bf16 (causal GQA B2 S256
    H8/2, non-causal B1 S256 H4/4, ragged causal B1 S100 H4/2), at d = 1,
    16, 20, 32, 33, 64, 100, 128 and 256 in f32 and at d = 20, 100 and 140
    in bf16 (causal GQA B1 S200 H4/2, non-causal B1 S256 H4/4, ragged
@@ -64,7 +64,7 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    tolerances (the lse mean included, which at d = 192 catches a row sum
    over the rounded P), each kernel launched in every case and only on its
    routed family and width (launches counted by route; at d = 192 and 256
-   all three on wgmma 256, at d <= 16 off wgmma dq and dk/dv on FMA 16);
+   all three on wgmma 256, at d <= 16 off wgmma all three on FMA 16);
    then each timed beside SDPA and its bound at B4 S2048 causal: H8/4 at
    d = 8, 16, 32 and 80, Phi-3-mini's H32/32 at 96, Gemma-7B's H16/16 at
    256 (o, lse, dq, dk and dv also bitwise equal across two runs there),
@@ -658,13 +658,15 @@ def phase_build():
     # hold their accumulators in registers: a spill there fails the run. The
     # forward has twelve bf16 instantiations (width 64/128/256 x o in
     # bf16/f32 x the exact width or a narrower head), dq and dk/dv six
-    # (width 64/128/256 x exact or narrower); the FMA dq and dk/dv one for
-    # each of f32 and bf16 at each of their widths (16-256).
+    # (width 64/128/256 x exact or narrower); the FMA forward one for each
+    # of f32 to f32, bf16 to bf16 and bf16 to f32 at each of its widths
+    # (16-256), the FMA dq and dk/dv one for each of f32 and bf16.
     from tony_tpu_torch.ops._flash_cuda import FMA_WIDTHS
 
     wgmma_kernels = {"flash_fwd": 12, "flash_bwd_dq": 6, "flash_bwd_dkv": 6}
-    fma_kernels = {n: 2 * len(FMA_WIDTHS[n])
-                   for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    fma_kernels = {"flash_fwd": 3 * len(FMA_WIDTHS["flash_fwd"]),
+                   **{n: 2 * len(FMA_WIDTHS[n])
+                      for n in ("flash_bwd_dq", "flash_bwd_dkv")}}
     faults = []
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
@@ -958,7 +960,7 @@ def phase_kernels():
 # the wgmma kernels at tile width 64 or 128 (8, 16, 32, 80, 96 here) and
 # past 128 at width 256 (192 on the narrower-head instantiations, 256 on
 # the exact ones); every other head_dim and every f32 one runs on the FMA
-# kernels at width 32, 64, 128 or 256 (16, 32 and 256 here).
+# kernels at width 16, 32, 64, 128 or 256.
 HD_BF16 = (8, 16, 32, 80, 96, 192, 256)
 # The FMA kernels at every width: f32 (d = 1 and 33 copy rows that are no
 # whole number of 16-byte vectors element by element) and bf16 off a
@@ -1008,8 +1010,8 @@ def head_dim_cases(card):
             for n in K.KERNELS:
                 check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
                       f"{label}: {n} did not run on wgmma width 256: {ran}")
-        if d <= 16 and routed["flash_bwd_dq"][0] == "fma":
-            for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+        if d <= 16 and routed["flash_fwd"][0] == "fma":
+            for n in K.KERNELS:
                 check(K.route_counts.get((n, "fma", 16), 0) >= 1,
                       f"{label}: {n} did not run on FMA width 16: {ran}")
 

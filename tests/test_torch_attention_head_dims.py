@@ -186,6 +186,58 @@ def test_forward_over_the_width_256_key_tile_matches_jax(d):
         np.testing.assert_allclose(_np(t), j, **BF16, err_msg=name)
 
 
+@pytest.mark.parametrize("d,dtype", [
+    (20, torch.bfloat16), (100, torch.bfloat16), (140, torch.bfloat16),
+    (16, torch.float32), (256, torch.float32)])
+def test_forward_over_the_fma_key_tile_matches_jax(d, dtype):
+    """The plain forward the card's FMA kernel is held to, over that
+    kernel's key tiles (``fwd_key_tile``): causal GQA, S = 200 (a ragged
+    last tile), f32 out, against the reference's kernels in interpret mode
+    at the same blocks; bf16 (off a multiple of 8) also in the mean."""
+    tile = _flash_cuda.fwd_key_tile(d, dtype)
+    assert _flash_cuda.route(d, dtype, "flash_fwd")[0] == "fma"
+    q, k, v = _qkv(1, 200, 4, 2, d, seed=60 + d)
+    bf16 = dtype == torch.bfloat16
+    o, lse = tattn.flash_fwd_plain(
+        *(torch.from_numpy(x).to(dtype) for x in (q, k, v)), d ** -0.5,
+        True, torch.float32, tile, tile)
+    jdtype = jnp.bfloat16 if bf16 else jnp.float32
+    jo, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jdtype) for x in (q, k, v)),
+        causal=True, block_q=tile, block_k=tile, out_dtype=jnp.float32)
+    jlse = np.asarray(jlse).transpose(0, 2, 1)
+    for name, t, j in (("o", o, jo), ("lse", lse, jlse)):
+        if bf16:
+            err = np.abs(_np(t) - np.asarray(j))
+            assert err.mean() <= 2e-6, f"{name}: mean abs err {err.mean()}"
+        np.testing.assert_allclose(_np(t), j, **(BF16 if bf16 else F32),
+                                   err_msg=name)
+
+
+def _fma_fwd_key_tiles():
+    """Keys per tile of the FMA forward at each width, from its traits in
+    ``flash_fwd.cu`` (``FwdFma<W>``: BN = GX * TN)."""
+    src = (CSRC / "flash_fwd.cu").read_text()
+    out = {}
+    for w, body in re.findall(r"struct FwdFma<(\d+)> \{([^}]*)\}", src):
+        gx = int(re.search(r"\bGX = (\d+)", body).group(1))
+        tn = int(re.search(r"\bTN = (\d+)", body).group(1))
+        out[int(w)] = gx * tn
+    return out
+
+
+def test_fwd_key_tile_is_the_fma_kernels_traits():
+    """``fwd_key_tile`` on FMA is the key tile the C source compiles at
+    every width the forward's FMA family has."""
+    tiles = _fma_fwd_key_tiles()
+    assert set(tiles) == set(_flash_cuda.FMA_WIDTHS["flash_fwd"])
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+            family, width = _flash_cuda.route(d, dtype, "flash_fwd")
+            if family == "fma":
+                assert _flash_cuda.fwd_key_tile(d, dtype) == tiles[width]
+
+
 @pytest.mark.parametrize("d,dtype,tile", [
     (8, torch.bfloat16, 128), (64, torch.bfloat16, 128),
     (96, torch.bfloat16, 128), (128, torch.bfloat16, 128),
@@ -199,9 +251,9 @@ def test_fwd_key_tile_is_the_routed_forward_kernels(d, dtype, tile):
     assert _flash_cuda.fwd_key_tile(d, dtype) == tile
 
 
-# The forward's routes, the backward pair's too where BWD_WIDTH16 does not
-# say otherwise: bf16 at a multiple of 8 on wgmma at width 64, 128 or 256;
-# off a multiple of 8, and f32, FMA.
+# The routes of all three kernels: bf16 at a multiple of 8 on wgmma at
+# width 64, 128 or 256; off a multiple of 8, and f32, FMA, whose narrowest
+# tile is 16 wide.
 FWD_ROUTES = [
     (8, torch.bfloat16, "wgmma", 64),
     (16, torch.bfloat16, "wgmma", 64),
@@ -215,17 +267,14 @@ FWD_ROUTES = [
     (100, torch.bfloat16, "fma", 128),
     (136, torch.bfloat16, "wgmma", 256),
     (256, torch.bfloat16, "wgmma", 256),
-    (1, torch.float32, "fma", 32),
-    (16, torch.float32, "fma", 32),
+    (1, torch.float32, "fma", 16),
+    (16, torch.float32, "fma", 16),
     (33, torch.float32, "fma", 64),
     (64, torch.float32, "fma", 64),
     (96, torch.float32, "fma", 128),
     (128, torch.float32, "fma", 128),
     (256, torch.float32, "fma", 256),
 ]
-# The backward pair's FMA kernels also have a 16-wide tile: f32 and bf16
-# up to d = 16 go there (the forward's narrowest FMA tile is 32).
-BWD_WIDTH16 = {(1, torch.float32), (16, torch.float32), (12, torch.bfloat16)}
 
 
 def _routes():
@@ -235,9 +284,7 @@ def _routes():
                 (192, torch.bfloat16, "wgmma", 256),
                 (248, torch.bfloat16, "wgmma", 256),
                 (140, torch.bfloat16, "fma", 256),
-                (12, torch.bfloat16, "fma", 32)]:
-            if kernel != "flash_fwd" and (d, dtype) in BWD_WIDTH16:
-                width = 16
+                (12, torch.bfloat16, "fma", 16)]:
             out.append((kernel, d, dtype, family, width))
     return out
 

@@ -101,140 +101,265 @@
 // 80-key tile's m64n80 score product reads less shared memory per FLOP
 // than m64n64 (4.5 KB per 40 cycles of tensor core, not 4 KB per 32).
 //
-// FMA family (flash_fwd_kernel<T, OT, W>): the simple shared-memory kernel
-// of flash_common.cuh over 32-row tiles, for f32 at every head_dim and for
-// bf16 where the wgmma kernel does not go (d not a multiple of 8), at
-// widths W = 32, 64, 128 and 256 with the true d at run time (wgmma takes
-// no f32 input). Its numerics are the same: q scaled in T, P rounded to T
-// for P . V, l summing that rounded P below head_dim 128. It is bounded by
-// its shared-memory operand reads, far from the card's tensor-core peak:
-// at d = 256 bf16 (B4 S2048 H16/16 causal) it ran at ~3.6 TFLOP/s, ~150x
-// SDPA's forward, on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3b,
-// before the width-256 wgmma kernel).
+// FMA family (flash_fwd_kernel<T, OT, W>), for f32 at every head_dim and
+// bf16 where the wgmma kernel does not go (d not a multiple of 8), at tile
+// widths W = 16, 32, 64, 128 and 256 with the true d at run time; wgmma
+// takes no f32 input, so f32 stays exact: fmaf on the CUDA cores, no TF32,
+// bound at the f32 peak of 67 TFLOP/s. Same numerics as above but for the
+// exponent, expf as the plain version's exp: q scaled in T, S in f32,
+// NEG_INF masks, P rounded to T for P . V, l summing that rounded P below
+// head_dim 128, the 1e-30 clamp; no atomics. Tiles are f32 in shared
+// memory (bf16 widened on the way in), row stride W + 4. Per block
+// (FwdFma): BM query rows, whose Q is copied once and scaled in place by
+// the thread that copied it; K and V stream through a two-stage cp.async
+// ring of 32-key tiles (16-byte copies where a row is whole 16-byte
+// vectors, 4-byte ones else; bf16 by widen_tile), the next tile in flight
+// while this one's products run: two block barriers a tile. S = Qs . K^T
+// is a register micro-tile (TM x TN cells; a row's 32 keys on GX = 4 or 8
+// lanes of one warp). The thread that holds a row's scores masks them,
+// takes the row max by shuffles over those lanes, forms alpha and
+// P = exp(S - m) in registers, and holds the row's O cells (TM x W / GX)
+// too: O is rescaled by alpha in registers, and P, rounded to T, goes
+// through shared memory once as the A operand of O += P . V. l stays a
+// per-lane partial, summed over the row's lanes once at the end; the
+// epilogue divides O by max(l, 1e-30) in registers.
+//   width   BM x BN   threads  regs f32 / bf16  shared KiB  f32 blocks an SM
+//    16     64 x 32     128       128 / 144         24.0          4
+//    32     64 x 32     128       128 / 168         37.0          4
+//    64    128 x 32     256       128 / 196         88.0          2
+//   128    128 x 32     256       254 / 254        152.0          1
+//   256     64 x 32     256       194 / 255        205.0          1
+// (no spills; bf16 under no block count.) Measured at B4 S2048 causal
+// (H8/4, H16/16 at 256) on an NVIDIA H100 80GB HBM3 at 700 W, medians of
+// 20 CUDA-event timings, by flash_variants_ab.py in one call (SDPA's f32
+// forward beside it): f32 d = 16 0.2217 ms (3.5x its bound 0.0641; SDPA
+// 2.275), d = 32 0.3087 (2.4x), d = 64 0.5736 (2.2x; 2.723), d = 128
+// 1.1597 (2.3x; 3.509), d = 256 6.004-6.213 (2.9-3.0x; 3.644); bf16 d = 12
+// 0.2645, d = 20 0.4143, d = 100 1.5980 (4.0x its f32 bound 0.4009; SDPA's
+// bf16 forward 0.2438). The kernel it replaced (one element a thread over
+// shared memory, 32-row tiles of 128 threads, synchronous loads, width 32
+// at d = 16) took 1.347 at f32 d = 16 and 10.47 at bf16 d = 100.
+// Variants in the same call, their time over this design's: width 16 on
+// 128-row tiles (TM 4) 1.045 at d = 16; width 32 on 128-row tiles of 256
+// threads 1.060 at d = 32 (1.098 at bf16 d = 20); 64-key tiles at width 32
+// and 64 (TN 8) 1.054 at d = 32, 1.000 at d = 64; width 64 on 64-row tiles
+// of 128 threads 1.066; width 128 on 64-row tiles (TM 2, two blocks an SM)
+// 1.223 (1.353 at bf16 d = 100); width 256 on 128 threads (TM 4) 0.983
+// in f32, but its bf16 instantiations spill 1188 bytes; width 256 unrolled
+// fully 1.004 (bf16 spills); __expf 0.953 at d = 16, 0.974 at 32, 0.983 at
+// 64, 0.993 at 128 and 1.014-1.031 in bf16, not kept (the plain version's
+// exp); bf16 through copy_tile's element loop 1.123 at d = 12, 1.173 at 20,
+// 1.316 at 100; bf16 with f32's block counts 0.860 at d = 12 and 0.868 at
+// 20, but 16 bytes of spill at width 32 and 64. What still holds it from
+// the bound, counted from the source (no profiler runs on that machine):
+// S reads TM + TN float4 from shared memory for 4 TM TN FMAs and P . V
+// TM + 4 TC for 16 TM TC: one float4 a lane for 5-6 FMAs at width 16 and
+// 256, 8-13 at 32-128; at d = 16 the softmax (expf, the mask, the max, the
+// sum, the P store) adds about twelve instructions a score beside 32 FMAs.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
 namespace tt {
 
 // ----------------------------------------------------------- FMA path
-template <typename T, typename OT, int W>
-struct FwdSmem {
-  static constexpr int BM = Tile<T>::B, BN = BM;
-  static constexpr int LDT = ld<T, W>(), LDP = ld<T, BN>(), LDS = ldf<BN>(), LDO = ldf<W>();
-  static constexpr size_t bytes =
-      sizeof(T) * (size_t)(3 * BM * LDT + BM * LDP) + sizeof(float) * (size_t)(BM * LDS + BM * LDO + 3 * BM);
+// Tiles of one block, per width W: BM query rows and NTH threads over
+// BN = GX TN keys a K / V tile. A row's scores lie on GX consecutive lanes
+// of one warp, TN keys each (GX apart), so its max and its sum are
+// shuffles over those lanes; the same thread holds that row's O cells (TM
+// rows GY apart; W / GX columns, TC float4s 4 GX apart), so alpha, m and
+// l never leave registers. Shared memory (f32, row stride W + 4): Q, two
+// stages of [K | V], and P [BM, BN + GX] (a row stride of GX mod 32 banks:
+// the P stores of a warp's rows meet no bank conflict). MINB f32 blocks an
+// SM (bf16: 1) bound the registers; U float4 steps of S = Qs . K^T are
+// unrolled (0: all).
+template <int W> struct FwdFma;
+template <> struct FwdFma<16> { static constexpr int BM = 64, NTH = 128, GX = 4, TM = 2, TN = 8, MINB = 4, U = 0; };
+template <> struct FwdFma<32> { static constexpr int BM = 64, NTH = 128, GX = 8, TM = 4, TN = 4, MINB = 4, U = 0; };
+template <> struct FwdFma<64> { static constexpr int BM = 128, NTH = 256, GX = 8, TM = 4, TN = 4, MINB = 2, U = 0; };
+template <> struct FwdFma<128> { static constexpr int BM = 128, NTH = 256, GX = 8, TM = 4, TN = 4, MINB = 1, U = 0; };
+template <> struct FwdFma<256> { static constexpr int BM = 64, NTH = 256, GX = 8, TM = 2, TN = 4, MINB = 1, U = 4; };
+
+template <int W>
+struct FwdLay : FwdFma<W> {
+  using C = FwdFma<W>;
+  static constexpr int LD = ldw<W>(), BN = C::GX * C::TN, LDP = BN + C::GX;
+  static constexpr int GY = C::NTH / C::GX, TC = W / 4 / C::GX;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(C::BM * LD + 4 * BN * LD + C::BM * LDP);
+  static_assert(GY * C::TM == C::BM && TC >= 1 && TC * 4 * C::GX == W, "one row's cells on GX lanes");
+  static_assert(BN % 32 == 0 && LDP % 32 == C::GX, "P's rows GX banks apart");
 };
 
+// ROWS bf16 rows (row r at g + r * gstride, d elements) widened into f32
+// shared rows of stride ldw<W>(), columns < d, rows at or past `nvalid` as
+// zeros: each thread issues all its loads before its first store, so their
+// latencies overlap.
+template <int ROWS, int W, int NTH>
+__device__ __forceinline__ void widen_tile(float* s, const bf16* g, long gstride, int nvalid, int d) {
+  static_assert(ROWS * W % NTH == 0, "whole rounds of the block");
+  constexpr int N = ROWS * W / NTH;
+  float x[N];
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int i = threadIdx.x + u * NTH, r = i / W, c = i % W;
+    x[u] = r < nvalid && c < d ? to_f(g[r * gstride + c]) : 0.f;
+  }
+#pragma unroll
+  for (int u = 0; u < N; ++u) {
+    const int i = threadIdx.x + u * NTH, r = i / W, c = i % W;
+    if (c < d) s[r * ldw<W>() + c] = x[u];
+  }
+}
+
 template <typename T, typename OT, int W>
-__global__ void __launch_bounds__(NTHREADS)
+__global__ void __launch_bounds__(FwdFma<W>::NTH, std::is_same<T, float>::value ? FwdFma<W>::MINB : 1)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     OT* __restrict__ o, float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                     int d, float scale, int causal) {
-  using L = FwdSmem<T, OT, W>;
-  constexpr int BM = L::BM, BN = L::BN, LDT = L::LDT, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
-  constexpr int TPR = NTHREADS / BM, CPT = BN / TPR;  // threads per row, columns per thread
+                     OT* __restrict__ o, float* __restrict__ lse, int B, int H, int Hkv, int Sq,
+                     int Sk, int d, float scale, int causal) {
+  using L = FwdLay<W>;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, GX = L::GX, GY = L::GY, TM = L::TM,
+                TN = L::TN, TC = L::TC, LD = L::LD, LDP = L::LDP;
+  constexpr int US = L::U ? L::U : W / 4;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + BM * LDT;
-  T* sV = sK + BN * LDT;
-  T* sP = sV + BN * LDT;
-  float* sS = reinterpret_cast<float*>(sP + BM * LDP);
-  float* sO = sS + BM * LDS;
-  float* sM = sO + BM * LDO;
-  float* sL = sM + BM;
-  float* sA = sL + BM;
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;
+  float* sRing = sQ + BM * LD;  // stage s: K at sRing + 2 s BN LD, V after it
+  float* sP = sRing + 4 * BN * LD;
 
-  const int qi = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  // Block -> (q tile, head, batch), q tile slowest and last q tile first:
+  // under the causal mask the heaviest tiles start first.
+  const int tid = threadIdx.x;
+  const int per = H * B, nq = (Sq + BM - 1) / BM;
+  const int tile = blockIdx.x / per, h = blockIdx.x % per % H, b = blockIdx.x % per / H;
+  const int qi = causal ? nq - 1 - tile : tile;
   const int hk = h / (H / Hkv);
-  const int q0 = qi * BM;
-  const int nq_valid = min(BM, Sq - q0);
+  const int q0 = qi * BM, nq_valid = min(BM, Sq - q0);
+  int nk = (Sk + BN - 1) / BN;
+  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
   const long qstride = (long)H * d, kstride = (long)Hkv * d;
-  const T* qb = q + ((long)b * Sq + q0) * qstride + (long)h * d;
+  const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
   const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
   const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
+  const float scale_t = to_f(from_f<T>(scale));  // the scale in the input dtype
   // The reference's fused_rowsum = d < 128: below 128 l sums P rounded to
   // v's dtype, from 128 up the f32 P (the same for f32 inputs).
   const bool sum_rounded = d < 128;
 
-  const float scale_t = to_f(from_f<T>(scale));  // the scale in the input dtype
-  load_rows<T, BM, W>(sQ, LDT, qb, qstride, nq_valid, d, true, scale_t);
-  zero_f<BM, W>(sO, LDO);
-  for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-    sM[r] = NEG_INF;
-    sL[r] = 0.f;
-  }
-  int nk = (Sk + BN - 1) / BN;
-  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
+  zero_tail<W, NTH>(sm, BM + 4 * BN, d);
+  copy_tile<T, BM, W, NTH>(sQ, q + qoff, qstride, nq_valid, d, true, scale_t);
+  auto issue = [&](int j) {  // K and V of tile j into stage j % 2, one commit group
+    float* st = sRing + (j & 1) * 2 * BN * LD;
+    const int k0 = j * BN, n = min(BN, Sk - k0);
+    if constexpr (std::is_same<T, float>::value) {
+      copy_tile<T, BN, W, NTH>(st, kb + (long)k0 * kstride, kstride, n, d, false, 1.f);
+      copy_tile<T, BN, W, NTH>(st + BN * LD, vb + (long)k0 * kstride, kstride, n, d, false, 1.f);
+    } else {
+      widen_tile<BN, W, NTH>(st, kb + (long)k0 * kstride, kstride, n, d);
+      widen_tile<BN, W, NTH>(st + BN * LD, vb + (long)k0 * kstride, kstride, n, d);
+    }
+    cp_commit();
+  };
+  issue(0);  // with Q in its group
 
-  const int r = threadIdx.x / TPR, part = threadIdx.x % TPR;
-  const int row = q0 + r;
+  // This thread's cells: queries ty + i GY, keys tx + c GX of S; the same
+  // rows of O, columns 4 tx + 4 GX c + e.
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  float acc[TM][4 * TC], m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;  // this lane's part of the row sum
+#pragma unroll
+    for (int c = 0; c < 4 * TC; ++c) acc[i][c] = 0.f;
+  }
+
   for (int j = 0; j < nk; ++j) {
+    const float* sK = sRing + (j & 1) * 2 * BN * LD;
+    const float* sV = sK + BN * LD;
     const int k0 = j * BN;
-    const int nk_valid = min(BN, Sk - k0);
-    __syncthreads();  // the previous tile's products are done with sK/sV/sP
-    load_rows<T, BN, W>(sK, LDT, kb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
-    load_rows<T, BN, W>(sV, LDT, vb + (long)k0 * kstride, kstride, nk_valid, d, false, 1.f);
-    __syncthreads();
-    mm<NT, BM, BN, W>(sQ, LDT, sK, LDT, sS, LDS, false, nullptr);
-    __syncthreads();
+    cp_wait_all();
+    if (j == 0) scale_own<T, BM, W, NTH>(sQ, d, scale_t);  // Qs = q * scale, in place (f32)
+    __syncthreads();  // tile j visible; every thread done with tile j - 1 and P
+    if (j + 1 < nk) issue(j + 1);
 
-    float* srow = sS + r * LDS;
-    float mx = NEG_INF;
-#pragma unroll 4
-    for (int c = part * CPT; c < (part + 1) * CPT; ++c) {
-      const int col = k0 + c;
-      float s = srow[c];
-      if (col >= Sk || (causal && col > row)) s = NEG_INF;
-      srow[c] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = row_max<TPR>(mx);
-    const float m_old = sM[r];
-    const float m_new = fmaxf(m_old, mx);
-    float sum = 0.f;
-#pragma unroll 4
-    for (int c = part * CPT; c < (part + 1) * CPT; ++c) {
-      const float p = expf(srow[c] - m_new);
-      const T pt = from_f<T>(p);  // P rounded to v's dtype for P . V
-      sum += sum_rounded ? to_f(pt) : p;
-      sP[r * LDP + c] = pt;
-    }
-    sum = row_sum<TPR>(sum);
-    __syncwarp();
-    if (part == 0) {
-      const float alpha = expf(m_old - m_new);
-      sA[r] = alpha;
-      sL[r] = sL[r] * alpha + sum;
-      sM[r] = m_new;
-    }
-    __syncthreads();
-    mm<NN, BM, W, BN>(sP, LDP, sV, LDT, sO, LDO, true, sA);
-  }
-  __syncthreads();
+    float s[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < TN; ++c) s[i][c] = 0.f;
+    dot_rows<TM, TN, W, LD, GY, GX, US>(s, sQ + ty * LD, sK + tx * LD);  // S = Qs . K^T
 
-  OT* ob = o + ((long)b * Sq + q0) * qstride + (long)h * d;
-  for (int i = threadIdx.x; i < BM * W; i += NTHREADS) {
-    const int rr = i / W, c = i % W;
-    if (rr < nq_valid && c < d)
-      ob[(long)rr * qstride + c] = from_f<OT>(sO[rr * LDO + c] / fmaxf(sL[rr], 1e-30f));
+    // The online softmax of the thread's rows: keys past Sk and, under the
+    // causal mask, after the row are NEG_INF (tiles wholly inside Sk and
+    // below the block's first row skip the mask); m_new = max(m, row max);
+    // O and l scaled by alpha = exp(m - m_new); P = exp(S - m_new) rounded
+    // to T into shared memory as the A operand of O += P . V.
+    const bool inside = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + ty + i * GY;
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int key = k0 + tx + c * GX;
+        if (!inside && (key >= Sk || (causal && key > row))) s[i][c] = NEG_INF;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int x = GX / 2; x > 0; x >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float alpha = expf(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const float p = expf(s[i][c] - mx);
+        const float pr = rounded<T>(p);  // P rounded to v's dtype for P . V
+        sum += sum_rounded ? pr : p;
+        sP[(ty + i * GY) * LDP + tx + c * GX] = pr;
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 4 * TC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P visible
+    acc_rows<TM, TC, BN, LDP, LD, GY, 4 * GX, BN / 4>(acc, sP + ty * LDP, sV + 4 * tx);  // O += P . V
   }
+
+  // l over the row's GX lanes; o = O / max(l, 1e-30), lse = m + log(max(l, 1e-30)).
+  OT* ob = o + qoff;
   float* lb = lse + ((long)b * H + h) * Sq + q0;
-  for (int rr = threadIdx.x; rr < nq_valid; rr += NTHREADS) lb[rr] = sM[rr] + logf(fmaxf(sL[rr], 1e-30f));
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int x = GX / 2; x > 0; x >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], x);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + i * GY;
+    if (r >= nq_valid) continue;
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * tx + 4 * GX * c + e;
+        if (col < d) ob[(long)r * qstride + col] = from_f<OT>(acc[i][4 * c + e] / l[i]);
+      }
+    if (tx == 0) lb[r] = m[i] + logf(l[i]);
+  }
 }
 
 template <typename T, typename OT, int W>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                        int H, int Hkv, int Sq, int Sk, int d, float scale, int causal,
                        cudaStream_t st) {
-  using L = FwdSmem<T, OT, W>;
+  using L = FwdLay<W>;
   auto kern = flash_fwd_kernel<T, OT, W>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(cdiv(Sq, L::BM), H, B);
-  kern<<<grid, NTHREADS, L::bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                         static_cast<const T*>(v), static_cast<OT*>(o),
-                                         static_cast<float*>(lse), H, Hkv, Sq, Sk, d, scale, causal);
+  const int grid = cdiv(Sq, L::BM) * H * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), static_cast<OT*>(o),
+                                       static_cast<float*>(lse), B, H, Hkv, Sq, Sk, d, scale, causal);
   return cudaGetLastError();
 }
 
@@ -498,7 +623,7 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8, past
 // 128 at width 256), 1 = FMA
-// (width 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
 // bf16, 1 = f32 (q, k, v); out_f32: o is f32 instead of q's dtype. Returns
 // a cudaError_t; cudaErrorInvalidValue for a combination not built.
 extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -513,6 +638,7 @@ extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o
   return (int)launch_fwd<T, OT, W>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA_W(T, OT)             \
   switch (width) {                  \
+    case 16: TT_FMA(T, OT, 16);     \
     case 32: TT_FMA(T, OT, 32);     \
     case 64: TT_FMA(T, OT, 64);     \
     case 128: TT_FMA(T, OT, 128);   \

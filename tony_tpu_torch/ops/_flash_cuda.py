@@ -3,9 +3,9 @@
 The sources are ``tony_tpu_torch/csrc/flash_{fwd,bwd_dq,bwd_dkv}.cu``, with
 ``hopper_common.cuh`` (the ``wgmma`` family: TMA loads, ``mbarrier`` rings
 and ``wgmma`` products with register accumulators; bf16, sm_90a only) and
-``flash_common.cuh`` (the FMA family, bf16 or f32: the forward's FMA
-products over shared-memory tiles; the backward pair's register
-micro-tiles fed by ``cp.async``). At first use they are compiled (one
+``flash_common.cuh`` (the FMA family, bf16 or f32, exact on the CUDA
+cores: all three kernels on register micro-tiles fed by a ``cp.async``
+ring). At first use they are compiled (one
 ``nvcc`` each, all three at once) and loaded by ``ops/_build.py``. Nothing is downloaded and
 nothing is built at import. The ``wgmma`` kernels build their TMA tensor
 maps from the pointers and shapes given here, so the tensors must be
@@ -57,10 +57,9 @@ MAX_HEAD_DIM = 256
 # points' switches).
 WGMMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
                 "flash_bwd_dkv": (64, 128, 256)}
-# The FMA family's widths: the backward pair also has a 16-wide tile (the
-# tiny decoders' head_dim 16); the forward's narrowest is 32, which its
-# key tile and its P's rounding (``fwd_key_tile``) follow.
-FMA_WIDTHS = {"flash_fwd": (32, 64, 128, 256),
+# The FMA family's widths: all three have a 16-wide tile (the tiny
+# decoders' head_dim 16).
+FMA_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256),
               "flash_bwd_dq": (16, 32, 64, 128, 256),
               "flash_bwd_dkv": (16, 32, 64, 128, 256)}
 FAMILIES = {"wgmma": 0, "fma": 1}
@@ -89,7 +88,8 @@ def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
 def fwd_key_tile(d: int, dtype: torch.dtype) -> int:
     """Keys per tile of the forward kernel that ``route(d, dtype,
     "flash_fwd")`` picks: 128 on ``wgmma`` at width 64 and 128, 80 on
-    ``wgmma`` at width 256 (``csrc/flash_fwd.cu``'s ``FwdHop``), 32 on FMA.
+    ``wgmma`` at width 256 (``csrc/flash_fwd.cu``'s ``FwdHop``), 32 on FMA
+    at every width (``FwdFma``: GX * TN).
     Its online softmax rounds P against the running max of these tiles, so
     a plain version held to it in P's rounding runs over the same tiles."""
     family, width = route(d, dtype, "flash_fwd")

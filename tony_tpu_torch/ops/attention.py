@@ -36,10 +36,11 @@ on ``wgmma`` at width 256 with two warpgroups a block: the forward's over
 keys, summing their whole-width partial dQ at the end; dk/dv's each
 holding half of dK's and dV's columns, P and dS shared through shared
 memory. For f32 at every head_dim, and bf16 off a multiple of 8, the
-kernels run on the CUDA cores in exact f32 (FMA): the forward one element
-a thread over 32-row shared-memory tiles at width 32, 64, 128 or 256; dq
-and dk/dv on register micro-tiles fed by a ``cp.async`` ring at width 16,
-32, 64, 128 or 256, their accumulators in registers.
+kernels run on the CUDA cores in exact f32 (FMA), all three on register
+micro-tiles fed by a ``cp.async`` ring at width 16, 32, 64, 128 or 256,
+their accumulators in registers: the forward with a row's scores on 4 or 8
+lanes of one warp (its max and sum by shuffles) over 32-key tiles, the
+same thread holding the row's O cells.
 """
 
 from __future__ import annotations
