@@ -22,8 +22,10 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    forward: width 64, 128 and 256, o in bf16 or f32, at the width or a
    narrower head; six each of dq and dk/dv: width 64, 128 and 256), the
    FMA forward (fifteen: f32 to f32, bf16 to bf16 and bf16 to f32 at width
-   16, 32, 64, 128 and 256) and the FMA dq and dk/dv (ten each: f32 and
-   bf16 at the same widths) must report 0 spill bytes;
+   16, 32, 64, 128 and 256), the FMA dq and dk/dv (ten each: f32 and
+   bf16 at the same widths) and the split FMA kernels past head_dim 256
+   (the forward f32 to f32, bf16 to bf16 and bf16 to f32; dq and dk/dv f32
+   and bf16) must report 0 spill bytes;
 3. each kernel against its plain PyTorch version on the same inputs (made
    with a seeded numpy generator): the flagship attention shape (B=4,
    S=2048, H=8, Hkv=4, D=128, bf16, causal; o, lse, dq, dk and dv must
@@ -93,6 +95,28 @@ and 23 run all 16; phase 18 runs ResNet-50 and the MNIST MLP whole:
    step on wgmma 256, ms a step, tokens/s, MFU and peak memory printed,
    and the loss within ``TOL_GEMMA_LOSS_REL`` of the same weights' forward
    under ``attn_impl="xla"``;
+3c. the flash kernels past head_dim 256, all three on the split FMA
+   family (the head dim streamed through the width-256 FMA tiles in
+   chunks of 256 columns, each block owning one chunk of the output): (a)
+   each kernel against its plain version (the forward's over its 32-key
+   tiles) at d = 257, 264, 320, 384, 512, 520 and 1024 in f32 and bf16 on
+   phase 3b's three FMA cases, and ``flash_attention_with_lse(out_dtype=
+   f32)`` with an lse cotangent at d = 512, within phase 3's tolerances,
+   each kernel launched in every case and only on the split family; (b)
+   each timed at B4 S2048 causal H8/8 at d = 384 and 512 in f32 and bf16
+   (the bf16 d = 512 case also bitwise equal across two runs) beside SDPA
+   in the same dtype, naming the backend SDPA picks, and beside the
+   bounds of the work without the split's recomputation (the f32 peak;
+   for bf16 also the tensor cores'); (c) phase 3b (d)'s step at Gemma-2B's
+   widths with the 2048-wide attention regrouped as 4 query heads of 512
+   over the one kv head (a split no published config has): 2 launches of
+   each kernel, all on the split family, its ms printed, the loss and
+   every layer's wq, wk and wv gradient within ``TOL_GEMMA_LOSS_REL`` and
+   ``TOL_GEMMA_GRAD_REL`` of ``attn_impl="xla"`` from the same weights;
+   (d) a small f32 decoder (dim 768, 2 heads of 384 over 1 kv head, 2
+   layers) on the card against the same weights on the CPU within
+   ``TOL_MODEL_REL``, one launch of each kernel a layer on the split
+   family;
 4. the main path: ``tony_tpu_torch.trainer.measure`` trains the flagship
    decoder (16 layers, dim 1024, seq 2048, batch 4) for 10 steps through
    the kernels; every loss must be finite, the first within 0.5 of
@@ -667,6 +691,9 @@ def phase_build():
     fma_kernels = {"flash_fwd": 3 * len(FMA_WIDTHS["flash_fwd"]),
                    **{n: 2 * len(FMA_WIDTHS[n])
                       for n in ("flash_bwd_dq", "flash_bwd_dkv")}}
+    # The split FMA kernels past head_dim 256: the forward f32 to f32, bf16
+    # to bf16 and bf16 to f32, dq and dk/dv f32 and bf16.
+    split_kernels = {"flash_fwd": 3, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
     faults = []
     for name in specs:
         with open(os.path.join(info["dir"], f"{name}.log")) as f:
@@ -679,7 +706,8 @@ def phase_build():
             if "serialized" in line:
                 log(f"  {name}: {line.strip()}")
         for tag, want in (("wgmma", wgmma_kernels.get(name)),
-                          (f"{name}_kernel", fma_kernels.get(name))):
+                          (f"{name}_kernel", fma_kernels.get(name)),
+                          (f"{name}_split_kernel", split_kernels.get(name))):
             if want is None:
                 continue
             held = [r for r in report if tag in r[0]]
@@ -728,16 +756,25 @@ def rel_err(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+def card_case(b, s, h, hk, d, dtype, seed):
+    """``make_case``'s q, k, v and do drawn on the card from a seeded
+    generator: at B4 S2048 H8 d = 512 numpy's draw alone takes ~2 s."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn((b, s, n, d), generator=g, device="cuda").to(
+        dtype) for n in (h, hk, hk, h))
+
+
 def check_case(name, b, s, h, hk, d, dtype, causal, seed, timed=False,
-               deterministic=False, time_plain=True):
+               deterministic=False, time_plain=True, inputs=None):
     """Kernel against plain version for fwd, dq and dk/dv on one case;
     with ``deterministic``, dq, dk and dv must come out bitwise equal from a
     second run; with ``timed``, each kernel timed beside SDPA (and, with
-    ``time_plain``, beside its plain version)."""
+    ``time_plain``, beside its plain version). ``inputs`` (q, k, v, do)
+    replaces ``make_case``'s."""
     from tony_tpu_torch.ops import _flash_cuda as K
     from tony_tpu_torch.ops import attention as A
 
-    q, k, v, do = make_case(b, s, h, hk, d, dtype, seed)
+    q, k, v, do = inputs or make_case(b, s, h, hk, d, dtype, seed)
     scale = d ** -0.5
     o, lse = K.flash_fwd(q, k, v, scale, causal)
     tile = fwd_key_tile(d, dtype)
@@ -988,32 +1025,43 @@ def fwd_key_tile(d, dtype):
     return K.fwd_key_tile(d, dtype)
 
 
+def counted(label, d, dtype, fn, tag="head_dims (a)"):
+    """``fn()`` (a kernel check at head_dim ``d``), with the launches it made
+    counted by route: every kernel launched, and only on its routed family
+    and width (wgmma 256 for bf16 past 128 at a multiple of 8, FMA 16 off
+    wgmma at d <= 16, the split family past 256)."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    K.reset_launch_counts()
+    fn()
+    counts = dict(K.launch_counts)
+    ran = {f"{n} {f} {w}": c for (n, f, w), c in K.route_counts.items()}
+    routed = {n: K.route(d, dtype, n) for n in K.KERNELS}
+    log(f"{tag} {label}: " + ", ".join(
+        f"{n} on {f} width {w}" for n, (f, w) in routed.items())
+        + f"; launches {json.dumps(ran)}")
+    check(all(n >= 1 for n in counts.values()),
+          f"{label}: a kernel did not run: {counts}")
+    check(set(K.route_counts) == {(n, *r) for n, r in routed.items()},
+          f"{label}: launches {ran} not on the routed kernels {routed}")
+    if dtype == torch.bfloat16 and 128 < d <= 256 and d % 8 == 0:
+        for n in K.KERNELS:
+            check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
+                  f"{label}: {n} did not run on wgmma width 256: {ran}")
+    if d <= 16 and routed["flash_fwd"][0] == "fma":
+        for n in K.KERNELS:
+            check(K.route_counts.get((n, "fma", 16), 0) >= 1,
+                  f"{label}: {n} did not run on FMA width 16: {ran}")
+    if d > 256:
+        for n in K.KERNELS:
+            check(K.route_counts.get((n, "fma_split", 256), 0) >= 1,
+                  f"{label}: {n} did not run on the split family: {ran}")
+
+
 def head_dim_cases(card):
     """(a) Each kernel against its plain version at every new head_dim,
     with the launch counts, then timed."""
     from tony_tpu_torch.ops import _flash_cuda as K
-
-    def counted(label, d, dtype, fn):
-        K.reset_launch_counts()
-        fn()
-        counts = dict(K.launch_counts)
-        ran = {f"{n} {f} {w}": c for (n, f, w), c in K.route_counts.items()}
-        routed = {n: K.route(d, dtype, n) for n in K.KERNELS}
-        log(f"head_dims (a) {label}: " + ", ".join(
-            f"{n} on {f} width {w}" for n, (f, w) in routed.items())
-            + f"; launches {json.dumps(ran)}")
-        check(all(n >= 1 for n in counts.values()),
-              f"{label}: a kernel did not run: {counts}")
-        check(set(K.route_counts) == {(n, *r) for n, r in routed.items()},
-              f"{label}: launches {ran} not on the routed kernels {routed}")
-        if dtype == torch.bfloat16 and d > 128 and d % 8 == 0:
-            for n in K.KERNELS:
-                check(K.route_counts.get((n, "wgmma", 256), 0) >= 1,
-                      f"{label}: {n} did not run on wgmma width 256: {ran}")
-        if d <= 16 and routed["flash_fwd"][0] == "fma":
-            for n in K.KERNELS:
-                check(K.route_counts.get((n, "fma", 16), 0) >= 1,
-                      f"{label}: {n} did not run on FMA width 16: {ran}")
 
     for d in HD_BF16:
         for label, (b, s, h, hk, causal) in (
@@ -1175,6 +1223,10 @@ GEMMA_LAYERS = 2
 # S512-1024, parted by 1.2e-2 to 2.3e-2 in these gradients and 1.4e-5 to
 # 5.6e-5 in the loss. The limits are twice and twenty times those; a
 # dropped group sum or a wrong scale moves a gradient by tens of percent.
+# Phase 3c (c) holds the same step at head_dim 512 (4 heads) to the same
+# limits: ``head_dim_parting.py --head-dim 512`` (the same points: dim 1024
+# and 2048, MQA, S512 and 1024) read 1.19e-2 to 2.31e-2 in these gradients
+# and 8.8e-7 to 4.0e-5 in the loss, within half of each.
 TOL_GEMMA_LOSS_REL = 1e-3
 TOL_GEMMA_GRAD_REL = 5e-2
 # The same decoder at all of Gemma-2B's 18 layers: warm and timed steps.
@@ -1194,16 +1246,24 @@ def gemma_config(layers):
     return cfg
 
 
-def gemma_width_step(card):
+def gemma_width_step(card, heads=None):
     """(d) One forward and backward step of the decoder at Gemma-2B's
     widths through the kernels (all three on wgmma at width 256; 2
     launches of each, its ms printed), then the same step with
     ``attn_impl="xla"`` from the same weights; the loss and every layer's
-    wq, wk and wv gradient held together."""
+    wq, wk and wv gradient held together. With ``heads`` (phase 3c (c)),
+    the same decoder with its 2048-wide attention regrouped as that many
+    query heads over the one kv head (4: head_dim 512, on the split
+    family), which no published config has."""
     from tony_tpu_torch.models.transformer import Transformer, causal_lm_loss
     from tony_tpu_torch.ops import _flash_cuda as K
 
     cfg = gemma_config(GEMMA_LAYERS)
+    tag = "head_dims (d)"
+    if heads is not None:
+        cfg = dataclasses.replace(cfg, n_heads=heads)
+        tag = "wide_heads (c), attention regrouped:"
+    hd = cfg.dim // cfg.n_heads
     tokens = torch.from_numpy(np.random.default_rng(23).integers(
         0, cfg.vocab_size, (1, 2048))).cuda()
     names = [f"layers.{i}.attn.{w}.weight" for i in range(cfg.n_layers)
@@ -1234,13 +1294,13 @@ def gemma_width_step(card):
     del xla
     loss_rel = abs(loss - loss_x) / abs(loss_x)
     rels = {n: rel_err(grads[n], grads_x[n]) for n in names}
-    log(f"head_dims (d) Gemma-2B widths ({GEMMA_LAYERS} of 18 layers, dim "
-        f"{cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim 256, "
+    log(f"{tag} Gemma-2B widths ({GEMMA_LAYERS} of 18 layers, dim "
+        f"{cfg.dim}, {cfg.n_heads}/{cfg.n_kv_heads} heads, head_dim {hd}, "
         f"mlp {cfg.mlp_dim}, vocab {cfg.vocab_size}) B1 S2048 bf16: step "
         f"{step_ms:.3f} ms through the kernels, launches {json.dumps(ran)}; "
         f"loss {loss:.6f} vs xla {loss_x:.6f} (rel {loss_rel:.3e}); wq/wk/wv "
         f"grad rel err {json.dumps(rels)}; {card}")
-    for n, (f, w) in {n: K.route(256, torch.bfloat16, n)
+    for n, (f, w) in {n: K.route(hd, torch.bfloat16, n)
                       for n in K.KERNELS}.items():
         check(counts[n] == GEMMA_LAYERS and K.route_counts.get((n, f, w)) ==
               GEMMA_LAYERS, f"Gemma widths: {n} launches {ran}, expected "
@@ -1251,6 +1311,7 @@ def gemma_width_step(card):
     for n, e in rels.items():
         check(e <= TOL_GEMMA_GRAD_REL, f"Gemma widths: {n} grad rel err {e}")
     torch.cuda.empty_cache()
+    return step_ms
 
 
 def gemma_full_depth(card):
@@ -1322,15 +1383,145 @@ def gemma_full_depth(card):
           f"Gemma widths at {cfg.n_layers} layers: loss rel err {loss_rel}")
 
 
+# Phase 3c: the flash kernels past head_dim 256, on the split FMA family
+# (``_flash_cuda.route``: every head_dim past 256, in bf16 and f32, on the
+# width-256 FMA tiles with the head dim in chunks of 256 columns). (a) at d
+# = 257 (a last chunk one column wide), 264, 320, 384 (a half chunk), 512,
+# 520 and 1024 (four chunks), in f32 and bf16, on phase 3b's FMA cases,
+# and the f32-out forward with an lse cotangent at 512.
+HD_SPLIT = (257, 264, 320, 384, 512, 520, 1024)
+HD_SPLIT_WITH_LSE = 512
+# (b) Timed at B4 S2048 causal H8/8, beside SDPA in the same dtype and the
+# bounds of the work without the split family's recomputation; the bf16
+# d = 512 case also bitwise across two runs.
+HD_SPLIT_TIMED = (384, 512)
+HD_SPLIT_HEADS = (8, 8)
+# (c) The decoder at Gemma-2B's widths with its 2048-wide attention
+# regrouped as 4 query heads of 512 over the one kv head.
+GEMMA_WIDE_HEADS = 4
+
+
+def sdpa_backend(q, k, v, causal):
+    """The backend ``scaled_dot_product_attention`` picks for ``[B, S, H,
+    D]`` q, k, v that need gradients (its flash backend stops at head_dim
+    256)."""
+    from torch.nn.attention import SDPBackend
+
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    try:
+        code = torch._fused_sdp_choice(qt, kt, vt, None, 0.0, causal,
+                                       scale=None, enable_gqa=True)
+    except (AttributeError, RuntimeError, TypeError) as e:
+        return f"unknown ({type(e).__name__})"
+    return names.get(int(code), str(code))
+
+
+def wide_head_timing(card):
+    """(b) Each kernel at ``HD_SPLIT_TIMED`` in f32 and bf16 against its
+    plain version (inputs drawn on the card, ``card_case``), then timed
+    beside SDPA (medians of 20 CUDA-event timings) and its bounds for the
+    work without the recomputation: the f32 CUDA cores' peak, and for bf16
+    also the tensor cores'."""
+    from tony_tpu_torch.ops import _flash_cuda as K
+
+    h, hk = HD_SPLIT_HEADS
+    b, s = 4, 2048
+    pairs = b * h * s * (s + 1) // 2
+    flops = {"flash_fwd": 4, "flash_bwd_dq": 6, "flash_bwd_dkv": 8}
+    timing = {n: {} for n in K.KERNELS}
+    for d in HD_SPLIT_TIMED:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            name = f"wide_heads (b) {tag} B{b} S{s} H{h}/{hk} D{d} causal"
+            out = {}
+            counted(name, d, dtype, lambda: out.update(check_case(
+                name, b, s, h, hk, d, dtype, True, 700 + d, timed=True,
+                deterministic=d == 512 and dtype == torch.bfloat16,
+                time_plain=False,
+                inputs=card_case(b, s, h, hk, d, dtype, 700 + d))),
+                tag="launches:")
+            # The backend depends on the shapes and dtype only.
+            backend = sdpa_backend(*(torch.empty(
+                (b, s, n, d), dtype=dtype, device="cuda")
+                for n in (h, hk, hk)), True)
+            for n, r in out.items():
+                row = {k: r[k] for k in ("ms", "bound_ms", "bound_by",
+                                         "library_ms", "tflops",
+                                         "max_abs_err")}
+                f32_ms = flops[n] * d * pairs / PEAK_F32 * 1e3
+                row.update(heads=f"H{h}/{hk}", family="fma_split", width=256,
+                           sdpa_backend=backend, bound_f32_ms=f32_ms,
+                           over_f32_bound=r["ms"] / f32_ms)
+                timing[n][f"{d} {tag}"] = row
+    log(f"wide_heads (b) timing at B{b} S{s} causal: {json.dumps(timing)}; "
+        f"{card}")
+    return timing
+
+
+def phase_wide_heads(card):
+    """Phase 3c: (a) the kernels past head_dim 256 against their plain
+    versions; (b) timed; (c) a step of the decoder at Gemma-2B's widths
+    with 4 heads of 512 against its plain attention; (d) a small f32
+    decoder with heads of 384 on the card against the CPU."""
+    from tony_tpu_torch.models.transformer import TransformerConfig
+
+    t0 = time.perf_counter()
+    for d in HD_SPLIT:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = "f32" if dtype == torch.float32 else "bf16"
+            for label, (b, s, h, hk, causal) in FMA_CASES:
+                name = f"wide_heads {tag} D{d} {label} B{b} S{s} H{h}/{hk}"
+                counted(name, d, dtype, functools.partial(
+                    check_case, name, b, s, h, hk, d, dtype, causal,
+                    600 + d + s), tag="launches:")
+    d = HD_SPLIT_WITH_LSE
+    name = f"wide_heads D{d} B1 S200 H4/2"
+    counted(f"with_lse {name}", d, torch.bfloat16, functools.partial(
+        check_with_lse, name, 1, 200, 4, 2, d, 650), tag="launches:")
+    log(f"wide_heads (a): {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    timing = wide_head_timing(card)
+    log(f"wide_heads (b): {time.perf_counter() - t1:.1f} s")
+
+    t1 = time.perf_counter()
+    gemma_width_step(card, heads=GEMMA_WIDE_HEADS)
+    log(f"wide_heads (c): {time.perf_counter() - t1:.1f} s")
+
+    # (d) dim 768 over 2 query heads of 384 and 1 kv head: the last chunk
+    # of each head is half as wide; one launch of each kernel per layer.
+    t1 = time.perf_counter()
+    cfg = TransformerConfig.tiny(vocab_size=512, dim=768, n_heads=2,
+                                 n_kv_heads=1, mlp_dim=512, max_seq_len=256)
+    ran = small_decoder_vs_cpu("wide_heads (d) small f32 decoder, dim 768, "
+                               "2/1 heads of 384", cfg)
+    want = {(n, "fma_split", 256): cfg.n_layers
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    check(ran == want, f"wide_heads (d): launches {ran}, expected {want}")
+    log(f"wide_heads (d): {time.perf_counter() - t1:.1f} s")
+    log(f"wide_heads: {time.perf_counter() - t0:.1f} s; {card}")
+    return timing
+
+
 def phase_small_model():
     """A small f32 decoder (head_dim 64) on the card, through the kernels,
     against the same weights on the CPU, through the plain versions."""
-    from tony_tpu_torch.models.transformer import (Transformer,
-                                                   TransformerConfig,
-                                                   causal_lm_loss)
+    from tony_tpu_torch.models.transformer import TransformerConfig
 
-    cfg = TransformerConfig.tiny(vocab_size=512, dim=256, n_heads=4,
-                                 n_kv_heads=2, mlp_dim=512, max_seq_len=256)
+    small_decoder_vs_cpu("small f32 decoder", TransformerConfig.tiny(
+        vocab_size=512, dim=256, n_heads=4, n_kv_heads=2, mlp_dim=512,
+        max_seq_len=256))
+
+
+def small_decoder_vs_cpu(label, cfg):
+    """One loss and its gradients of the decoder ``cfg`` (f32) on the card
+    against the same weights and tokens (2 x 256) on the CPU, within
+    ``TOL_MODEL_REL``; returns the card's flash launches."""
+    from tony_tpu_torch.models.transformer import Transformer, causal_lm_loss
+    from tony_tpu_torch.ops import _flash_cuda as K
+
     cpu = Transformer(cfg, device="cpu")
     gpu = Transformer(cfg, device="cuda",
                       generator=torch.Generator("cuda").manual_seed(1))
@@ -1339,16 +1530,18 @@ def phase_small_model():
         0, cfg.vocab_size, (2, 256)))
     losses = []
     for model, tok in ((cpu, tokens), (gpu, tokens.cuda())):
+        K.reset_launch_counts()
         loss = causal_lm_loss(model(tok), tok)
         loss.backward()
         losses.append(loss.item())
     worst = max(rel_err(g.grad.cpu(), c.grad) for c, g in
                 zip(cpu.parameters(), gpu.parameters()))
-    log(f"small f32 decoder: loss card {losses[1]:.6f} cpu {losses[0]:.6f}; "
+    log(f"{label}: loss card {losses[1]:.6f} cpu {losses[0]:.6f}; "
         f"worst grad rel err {worst:.3e}")
     check(abs(losses[0] - losses[1]) <= TOL_MODEL_REL * abs(losses[0]),
-          "small decoder loss differs between card and CPU")
-    check(worst <= TOL_MODEL_REL, f"small decoder grad rel err {worst}")
+          f"{label}: loss differs between card and CPU")
+    check(worst <= TOL_MODEL_REL, f"{label}: grad rel err {worst}")
+    return dict(K.route_counts)
 
 
 def check_convfuse_case(name, shape, dtype, relu, seed, timed=False):
@@ -6402,6 +6595,7 @@ def main():
     run_phase("2 build", phase_build)
     timing = run_phase("3 flash kernels", phase_kernels)
     hd_timing = run_phase("3b head dims", phase_head_dims, card)
+    wide_timing = run_phase("3c wide heads", phase_wide_heads, card)
     timing["convfuse_apply"] = run_phase("3 convfuse", phase_convfuse)
     run_phase("3 small decoder", phase_small_model)
     run_phase("3 small resnet", phase_small_resnet)
@@ -6418,6 +6612,7 @@ def main():
                                             "library_ms", "tflops")}
             for shape, r in long_timing.items()}
         timing[name]["head_dims"] = hd_timing[name]
+        timing[name]["wide_heads"] = wide_timing[name]
     run_phase("9 quant", phase_quant)
     mesh_run = run_phase("10 mesh", phase_mesh, card)
     moe_run = run_phase("11 seq/expert", phase_seq_expert, mesh_run,
@@ -6454,13 +6649,15 @@ def main():
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             **{k: t[k] for k in ("tflops", "llama3_8b", "longctx",
-                                 "llama3_8b_s8192", "head_dims") if k in t},
+                                 "llama3_8b_s8192", "head_dims",
+                                 "wide_heads") if k in t},
             **({"pipelined_launches_per_step": {
                 f"M={m}": counts_m[name] / STEPS
                 for m, counts_m in pipe["launches"].items()},
                 "families": {
                     "wgmma": list(_flash_cuda.WGMMA_WIDTHS[name]),
-                    "fma": list(_flash_cuda.FMA_WIDTHS[name])}}
+                    "fma": list(_flash_cuda.FMA_WIDTHS[name]),
+                    "fma_split": [_flash_cuda.SPLIT_WIDTH]}}
                if name in _flash_cuda.SPECS else {})})
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all; {card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ kernels, and times the forward, dq and dk/dv kernels beside SDPA's forward
 and backward at B4 S2048 causal: bf16 H8/4 at D128 and D64 and H16/16 at
 D256 (Gemma's heads) on ``wgmma``; f32 H8/4 at d = 16 (the tiny decoders'
 head_dim), 64 and 128 and H16/16 at 256, and bf16 H8/4 at d = 100 (off a
-multiple of 8), on the FMA kernels. Each twice (``chip_smoke.cuda_ms``:
+multiple of 8), on the FMA kernels; where the tree's ``route`` takes a
+head_dim past 256, also f32 and bf16 H8/8 at d = 512 on the split FMA
+kernels (inputs drawn on the card). Each twice (``chip_smoke.cuda_ms``:
 medians of 20 CUDA-event timings), with the family and width each kernel
 is routed to. Prints one line, ``AB`` and a JSON object. Compare two trees
 only within one call to the card, in turns (A, B, B, A): the card's speed
@@ -33,13 +35,21 @@ SHAPES = (("D128", 128, 8, 4, torch.bfloat16),
           ("f32 d128", 128, 8, 4, torch.float32),
           ("f32 d256", 256, 16, 16, torch.float32),
           ("bf16 d100", 100, 8, 4, torch.bfloat16))
+SPLIT_SHAPES = (("f32 d512", 512, 8, 8, torch.float32),
+                ("bf16 d512", 512, 8, 8, torch.bfloat16))
 
 C.phase_device()
 K.build()
 out = {"tree": sys.argv[1]}
 F = torch.nn.functional
-for label, d, h, hk, dtype in SHAPES:
-    q, k, v, do = C.make_case(4, 2048, h, hk, d, dtype, 0)
+try:
+    K.route(512, torch.float32, "flash_fwd")
+    shapes = SHAPES + SPLIT_SHAPES
+except ValueError:          # a tree from before the split family
+    shapes = SHAPES
+for label, d, h, hk, dtype in shapes:
+    q, k, v, do = (C.card_case if d > 256 else C.make_case)(
+        4, 2048, h, hk, d, dtype, 0)
     scale = d ** -0.5
     o, lse = K.flash_fwd(q, k, v, scale, True)
     delta = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()

@@ -2,7 +2,8 @@
 ``tony_tpu_torch.ops.attention``'s plain versions (what a CPU tensor runs,
 and what the card's kernels are held to) against ``tony_tpu.ops.attention``
 (the Pallas kernels in interpret mode) on the same numpy inputs, at
-d = 8, 16, 20, 32, 80, 96, 100, 136, 192 and 256; ``_flash_cuda.route``,
+d = 8, 16, 20, 32, 80, 96, 100, 136, 192 and 256, and past 256 (the split
+FMA family's head dims) at d = 264, 384 and 512; ``_flash_cuda.route``,
 which sends each (head_dim, dtype, kernel) to a kernel family and a
 compiled tile width, against the widths each C entry point launches; and
 ``fwd_key_tile``, the key tile of the routed forward kernel.
@@ -31,6 +32,10 @@ F32 = dict(atol=2e-5, rtol=2e-5)
 GRAD = dict(atol=1e-4, rtol=1e-4)
 BF16 = dict(atol=3e-2, rtol=3e-2)
 HEAD_DIMS = (8, 16, 32, 80, 96, 256)
+# Past 256: two whole chunks of 256 and a narrower last chunk (264, 384).
+SPLIT_DIMS = (264, 384, 512)
+# The highest head_dim the route tests sweep to: four chunks.
+SWEEP_TO = 1024
 BLOCK = 32
 CSRC = pathlib.Path(tattn.__file__).resolve().parents[1] / "csrc"
 torch.set_num_threads(2)
@@ -46,7 +51,7 @@ def _np(t):
     return t.detach().float().numpy()
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + SPLIT_DIMS)
 def test_forward_bf16_to_f32_out_matches_jax(d):
     """o and lse of a bf16 causal GQA forward with an f32 output (the ring's
     hop): S = 100 leaves a ragged tail in the 32-row blocks both share."""
@@ -65,7 +70,7 @@ def test_forward_bf16_to_f32_out_matches_jax(d):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + SPLIT_DIMS)
 def test_forward_f32_matches_jax(d, causal):
     q, k, v = _qkv(1, 64, 4, 2, d, seed=10 + d)
     o, lse = tattn.flash_attention_with_lse(
@@ -78,7 +83,7 @@ def test_forward_f32_matches_jax(d, causal):
     np.testing.assert_allclose(_np(lse), jlse, **F32)
 
 
-@pytest.mark.parametrize("d", HEAD_DIMS + (192, 20, 100))
+@pytest.mark.parametrize("d", HEAD_DIMS + (192, 20, 100) + SPLIT_DIMS)
 def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
     """dq, dk and dv through the port's autograd Function (the plain dq and
     dk/dv) against ``jax.grad`` of the reference's flash kernels: GQA group
@@ -101,6 +106,32 @@ def test_backward_gqa4_ragged_causal_matches_jax_grad(d):
     jg = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
     for t, j, name in zip((tq, tk, tv), jg, "qkv"):
         assert t.grad.shape == j.shape
+        np.testing.assert_allclose(_np(t.grad), j, **GRAD,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("d", SPLIT_DIMS)
+def test_with_lse_cotangent_full_mha_matches_jax_grad(d):
+    """``flash_attention_with_lse`` past head_dim 256 through the port's
+    autograd Function, non-causal, one query head a kv head (the ring's full
+    hops), a loss of o and of lse (the lse cotangent the ring's merge
+    gives): dq, dk and dv against ``jax.grad`` of the reference's kernels,
+    f32, S = 64."""
+    q, k, v = _qkv(1, 64, 2, 2, d, seed=50 + d)
+    w = np.random.default_rng(51 + d).standard_normal(q.shape,
+                                                      dtype=np.float32)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True)
+                  for x in (q, k, v))
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, causal=False,
+                                            block_q=BLOCK, block_k=BLOCK)
+    ((o * torch.from_numpy(w)).sum() + torch.cos(lse).sum()).backward()
+
+    def loss(q, k, v):
+        o, lse = jattn.flash_attention_with_lse(q, k, v, causal=False,
+                                                block_q=BLOCK, block_k=BLOCK)
+        return jnp.sum(o * w) + jnp.sum(jnp.cos(lse))
+    jg = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    for t, j, name in zip((tq, tk, tv), jg, "qkv"):
         np.testing.assert_allclose(_np(t.grad), j, **GRAD,
                                    err_msg=f"d{name}")
 
@@ -214,28 +245,62 @@ def test_forward_over_the_fma_key_tile_matches_jax(d, dtype):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("d", [384, 520])
+def test_forward_over_the_split_key_tile_matches_jax(d):
+    """The plain forward the card's split kernel is held to, over its key
+    tiles (``fwd_key_tile``: 32): bf16 in, f32 out, causal GQA, S = 100 (a
+    ragged last tile), against the reference's kernels in interpret mode at
+    the same blocks; o and lse also in the mean. d = 384 and 520 end in a
+    narrower chunk."""
+    tile = _flash_cuda.fwd_key_tile(d, torch.bfloat16)
+    assert _flash_cuda.route(d, torch.bfloat16, "flash_fwd")[0] == \
+        "fma_split"
+    q, k, v = _qkv(1, 100, 4, 2, d, seed=70 + d)
+    o, lse = tattn.flash_fwd_plain(
+        *(torch.from_numpy(x).bfloat16() for x in (q, k, v)), d ** -0.5,
+        True, torch.float32, tile, tile)
+    jo, jlse = jattn.flash_attention_with_lse(
+        *(jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)),
+        causal=True, block_q=tile, block_k=tile, out_dtype=jnp.float32)
+    jlse = np.asarray(jlse).transpose(0, 2, 1)
+    for name, t, j in (("o", o, jo), ("lse", lse, jlse)):
+        err = np.abs(_np(t) - np.asarray(j))
+        assert err.mean() <= 2e-6, f"{name}: mean abs err {err.mean()}"
+        np.testing.assert_allclose(_np(t), j, **BF16, err_msg=name)
+
+
 def _fma_fwd_key_tiles():
     """Keys per tile of the FMA forward at each width, from its traits in
-    ``flash_fwd.cu`` (``FwdFma<W>``: BN = GX * TN)."""
+    ``flash_fwd.cu`` (``FwdFma<W>``: BN = GX * TN), and of the split
+    forward, which takes the traits of the width ``SPLIT`` names."""
     src = (CSRC / "flash_fwd.cu").read_text()
     out = {}
     for w, body in re.findall(r"struct FwdFma<(\d+)> \{([^}]*)\}", src):
         gx = int(re.search(r"\bGX = (\d+)", body).group(1))
         tn = int(re.search(r"\bTN = (\d+)", body).group(1))
         out[int(w)] = gx * tn
-    return out
+    common = (CSRC / "flash_common.cuh").read_text()
+    split = int(re.search(r"constexpr int SPLIT = (\d+);", common).group(1))
+    assert re.search(r"struct FwdSplit : FwdLay<SPLIT>", src)
+    return out, out[split]
 
 
 def test_fwd_key_tile_is_the_fma_kernels_traits():
     """``fwd_key_tile`` on FMA is the key tile the C source compiles at
-    every width the forward's FMA family has."""
-    tiles = _fma_fwd_key_tiles()
+    every width the forward's FMA family has, and on the split family the
+    one its traits take."""
+    tiles, split_tile = _fma_fwd_key_tiles()
     assert set(tiles) == set(_flash_cuda.FMA_WIDTHS["flash_fwd"])
+    seen = set()
     for dtype in (torch.bfloat16, torch.float32):
-        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+        for d in range(1, SWEEP_TO + 1):
             family, width = _flash_cuda.route(d, dtype, "flash_fwd")
+            seen.add(family)
             if family == "fma":
                 assert _flash_cuda.fwd_key_tile(d, dtype) == tiles[width]
+            elif family == "fma_split":
+                assert _flash_cuda.fwd_key_tile(d, dtype) == split_tile
+    assert seen == {"wgmma", "fma", "fma_split"}
 
 
 @pytest.mark.parametrize("d,dtype,tile", [
@@ -244,16 +309,19 @@ def test_fwd_key_tile_is_the_fma_kernels_traits():
     (136, torch.bfloat16, 80), (192, torch.bfloat16, 80),
     (256, torch.bfloat16, 80), (20, torch.bfloat16, 32),
     (140, torch.bfloat16, 32), (16, torch.float32, 32),
-    (256, torch.float32, 32)])
+    (256, torch.float32, 32), (264, torch.bfloat16, 32),
+    (512, torch.bfloat16, 32), (384, torch.float32, 32)])
 def test_fwd_key_tile_is_the_routed_forward_kernels(d, dtype, tile):
     """128 keys a tile on wgmma at width 64 / 128, 80 at width 256, 32 on
-    FMA (bf16 off a multiple of 8, every f32)."""
+    FMA (bf16 off a multiple of 8, every f32) and on the split FMA family
+    (every head_dim past 256)."""
     assert _flash_cuda.fwd_key_tile(d, dtype) == tile
 
 
 # The routes of all three kernels: bf16 at a multiple of 8 on wgmma at
 # width 64, 128 or 256; off a multiple of 8, and f32, FMA, whose narrowest
-# tile is 16 wide.
+# tile is 16 wide; past 256, in either dtype, the split FMA family on the
+# 256-wide tiles.
 FWD_ROUTES = [
     (8, torch.bfloat16, "wgmma", 64),
     (16, torch.bfloat16, "wgmma", 64),
@@ -284,7 +352,10 @@ def _routes():
                 (192, torch.bfloat16, "wgmma", 256),
                 (248, torch.bfloat16, "wgmma", 256),
                 (140, torch.bfloat16, "fma", 256),
-                (12, torch.bfloat16, "fma", 16)]:
+                (12, torch.bfloat16, "fma", 16)] + [
+                (d, dtype, "fma_split", 256)
+                for d in (257, 264, 384, 512, 520, 1024)
+                for dtype in (torch.bfloat16, torch.float32)]:
             out.append((kernel, d, dtype, family, width))
     return out
 
@@ -299,21 +370,28 @@ def test_route_family_and_width(kernel, d, dtype, family, width):
 
 @pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("d", [0, 257, 264])
+@pytest.mark.parametrize("d", [0])
 def test_route_refuses_past_the_limit_naming_it(d, dtype, kernel):
-    with pytest.raises(ValueError, match="256"):
+    """The one head_dim no kernel takes: below 1."""
+    with pytest.raises(ValueError, match="at least 1"):
         _flash_cuda.route(d, dtype, kernel)
 
 
 @pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
 def test_route_covers_every_head_dim_up_to_the_limit(kernel):
-    """No head_dim from 1 to 256 is refused, in either dtype, by any
-    kernel; the wgmma family takes only bf16 rows of whole 16-byte vectors,
-    and every such row the kernel's widest wgmma tile holds."""
+    """No head_dim from 1 to ``SWEEP_TO`` is refused, in either dtype, by
+    any kernel; the wgmma family takes only bf16 rows of whole 16-byte
+    vectors up to 256, and every such row the kernel's widest wgmma tile
+    holds; every head_dim past 256 runs on the split family's 256-wide
+    tiles."""
     widest = _flash_cuda.WGMMA_WIDTHS[kernel][-1]
     for dtype in (torch.bfloat16, torch.float32):
-        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+        for d in range(1, SWEEP_TO + 1):
             family, width = _flash_cuda.route(d, dtype, kernel)
+            if d > _flash_cuda.SPLIT_WIDTH:
+                assert (family, width) == ("fma_split",
+                                           _flash_cuda.SPLIT_WIDTH), d
+                continue
             assert d <= width
             widths = (_flash_cuda.WGMMA_WIDTHS[kernel] if family == "wgmma"
                       else _flash_cuda.FMA_WIDTHS[kernel])
@@ -324,32 +402,40 @@ def test_route_covers_every_head_dim_up_to_the_limit(kernel):
 
 def _entry_widths(kernel):
     """The widths the C entry point of ``kernel`` launches, by family: the
-    ``case`` labels of its FMA ``switch (width)`` and the ``width == N``
-    tests in front of its wgmma launches."""
+    ``case`` labels of its FMA ``switch (width)``, the ``width == N``
+    tests in front of its wgmma launches, and the width of its split
+    launch (``family == 2 && width == SPLIT``, ``SPLIT`` read from
+    ``flash_common.cuh``)."""
     src = (CSRC / _flash_cuda.KERNELS[kernel][0]).read_text()
     entry = src[src.index(f'extern "C" int tt_{kernel}('):]
     fma = entry[entry.index("#define TT_FMA_W"):]
     fma = fma[:fma.index("break")]
+    common = (CSRC / "flash_common.cuh").read_text()
+    split = int(re.search(r"constexpr int SPLIT = (\d+);", common).group(1))
     return {"fma": {int(w) for w in re.findall(r"case (\d+):", fma)},
             "wgmma": {int(w) for w in re.findall(r"width == (\d+) &&",
-                                                 entry)}}
+                                                 entry)},
+            "fma_split": ({split} if re.search(
+                r"family == 2 && width == SPLIT\) \{", entry) else set())}
 
 
 @pytest.mark.parametrize("kernel", sorted(_flash_cuda.KERNELS))
 def test_route_widths_have_their_case_in_the_c_entry(kernel):
     """Every (family, width) ``route`` can return for ``kernel``, in either
-    dtype, is a width its C entry point's switch launches, and the entry
-    launches no width ``route`` never picks: the Python and C sides of
-    the widths cannot drift apart."""
+    dtype and up to ``SWEEP_TO``, is a width its C entry point's switch
+    launches, and the entry launches no width ``route`` never picks: the
+    Python and C sides of the widths cannot drift apart."""
     entry = _entry_widths(kernel)
-    routed = {"fma": set(), "wgmma": set()}
+    routed = {"fma": set(), "wgmma": set(), "fma_split": set()}
     for dtype in (torch.bfloat16, torch.float32):
-        for d in range(1, _flash_cuda.MAX_HEAD_DIM + 1):
+        for d in range(1, SWEEP_TO + 1):
             family, width = _flash_cuda.route(d, dtype, kernel)
             routed[family].add(width)
     assert routed == entry
     assert entry["fma"] == set(_flash_cuda.FMA_WIDTHS[kernel])
     assert entry["wgmma"] == set(_flash_cuda.WGMMA_WIDTHS[kernel])
+    assert entry["fma_split"] == {_flash_cuda.SPLIT_WIDTH}
+    assert set(_flash_cuda.FAMILIES) == set(entry)
 
 
 def test_route_refuses_other_dtypes():
@@ -365,7 +451,7 @@ def test_route_refuses_other_kernels():
 def test_kernel_entries_refuse_cpu_tensors_at_new_head_dims():
     """A CPU tensor handed to a kernel entry raises at every head_dim: the
     plain versions run only through the dispatchers."""
-    for d in (16, 96, 256):
+    for d in (16, 96, 256, 512):
         q = torch.zeros((1, 16, 2, d))
         with pytest.raises(ValueError, match="CUDA tensors"):
             _flash_cuda.flash_fwd(q, q, q, d ** -0.5, True)

@@ -90,6 +90,19 @@ def test_head_dim_256_mqa_every_gradient_matches_jax_grad(attn_impl):
     _check_every_gradient(cfg, seed=7)
 
 
+@pytest.mark.parametrize("attn_impl", ["flash", "xla"])
+def test_head_dim_512_mqa_every_gradient_matches_jax_grad(attn_impl):
+    """A head past 256 (the card's split kernels): dim 1024 over 2 query
+    heads of 512 and 1 kv head, 2 layers, f32; under "flash" the port's
+    plain flash backward against ``jax.grad`` through the reference's
+    Pallas kernels (interpret mode), the loss and every parameter's
+    gradient."""
+    cfg = dict(dim=1024, n_heads=2, n_kv_heads=1, mlp_dim=256,
+               attn_impl=attn_impl)
+    assert cfg["dim"] // cfg["n_heads"] == 512
+    _check_every_gradient(cfg, seed=8)
+
+
 def _check_every_gradient(kw, seed):
     jm, params, tm = _pair(**kw)
     tok = _tokens(seed=seed)

@@ -126,6 +126,25 @@
 // consumer warpgroups per block (128 keys) sharing one Q/dO stream, each
 // skipping the q tiles before its keys with a branch around its products,
 // ran slower than this one-warpgroup block (the products under a branch).
+//
+// Split family past width 256 (flash_bwd_dkv_split_kernel<T>, DkvSplit), for
+// every head_dim d > 256 in bf16 and f32. DkvFma<256>'s resident K and V (32
+// keys) and its Q | dO ring take 204.5 KiB; at 512 they would take ~418.
+// The head dim goes in nc = ceil(d / 256) chunks, and each block owns the dK
+// and dV columns of one chunk c of its 32 keys, on DkvFma<256>'s tiles and
+// cells. Per (query head, q tile) pair a three-stage cp.async ring carries,
+// for each chunk x in the order c + 1, ..., nc - 1, 0, ..., c, a unit
+// [V_x | dO_x] and a unit [K_x | Qs_x] (204.5 KiB in all). A stage is
+// refilled two units after it was read, so the pair's last two units, dO_c
+// and Qs_c, are both still in shared memory for dV_c += P^T . dO_c and
+// dK_c += dS^T . Qs_c (a two-stage ring would have overwritten dO_c). lse and
+// delta come with a pair's first unit, two pairs' worth kept. K and V are
+// re-read every pair; S^T and dP^T are computed nc times (1.5x dk/dv's FLOPs
+// at d = 512). 230 registers (f32), 254 (bf16), 0 spills. Measured at B4
+// S2048 causal H8/8 on an NVIDIA H100 80GB HBM3 at 700 W (medians of 20, one
+// call, turns A B B A): f32 d = 512 23.23-23.41 ms (5.7x its bound without
+// the recomputation, 4.10); bf16 23.54-23.71 with 16-byte loads, 52.32
+// widened element by element.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -295,6 +314,168 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sk, L::BN) * Hkv * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), B, H, Hkv, Sq, Sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ FMA path past width 256
+// DkvFma<256>'s tiles and cells with the head dim in chunks (flash_common.cuh,
+// SPLIT); each block owns the dK and dV columns of one chunk c of its BN
+// keys. Shared memory (f32, row stride SPLIT + 4): three ring stages of
+// BN + BM rows, each holding one unit, then P^T and dS^T [BN, BM + 4] and
+// two pairs' lse and delta. Per (query head, q tile) pair the ring carries,
+// for each chunk x in the order c + 1, ..., nc - 1, 0, ..., c, a unit
+// [V_x | dO_x] and a unit [K_x | Qs_x]; a unit's stage is refilled two units
+// later, so dO_c and Qs_c, the pair's last two units, are both still there
+// for dV_c += P^T . dO_c and dK_c += dS^T . Qs_c.
+struct DkvSplit : DkvLay<SPLIT> {
+  static constexpr int STAGE = (BN + BM) * LD, STAGES = 3;
+  static constexpr int P_OFF = STAGES * STAGE;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(P_OFF + 2 * BN * LDP + 4 * BM);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DkvSplit::NTH, 1)
+    flash_bwd_dkv_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                               const T* __restrict__ v, const T* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               T* __restrict__ dk, T* __restrict__ dv, int B, int H, int Hkv,
+                               int Sq, int Sk, int d, float scale, int causal) {
+  using L = DkvSplit;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, TM = L::TM, TN = L::TN, TMO = L::TMO,
+                TCO = L::TCO, LD = L::LD, LDP = L::LDP, GX = L::GX, GY = L::GY, QX = L::QX,
+                QY = L::QY, STAGE = L::STAGE, ST = L::STAGES;
+  static_assert(L::KS == 1, "one split of a pair's queries");
+
+  extern __shared__ __align__(16) float sm[];
+  float* sP = sm + L::P_OFF;
+  float* sDS = sP + BN * LDP;
+  float* sStat = sDS + BN * LDP;  // pair p's lse at sStat + 2 BM (p % 2), its delta after it
+
+  // Block -> (chunk, k tile, kv head, batch): the chunk fastest, k tile
+  // slowest and first k tile first, as in flash_bwd_dkv_kernel.
+  const int tid = threadIdx.x;
+  const int nc = nchunks(d), ch = blockIdx.x % nc, bx = blockIdx.x / nc;
+  const int per = Hkv * B, g = H / Hkv;
+  const int kj = bx / per, hk = bx % per % Hkv, b = bx % per / Hkv;
+  const int k0 = kj * BN, nk_valid = min(BN, Sk - k0);
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const long koff = ((long)b * Sk + k0) * kstride + (long)hk * d;
+  const int nq = (Sq + BM - 1) / BM, i0 = causal ? k0 / BM : 0;
+  const int nqi = nq - i0, np = g * nqi;
+  const float scale_t = to_f(from_f<T>(scale));
+  const bool vec = d % (16 / (int)sizeof(T)) == 0;  // rows of whole 16-byte vectors
+  const int c0 = ch * SPLIT, dc = chunk_cols(d, ch);
+  const int per_pair = 2 * nc, nu = np * per_pair;
+
+  // Unit u: pair u / per_pair; chunk (c + 1 + i) % nc with i = u % per_pair / 2;
+  // [V | dO] when u is even, [K | Qs] when odd; the pair's lse and delta
+  // with its first unit.
+  auto issue = [&](int u) {  // unit u into stage u % 3, one commit group
+    float* st = sm + u % ST * STAGE;
+    const int p = u / per_pair, i = u % per_pair, x = (ch + 1 + i / 2) % nc;
+    const int h = hk * g + p / nqi, q0 = (i0 + p % nqi) * BM, n = min(BM, Sq - q0);
+    const int x0 = x * SPLIT, dx = chunk_cols(d, x);
+    const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
+    const bool kq = i & 1;
+    copy_chunk<T, BN, NTH>(st, (kq ? k : v) + koff + x0, kstride, nk_valid, dx, vec, false, 1.f);
+    copy_chunk<T, BM, NTH>(st + BN * LD, (kq ? q : dout) + qoff + x0, qstride, n, dx, vec, kq,
+                           scale_t);
+    if (i == 0) {
+      const long soff = ((long)b * H + h) * Sq + q0;
+      float* ss = sStat + (p & 1) * 2 * BM;
+      copy_stat<BM, NTH>(ss, lse + soff, n);
+      copy_stat<BM, NTH>(ss + BM, delta + soff, n);
+    }
+    cp_commit();
+  };
+  issue(0);
+
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  const int ox = Cells<QX, QY>::x(tid), oy = Cells<QX, QY>::y(tid);
+  float dK[TMO][4 * TCO], dV[TMO][4 * TCO], s[TM][TN], dp[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TMO; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * TCO; ++c) dK[i][c] = dV[i][c] = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    float* st = sm + u % ST * STAGE;
+    const int p = u / per_pair, i = u % per_pair;
+    cp_wait_all();
+    if constexpr (std::is_same<T, float>::value)
+      if (i & 1) scale_chunk<BM, NTH>(st + BN * LD, vec, scale_t);  // Qs = q * scale, in place (f32)
+    __syncthreads();  // unit u visible; every thread done with unit u - 2, P^T and dS^T
+    if (u + 1 < nu) issue(u + 1);
+
+    if (i == 0) {
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) s[a][c] = dp[a][c] = 0.f;
+    }
+    if (i & 1)
+      dot_rows<TM, TN, SPLIT, LD, GY, GX, L::U>(s, st + ty * LD, st + (BN + tx) * LD);  // S^T += K_x . Qs_x^T
+    else
+      dot_rows<TM, TN, SPLIT, LD, GY, GX, L::U>(dp, st + ty * LD, st + (BN + tx) * LD);  // dP^T += V_x . dO_x^T
+    if (i + 1 < per_pair) continue;
+
+    // P^T = exp(S^T - lse), 0 where masked, rounded to T for dV_c += P^T . dO_c;
+    // dS^T = P^T * (dP^T - delta), rounded to T for dK_c += dS^T . Qs_c.
+    const float* sLse = sStat + (p & 1) * 2 * BM;
+    const float* sDelta = sLse + BM;
+    const int q0 = (i0 + p % nqi) * BM;
+    const bool inside = q0 + BM <= Sq && k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int c = 0; c < TN; ++c) {
+      const int n = tx + c * GX;
+      const float lse_c = sLse[n], delta_c = sDelta[n];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) {
+        const int m = ty + a * GY;
+        float pv = expf(s[a][c] - lse_c);
+        if (!inside && (q0 + n >= Sq || k0 + m >= Sk || (causal && k0 + m > q0 + n))) pv = 0.f;
+        sP[m * LDP + n] = rounded<T>(pv);
+        sDS[m * LDP + n] = rounded<T>(pv * (dp[a][c] - delta_c));
+      }
+    }
+    __syncthreads();
+    const float* sDO = sm + (u + ST - 1) % ST * STAGE + BN * LD;  // unit u - 1: [V_c | dO_c]
+    acc_rows<TMO, TCO, BM, LDP, LD, QY, 4 * QX, L::U>(dV, sP + oy * LDP, sDO + 4 * ox);
+    acc_rows<TMO, TCO, BM, LDP, LD, QY, 4 * QX, L::U>(dK, sDS + oy * LDP, st + BN * LD + 4 * ox);
+  }
+
+  T* gk = dk + koff + c0;
+  T* gv = dv + koff + c0;
+#pragma unroll
+  for (int i = 0; i < TMO; ++i) {
+    const int r = oy + i * QY;
+    if (r >= nk_valid) continue;
+#pragma unroll
+    for (int c = 0; c < TCO; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * ox + 4 * QX * c + e;
+        if (col >= dc) continue;
+        gk[(long)r * kstride + col] = from_f<T>(dK[i][4 * c + e]);
+        gv[(long)r * kstride + col] = from_f<T>(dV[i][4 * c + e]);
+      }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dkv_split(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+                             int Hkv, int Sq, int Sk, int d, float scale, int causal,
+                             cudaStream_t st) {
+  using L = DkvSplit;
+  auto kern = flash_bwd_dkv_split_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return e;
+  const int grid = cdiv(Sk, L::BN) * Hkv * B * nchunks(d);
   kern<<<grid, L::NTH, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -697,7 +878,8 @@ cudaError_t launch_dkv_wgmma(const void* q, const void* k, const void* v, const 
 }  // namespace tt
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8), 1 = FMA
-// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim; 2 = FMA
+// split (width 256, every d > width in chunks of it). dtype: 0 =
 // bf16, 1 = f32 (q, k, v, do, dk, dv). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dk, void* dv, int B,
@@ -705,7 +887,8 @@ extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
                                 int dtype, float scale, int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+  if (d < 1 || (family == 2 ? d <= width : d > width)) return (int)cudaErrorInvalidValue;
+#define TT_SPLIT(T) return (int)launch_dkv_split<T>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_WG(W, FULL)                                                                  \
   return (int)launch_dkv_wgmma<W, FULL>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, d, \
                                         scale, causal, st)
@@ -733,8 +916,14 @@ extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
       case 0: TT_FMA_W(bf16);
       case 1: TT_FMA_W(float);
     }
+  } else if (family == 2 && width == SPLIT) {
+    switch (dtype) {
+      case 0: TT_SPLIT(bf16);
+      case 1: TT_SPLIT(float);
+    }
   }
 #undef TT_WG
+#undef TT_SPLIT
 #undef TT_FMA
 #undef TT_FMA_W
   return (int)cudaErrorInvalidValue;

@@ -124,6 +124,25 @@
 // dropped: two consumer warpgroups per block sharing one K/V stream, each
 // skipping the k tiles past its rows with a branch around its products,
 // ran slower than this one-warpgroup block (the products under a branch).
+//
+// Split family past width 256 (flash_bwd_dq_split_kernel<T>, DqSplit), for
+// every head_dim d > 256 in bf16 and f32. DqFma<256> keeps Q and dO (32
+// rows) resident beside a two-stage K | V ring in 200 KiB; at 512 neither
+// fits. The head dim goes in nc = ceil(d / 256) chunks of the 256-wide f32
+// tiles, and each block owns the dQ columns of one chunk c of 64 query rows
+// (64 x 32 tiles of 256 threads: S and dP 4 x 2 cells, dQ_c 4 x 16 cells, 64
+// registers). Per k tile a two-stage cp.async ring carries, for each chunk x
+// in the order c + 1, ..., nc - 1, 0, ..., c, a unit [dO_x | V_x] and a unit
+// [Q_x | Ks_x] (204.5 KiB in all): S and dP sum over the chunks, and the
+// tile's last unit holds Ks_c, which dQ_c += dS . Ks_c reads where it
+// landed. Each block sums the chunks in its own fixed order (no block shares
+// S with another: lse is an input), so the result is deterministic. Q and dO
+// are re-read every k tile; S and dP are computed nc times (1.67x dq's FLOPs
+// at d = 512). 248 registers (f32), 254 (bf16), 0 spills. Measured at B4
+// S2048 causal H8/8 on an NVIDIA H100 80GB HBM3 at 700 W (medians of 20,
+// one call, turns A B B A): f32 d = 512 14.96-15.07 ms (4.9x its bound
+// without the recomputation, 3.08); bf16 15.35-15.46 with 16-byte loads,
+// 36.85-36.86 widened element by element.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -282,6 +301,160 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sq, L::BM) * H * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), B, H, Hkv, Sq, Sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ FMA path past width 256
+// The head dim in chunks (flash_common.cuh, SPLIT); each block owns the
+// dQ columns of one chunk c of BM query rows. S and dP are TM x TN cells a
+// thread (queries GY apart, keys GX apart), dQ_c TMO x 4 TCO cells (rows QY
+// apart, float4 columns 4 QX apart). Shared memory (f32, row stride SPLIT
+// + 4): two ring stages of BM + BN rows, each holding one unit, then dS
+// [BM, BN + 4], lse and delta. Per k tile the ring carries, for each chunk
+// x in the order c + 1, ..., nc - 1, 0, ..., c, a unit [dO_x | V_x] and a
+// unit [Q_x | Ks_x]: the tile's last unit holds Ks_c, which dQ_c += dS . Ks_c
+// reads from it.
+struct DqSplit {
+  static constexpr int BM = 64, BN = 32, NTH = 256, TM = 4, TN = 2, TMO = 4, TCO = 4, U = 4;
+  static constexpr int LD = ldw<SPLIT>(), LDS = BN + 4;
+  static constexpr int GX = BN / TN, GY = BM / TM;          // score cells
+  static constexpr int QX = SPLIT / 4 / TCO, QY = BM / TMO;  // dQ cells
+  static constexpr int STAGE = (BM + BN) * LD;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(2 * STAGE + BM * LDS + 2 * BM);
+  static_assert(GX * GY == NTH && QX * QY == NTH, "one cell of each a thread");
+};
+
+template <typename T>
+__global__ void __launch_bounds__(DqSplit::NTH, 1)
+    flash_bwd_dq_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              T* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk, int d,
+                              float scale, int causal) {
+  using L = DqSplit;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, TM = L::TM, TN = L::TN, TMO = L::TMO,
+                TCO = L::TCO, LD = L::LD, LDS = L::LDS, GX = L::GX, GY = L::GY, QX = L::QX,
+                QY = L::QY, STAGE = L::STAGE;
+
+  extern __shared__ __align__(16) float sm[];
+  float* sDS = sm + 2 * STAGE;
+  float* sLse = sDS + BM * LDS;  // lse and delta of the block's rows
+  float* sDelta = sLse + BM;
+
+  // Block -> (chunk, q tile, head, batch): the chunk fastest, q tile
+  // slowest and last q tile first, as in flash_bwd_dq_kernel.
+  const int tid = threadIdx.x;
+  const int nc = nchunks(d), ch = blockIdx.x % nc, bx = blockIdx.x / nc;
+  const int per = H * B, nq = (Sq + BM - 1) / BM;
+  const int tile = bx / per, h = bx % per % H, b = bx % per / H;
+  const int qi = causal ? nq - 1 - tile : tile;
+  const int hk = h / (H / Hkv);
+  const int q0 = qi * BM, nq_valid = min(BM, Sq - q0);
+  int nk = (Sk + BN - 1) / BN;
+  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
+  const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
+  const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
+  const float scale_t = to_f(from_f<T>(scale));
+  const bool vec = d % (16 / (int)sizeof(T)) == 0;  // rows of whole 16-byte vectors
+  const int c0 = ch * SPLIT, dc = chunk_cols(d, ch);
+  const int per_tile = 2 * nc, nu = nk * per_tile;
+
+  const long soff = ((long)b * H + h) * Sq + q0;
+  copy_stat<BM, NTH>(sLse, lse + soff, nq_valid);
+  copy_stat<BM, NTH>(sDelta, delta + soff, nq_valid);
+  // Unit u: k tile u / per_tile; chunk (c + 1 + i) % nc with i = u % per_tile / 2;
+  // [dO | V] when u is even, [Q | Ks] when odd.
+  auto issue = [&](int u) {  // unit u into stage u % 2, one commit group
+    float* st = sm + (u & 1) * STAGE;
+    const int j = u / per_tile, i = u % per_tile, x = (ch + 1 + i / 2) % nc;
+    const int k0 = j * BN, n = min(BN, Sk - k0), x0 = x * SPLIT, dx = chunk_cols(d, x);
+    const bool kq = i & 1;
+    copy_chunk<T, BM, NTH>(st, (kq ? q : dout) + qoff + x0, qstride, nq_valid, dx, vec, false, 1.f);
+    copy_chunk<T, BN, NTH>(st + BM * LD, (kq ? kb : vb) + (long)k0 * kstride + x0, kstride, n, dx,
+                           vec, kq, scale_t);
+    cp_commit();
+  };
+  issue(0);
+
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  const int ox = Cells<QX, QY>::x(tid), oy = Cells<QX, QY>::y(tid);
+  float acc[TMO][4 * TCO], s[TM][TN], dp[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TMO; ++i)
+#pragma unroll
+    for (int c = 0; c < 4 * TCO; ++c) acc[i][c] = 0.f;
+
+  for (int u = 0; u < nu; ++u) {
+    float* st = sm + (u & 1) * STAGE;
+    const int j = u / per_tile, i = u % per_tile;
+    cp_wait_all();
+    if constexpr (std::is_same<T, float>::value)
+      if (i & 1) scale_chunk<BN, NTH>(st + BM * LD, vec, scale_t);  // Ks = k * scale, in place (f32)
+    __syncthreads();  // unit u visible; every thread done with unit u - 1 and dS
+    if (u + 1 < nu) issue(u + 1);
+
+    if (i == 0) {
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int c = 0; c < TN; ++c) s[a][c] = dp[a][c] = 0.f;
+    }
+    if (i & 1)
+      dot_rows<TM, TN, SPLIT, LD, GY, GX, L::U>(s, st + ty * LD, st + (BM + tx) * LD);  // S += Q_x . Ks_x^T
+    else
+      dot_rows<TM, TN, SPLIT, LD, GY, GX, L::U>(dp, st + ty * LD, st + (BM + tx) * LD);  // dP += dO_x . V_x^T
+    if (i + 1 < per_tile) continue;
+
+    // P = exp(S - lse), 0 where masked; dS = P * (dP - delta), rounded to
+    // T as the A operand of dQ_c += dS . Ks_c (Ks_c is this unit's).
+    const int k0 = j * BN;
+    const bool inside = q0 + BM <= Sq && k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int a = 0; a < TM; ++a) {
+      const int m = ty + a * GY;
+      const float lse_m = sLse[m], delta_m = sDelta[m];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int n = tx + c * GX;
+        float p = expf(s[a][c] - lse_m);
+        if (!inside && (q0 + m >= Sq || k0 + n >= Sk || (causal && k0 + n > q0 + m))) p = 0.f;
+        sDS[m * LDS + n] = rounded<T>(p * (dp[a][c] - delta_m));
+      }
+    }
+    __syncthreads();
+    acc_rows<TMO, TCO, BN, LDS, LD, QY, 4 * QX, L::U>(acc, sDS + oy * LDS, st + BM * LD + 4 * ox);
+  }
+
+  T* g = dq + qoff + c0;
+#pragma unroll
+  for (int i = 0; i < TMO; ++i) {
+    const int r = oy + i * QY;
+    if (r >= nq_valid) continue;
+#pragma unroll
+    for (int c = 0; c < TCO; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * ox + 4 * QX * c + e;
+        if (col < dc) g[(long)r * qstride + col] = from_f<T>(acc[i][4 * c + e]);
+      }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dq_split(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
+                            int Sq, int Sk, int d, float scale, int causal, cudaStream_t st) {
+  using L = DqSplit;
+  auto kern = flash_bwd_dq_split_kernel<T>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return e;
+  const int grid = cdiv(Sq, L::BM) * H * B * nchunks(d);
   kern<<<grid, L::NTH, L::bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -639,7 +812,8 @@ cudaError_t launch_dq_wgmma(const void* q, const void* k, const void* v, const v
 }  // namespace tt
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8), 1 = FMA
-// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim; 2 = FMA
+// split (width 256, every d > width in chunks of it). dtype: 0 =
 // bf16, 1 = f32 (q, k, v, do, dq). Returns a cudaError_t.
 extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                const void* lse, const void* delta, void* dq, int B, int H, int Hkv,
@@ -647,7 +821,8 @@ extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
                                int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+  if (d < 1 || (family == 2 ? d <= width : d > width)) return (int)cudaErrorInvalidValue;
+#define TT_SPLIT(T) return (int)launch_dq_split<T>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_WG(W, FULL) \
   return (int)launch_dq_wgmma<W, FULL>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA(T, W) \
@@ -674,8 +849,14 @@ extern "C" int tt_flash_bwd_dq(const void* q, const void* k, const void* v, cons
       case 0: TT_FMA_W(bf16);
       case 1: TT_FMA_W(float);
     }
+  } else if (family == 2 && width == SPLIT) {
+    switch (dtype) {
+      case 0: TT_SPLIT(bf16);
+      case 1: TT_SPLIT(float);
+    }
   }
 #undef TT_WG
+#undef TT_SPLIT
 #undef TT_FMA
 #undef TT_FMA_W
   return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Shared pieces of the FMA flash-attention kernels: f32 at every head_dim
-// up to 256, and bf16 at the head_dims the wgmma kernels of hopper_common.cuh
-// do not take (not a multiple of 8); those take NEG_INF and cdiv from here.
+// up to 256, bf16 at the head_dims the wgmma kernels of hopper_common.cuh
+// do not take (not a multiple of 8), and both past 256 (the split kernels,
+// below); the wgmma kernels take NEG_INF and cdiv from here.
 //
 // All three FMA kernels (flash_fwd_kernel, flash_bwd_dq_kernel and
 // flash_bwd_dkv_kernel in flash_fwd.cu, flash_bwd_dq.cu and
@@ -20,7 +21,9 @@
 // Widths. A kernel is compiled for a tile width W (16, 32, 64, 128 or 256)
 // and takes the true head_dim d <= W at run time: columns d..W-1 of every
 // tile are zeros, which add nothing to a product over the head dim and
-// give zero columns in a product onto it, and are never stored.
+// give zero columns in a product onto it, and are never stored. Past 256
+// the split kernels take the head dim in chunks of the 256-wide tiles
+// (SPLIT, copy_chunk, scale_chunk).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -239,5 +242,125 @@ __device__ __forceinline__ void put_cells(float* dst, const float (&acc)[TM][4 *
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// ------------------------------------------------ head dims past 256
+// The split kernels (flash_fwd_split_kernel, flash_bwd_dq_split_kernel and
+// flash_bwd_dkv_split_kernel) take every head_dim d > SPLIT on the width-256
+// tiles: the head dim is nc = ceil(d / SPLIT) column chunks, chunk x being
+// columns [SPLIT x, SPLIT x + dx), dx = min(SPLIT, d - SPLIT x). Each block
+// owns one output chunk (the grid is nc times the unsplit one); the products
+// over the head dim (S, dP) sum over every chunk, streamed through the same
+// shared tiles, and the products onto it touch the block's own chunk only.
+constexpr int SPLIT = 256;
+
+__host__ __device__ __forceinline__ int nchunks(int d) { return (d + SPLIT - 1) / SPLIT; }
+__host__ __device__ __forceinline__ int chunk_cols(int d, int x) {
+  return d - SPLIT * x < SPLIT ? d - SPLIT * x : SPLIT;
+}
+
+// Rows [0, ROWS) of one column chunk of a tile of T (row r at g + r * gstride,
+// dx <= SPLIT elements) into f32 shared rows of stride ldw<SPLIT>(), NTH
+// threads, every column written: rows at or past `nvalid` and columns
+// dx..SPLIT-1 as zeros (a stage holds chunks of other widths in turn).
+// `vec`: d is a whole number of 16-byte vectors (d % 4 == 0 in f32, d % 8
+// == 0 in bf16), so every row and chunk starts 16-byte aligned. f32 goes by
+// cp.async (16-byte copies with `vec`, else 4-byte), landing at cp_wait_all
+// and leaving `scaled` to scale_chunk; bf16 is widened synchronously (16-byte
+// loads of 8 elements with `vec`, else element by element; each round's
+// loads issued before its stores) and with `scaled` multiplied by `scale`
+// and rounded back to bf16 on the way: the reference's x * scale in x's
+// dtype.
+template <typename T, int ROWS, int NTH>
+__device__ __forceinline__ void copy_chunk(float* s, const T* g, long gstride, int nvalid, int dx,
+                                           bool vec, bool scaled, float scale) {
+  constexpr int W = SPLIT, LD = ldw<W>();
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (vec) {
+      constexpr int GPR = W / 8, N = ROWS * GPR / NTH, R = 4;
+      static_assert(N % R == 0, "whole rounds of the block");
+#pragma unroll 1
+      for (int u0 = 0; u0 < N; u0 += R) {
+        uint4 x[R];
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int i = threadIdx.x + (u0 + u) * NTH, r = i / GPR, c = i % GPR * 8;
+          x[u] = r < nvalid && c < dx ? *reinterpret_cast<const uint4*>(g + r * gstride + c)
+                                      : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int u = 0; u < R; ++u) {
+          const int i = threadIdx.x + (u0 + u) * NTH, r = i / GPR, c = i % GPR * 8;
+          const uint32_t w[4] = {x[u].x, x[u].y, x[u].z, x[u].w};
+          float f[8];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {  // element 2e in the low half of word e
+            f[2 * e] = __uint_as_float(w[e] << 16);
+            f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+          }
+          if (scaled) {
+#pragma unroll
+            for (int e = 0; e < 8; ++e) f[e] = rounded<T>(f[e] * scale);
+          }
+          float4* dst = reinterpret_cast<float4*>(s + r * LD + c);
+          dst[0] = make_float4(f[0], f[1], f[2], f[3]);
+          dst[1] = make_float4(f[4], f[5], f[6], f[7]);
+        }
+      }
+      return;
+    }
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      constexpr int CPR = W / 4;
+      for (int i = threadIdx.x; i < ROWS * CPR; i += NTH) {
+        const int r = i / CPR, c = i % CPR * 4;
+        const bool ok = r < nvalid && c < dx;
+        cp_async<16>(s + r * LD + c, ok ? g + r * gstride + c : g, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * W; i += NTH) {
+        const int r = i / W, c = i % W;
+        const bool ok = r < nvalid && c < dx;
+        cp_async<4>(s + r * LD + c, ok ? g + r * gstride + c : g, ok);
+      }
+    }
+  } else {
+    constexpr int N = ROWS * W / NTH, R = 16;
+    static_assert(N % R == 0, "whole rounds of the block");
+#pragma unroll 1
+    for (int u0 = 0; u0 < N; u0 += R) {
+      float x[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (u0 + u) * NTH, r = i / W, c = i % W;
+        x[u] = r < nvalid && c < dx ? to_f(g[r * gstride + c]) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = threadIdx.x + (u0 + u) * NTH, r = i / W, c = i % W;
+        s[r * LD + c] = scaled ? rounded<T>(x[u] * scale) : x[u];
+      }
+    }
+  }
+}
+
+// f32 only: multiply by `scale` what this thread copied into a chunk with
+// copy_chunk (the same loop; the zeros stay zeros), after cp_wait_all and
+// before the barrier that shows the chunk to the block.
+template <int ROWS, int NTH>
+__device__ __forceinline__ void scale_chunk(float* s, bool vec, float scale) {
+  constexpr int W = SPLIT, LD = ldw<W>();
+  if (vec) {
+    constexpr int CPR = W / 4;
+    for (int i = threadIdx.x; i < ROWS * CPR; i += NTH) {
+      float4* p = reinterpret_cast<float4*>(s + i / CPR * LD + i % CPR * 4);
+      float4 x = *p;
+      x.x *= scale, x.y *= scale, x.z *= scale, x.w *= scale;
+      *p = x;
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * W; i += NTH) s[i / W * LD + i % W] *= scale;
+  }
+}
 
 }  // namespace tt

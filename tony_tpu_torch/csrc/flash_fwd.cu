@@ -156,6 +156,33 @@
 // TM + 4 TC for 16 TM TC: one float4 a lane for 5-6 FMAs at width 16 and
 // 256, 8-13 at 32-128; at d = 16 the softmax (expf, the mask, the max, the
 // sum, the P store) adds about twelve instructions a score beside 32 FMAs.
+//
+// Split family past width 256 (flash_fwd_split_kernel<T, OT>, FwdSplit), for
+// every head_dim d > 256 in bf16 and f32. No FMA tile past 256 fits:
+// FwdFma<256> already takes 205 KiB of shared memory (Q over 64 rows, two
+// stages of 32-key K and V, row stride 260) and 194 / 255 registers (O is 64
+// floats a thread); at 512 it would need ~396 KiB and twice the O
+// registers. So the head dim goes in nc = ceil(d / 256) chunks through
+// FwdFma<256>'s tiles and cells (its 32-key tile, which fwd_key_tile
+// reports), and each block owns one chunk c of its 64 rows' O: the grid is
+// nc times the unsplit one, the chunk fastest, so that a q tile's nc blocks
+// read its Q and K from L2 at about the same time. Per key tile a two-stage
+// cp.async ring carries nc units [Qs chunk x | K chunk x] and one unit
+// [V chunk c] (205 KiB in all, with P). S sums over the chunks in the order
+// x = 0 .. nc - 1 in every block, so a q tile's blocks compute the same S,
+// m and l bit for bit and chunk 0 alone writes lse; then the online softmax
+// of the unsplit kernel (l over the f32 P: d > 128) and O_c += P . V_c. Qs
+// no longer fits beside the ring, so it is re-read and re-scaled every key
+// tile. A narrower last chunk (d = 264, 384) is zero-filled to 256 on its
+// way in (copy_chunk writes every column: a stage holds chunks of both
+// widths in turn) and stored at its own width. The cost is S computed nc
+// times for each row block, 1.5x the forward's FLOPs at d = 512. 186
+// registers (f32), 220 (bf16), 0 spills. Measured at B4 S2048 causal H8/8
+// on an NVIDIA H100 80GB HBM3 at 700 W (medians of 20 CUDA-event timings,
+// one call, turns A B B A): f32 d = 512 10.85 ms (5.3x its bound without the
+// recomputation, 2.05), d = 384 10.76 (the half chunk costs a whole one);
+// bf16 d = 512 10.73-10.80 with 16-byte loads of 8 elements (d % 8 == 0),
+// 17.01-17.11 widened element by element, the first build.
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -357,6 +384,169 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
   if (e != cudaSuccess) return e;
   const int grid = cdiv(Sq, L::BM) * H * B;
+  kern<<<grid, L::NTH, L::bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                       static_cast<const T*>(v), static_cast<OT*>(o),
+                                       static_cast<float*>(lse), B, H, Hkv, Sq, Sk, d, scale, causal);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------ FMA path past width 256
+// FwdFma<256>'s tiles and cells (so its 32-key tile, which fwd_key_tile
+// reports), with the head dim in chunks (flash_common.cuh, SPLIT). Shared
+// memory: two ring stages of BM + BN rows, each holding one unit, then P.
+// Per key tile the ring carries nc units [Qs chunk x | K chunk x], x = 0 ..
+// nc - 1, then one unit [V chunk c] (the block's own, in the stage's first
+// BN rows).
+struct FwdSplit : FwdLay<SPLIT> {
+  static constexpr int STAGE = (BM + BN) * LD;
+  static constexpr size_t bytes = sizeof(float) * (size_t)(2 * STAGE + BM * LDP);
+};
+
+template <typename T, typename OT>
+__global__ void __launch_bounds__(FwdSplit::NTH, 1)
+    flash_fwd_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, OT* __restrict__ o, float* __restrict__ lse,
+                           int B, int H, int Hkv, int Sq, int Sk, int d, float scale, int causal) {
+  using L = FwdSplit;
+  constexpr int BM = L::BM, BN = L::BN, NTH = L::NTH, GX = L::GX, GY = L::GY, TM = L::TM,
+                TN = L::TN, TC = L::TC, LD = L::LD, LDP = L::LDP, STAGE = L::STAGE;
+
+  extern __shared__ __align__(16) float sm[];
+  float* sP = sm + 2 * STAGE;
+
+  // Block -> (chunk, q tile, head, batch): the chunk fastest, so that the nc
+  // blocks of a q tile read its Q and K at about the same time; q tile
+  // slowest and last q tile first, as in flash_fwd_kernel.
+  const int tid = threadIdx.x;
+  const int nc = nchunks(d), ch = blockIdx.x % nc, bx = blockIdx.x / nc;
+  const int per = H * B, nq = (Sq + BM - 1) / BM;
+  const int tile = bx / per, h = bx % per % H, b = bx % per / H;
+  const int qi = causal ? nq - 1 - tile : tile;
+  const int hk = h / (H / Hkv);
+  const int q0 = qi * BM, nq_valid = min(BM, Sq - q0);
+  int nk = (Sk + BN - 1) / BN;
+  if (causal) nk = min(nk, (q0 + BM - 1) / BN + 1);
+  const long qstride = (long)H * d, kstride = (long)Hkv * d;
+  const long qoff = ((long)b * Sq + q0) * qstride + (long)h * d;
+  const T* kb = k + (long)b * Sk * kstride + (long)hk * d;
+  const T* vb = v + (long)b * Sk * kstride + (long)hk * d;
+  const float scale_t = to_f(from_f<T>(scale));
+  const bool vec = d % (16 / (int)sizeof(T)) == 0;  // rows of whole 16-byte vectors
+  const int c0 = ch * SPLIT, dc = chunk_cols(d, ch);
+  const int per_tile = nc + 1, nu = nk * per_tile;
+
+  auto issue = [&](int u) {  // unit u into stage u % 2, one commit group
+    float* st = sm + (u & 1) * STAGE;
+    const int j = u / per_tile, x = u % per_tile, k0 = j * BN, n = min(BN, Sk - k0);
+    if (x < nc) {
+      const int x0 = x * SPLIT, dx = chunk_cols(d, x);
+      copy_chunk<T, BM, NTH>(st, q + qoff + x0, qstride, nq_valid, dx, vec, true, scale_t);
+      copy_chunk<T, BN, NTH>(st + BM * LD, kb + (long)k0 * kstride + x0, kstride, n, dx, vec, false,
+                             1.f);
+    } else {
+      copy_chunk<T, BN, NTH>(st, vb + (long)k0 * kstride + c0, kstride, n, dc, vec, false, 1.f);
+    }
+    cp_commit();
+  };
+  issue(0);
+
+  const int tx = Cells<GX, GY>::x(tid), ty = Cells<GX, GY>::y(tid);
+  float acc[TM][4 * TC], m[TM], l[TM], s[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * TC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int u = 0; u < nu; ++u) {
+    float* st = sm + (u & 1) * STAGE;
+    const int j = u / per_tile, x = u % per_tile;
+    cp_wait_all();
+    if constexpr (std::is_same<T, float>::value)
+      if (x < nc) scale_chunk<BM, NTH>(st, vec, scale_t);  // Qs = q * scale, in place (f32)
+    __syncthreads();  // unit u visible; every thread done with unit u - 1 and P
+    if (u + 1 < nu) issue(u + 1);
+
+    if (x < nc) {  // S += Qs_x . K_x^T, in the same chunk order in every block
+      if (x == 0) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int c = 0; c < TN; ++c) s[i][c] = 0.f;
+      }
+      dot_rows<TM, TN, SPLIT, LD, GY, GX, L::U>(s, st + ty * LD, st + BM * LD + tx * LD);
+      continue;
+    }
+
+    // The online softmax of flash_fwd_kernel on the whole S; l sums the f32
+    // P (d > 128: the reference's fused_rowsum is off). Every block of a q
+    // tile computes the same S, m and l bit for bit.
+    const int k0 = j * BN;
+    const bool inside = k0 + BN <= Sk && (!causal || k0 + BN - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int row = q0 + ty + i * GY;
+      float mx = m[i];
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const int key = k0 + tx + c * GX;
+        if (!inside && (key >= Sk || (causal && key > row))) s[i][c] = NEG_INF;
+        mx = fmaxf(mx, s[i][c]);
+      }
+#pragma unroll
+      for (int xx = GX / 2; xx > 0; xx >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, xx));
+      const float alpha = expf(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < TN; ++c) {
+        const float p = expf(s[i][c] - mx);
+        sum += p;
+        sP[(ty + i * GY) * LDP + tx + c * GX] = rounded<T>(p);  // P rounded to v's dtype
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < 4 * TC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();  // P visible
+    acc_rows<TM, TC, BN, LDP, LD, GY, 4 * GX, BN / 4>(acc, sP + ty * LDP, st + 4 * tx);  // O_c += P . V_c
+  }
+
+  // o's chunk c = O / max(l, 1e-30); lse = m + log(max(l, 1e-30)) from chunk 0.
+  OT* ob = o + qoff + c0;
+  float* lb = lse + ((long)b * H + h) * Sq + q0;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int xx = GX / 2; xx > 0; xx >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], xx);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = ty + i * GY;
+    if (r >= nq_valid) continue;
+#pragma unroll
+    for (int c = 0; c < TC; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 4 * tx + 4 * GX * c + e;
+        if (col < dc) ob[(long)r * qstride + col] = from_f<OT>(acc[i][4 * c + e] / l[i]);
+      }
+    if (ch == 0 && tx == 0) lb[r] = m[i] + logf(l[i]);
+  }
+}
+
+template <typename T, typename OT>
+cudaError_t launch_fwd_split(const void* q, const void* k, const void* v, void* o, void* lse,
+                             int B, int H, int Hkv, int Sq, int Sk, int d, float scale, int causal,
+                             cudaStream_t st) {
+  using L = FwdSplit;
+  auto kern = flash_fwd_split_kernel<T, OT>;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+  if (e != cudaSuccess) return e;
+  const int grid = cdiv(Sq, L::BM) * H * B * nchunks(d);
   kern<<<grid, L::NTH, L::bytes, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
                                        static_cast<const T*>(v), static_cast<OT*>(o),
                                        static_cast<float*>(lse), B, H, Hkv, Sq, Sk, d, scale, causal);
@@ -623,7 +813,8 @@ cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v, void* 
 
 // family: 0 = wgmma (bf16, width 64, 128 or 256, d a multiple of 8, past
 // 128 at width 256), 1 = FMA
-// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim. dtype: 0 =
+// (width 16, 32, 64, 128 or 256); d <= width is the true head_dim; 2 = FMA
+// split (width 256, every d > width in chunks of it). dtype: 0 =
 // bf16, 1 = f32 (q, k, v); out_f32: o is f32 instead of q's dtype. Returns
 // a cudaError_t; cudaErrorInvalidValue for a combination not built.
 extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -631,9 +822,11 @@ extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o
                             int dtype, int out_f32, float scale, int causal, void* stream) {
   using namespace tt;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1 || d > width) return (int)cudaErrorInvalidValue;
+  if (d < 1 || (family == 2 ? d <= width : d > width)) return (int)cudaErrorInvalidValue;
 #define TT_WG(W, OT, FULL) \
   return (int)launch_fwd_wgmma<W, OT, FULL>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
+#define TT_SPLIT(T, OT) \
+  return (int)launch_fwd_split<T, OT>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA(T, OT, W) \
   return (int)launch_fwd<T, OT, W>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, d, scale, causal, st)
 #define TT_FMA_W(T, OT)             \
@@ -667,8 +860,16 @@ extern "C" int tt_flash_fwd(const void* q, const void* k, const void* v, void* o
       case 2:
       case 3: TT_FMA_W(float, float);
     }
+  } else if (family == 2 && width == SPLIT) {
+    switch (dtype * 2 + out_f32) {
+      case 0: TT_SPLIT(bf16, bf16);
+      case 1: TT_SPLIT(bf16, float);
+      case 2:
+      case 3: TT_SPLIT(float, float);
+    }
   }
 #undef TT_WG
+#undef TT_SPLIT
 #undef TT_FMA
 #undef TT_FMA_W
   return (int)cudaErrorInvalidValue;

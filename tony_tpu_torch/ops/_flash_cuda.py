@@ -11,12 +11,15 @@ nothing is built at import. The ``wgmma`` kernels build their TMA tensor
 maps from the pointers and shapes given here, so the tensors must be
 contiguous and 16-byte aligned, as ``_check`` demands.
 
-Every head_dim from 1 to ``MAX_HEAD_DIM`` (256) runs on a kernel; ``route``
-says which, for each kernel: bf16 at a multiple of 8 takes ``wgmma`` up to
-256 in all three, everything else the FMA family. Each family is compiled
-at a few tile widths, and the true head_dim is a run-time argument: a
-narrower head is zero-filled to the width on its way into shared memory
-and stored at its own width. The forward's key tile follows its kernel
+Every head_dim from 1 up runs on a kernel; ``route`` says which, for each
+kernel: bf16 at a multiple of 8 takes ``wgmma`` up to 256 in all three,
+every other head_dim up to 256 the FMA family, and every head_dim past 256
+(bf16 and f32) the split FMA family, which streams the head dim through the
+FMA family's 256-wide tiles in chunks of 256 columns, each block owning
+one chunk of the output. Each family is compiled at a few tile widths,
+and the true head_dim is a run-time argument: a narrower head (or last
+chunk) is zero-filled to the width on its way into shared memory and
+stored at its own width. The forward's key tile follows its kernel
 (``fwd_key_tile``).
 
 Each launch function checks its tensors, allocates the outputs, launches on
@@ -52,7 +55,6 @@ SPECS = {
 # kernel name -> (source file, C entry point)
 KERNELS = {name: (k.source, k.entry) for name, k in SPECS.items()}
 
-MAX_HEAD_DIM = 256
 # The tile widths each kernel's families are compiled at (the C entry
 # points' switches).
 WGMMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
@@ -62,7 +64,10 @@ WGMMA_WIDTHS = {"flash_fwd": (64, 128, 256), "flash_bwd_dq": (64, 128, 256),
 FMA_WIDTHS = {"flash_fwd": (16, 32, 64, 128, 256),
               "flash_bwd_dq": (16, 32, 64, 128, 256),
               "flash_bwd_dkv": (16, 32, 64, 128, 256)}
-FAMILIES = {"wgmma": 0, "fma": 1}
+# Past this width every head_dim runs on the split FMA family, in chunks of
+# it (``SPLIT`` in ``csrc/flash_common.cuh``).
+SPLIT_WIDTH = 256
+FAMILIES = {"wgmma": 0, "fma": 1, "fma_split": 2}
 
 
 def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
@@ -71,15 +76,17 @@ def route(d: int, dtype: torch.dtype, kernel: str) -> Tuple[str, int]:
     narrowest of WGMMA_WIDTHS[kernel] that holds d)`` for bf16 at a multiple
     of 8 (a TMA row must be a whole number of 16 bytes; all three kernels
     have a wgmma tile up to 256), else ``("fma", the narrowest of
-    FMA_WIDTHS[kernel] that holds d)``. Raises
-    ``ValueError`` past ``MAX_HEAD_DIM``, ``TypeError`` for another dtype,
-    ``KeyError`` for another kernel."""
+    FMA_WIDTHS[kernel] that holds d)``; past ``SPLIT_WIDTH``, in either
+    dtype, ``("fma_split", SPLIT_WIDTH)``. Raises ``ValueError`` for d < 1,
+    ``TypeError`` for another dtype, ``KeyError`` for another kernel."""
     widths = WGMMA_WIDTHS[kernel]
     if dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash CUDA kernels take bf16 or f32, got {dtype}")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash CUDA kernels take head_dim 1 to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    if d < 1:
+        raise ValueError(f"flash CUDA kernels take a head_dim of at least 1, "
+                         f"got {d}")
+    if d > SPLIT_WIDTH:
+        return "fma_split", SPLIT_WIDTH
     if dtype == torch.bfloat16 and d % 8 == 0 and d <= widths[-1]:
         return "wgmma", next(w for w in widths if d <= w)
     return "fma", next(w for w in FMA_WIDTHS[kernel] if d <= w)
@@ -89,11 +96,12 @@ def fwd_key_tile(d: int, dtype: torch.dtype) -> int:
     """Keys per tile of the forward kernel that ``route(d, dtype,
     "flash_fwd")`` picks: 128 on ``wgmma`` at width 64 and 128, 80 on
     ``wgmma`` at width 256 (``csrc/flash_fwd.cu``'s ``FwdHop``), 32 on FMA
-    at every width (``FwdFma``: GX * TN).
+    at every width (``FwdFma``: GX * TN) and on the split FMA family (its
+    ``FwdSplit`` takes ``FwdFma<256>``'s tiles).
     Its online softmax rounds P against the running max of these tiles, so
     a plain version held to it in P's rounding runs over the same tiles."""
     family, width = route(d, dtype, "flash_fwd")
-    if family == "fma":
+    if family in ("fma", "fma_split"):
         return 32
     return 80 if width == 256 else 128
 

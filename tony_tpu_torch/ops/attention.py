@@ -22,8 +22,8 @@ a column of ones), from 128 up the f32 P; both accumulate in f32.
 
 ``block_q``/``block_k`` set the plain version's tiles and are kept in the
 signatures so configs carry over; the CUDA kernels choose their own tiles
-and ignore them. Every head_dim from 1 to 256 runs on a kernel
-(``_flash_cuda.route``). For bf16 at a multiple of 8 up to 128 all three
+and ignore them. Every head_dim from 1 up runs on a kernel
+(``_flash_cuda.route``), as the reference takes any head_dim. For bf16 at a multiple of 8 up to 128 all three
 run on Hopper warpgroups (``wgmma``, register accumulators, TMA loads
 through ``mbarrier`` rings, ``csrc/hopper_common.cuh``) at tile width 64 or
 128, a narrower head zero-filled to it: the forward with two warpgroups
@@ -40,7 +40,12 @@ kernels run on the CUDA cores in exact f32 (FMA), all three on register
 micro-tiles fed by a ``cp.async`` ring at width 16, 32, 64, 128 or 256,
 their accumulators in registers: the forward with a row's scores on 4 or 8
 lanes of one warp (its max and sum by shuffles) over 32-key tiles, the
-same thread holding the row's O cells.
+same thread holding the row's O cells. Past head_dim 256, in bf16 and f32,
+all three run on the split FMA family: the head dim in chunks of 256
+columns, each block owning one chunk of the output; the scores (and dP)
+sum over every chunk, streamed through the width-256 tiles, and each block
+recomputes them, so a head of d = 512 costs the forward 1.5 times the
+FLOPs of an unsplit one.
 """
 
 from __future__ import annotations
